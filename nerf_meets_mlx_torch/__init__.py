@@ -1,0 +1,17 @@
+"""nerf_meets_mlx_torch — the PyTorch/CUDA port of nerf_meets_mlx_tpu.
+
+A second package beside the JAX one, written for one NVIDIA H100. It
+mirrors the JAX package's module paths and names; the JAX package stays the
+reference every part of the port is tested against. Each Pallas TPU kernel
+on a ported path becomes a hand-written Hopper kernel (``csrc/``) with a
+plain PyTorch version beside it (``kernels/``).
+
+This slice serves: the hierarchical eval render of the sinusoidal presets
+(``python -m nerf_meets_mlx_torch render``), with the CUDA port of
+``fused_train._eval_kernel``. Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``.
+"""
+
+from nerf_meets_mlx_torch.version import __version__
+
+__all__ = ["__version__"]

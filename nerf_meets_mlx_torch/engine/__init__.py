@@ -1,0 +1,7 @@
+from nerf_meets_mlx_torch.engine.checkpoint import (
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step"]
