@@ -7,19 +7,31 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: needs CUDA; prints the card's name and ``nvidia-smi`` power
    limit; turns TF32 off so fp32 matmuls of the plain versions are fp32.
-2. build: compiles every CUDA source of the main path from the checkout
+2. build: compiles every CUDA source of the main paths from the checkout
    (one ``nvcc`` per source, all started together) and prints the ptxas
    report (registers, shared memory, spills).
 3. kernels vs plain: each kernel against its plain PyTorch version at the
-   main path's shapes (full-width lego_hierarchical weights from a seeded
-   init, 4096 rays, S = 64 and 192, both compositing modes).
-4. main path: saves a seeded checkpoint and calls the serving entry point
-   ``render_only(preset="lego_hierarchical", synth_resolution=400,
-   n_orbit=2)`` with every launch count at 0; checks the counts, the frames,
-   and the first chunk of frame 0 against the plain (standard) route.
-5. timing: each kernel per level at the full ray chunk (32768 rays) with
-   CUDA events, beside its bound and its plain version's time; the frame
-   time and rays/s of the render.
+   main paths' shapes (full-width lego_hierarchical weights from a seeded
+   init, 4096 rays, S = 64 and 192, both MLPs, both compositing modes; the
+   train kernel also with the white background on and off and density
+   noise on, its dW and db against autograd through the plain version).
+4. serving path: saves a seeded checkpoint and calls ``render_only(
+   preset="lego_hierarchical", synth_resolution=400, n_orbit=2)`` with every
+   launch count at 0; checks the counts, the frames, and the first chunk of
+   frame 0 against the plain (standard) route.
+5. training path: ``train_nerf(preset="lego_hierarchical",
+   synth_resolution=400, max_iters=100, precrop_iters=20,
+   render_video=False)`` with every launch count at 0: 200 train-kernel
+   launches, the eval launches of its test renders, a falling loss (the
+   last 10 steps against the first 10 past the central crop); then
+   ``render_only`` serves the checkpoint it wrote; then 3 steps from one
+   seed on the fused route and on the plain (standard, autograd) route
+   must give the same parameters.
+6. timing: each kernel per level with CUDA events, beside its bound and
+   its plain version's time; the frame time of the render; the host
+   seconds of a warm train step (25 steps ending in one synchronize),
+   rays/s, peak memory, and the device's busy share of 5 steps from
+   ``torch.profiler``.
 
 It prints the kernels' JSON line, the ``nvidia-smi`` line, and as its last
 line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -47,10 +59,17 @@ TF32_FLOPS = 495e12
 
 ATOL = 1e-4   # kernel vs plain: fp32 sums in another order (see PERF.md)
 RTOL = 1e-4
+DW_REL = 1e-3  # train kernel: max |dW - plain| <= DW_REL * max |plain dW|
 SEED = 0
-RES = 400             # frame H = W of the main path (lego half-res)
-N_ORBIT = 2           # frames the main path renders
-COMPARE_RAYS = 4096   # rays of the kernel-vs-plain comparison
+RES = 400             # frame H = W of the main paths (lego half-res)
+N_ORBIT = 2           # frames the serving path renders
+COMPARE_RAYS = 4096   # rays of the kernel-vs-plain comparisons (= n_rand)
+TRAIN_STEPS = 100     # steps of the training path
+PRECROP = 20          # its central-crop warmup
+NOISE_STD = 1.0       # density noise of the train-kernel comparison
+ROUTE_STEPS = 3       # steps of the fused-vs-plain route comparison
+TIMED_STEPS = 25      # warm train steps timed with the host clock
+PROFILED_STEPS = 5    # train steps traced with torch.profiler
 
 
 def log(*a):
@@ -78,6 +97,17 @@ def mlp_macs(mlp_cfg, pos_dim: int, dir_dim: int) -> int:
     macs += W * 1 + W * W                    # alpha, feature
     macs += (W + dir_dim) * (W // 2) + (W // 2) * 3  # dir layer, rgb
     return macs
+
+
+def train_macs(mlp_cfg, pos_dim: int, dir_dim: int) -> int:
+    """Multiply-adds per point of one train-kernel call: the forward, dW of
+    every layer (as many MACs as the forward), and the cotangents of every
+    layer's input but the first's, without the skip's and the view head's
+    encoding rows (the encodings have no parameters)."""
+    D, W = mlp_cfg.net_depth, mlp_cfg.net_width
+    fwd = mlp_macs(mlp_cfg, pos_dim, dir_dim)
+    dx = (D - 1) * W * W + W * W + W + W * (W // 2) + (W // 2) * 3
+    return 2 * fwd + dx
 
 
 def cuda_time_ms(fn, n: int, warmup: int = 1) -> float:
@@ -152,35 +182,99 @@ def tspec_for(model, n_samples: int, mode=None):
     )
 
 
-def profile_frame(render):
-    """Device time by kernel name over one frame (torch.profiler), and the
-    device's busy share of the frame's wall time under the profiler."""
+def train_tspec(model, n_samples: int, mode=None, white=None):
+    from nerf_meets_mlx_torch.kernels.fused_train import (
+        TrainSpec,
+        default_group,
+        default_rays_block,
+    )
+
+    rcfg = model.cfg.render
+    rb = default_rays_block(n_samples)
+    return TrainSpec(
+        n_samples=n_samples, rays_block=rb, mode=mode or rcfg.compositing,
+        density_activation=rcfg.density_activation,
+        white_bkgd=rcfg.white_bkgd if white is None else white,
+        group=default_group(n_samples, rb),
+    )
+
+
+def picked_rays(device):
+    """COMPARE_RAYS rays of orbit frame 0 at RES x RES, picked without
+    replacement."""
+    import torch
+
+    ro, rd, vd = frame_rays(RES, RES, device)
+    pick = torch.as_tensor(
+        np.random.default_rng(SEED).choice(ro.shape[0], COMPARE_RAYS, replace=False),
+        device=device,
+    )
+    return ro[pick].contiguous(), rd[pick].contiguous(), vd[pick].contiguous()
+
+
+def train_level_inputs(model, ro, rd, vd, target, gen, noise_std: float):
+    """(z, deltas, noise) of the coarse and of the fine level, as the fused
+    train route makes them: jittered coarse depths, importance samples from
+    the coarse level's weights (plain version), pre-scaled density noise."""
+    import torch
+    from nerf_meets_mlx_torch.kernels import fused_train as ft
+    from nerf_meets_mlx_torch.sampling.importance import merge_z, sample_pdf
+
+    rcfg = model.cfg.render
+    dnorm = torch.linalg.vector_norm(rd, dim=-1, keepdim=True)
+
+    def level(z):
+        dl = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e10)], -1) * dnorm
+        return z, dl, torch.randn(z.shape, generator=gen, device=z.device) * noise_std
+
+    coarse = level(model._coarse_z(ro, rd, train=True, generator=gen))
+    with torch.no_grad():
+        _, _, w_c = ft.fused_train_reference(
+            model.coarse, model.pos_enc, model.dir_enc, train_tspec(model, rcfg.n_samples),
+            ro, rd, vd, *coarse, target,
+        )
+    u = torch.rand((ro.shape[0], rcfg.n_importance), generator=gen, device=ro.device)
+    z_f = merge_z(coarse[0], sample_pdf(coarse[0], w_c, rcfg.n_importance, u=u))
+    return coarse, level(z_f)
+
+
+def mlp_params(mlp):
+    return [p for _, lin in mlp.linears() for p in (lin.weight, lin.bias)]
+
+
+def profile_device(fn, label: str):
+    """Device time by kernel name over ``fn()`` (torch.profiler), and the
+    device's busy share of its wall time under the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        render()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for e in prof.key_averages():
-        # device-side events only (kernels, copies): an ATen op's entry
-        # repeats the device time of the kernels it launched
+    # device-side events only (kernels, copies): an ATen op's entry repeats
+    # the device time of the kernels it launched, and a user annotation on
+    # the device timeline (the optimizer's) spans kernels counted already
+    agg = {}
+    for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if getattr(e, "is_user_annotation", False):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            rows.append((e.key, float(us), int(e.count)))
+        t, n = agg.get(e.name, (0.0, 0))
+        agg[e.name] = (t + float(us), n + 1)
+    rows = [(k, t, n) for k, (t, n) in agg.items() if t > 0]
     rows.sort(key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     if busy_us == 0:
         log("[trace] the profiler recorded no device time: busy share not measured")
         return {"wall_ms": wall_us / 1e3, "device_busy_share": None, "top": []}
-    log(f"[trace] one {RES}x{RES} frame under torch.profiler: wall {wall_us / 1e3:.1f} ms, "
+    log(f"[trace] {label} under torch.profiler: wall {wall_us / 1e3:.1f} ms, "
         f"device busy {busy_us / 1e3:.1f} ms ({busy_us / wall_us:.4f} of wall)")
     for name, us, n in rows[:8]:
         log(f"[trace]   {us / 1e3:10.3f} ms  x{n:<4d} {name[:90]}")
@@ -212,7 +306,7 @@ def phase_device():
 def phase_build():
     from nerf_meets_mlx_torch.kernels import _build
 
-    sources = ["fused_eval"]
+    sources = ["fused_eval", "fused_train"]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as ex:
         paths = list(ex.map(_build.build, sources))
@@ -384,12 +478,307 @@ def phase_timing(fused, res, device):
         times.append(time.perf_counter() - t0)
     ft.LAUNCHES["eval"] = 0
     frame_s = min(times)
-    trace = profile_frame(lambda: render_image(fused, RES, RES, K, orbit_poses(160)[0][:3, :4]))
+    trace = profile_device(
+        lambda: render_image(fused, RES, RES, K, orbit_poses(160)[0][:3, :4]),
+        f"one {RES}x{RES} frame",
+    )
     ft.LAUNCHES["eval"] = 0
     log(f"[time] render_image {RES}x{RES} lego_hierarchical: frames {times} s -> "
         f"{frame_s:.4f} s/frame, {RES * RES / frame_s:.1f} rays/s; "
         f"render_only frame seconds {res['frame_seconds']}")
     return per_level, {"frame_seconds": times, "rays_per_s": RES * RES / frame_s, "trace": trace}
+
+
+def phase_compare_train(device):
+    """The train kernel vs its plain version (values and every dW, db);
+    returns (max abs error of the values, worst dW ratio)."""
+    import torch
+    from nerf_meets_mlx_torch.config import lego_hierarchical
+    from nerf_meets_mlx_torch.kernels import fused_train as ft
+
+    model = make_model(lego_hierarchical(), device)
+    ro, rd, vd = picked_rays(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    target = torch.rand((ro.shape[0], 3), generator=gen, device=device)
+    levels = train_level_inputs(model, ro, rd, vd, target, gen, NOISE_STD)
+    worst_val, worst_dw = 0.0, 0.0
+    ft.LAUNCHES["train"] = 0
+    for z, dl, nz in levels:
+        S = z.shape[1]
+        for level, mlp in (("coarse", model.coarse), ("fine", model.fine)):
+            params = mlp_params(mlp)
+            for mode in ("canonical", "reference"):
+                for white in (True, False):
+                    tspec = train_tspec(model, S, mode=mode, white=white)
+                    args = (mlp, model.pos_enc, model.dir_enc, tspec, ro, rd, vd, z, dl, nz, target)
+                    sse_k, rgb_k, w_k = ft.fused_train_apply(*args)
+                    g_k = torch.autograd.grad(sse_k, params)
+                    torch.cuda.synchronize()
+                    sse_p, rgb_p, w_p = ft.fused_train_reference(*args)
+                    g_p = torch.autograd.grad(sse_p, params)
+                    live = float((w_p > 1e-4).float().mean())
+                    errs, ok = {}, True
+                    for what, k, p in (("sse", sse_k, sse_p), ("rgb", rgb_k, rgb_p),
+                                       ("weights", w_k, w_p)):
+                        k, p = k.detach(), p.detach()
+                        err = (k - p).abs()
+                        errs[what] = float(err.max())
+                        ok &= bool(torch.isfinite(k).all()) and bool(
+                            (err <= ATOL + RTOL * p.abs()).all()
+                        )
+                    ratios = []
+                    for a, b in zip(g_k, g_p):
+                        scale = float(b.abs().max())
+                        err = float((a - b).abs().max())
+                        ratios.append(err / scale if scale > 0 else (0.0 if err == 0 else float("inf")))
+                        ok &= bool(torch.isfinite(a).all())
+                    ok &= max(ratios) <= DW_REL
+                    log(f"[compare] fused_train S={S} {level:6s} mlp {mode:9s} white={int(white)} "
+                        f"max_abs sse={errs['sse']:.3e} rgb={errs['rgb']:.3e} "
+                        f"weights={errs['weights']:.3e} (weights > 1e-4: {live:.3f}); "
+                        f"max|dW-plain|/max|plain| per array: "
+                        + " ".join(f"{r:.1e}" for r in ratios) + f" {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(
+                            f"fused_train disagrees with its plain version: S={S} {level} "
+                            f"{mode} white={white}"
+                        )
+                    worst_val = max(worst_val, errs["rgb"], errs["weights"])
+                    worst_dw = max(worst_dw, max(ratios))
+    ft.LAUNCHES["train"] = 0
+    return worst_val, worst_dw
+
+
+def phase_train_main_path(device):
+    """The training entry point with the launch counts read around it, then
+    the serving entry point on the checkpoint it wrote."""
+    import torch
+    from nerf_meets_mlx_torch.config import lego_hierarchical
+    from nerf_meets_mlx_torch.entrypoints import render_only, train_nerf
+    from nerf_meets_mlx_torch.kernels import fused_train as ft
+
+    cfg = lego_hierarchical()
+    log_dir = OUT / "train_lego_hierarchical"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    OUT.mkdir(parents=True, exist_ok=True)
+    overlay = OUT / "log_every_step.txt"  # i_print = 1: every step's loss is logged
+    overlay.write_text("i_print = 1\n")
+
+    ft.LAUNCHES["train"] = 0
+    ft.LAUNCHES["eval"] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train_nerf(
+        preset="lego_hierarchical", synth_resolution=RES, max_iters=TRAIN_STEPS,
+        precrop_iters=PRECROP, render_video=False, device=device,
+        log_dir=str(log_dir), config_txt=str(overlay),
+    )
+    wall = time.perf_counter() - t0
+    launches = {"train": ft.LAUNCHES["train"], "eval": ft.LAUNCHES["eval"]}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    chunks = -(-RES * RES // cfg.render.ray_chunk)
+    n_frames = 1 + cfg.data.synth_n_test  # one held-out render, then the test set
+    want = {"train": 2 * TRAIN_STEPS, "eval": 2 * chunks * n_frames}
+    log(f"[train] train_nerf lego_hierarchical {RES}x{RES}, {TRAIN_STEPS} steps: {wall:.1f} s "
+        f"(data, steps, {n_frames} renders); launches {launches} (want {want}); "
+        f"peak device memory {peak_gb:.2f} GB; result "
+        + json.dumps({k: v for k, v in res.items() if k != "log_dir"}))
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want}")
+    recs = [json.loads(x) for x in (log_dir / "metrics.jsonl").read_text().splitlines()]
+    steps = [r for r in recs if "loss" in r]
+    losses = [r["loss"] for r in steps]
+    if [r["step"] for r in steps] != list(range(1, TRAIN_STEPS + 1)):
+        raise AssertionError("metrics.jsonl does not log every step")
+    # the first PRECROP steps see only the central crop, whose pixels have
+    # another loss than whole images: the loss must fall from the first 10
+    # whole-image steps to the last 10
+    crop = float(np.mean(losses[:10]))
+    first = float(np.mean(losses[PRECROP : PRECROP + 10]))
+    last = float(np.mean(losses[-10:]))
+    finite = all(np.isfinite(v) for r in recs for v in r.values() if isinstance(v, float))
+    log(f"[train] loss: mean of steps 1-10 (central crop) {crop:.5f}; of steps "
+        f"{PRECROP + 1}-{PRECROP + 10} (whole images) {first:.5f}, of the last 10 {last:.5f}; "
+        f"all logged metrics finite: {finite}; steps/s of the logged intervals: median "
+        f"{float(np.median([r['steps_per_sec'] for r in steps[1:]])):.3f}")
+    if not finite or not last < first:
+        raise AssertionError("the training loss did not fall, or a metric is not finite")
+
+    ft.LAUNCHES["eval"] = 0
+    served = render_only(
+        preset="lego_hierarchical", log_dir=str(log_dir), synth_resolution=RES, n_orbit=1,
+        device=device,
+    )
+    frames = np.load(served["frames"])
+    log(f"[train] render_only serves step {served['step']}: frames {frames.shape}, "
+        f"eval launches {ft.LAUNCHES['eval']} (want {2 * chunks}), frame seconds "
+        f"{served['frame_seconds']}")
+    if served["step"] != TRAIN_STEPS or frames.shape != (1, RES, RES, 3) or (
+        ft.LAUNCHES["eval"] != 2 * chunks
+    ):
+        raise AssertionError("render_only did not serve the trained checkpoint")
+    ft.LAUNCHES["eval"] = 0
+    return launches, {
+        "wall_s": wall, "peak_gb": peak_gb, "loss_crop10": crop, "loss_first10": first,
+        "loss_last10": last,
+        "test_psnr_mean": res["test_psnr_mean"], "test_ssim_mean": res["test_ssim_mean"],
+    }
+
+
+def train_scene(device):
+    from nerf_meets_mlx_torch.datasets.synthetic import make_synthetic_scene
+
+    return make_synthetic_scene(2, 1, 1, RES, device=device)
+
+
+def phase_train_routes(ds, device):
+    """ROUTE_STEPS steps from one seed on the fused route and on the plain
+    (standard, autograd) route. Adam's first steps are about lr·sign(g), so
+    a parameter whose gradient sits within the routes' rounding of zero may
+    move either way: parameters whose two gradients agree within 25% at
+    every step (so their Adam steps differ by at most lr/12 each) are held
+    to rtol 5e-3 / atol 1e-4, the others to one Adam step each way per
+    step."""
+    import torch
+    from nerf_meets_mlx_torch.config import lego_hierarchical
+    from nerf_meets_mlx_torch.engine import TrainState, make_nerf_train_step
+    from nerf_meets_mlx_torch.kernels import fused_train as ft
+
+    images = torch.as_tensor(ds.images[ds.i_train], device=device)
+    poses = torch.as_tensor(ds.poses[ds.i_train, :3, :4], device=device)
+    cfg = lego_hierarchical()
+    runs = {}
+    for route, fused in (("fused", True), ("plain", False)):
+        model = make_model(cfg.replace(use_fused_kernel=fused), device)
+        state = TrainState(model, cfg.train)
+        grads = []
+        apply = state.apply_gradients
+
+        def record_then_apply(model=model, grads=grads, apply=apply):
+            grads.append([p.grad.detach().clone() for p in model.parameters()])
+            apply()
+
+        state.apply_gradients = record_then_apply
+        step = make_nerf_train_step(model, ds.H, ds.W, ds.focal)
+        gen = torch.Generator(device=device).manual_seed(SEED + 1)
+        n0 = ft.LAUNCHES["train"]
+        losses = [float(step(state, images, poses, gen)["loss"]) for _ in range(ROUTE_STEPS)]
+        if ft.LAUNCHES["train"] - n0 != (2 * ROUTE_STEPS if fused else 0):
+            raise AssertionError(f"{route} route launched the train kernel wrongly")
+        runs[route] = ([p.detach() for p in model.parameters()], grads, losses)
+    ft.LAUNCHES["train"] = 0
+    (p_f, g_f, l_f), (p_p, g_p, l_p) = runs["fused"], runs["plain"]
+    lr = cfg.train.lrate
+    n_settled = n_all = 0
+    worst = 0.0
+    ok = bool(np.allclose(l_f, l_p, rtol=5e-4))
+    for i, (a, b) in enumerate(zip(p_f, p_p)):
+        settled = torch.ones_like(a, dtype=torch.bool)
+        for gf, gp in zip(g_f, g_p):
+            settled &= (gf[i] - gp[i]).abs() <= 0.25 * gp[i].abs()
+        err = (a - b).abs()
+        ok &= bool((err[settled] <= 1e-4 + 5e-3 * b.abs()[settled]).all())
+        ok &= bool((err[~settled] <= 2 * ROUTE_STEPS * lr + 1e-4).all())
+        ok &= bool(torch.isfinite(a).all())
+        n_settled += int(settled.sum())
+        n_all += settled.numel()
+        worst = max(worst, float((err / (1e-4 + 5e-3 * b.abs()))[settled].max()))
+    log(f"[routes] {ROUTE_STEPS} steps, fused vs plain route: losses {l_f} vs {l_p}; "
+        f"{n_settled}/{n_all} parameters whose gradients agree within 25%, worst "
+        f"|diff|/(1e-4 + 5e-3|p|) among them {worst:.3f}; the other {n_all - n_settled} "
+        f"within {2 * ROUTE_STEPS} lr: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the fused and the plain route disagree after 3 steps")
+    return {"losses_fused": l_f, "losses_plain": l_p, "unsettled": n_all - n_settled,
+            "worst_ratio": worst}
+
+
+def phase_train_timing(ds, device):
+    """The train kernel per level at 4096 rays (CUDA events) beside its
+    plain version's forward + backward and the bound; then warm train
+    steps (host clock, one synchronize at the end), peak memory, and the
+    device's busy share of a few steps under torch.profiler."""
+    import torch
+    from nerf_meets_mlx_torch.config import lego_hierarchical
+    from nerf_meets_mlx_torch.engine import TrainState, make_nerf_train_step
+    from nerf_meets_mlx_torch.kernels import fused_train as ft
+
+    cfg = lego_hierarchical().replace(use_fused_kernel=True)
+    model = make_model(cfg, device)
+    ro, rd, vd = picked_rays(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    target = torch.rand((ro.shape[0], 3), generator=gen, device=device)
+    levels = train_level_inputs(model, ro, rd, vd, target, gen, cfg.render.raw_noise_std)
+    n_dw = ft.pack_train_weights(model.coarse, model.pos_enc, model.dir_enc)[1][
+        2 * cfg.mlp.net_depth + 8
+    ]
+    per_level = {}
+    for name, (z, dl, nz), mlp, reps in (
+        ("coarse", levels[0], model.coarse, 6), ("fine", levels[1], model.fine, 3)
+    ):
+        R, S = z.shape
+        params = mlp_params(mlp)
+        args = (mlp, model.pos_enc, model.dir_enc, train_tspec(model, S), ro, rd, vd, z, dl, nz,
+                target)
+
+        def kernel():
+            with torch.no_grad():
+                ft.fused_train_apply(*args)
+
+        def plain():
+            sse, _, _ = ft.fused_train_reference(*args)
+            torch.autograd.grad(sse, params)
+
+        k_ms = cuda_time_ms(kernel, reps)
+        p_ms = cuda_time_ms(plain, reps)
+        k_ms2 = cuda_time_ms(kernel, reps)
+        flops = 2.0 * train_macs(mlp.cfg, model.pos_enc.out_dim, model.dir_enc.out_dim) * R * S
+        # each input read once (rays, z, deltas, noise, target, weights),
+        # each output written once (rgb, weights, sse, dW)
+        nbytes = 4 * (9 * R + 3 * R * S + 3 * R + n_dw + 3 * R + R * S + 1 + n_dw)
+        bound_ms = max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+        by = "operations" if flops / FP32_FLOPS > nbytes / HBM_BYTES_PER_S else "bytes"
+        ms = (k_ms + k_ms2) / 2
+        per_level[name] = dict(
+            rays=R, samples=S, ms=ms, ms_runs=[k_ms, k_ms2], plain_ms=p_ms, bound_ms=bound_ms,
+            bound_by=by, tf32_bound_ms=flops / TF32_FLOPS * 1e3, tflop=flops / 1e12,
+            achieved_tflops_s=flops / (ms * 1e-3) / 1e12,
+        )
+        log(f"[time] fused_train {name:6s} R={R} S={S}: kernel {k_ms:.3f} / {k_ms2:.3f} ms, "
+            f"plain fwd+bwd {p_ms:.3f} ms, fp32 bound {bound_ms:.3f} ms ({by}), TF32 bound "
+            f"{flops / TF32_FLOPS * 1e3:.3f} ms, {flops / 1e12:.4f} TFLOP -> "
+            f"{per_level[name]['achieved_tflops_s']:.2f} TFLOP/s")
+    ft.LAUNCHES["train"] = 0
+
+    images = torch.as_tensor(ds.images[ds.i_train], device=device)
+    poses = torch.as_tensor(ds.poses[ds.i_train, :3, :4], device=device)
+    state = TrainState(model, cfg.train)
+    step = make_nerf_train_step(model, ds.H, ds.W, ds.focal)
+    for _ in range(3):
+        step(state, images, poses, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        step(state, images, poses, gen)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_rand = cfg.train.n_rand
+    rcfg = cfg.render
+    log(f"[time] train step lego_hierarchical (fused route, {n_rand} rays, "
+        f"{rcfg.n_samples} + {rcfg.n_importance} samples): "
+        f"{step_s:.5f} s/step over {TIMED_STEPS} warm steps -> {n_rand / step_s:.1f} rays/s; "
+        f"peak device memory {peak_gb:.2f} GB")
+
+    def steps():
+        for _ in range(PROFILED_STEPS):
+            step(state, images, poses, gen)
+
+    trace = profile_device(steps, f"{PROFILED_STEPS} train steps")
+    ft.LAUNCHES["train"] = 0
+    return per_level, {"step_s": step_s, "rays_per_s": n_rand / step_s, "peak_gb": peak_gb,
+                       "trace": trace}
 
 
 def main() -> int:
@@ -399,30 +788,49 @@ def main() -> int:
     device = torch.device("cuda", 0)
     phase_build()
     max_err = phase_compare(device)
+    train_err, dw_ratio = phase_compare_train(device)
     launches, res, fused = phase_main_path(device)
+    train_launches, train_run = phase_train_main_path(device)
+    ds = train_scene(device)
+    routes = phase_train_routes(ds, device)
     per_level, frame = phase_timing(fused, res, device)
+    train_level, train_step = phase_train_timing(ds, device)
 
-    # one entry per kernel; its times are the mean per launch over the main
+    # one entry per kernel; its times are the mean per launch over its main
     # path's mix, which runs the coarse and the fine level equally often
-    lv = list(per_level.values())
+    def entry(name, source, replaces, n, err, levels):
+        lv = list(levels.values())
 
-    def mean(key):
-        return sum(d[key] for d in lv) / len(lv)
+        def mean(key):
+            return sum(d[key] for d in lv) / len(lv)
 
-    kernels = [{
-        "name": "fused_eval",
-        "route": "cuda",
-        "source": "nerf_meets_mlx_torch/csrc/fused_eval.cu",
-        "replaces": "nerf_meets_mlx_tpu/kernels/fused_train.py:523",
-        "launches": launches["eval"],
-        "max_abs_err": max_err,
-        "ms": mean("ms"),
-        "plain_ms": mean("plain_ms"),
-        "bound_ms": mean("bound_ms"),
-        "bound_by": "operations" if all(d["bound_by"] == "operations" for d in lv) else "bytes",
-        "library_ms": None,
-    }]
-    detail = {"per_level": per_level, "frame": frame, "card": smi}
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": n,
+            "max_abs_err": err,
+            "ms": mean("ms"),
+            "plain_ms": mean("plain_ms"),
+            "bound_ms": mean("bound_ms"),
+            "bound_by": "operations" if all(d["bound_by"] == "operations" for d in lv) else "bytes",
+            "library_ms": None,
+        }
+
+    kernels = [
+        entry("fused_eval", "nerf_meets_mlx_torch/csrc/fused_eval.cu",
+              "nerf_meets_mlx_tpu/kernels/fused_train.py:523", launches["eval"], max_err,
+              per_level),
+        entry("fused_train", "nerf_meets_mlx_torch/csrc/fused_train.cu",
+              "nerf_meets_mlx_tpu/kernels/fused_train.py:219", train_launches["train"],
+              train_err, train_level),
+    ]
+    detail = {
+        "per_level": per_level, "frame": frame, "train_per_level": train_level,
+        "train_step": train_step, "train_run": train_run, "routes": routes,
+        "train_dw_worst_ratio": dw_ratio, "card": smi,
+    }
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "result.json").write_text(json.dumps({"kernels": kernels, **detail}, indent=1))
     log("[detail] " + json.dumps(detail))

@@ -6,9 +6,10 @@ reference every part of the port is tested against. Each Pallas TPU kernel
 on a ported path becomes a hand-written Hopper kernel (``csrc/``) with a
 plain PyTorch version beside it (``kernels/``).
 
-This slice serves: the hierarchical eval render of the sinusoidal presets
-(``python -m nerf_meets_mlx_torch render``), with the CUDA port of
-``fused_train._eval_kernel``. Entry points run on ``cuda`` unless the
+The port serves and trains: the hierarchical eval render and the train
+step of the sinusoidal presets (``python -m nerf_meets_mlx_torch render``
+and ``train``), with CUDA ports of ``fused_train._eval_kernel`` and
+``fused_train._train_kernel``. Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``.
 """
 

@@ -3,5 +3,22 @@ from nerf_meets_mlx_torch.engine.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
+from nerf_meets_mlx_torch.engine.train_state import TrainState, lr_at
+from nerf_meets_mlx_torch.engine.trainer import (
+    Trainer,
+    make_nerf_train_step,
+    nerf_loss_fn,
+    sample_train_rays,
+)
 
-__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step"]
+__all__ = [
+    "save_checkpoint",
+    "restore_checkpoint",
+    "latest_step",
+    "TrainState",
+    "lr_at",
+    "Trainer",
+    "make_nerf_train_step",
+    "nerf_loss_fn",
+    "sample_train_rays",
+]

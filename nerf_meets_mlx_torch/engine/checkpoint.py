@@ -2,15 +2,18 @@
 
 Counterpart of ``nerf_meets_mlx_tpu/engine/checkpoint.py`` with the same
 ``<ckpt_dir>/step_XXXXXXXX`` naming: each step is a directory holding
-``state.pt`` — the model's parameters (and, once the trainer is ported, its
-optimizer state). Orbax checkpoints of the JAX package are not read here;
-they cross over as numpy through ``interop.params_from_numpy``.
+``state.pt`` with the step, the model's parameters and, for a training
+checkpoint, the optimizer's state (Adam moments and counts) and the train
+step's random-generator state, so a resumed run continues where it
+stopped. ``render_only`` reads the parameters alone. Orbax checkpoints of
+the JAX package are not read here; they cross over as numpy through
+``interop.params_from_numpy``.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 from torch import nn
@@ -22,20 +25,56 @@ def _ckpt_path(ckpt_dir: str | Path, step: int) -> Path:
     return Path(ckpt_dir).absolute() / f"step_{step:08d}"
 
 
-def save_checkpoint(ckpt_dir: str | Path, model: nn.Module, step: int) -> Path:
+def _to_cpu(x: Any) -> Any:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_cpu(v) for v in x)
+    return x
+
+
+def save_checkpoint(
+    ckpt_dir: str | Path,
+    model: nn.Module,
+    step: int,
+    optimizer: Optional[torch.optim.Optimizer] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Path:
     path = _ckpt_path(ckpt_dir, step)
     path.mkdir(parents=True, exist_ok=True)
-    state = {"step": step, "params": {k: v.cpu() for k, v in model.state_dict().items()}}
-    torch.save(state, path / _STATE)
+    state = {"step": step, "params": _to_cpu(model.state_dict())}
+    if optimizer is not None:
+        state["optimizer"] = _to_cpu(optimizer.state_dict())
+    if generator is not None:
+        state["rng"] = generator.get_state()
+    tmp = path / f"{_STATE}.tmp"
+    torch.save(state, tmp)
+    tmp.replace(path / _STATE)
     return path
 
 
-def restore_checkpoint(ckpt_dir: str | Path, model: nn.Module, step: int) -> nn.Module:
-    """Load the parameters of ``step`` into ``model`` (shapes must match);
-    they are copied onto the device the model's parameters live on."""
+def restore_checkpoint(
+    ckpt_dir: str | Path,
+    model: nn.Module,
+    step: int,
+    optimizer: Optional[torch.optim.Optimizer] = None,
+    generator: Optional[torch.Generator] = None,
+) -> int:
+    """Load the parameters of ``step`` into ``model`` (shapes must match;
+    they are copied onto the device the parameters live on) and, when given
+    and saved, the optimizer's and the generator's state. Returns the step
+    the checkpoint was saved at."""
     state = torch.load(_ckpt_path(ckpt_dir, step) / _STATE, weights_only=True)
     model.load_state_dict(state["params"])
-    return model
+    if optimizer is not None:
+        if "optimizer" not in state:
+            raise ValueError(f"checkpoint step {step} holds no optimizer state")
+        optimizer.load_state_dict(state["optimizer"])
+    if generator is not None and "rng" in state:
+        generator.set_state(state["rng"])
+    return int(state["step"])
 
 
 def latest_step(ckpt_dir: str | Path) -> Optional[int]:

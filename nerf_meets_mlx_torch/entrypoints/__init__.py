@@ -1,3 +1,4 @@
 from nerf_meets_mlx_torch.entrypoints.render_only import render_only
+from nerf_meets_mlx_torch.entrypoints.train_nerf import train_nerf
 
-__all__ = ["render_only"]
+__all__ = ["render_only", "train_nerf"]

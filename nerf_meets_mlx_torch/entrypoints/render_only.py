@@ -38,8 +38,8 @@ def _load_dataset(cfg: ExperimentConfig, device):
             white_bkgd=cfg.render.white_bkgd, scene=d.synth_scene, device=device,
         )
     raise NotImplementedError(
-        f"dataset_type {d.dataset_type!r} is not ported yet: this slice of the "
-        "port renders the procedural synthetic scene (ROADMAP.md Queue 1)"
+        f"dataset_type {d.dataset_type!r} is not ported yet: the port loads "
+        "only the procedural synthetic scene (ROADMAP.md Queue 1)"
     )
 
 

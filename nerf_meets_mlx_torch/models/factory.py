@@ -2,28 +2,33 @@
 ray-rendering pipeline.
 
 Counterpart of ``nerf_meets_mlx_tpu/models/factory.py``. ``NeRFModel`` is an
-``nn.Module`` holding the coarse (and fine) ``NeRFMLP``; ``render_rays(
-train=False)`` runs
+``nn.Module`` holding the coarse (and fine) ``NeRFMLP``; ``render_rays``
+runs
 
-    coarse samples -> coarse level -> deterministic inverse-CDF importance
-    samples -> fine level
+    coarse samples -> coarse level -> inverse-CDF importance samples
+    (detached) -> fine level
 
 on one of two routes:
 
-* the fused-eval route (``_fused_train_mode == "sinusoidal"``): each level
-  is one ``kernels.fused_train.fused_eval_apply`` call, which launches the
-  CUDA kernel for CUDA tensors and runs its plain version on the CPU; the
-  depth/disp/acc maps are reductions over the dense weights;
+* the fused route (``_fused_train_mode == "sinusoidal"``): in eval each
+  level is one ``kernels.fused_train.fused_eval_apply`` call and the
+  depth/disp/acc maps are reductions over the dense weights; in training
+  ``render_rays_train`` makes each level one ``fused_train_apply`` call,
+  which returns the level's SSE and, on CUDA, its gradient in the same
+  launch. Both launch their CUDA kernel for CUDA tensors and run their
+  plain version on the CPU;
 * the standard route (``use_fused_kernel`` off): ``query`` (encode, then
-  the MLP) and ``raw2outputs``.
+  the MLP) and ``raw2outputs``, differentiable by autograd in training.
 
-Training (``render_rays(train=True)``, ``render_rays_train``) is the next
-slice of the port.
+Training draws (stratified jitter ``t``, density noise ``noise_c`` /
+``noise_f`` as unit normals, importance queries ``u``) come from a
+``torch.Generator`` or are injected through ``draws``, so a test can feed
+both packages the same numbers.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import torch
 from torch import nn
@@ -36,9 +41,19 @@ from nerf_meets_mlx_torch.sampling.importance import merge_z, sample_pdf
 from nerf_meets_mlx_torch.sampling.stratified import (
     sample_z_lindisp,
     sample_z_uniform,
+    stratified_jitter,
 )
 
-_TRAIN_SLICE = "slice 2"
+Draws = Mapping[str, torch.Tensor]
+
+
+def _draw(draws: Optional[Draws], key: str, shape, kind: str, generator, device):
+    """The injected draw ``key`` if given, else a fresh one from
+    ``generator``: "uniform" on [0, 1) or "normal" (unit normals)."""
+    if draws is not None and key in draws:
+        return draws[key].to(device=device, dtype=torch.float32)
+    fn = torch.rand if kind == "uniform" else torch.randn
+    return fn(shape, generator=generator, dtype=torch.float32, device=device)
 
 
 class NeRFModel(nn.Module):
@@ -108,12 +123,17 @@ class NeRFModel(nn.Module):
 
     # -- per-ray interval + coarse z samples ---------------------------------
 
-    def _coarse_z(self, rays_o: torch.Tensor, rays_d: torch.Tensor, train: bool) -> torch.Tensor:
+    def _coarse_z(
+        self,
+        rays_o: torch.Tensor,
+        rays_d: torch.Tensor,
+        train: bool,
+        draws: Optional[Draws] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
         """[near, far] (AABB slab-tightened when configured) and the coarse
-        z samples [B, S]. Stratified jitter and the occupancy grid belong to
-        training and come with its slice."""
-        if train:
-            raise NotImplementedError(_TRAIN_SLICE)
+        z samples [B, S], stratified-jittered in training (the uniform draw
+        ``draws["t"]`` or one from ``generator``)."""
         rcfg = self.cfg.render
         if rcfg.occupancy:
             raise NotImplementedError(
@@ -129,36 +149,61 @@ class NeRFModel(nn.Module):
                 rays_o, rays_d, rcfg.aabb[:3], rcfg.aabb[3:], near, far
             )
         sample_fn = sample_z_lindisp if rcfg.lindisp else sample_z_uniform
-        return sample_fn(near, far, rcfg.n_samples)
+        z_vals = sample_fn(near, far, rcfg.n_samples)
+        if train and rcfg.perturb > 0.0:
+            t = _draw(draws, "t", z_vals.shape, "uniform", generator, z_vals.device)
+            z_vals = stratified_jitter(z_vals, rcfg.perturb, t=t)
+        return z_vals
 
     # -- full hierarchical ray rendering ------------------------------------
 
-    @torch.no_grad()
     def render_rays(
         self,
         rays_o: torch.Tensor,                    # [B, 3]
         rays_d: torch.Tensor,                    # [B, 3] (unnormalized)
         train: bool = False,
         viewdirs: Optional[torch.Tensor] = None,  # [B, 3] normalized
+        draws: Optional[Draws] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
         """Render a batch of rays; coarse + (optional) fine pass. Returns the
         rgb/disp/acc/depth maps of both passes ("rgb_map" etc. alias the
-        finest), the coarse z_vals and weights."""
-        if train:
-            raise NotImplementedError(_TRAIN_SLICE)
+        finest), the coarse z_vals and weights.
+
+        Eval (``train=False``) runs under ``no_grad`` on the fused route
+        when it is configured. Training runs the standard route with
+        autograd: jittered coarse samples, density noise (when
+        ``raw_noise_std > 0``) and random importance queries, each from
+        ``draws`` ("t", "noise_c", "u", "noise_f") or ``generator``."""
+        if not train:
+            with torch.no_grad():
+                return self._render_rays(rays_o, rays_d, False, viewdirs, None, None)
+        return self._render_rays(rays_o, rays_d, True, viewdirs, draws, generator)
+
+    def _render_rays(self, rays_o, rays_d, train, viewdirs, draws, generator):
         rcfg = self.cfg.render
+        dev = rays_o.device
         if viewdirs is None:
             viewdirs = rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
-        z_vals = self._coarse_z(rays_o, rays_d, train)
+        z_vals = self._coarse_z(rays_o, rays_d, train, draws, generator)
 
-        if self._fused_train_mode == "sinusoidal":
+        if not train and self._fused_train_mode == "sinusoidal":
             return self._render_rays_eval_fused(rays_o, rays_d, viewdirs, z_vals)
+
+        noise_std = rcfg.raw_noise_std if train else 0.0
+
+        def noise(key, shape):
+            if noise_std <= 0.0:
+                return None
+            return _draw(draws, key, shape, "normal", generator, dev)
 
         pts = rays_o[..., None, :] + z_vals[..., :, None] * rays_d[..., None, :]
         out_c = raw2outputs(
             self.query("coarse", pts, viewdirs), z_vals, rays_d,
-            mode=rcfg.compositing, white_bkgd=rcfg.white_bkgd,
+            mode=rcfg.compositing, raw_noise_std=noise_std,
+            white_bkgd=rcfg.white_bkgd,
             density_activation=rcfg.density_activation,
+            noise=noise("noise_c", z_vals.shape),
         )
         ret = {
             "rgb_coarse": out_c["rgb_map"],
@@ -173,15 +218,21 @@ class NeRFModel(nn.Module):
             "depth_map": out_c["depth_map"],
         }
         if rcfg.n_importance > 0:
+            u = None
+            if train:
+                u = _draw(draws, "u", (z_vals.shape[0], rcfg.n_importance), "uniform",
+                          generator, dev)
             z_imp = sample_pdf(
-                z_vals, out_c["weights"], rcfg.n_importance, deterministic=True
+                z_vals, out_c["weights"], rcfg.n_importance, deterministic=not train, u=u
             )
             z_all = merge_z(z_vals, z_imp)
             pts_f = rays_o[..., None, :] + z_all[..., :, None] * rays_d[..., None, :]
             out_f = raw2outputs(
                 self.query("fine", pts_f, viewdirs), z_all, rays_d,
-                mode=rcfg.compositing, white_bkgd=rcfg.white_bkgd,
+                mode=rcfg.compositing, raw_noise_std=noise_std,
+                white_bkgd=rcfg.white_bkgd,
                 density_activation=rcfg.density_activation,
+                noise=noise("noise_f", z_all.shape),
             )
             ret.update(
                 rgb_fine=out_f["rgb_map"],
@@ -284,8 +335,80 @@ class NeRFModel(nn.Module):
                 return "sinusoidal"
         return None
 
-    def render_rays_train(self, *args, **kwargs):
-        raise NotImplementedError(_TRAIN_SLICE)
+    @property
+    def supports_fused_train(self) -> bool:
+        """True when training runs through the one-call forward + composite +
+        loss + backward op of each level (``render_rays_train``)."""
+        return self._fused_train_mode is not None
+
+    def render_rays_train(
+        self,
+        rays_o: torch.Tensor,                     # [B, 3]
+        rays_d: torch.Tensor,                     # [B, 3] (unnormalized)
+        target: torch.Tensor,                     # [B, 3]
+        viewdirs: Optional[torch.Tensor] = None,  # [B, 3] normalized
+        draws: Optional[Draws] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Train-mode hierarchical render through ``fused_train_apply``: per
+        level one call runs encode + MLP, the transmittance scan and the
+        colour composite, the squared error against ``target`` and (on
+        CUDA) its whole backward.
+
+        Returns {"sse_coarse", "rgb_coarse", "z_vals", "weights"
+        [, "sse_fine", "rgb_fine"]}. Differentiable only through sse_*
+        (loss = (sse_coarse + sse_fine) / target.numel()); the maps and
+        weights are detached, as the importance sampler wants them. Draws
+        ("t", "noise_c", "u", "noise_f") come from ``draws`` or
+        ``generator``; the noise is unit normals scaled here by
+        ``raw_noise_std``."""
+        from nerf_meets_mlx_torch.kernels.fused_train import (
+            TrainSpec,
+            default_group,
+            default_rays_block,
+            fused_train_apply,
+        )
+
+        if self._fused_train_mode != "sinusoidal":
+            raise ValueError("render_rays_train needs the fused route (supports_fused_train)")
+        rcfg = self.cfg.render
+        dev = rays_o.device
+        B = rays_o.shape[0]
+        if viewdirs is None:
+            viewdirs = rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
+        z_vals = self._coarse_z(rays_o, rays_d, True, draws, generator)
+        dnorm = torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
+
+        def run_level(level, z, noise_key):
+            S = z.shape[1]
+            deltas = torch.cat(
+                [z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e10)], dim=-1
+            ) * dnorm
+            if rcfg.raw_noise_std > 0.0:
+                noise = _draw(draws, noise_key, z.shape, "normal", generator, dev)
+                noise = noise * rcfg.raw_noise_std
+            else:
+                noise = torch.zeros_like(z)
+            rb = default_rays_block(S)
+            tspec = TrainSpec(
+                n_samples=S, rays_block=rb, mode=rcfg.compositing,
+                density_activation=rcfg.density_activation,
+                white_bkgd=rcfg.white_bkgd, group=default_group(S, rb),
+            )
+            return fused_train_apply(
+                self._mlp(level), self.pos_enc, self.dir_enc, tspec,
+                rays_o, rays_d, viewdirs, z, deltas, noise, target,
+            )
+
+        sse_c, rgb_c, weights = run_level("coarse", z_vals, "noise_c")
+        ret = {"sse_coarse": sse_c, "rgb_coarse": rgb_c, "z_vals": z_vals, "weights": weights}
+        if rcfg.n_importance > 0:
+            u = _draw(draws, "u", (B, rcfg.n_importance), "uniform", generator, dev)
+            z_imp = sample_pdf(z_vals, weights, rcfg.n_importance, deterministic=False, u=u)
+            z_all = merge_z(z_vals, z_imp)
+            sse_f, rgb_f, _ = run_level("fine", z_all, "noise_f")
+            ret.update(sse_fine=sse_f, rgb_fine=rgb_f)
+        return ret
 
 
 def create_nerf(cfg: ExperimentConfig, device=None) -> NeRFModel:

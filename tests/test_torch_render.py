@@ -97,12 +97,18 @@ def test_render_rays_eval_aabb_matches_jax(fused):
 
 
 def test_train_mode_is_the_next_slice():
+    """Training came with the slice after serving: train-mode renders are
+    differentiable (render_rays on the standard route, sse of
+    render_rays_train on the fused one); occupancy, a later slice, raises."""
     tm, _, _ = _pair(True, n_samples=8, n_importance=0)
-    ro, rd = _rays(B=4)
+    ro, rd = (torch.from_numpy(a) for a in _rays(B=4))
+    gen = torch.Generator().manual_seed(0)
+    assert tm.render_rays(ro, rd, train=True, generator=gen)["rgb_map"].requires_grad
+    out = tm.render_rays_train(ro, rd, torch.zeros(4, 3), generator=gen)
+    assert out["sse_coarse"].requires_grad and not out["rgb_coarse"].requires_grad
+    occ, _, _ = _pair(True, n_samples=8, n_importance=0, occupancy=True)
     with pytest.raises(NotImplementedError):
-        tm.render_rays(torch.from_numpy(ro), torch.from_numpy(rd), train=True)
-    with pytest.raises(NotImplementedError):
-        tm.render_rays_train()
+        occ.render_rays(ro, rd, train=True, generator=gen)
 
 
 def _camera(res):
