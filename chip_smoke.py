@@ -27,11 +27,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``render_only`` serves the checkpoint it wrote; then 3 steps from one
    seed on the fused route and on the plain (standard, autograd) route
    must give the same parameters.
+   The same for ``preset="lego_occ"`` (32 + 64 samples, AABB, the learned
+   64³ occupancy grid updated every 16 steps): 200 train launches, 7
+   launches of the fused MLP forward kernel (the grid updates at steps 0,
+   16, ..., 96), no MLP backward, a falling loss, a non-empty grid in the
+   checkpoint, and ``render_only`` serving it with the grid. Then 3 lego_occ
+   steps from one seed, the grid updated every step, on the fused-train
+   route, on ``use_fused_train=False`` (the MLP forward and backward
+   kernels: the backward kernel's path) and on the plain route must agree.
+   Before the paths: the fused MLP kernels against their plain version on
+   the grid update's 262,144 points and lego_occ's coarse and fine points
+   (forward; backward with every dW, db and dX against autograd).
 6. timing: each kernel per level with CUDA events, beside its bound and
    its plain version's time; the frame time of the render; the host
    seconds of a warm train step (25 steps ending in one synchronize),
    rays/s, peak memory, and the device's busy share of 5 steps from
-   ``torch.profiler``.
+   ``torch.profiler``; the fused MLP kernels per call at lego_occ's shapes;
+   lego_occ's warm step on both of its kernel routes (32 steps, two grid
+   updates inside), its busy share, and its 400 x 400 frame with the grid.
 
 It prints the kernels' JSON line, the ``nvidia-smi`` line, and as its last
 line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -39,6 +52,7 @@ line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -108,6 +122,19 @@ def train_macs(mlp_cfg, pos_dim: int, dir_dim: int) -> int:
     fwd = mlp_macs(mlp_cfg, pos_dim, dir_dim)
     dx = (D - 1) * W * W + W * W + W + W * (W // 2) + (W // 2) * 3
     return 2 * fwd + dx
+
+
+def reset_launches():
+    from nerf_meets_mlx_torch.kernels import fused_train as ft
+
+    for k in ft.LAUNCHES:
+        ft.LAUNCHES[k] = 0
+
+
+def launches_now() -> dict:
+    from nerf_meets_mlx_torch.kernels import fused_train as ft
+
+    return dict(ft.LAUNCHES)
 
 
 def cuda_time_ms(fn, n: int, warmup: int = 1) -> float:
@@ -306,7 +333,7 @@ def phase_device():
 def phase_build():
     from nerf_meets_mlx_torch.kernels import _build
 
-    sources = ["fused_eval", "fused_train"]
+    sources = ["fused_eval", "fused_train", "fused_mlp"]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as ex:
         paths = list(ex.map(_build.build, sources))
@@ -367,6 +394,97 @@ def phase_compare(device):
     return worst
 
 
+def mlp_inputs(model, device):
+    """The point sets the fused MLP kernels see on lego_occ's paths, as
+    (name, pts [N, 3], dirs [N, 3]): one jittered point per cell of the 64³
+    grid with zero directions (the grid update), and the coarse (4096 x 32)
+    and fine (4096 x 96) points of a train step with their rays' view
+    directions (the value_and_grad route)."""
+    import torch
+    from nerf_meets_mlx_torch.acceleration.occupancy import _cell_points
+
+    rcfg = model.cfg.render
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    lo = torch.tensor(rcfg.aabb[:3], device=device)
+    hi = torch.tensor(rcfg.aabb[3:], device=device)
+    cells = _cell_points(rcfg.occ_resolution, lo, hi, generator=gen)
+    out = [("grid", cells, torch.zeros_like(cells))]
+    ro, rd, vd = picked_rays(device)
+    target = torch.rand((ro.shape[0], 3), generator=gen, device=device)
+    for name, (z, _, _) in zip(("coarse", "fine"),
+                               train_level_inputs(model, ro, rd, vd, target, gen, 0.0)):
+        R, S = z.shape
+        pts = (ro[:, None, :] + z[..., None] * rd[:, None, :]).reshape(-1, 3)
+        out.append((name, pts, vd[:, None, :].expand(R, S, 3).reshape(-1, 3).contiguous()))
+    return out
+
+
+def phase_compare_mlp(device):
+    """The fused MLP forward kernel against its plain version on the grid
+    update's 262,144 points and the fine level's 393,216 (both MLPs), and the
+    backward kernel at the coarse and fine levels with random dout,
+    compute_dx off and on: every dW, db and dX against autograd through the
+    plain version. Returns (max abs error of raw, max abs error and worst
+    ratio of the gradients)."""
+    import torch
+    from nerf_meets_mlx_torch.config import lego_occ
+    from nerf_meets_mlx_torch.kernels import fused_mlp as fm
+
+    model = make_model(lego_occ(), device)
+    sets = {name: (p, d) for name, p, d in mlp_inputs(model, device)}
+    worst_raw, worst_g, worst_ratio = 0.0, 0.0, 0.0
+    for name in ("grid", "fine"):
+        pts, dirs = sets[name]
+        for level in ("coarse", "fine"):
+            mlp = getattr(model, level)
+            with torch.no_grad():
+                raw_k = fm.fused_mlp_apply(mlp, model.pos_enc, model.dir_enc, pts, dirs)
+                torch.cuda.synchronize()
+                raw_p = fm.fused_mlp_reference(mlp, model.pos_enc, model.dir_enc, pts, dirs)
+            err = (raw_k - raw_p).abs()
+            ok = bool(torch.isfinite(raw_k).all()) and bool(
+                (err <= ATOL + RTOL * raw_p.abs()).all())
+            log(f"[compare] fused_mlp forward {name:6s} N={pts.shape[0]} {level:6s} mlp "
+                f"max_abs={float(err.max()):.3e} max_rel="
+                f"{float((err / raw_p.abs().clamp_min(1e-6)).max()):.3e} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"fused_mlp forward disagrees with its plain version: {name}")
+            worst_raw = max(worst_raw, float(err.max()))
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    for name in ("coarse", "fine"):
+        pts, dirs = sets[name]
+        dout = torch.randn((pts.shape[0], 4), generator=gen, device=device)
+        mlp = getattr(model, name)
+        params = mlp_params(mlp)
+        for compute_dx in (False, True):
+            p = pts.clone().requires_grad_(compute_dx)
+            d = dirs.clone().requires_grad_(compute_dx)
+            wrt = params + ([p, d] if compute_dx else [])
+            out = fm.fused_mlp_apply(mlp, model.pos_enc, model.dir_enc, p, d, compute_dx=compute_dx)
+            g_k = torch.autograd.grad((out * dout).sum(), wrt)
+            torch.cuda.synchronize()
+            out_p = fm.fused_mlp_reference(mlp, model.pos_enc, model.dir_enc, p, d)
+            g_p = torch.autograd.grad((out_p * dout).sum(), wrt)
+            ratios, ok = [], True
+            for a, b in zip(g_k, g_p):
+                scale = float(b.abs().max())
+                e = float((a - b).abs().max())
+                ratios.append(e / scale if scale > 0 else (0.0 if e == 0 else float("inf")))
+                ok &= bool(torch.isfinite(a).all())
+                worst_g = max(worst_g, e)
+            ok &= max(ratios) <= DW_REL
+            log(f"[compare] fused_mlp backward {name:6s} N={pts.shape[0]} compute_dx="
+                f"{int(compute_dx)}: max|g-plain|/max|plain| per array: "
+                + " ".join(f"{r:.1e}" for r in ratios) + f" {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(
+                    f"fused_mlp backward disagrees with its plain version: {name} dx={compute_dx}")
+            worst_ratio = max(worst_ratio, max(ratios))
+    reset_launches()
+    return worst_raw, worst_g, worst_ratio
+
+
 def phase_main_path(device):
     """The serving entry point, with the launch counts read around it."""
     import torch
@@ -382,20 +500,20 @@ def phase_main_path(device):
     shutil.rmtree(log_dir, ignore_errors=True)
     save_checkpoint(log_dir / "ckpt", make_model(cfg, device), step=0)
 
-    ft.LAUNCHES["eval"] = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     res = render_only(
         preset="lego_hierarchical", log_dir=str(log_dir),
         synth_resolution=res_px, n_orbit=n_orbit, device=device,
     )
-    launches = {"eval": ft.LAUNCHES["eval"]}
+    launches = launches_now()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     chunks = -(-res_px * res_px // cfg.render.ray_chunk)
-    want = 2 * chunks * n_orbit
-    log(f"[main] render_only -> {res['frames']}; launches {launches} (want eval={want}); "
+    want = {"eval": 2 * chunks * n_orbit, "train": 0, "mlp_fwd": 0, "mlp_bwd": 0}
+    log(f"[main] render_only -> {res['frames']}; launches {launches} (want {want}); "
         f"frame seconds {res['frame_seconds']}; peak device memory {peak_gb:.2f} GB")
-    if launches["eval"] != want:
-        raise AssertionError(f"fused_eval launched {launches['eval']} times, want {want}")
+    if launches != want:
+        raise AssertionError(f"render_only launched {launches}, want {want}")
     frames = np.load(res["frames"])
     if frames.shape != (n_orbit, res_px, res_px, 3) or frames.dtype != np.uint8:
         raise AssertionError(f"frames {frames.shape} {frames.dtype}")
@@ -549,37 +667,41 @@ def phase_compare_train(device):
     return worst_val, worst_dw
 
 
-def phase_train_main_path(device):
-    """The training entry point with the launch counts read around it, then
-    the serving entry point on the checkpoint it wrote."""
+def phase_train_main_path(device, preset="lego_hierarchical"):
+    """The training entry point with every launch count set to 0 before it
+    and read after it, then the serving entry point on the checkpoint it
+    wrote (with its occupancy grid, when the preset has one)."""
     import torch
-    from nerf_meets_mlx_torch.config import lego_hierarchical
+    from nerf_meets_mlx_torch.config import PRESETS
     from nerf_meets_mlx_torch.entrypoints import render_only, train_nerf
-    from nerf_meets_mlx_torch.kernels import fused_train as ft
 
-    cfg = lego_hierarchical()
-    log_dir = OUT / "train_lego_hierarchical"
+    cfg = PRESETS[preset]()
+    rcfg = cfg.render
+    log_dir = OUT / f"train_{preset}"
     shutil.rmtree(log_dir, ignore_errors=True)
     OUT.mkdir(parents=True, exist_ok=True)
     overlay = OUT / "log_every_step.txt"  # i_print = 1: every step's loss is logged
     overlay.write_text("i_print = 1\n")
 
-    ft.LAUNCHES["train"] = 0
-    ft.LAUNCHES["eval"] = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = train_nerf(
-        preset="lego_hierarchical", synth_resolution=RES, max_iters=TRAIN_STEPS,
+        preset=preset, synth_resolution=RES, max_iters=TRAIN_STEPS,
         precrop_iters=PRECROP, render_video=False, device=device,
         log_dir=str(log_dir), config_txt=str(overlay),
     )
     wall = time.perf_counter() - t0
-    launches = {"train": ft.LAUNCHES["train"], "eval": ft.LAUNCHES["eval"]}
+    launches = launches_now()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    chunks = -(-RES * RES // cfg.render.ray_chunk)
+    chunks = -(-RES * RES // rcfg.ray_chunk)
     n_frames = 1 + cfg.data.synth_n_test  # one held-out render, then the test set
-    want = {"train": 2 * TRAIN_STEPS, "eval": 2 * chunks * n_frames}
-    log(f"[train] train_nerf lego_hierarchical {RES}x{RES}, {TRAIN_STEPS} steps: {wall:.1f} s "
+    # the grid update runs at steps 0, occ_update_every, ... (one forward
+    # launch each); the fused-train route never runs the MLP backward
+    n_updates = -(-TRAIN_STEPS // rcfg.occ_update_every) if rcfg.occupancy else 0
+    want = {"eval": 2 * chunks * n_frames, "train": 2 * TRAIN_STEPS, "mlp_fwd": n_updates,
+            "mlp_bwd": 0}
+    log(f"[train] train_nerf {preset} {RES}x{RES}, {TRAIN_STEPS} steps: {wall:.1f} s "
         f"(data, steps, {n_frames} renders); launches {launches} (want {want}); "
         f"peak device memory {peak_gb:.2f} GB; result "
         + json.dumps({k: v for k, v in res.items() if k != "log_dir"}))
@@ -597,32 +719,49 @@ def phase_train_main_path(device):
     first = float(np.mean(losses[PRECROP : PRECROP + 10]))
     last = float(np.mean(losses[-10:]))
     finite = all(np.isfinite(v) for r in recs for v in r.values() if isinstance(v, float))
-    log(f"[train] loss: mean of steps 1-10 (central crop) {crop:.5f}; of steps "
+    log(f"[train] {preset} loss: mean of steps 1-10 (central crop) {crop:.5f}; of steps "
         f"{PRECROP + 1}-{PRECROP + 10} (whole images) {first:.5f}, of the last 10 {last:.5f}; "
         f"all logged metrics finite: {finite}; steps/s of the logged intervals: median "
         f"{float(np.median([r['steps_per_sec'] for r in steps[1:]])):.3f}")
     if not finite or not last < first:
         raise AssertionError("the training loss did not fall, or a metric is not finite")
-
-    ft.LAUNCHES["eval"] = 0
-    served = render_only(
-        preset="lego_hierarchical", log_dir=str(log_dir), synth_resolution=RES, n_orbit=1,
-        device=device,
-    )
-    frames = np.load(served["frames"])
-    log(f"[train] render_only serves step {served['step']}: frames {frames.shape}, "
-        f"eval launches {ft.LAUNCHES['eval']} (want {2 * chunks}), frame seconds "
-        f"{served['frame_seconds']}")
-    if served["step"] != TRAIN_STEPS or frames.shape != (1, RES, RES, 3) or (
-        ft.LAUNCHES["eval"] != 2 * chunks
-    ):
-        raise AssertionError("render_only did not serve the trained checkpoint")
-    ft.LAUNCHES["eval"] = 0
-    return launches, {
+    out = {
         "wall_s": wall, "peak_gb": peak_gb, "loss_crop10": crop, "loss_first10": first,
         "loss_last10": last,
         "test_psnr_mean": res["test_psnr_mean"], "test_ssim_mean": res["test_ssim_mean"],
     }
+    if rcfg.occupancy:
+        from nerf_meets_mlx_torch.acceleration.occupancy import occupancy_binary
+
+        state = torch.load(log_dir / "ckpt" / f"step_{TRAIN_STEPS:08d}" / "state.pt",
+                           weights_only=True)
+        grid = state["occ_grid"]
+        occupied = float((grid > rcfg.occ_threshold).float().mean())
+        dilated = float(occupancy_binary(grid, rcfg.occ_threshold).float().mean())
+        log(f"[train] {preset} checkpoint grid {tuple(grid.shape)}: max {float(grid.max()):.4f}, "
+            f"mean {float(grid.mean()):.4f}, cells above {rcfg.occ_threshold}: {occupied:.4f} "
+            f"(dilated {dilated:.4f})")
+        if not (grid.shape == (rcfg.occ_resolution,) * 3 and bool(torch.isfinite(grid).all())
+                and float(grid.max()) > 0.0 and occupied > 0.0):
+            raise AssertionError("the trained occupancy grid is empty or not finite")
+        out.update(grid_max=float(grid.max()), grid_occupied=occupied, grid_dilated=dilated)
+
+    reset_launches()
+    served = render_only(
+        preset=preset, log_dir=str(log_dir), synth_resolution=RES, n_orbit=1, device=device,
+    )
+    frames = np.load(served["frames"])
+    got = launches_now()
+    log(f"[train] render_only {preset} serves step {served['step']}: frames {frames.shape}, "
+        f"launches {got} (want eval {2 * chunks}, nothing else), frame seconds "
+        f"{served['frame_seconds']}")
+    if served["step"] != TRAIN_STEPS or frames.shape != (1, RES, RES, 3) or got != {
+        "eval": 2 * chunks, "train": 0, "mlp_fwd": 0, "mlp_bwd": 0
+    }:
+        raise AssertionError("render_only did not serve the trained checkpoint")
+    out["served_frame_seconds"] = served["frame_seconds"]
+    reset_launches()
+    return launches, out
 
 
 def train_scene(device):
@@ -631,66 +770,148 @@ def train_scene(device):
     return make_synthetic_scene(2, 1, 1, RES, device=device)
 
 
-def phase_train_routes(ds, device):
-    """ROUTE_STEPS steps from one seed on the fused route and on the plain
-    (standard, autograd) route. Adam's first steps are about lr·sign(g), so
-    a parameter whose gradient sits within the routes' rounding of zero may
-    move either way: parameters whose two gradients agree within 25% at
-    every step (so their Adam steps differ by at most lr/12 each) are held
-    to rtol 5e-3 / atol 1e-4, the others to one Adam step each way per
-    step."""
+def run_route(cfg, ds, device, steps: int, seed: int):
+    """``steps`` train steps of a fresh seeded model from one generator
+    seed, with every launch count set to 0 before them and read after:
+    (final parameters, per-step gradients, losses, launches, occupancy grid
+    after each step's update or None)."""
     import torch
-    from nerf_meets_mlx_torch.config import lego_hierarchical
     from nerf_meets_mlx_torch.engine import TrainState, make_nerf_train_step
-    from nerf_meets_mlx_torch.kernels import fused_train as ft
 
     images = torch.as_tensor(ds.images[ds.i_train], device=device)
     poses = torch.as_tensor(ds.poses[ds.i_train, :3, :4], device=device)
-    cfg = lego_hierarchical()
-    runs = {}
-    for route, fused in (("fused", True), ("plain", False)):
-        model = make_model(cfg.replace(use_fused_kernel=fused), device)
-        state = TrainState(model, cfg.train)
-        grads = []
-        apply = state.apply_gradients
+    model = make_model(cfg, device)
+    occ = None
+    if cfg.render.occupancy:
+        from nerf_meets_mlx_torch.acceleration.occupancy import init_occupancy_grid
 
-        def record_then_apply(model=model, grads=grads, apply=apply):
-            grads.append([p.grad.detach().clone() for p in model.parameters()])
-            apply()
+        occ = init_occupancy_grid(cfg.render.occ_resolution, device=device)
+    state = TrainState(model, cfg.train, occ_grid=occ)
+    grads, grids = [], []
+    apply = state.apply_gradients
 
-        state.apply_gradients = record_then_apply
-        step = make_nerf_train_step(model, ds.H, ds.W, ds.focal)
-        gen = torch.Generator(device=device).manual_seed(SEED + 1)
-        n0 = ft.LAUNCHES["train"]
-        losses = [float(step(state, images, poses, gen)["loss"]) for _ in range(ROUTE_STEPS)]
-        if ft.LAUNCHES["train"] - n0 != (2 * ROUTE_STEPS if fused else 0):
-            raise AssertionError(f"{route} route launched the train kernel wrongly")
-        runs[route] = ([p.detach() for p in model.parameters()], grads, losses)
-    ft.LAUNCHES["train"] = 0
-    (p_f, g_f, l_f), (p_p, g_p, l_p) = runs["fused"], runs["plain"]
-    lr = cfg.train.lrate
+    def record_then_apply():
+        grads.append([p.grad.detach().clone() for p in model.parameters()])
+        if state.occ_grid is not None:
+            grids.append(state.occ_grid.clone())
+        apply()
+
+    state.apply_gradients = record_then_apply
+    step = make_nerf_train_step(model, ds.H, ds.W, ds.focal)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    reset_launches()
+    losses = [float(step(state, images, poses, gen)["loss"]) for _ in range(steps)]
+    launches = launches_now()
+    reset_launches()
+    return [p.detach() for p in model.parameters()], grads, losses, launches, grids or None
+
+
+def compare_params(run_a, run_b, lr, steps):
+    """Adam's first steps are about lr·sign(g), so a parameter whose
+    gradient sits within the routes' rounding of zero may move either way:
+    parameters whose two gradients agree within 25% at every step (so their
+    Adam steps differ by at most lr/12 each) are held to rtol 5e-3 / atol
+    1e-4, the others to one Adam step each way per step. Returns (ok,
+    settled, total, worst ratio among the settled)."""
+    import torch
+
+    (p_a, g_a, l_a), (p_b, g_b, l_b) = run_a[:3], run_b[:3]
     n_settled = n_all = 0
     worst = 0.0
-    ok = bool(np.allclose(l_f, l_p, rtol=5e-4))
-    for i, (a, b) in enumerate(zip(p_f, p_p)):
+    ok = bool(np.allclose(l_a, l_b, rtol=5e-4))
+    for i, (a, b) in enumerate(zip(p_a, p_b)):
         settled = torch.ones_like(a, dtype=torch.bool)
-        for gf, gp in zip(g_f, g_p):
-            settled &= (gf[i] - gp[i]).abs() <= 0.25 * gp[i].abs()
+        for ga, gb in zip(g_a, g_b):
+            settled &= (ga[i] - gb[i]).abs() <= 0.25 * gb[i].abs()
         err = (a - b).abs()
         ok &= bool((err[settled] <= 1e-4 + 5e-3 * b.abs()[settled]).all())
-        ok &= bool((err[~settled] <= 2 * ROUTE_STEPS * lr + 1e-4).all())
+        ok &= bool((err[~settled] <= 2 * steps * lr + 1e-4).all())
         ok &= bool(torch.isfinite(a).all())
         n_settled += int(settled.sum())
         n_all += settled.numel()
-        worst = max(worst, float((err / (1e-4 + 5e-3 * b.abs()))[settled].max()))
-    log(f"[routes] {ROUTE_STEPS} steps, fused vs plain route: losses {l_f} vs {l_p}; "
+        if bool(settled.any()):
+            worst = max(worst, float((err / (1e-4 + 5e-3 * b.abs()))[settled].max()))
+    return ok, n_settled, n_all, worst
+
+
+def phase_train_routes(ds, device):
+    """ROUTE_STEPS steps of lego_hierarchical from one seed on the fused
+    route and on the plain (standard, autograd) route must give the same
+    parameters (``compare_params``)."""
+    from nerf_meets_mlx_torch.config import lego_hierarchical
+
+    cfg = lego_hierarchical()
+    fused = run_route(cfg.replace(use_fused_kernel=True), ds, device, ROUTE_STEPS, SEED + 1)
+    plain = run_route(cfg, ds, device, ROUTE_STEPS, SEED + 1)
+    for name, run, want in (("fused", fused, 2 * ROUTE_STEPS), ("plain", plain, 0)):
+        if run[3]["train"] != want or run[3]["mlp_fwd"] or run[3]["mlp_bwd"]:
+            raise AssertionError(f"{name} route launched {run[3]}")
+    ok, n_settled, n_all, worst = compare_params(fused, plain, cfg.train.lrate, ROUTE_STEPS)
+    log(f"[routes] {ROUTE_STEPS} steps, fused vs plain route: losses {fused[2]} vs {plain[2]}; "
         f"{n_settled}/{n_all} parameters whose gradients agree within 25%, worst "
         f"|diff|/(1e-4 + 5e-3|p|) among them {worst:.3f}; the other {n_all - n_settled} "
         f"within {2 * ROUTE_STEPS} lr: {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the fused and the plain route disagree after 3 steps")
-    return {"losses_fused": l_f, "losses_plain": l_p, "unsettled": n_all - n_settled,
+    return {"losses_fused": fused[2], "losses_plain": plain[2], "unsettled": n_all - n_settled,
             "worst_ratio": worst}
+
+
+GRID_ATOL = 1e-5  # routes' grids: fp32 sums in another order, weights within compare_params
+
+
+def phase_occ_routes(ds, device):
+    """ROUTE_STEPS lego_occ steps from one seed, the grid updated at every
+    step and gating from step 0, on three routes: the fused-train route
+    (train kernel, plus the MLP forward kernel for each grid update),
+    use_fused_train=False (the value_and_grad route: the MLP forward and
+    backward kernels at both levels, plus the update) and the plain route.
+    The parameters must agree as ``compare_params`` holds them, and the
+    grid after the first update (all routes on the same weights) and after
+    the last step within GRID_ATOL. The
+    value_and_grad run is the MLP backward kernel's path: its launches are
+    reported in the kernels line."""
+    import torch
+    from nerf_meets_mlx_torch.config import lego_occ
+
+    base = lego_occ()
+    base = base.replace(render=dataclasses.replace(base.render, occ_update_every=1, occ_warmup=0))
+    S = ROUTE_STEPS
+    runs = {
+        "fused_train": run_route(base.replace(use_fused_kernel=True), ds, device, S, SEED + 3),
+        "value_and_grad": run_route(
+            base.replace(use_fused_kernel=True, use_fused_train=False), ds, device, S, SEED + 3),
+        "plain": run_route(base, ds, device, S, SEED + 3),
+    }
+    want = {
+        "fused_train": {"eval": 0, "train": 2 * S, "mlp_fwd": S, "mlp_bwd": 0},
+        "value_and_grad": {"eval": 0, "train": 0, "mlp_fwd": 3 * S, "mlp_bwd": 2 * S},
+        "plain": {"eval": 0, "train": 0, "mlp_fwd": 0, "mlp_bwd": 0},
+    }
+    out = {}
+    plain = runs["plain"]
+    for route in ("fused_train", "value_and_grad"):
+        run = runs[route]
+        if run[3] != want[route]:
+            raise AssertionError(f"lego_occ {route} route launched {run[3]}, want {want[route]}")
+        ok, n_settled, n_all, worst = compare_params(run, plain, base.train.lrate, S)
+        g0 = float((run[4][0] - plain[4][0]).abs().max())
+        gerr = (run[4][-1] - plain[4][-1]).abs()
+        ok &= g0 <= GRID_ATOL and float(gerr.max()) <= GRID_ATOL
+        ok &= bool(torch.isfinite(run[4][-1]).all())
+        log(f"[occ routes] {S} lego_occ steps, {route} vs plain route: launches {run[3]}; losses "
+            f"{run[2]} vs {plain[2]}; {n_settled}/{n_all} parameters whose gradients agree "
+            f"within 25%, worst |diff|/(1e-4 + 5e-3|p|) among them {worst:.3f}, the other "
+            f"{n_all - n_settled} within {2 * S} lr; first grid max |diff| {g0:.3e} (<= "
+            f"{GRID_ATOL}), last grid max |diff| {float(gerr.max()):.3e}, max "
+            f"{float(plain[4][-1].max()):.4f}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the lego_occ {route} route disagrees with the plain route")
+        out[route] = {"losses": run[2], "launches": run[3], "unsettled": n_all - n_settled,
+                      "worst_ratio": worst, "grid0_max_abs": g0,
+                      "grid_last_max_abs": float(gerr.max())}
+    out["losses_plain"] = plain[2]
+    return out
 
 
 def phase_train_timing(ds, device):
@@ -781,6 +1002,161 @@ def phase_train_timing(ds, device):
                        "trace": trace}
 
 
+def phase_mlp_timing(device):
+    """Each fused MLP kernel per call (CUDA events) at lego_occ's shapes
+    beside its plain version and its bound: the forward on the grid
+    update's 262,144 points and on the coarse and fine points of a step; the
+    backward (which recomputes the forward) at the coarse and fine level,
+    against the plain version's forward + autograd backward."""
+    import torch
+    from nerf_meets_mlx_torch.config import lego_occ
+    from nerf_meets_mlx_torch.kernels import fused_mlp as fm
+
+    model = make_model(lego_occ(), device)
+    pe, de = model.pos_enc, model.dir_enc
+    wbytes = 4 * fm.pack_mlp_weights(model.fine, pe, de)[0].numel()
+    n_dw = fm.pack_mlp_weights(model.fine, pe, de, backward=True)[1][2 * lego_occ().mlp.net_depth + 8]
+    fwd, bwd = {}, {}
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    for name, pts, dirs in mlp_inputs(model, device):
+        N = pts.shape[0]
+        mlp = model.fine if name != "coarse" else model.coarse
+        params = mlp_params(mlp)
+        reps = max(3, int(2_000_000 // N))
+
+        def kernel():
+            with torch.no_grad():
+                fm.fused_mlp_apply(mlp, pe, de, pts, dirs)
+
+        def plain():
+            with torch.no_grad():
+                fm.fused_mlp_reference(mlp, pe, de, pts, dirs)
+
+        k1, p_ms, k2 = cuda_time_ms(kernel, reps), cuda_time_ms(plain, reps), cuda_time_ms(kernel, reps)
+        flops = 2.0 * mlp_macs(mlp.cfg, pe.out_dim, de.out_dim) * N
+        nbytes = 4 * (6 * N + 4 * N) + wbytes  # points, directions in; raw out; weights
+        t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+        ms = (k1 + k2) / 2
+        fwd[name] = dict(points=N, ms=ms, ms_runs=[k1, k2], plain_ms=p_ms,
+                         bound_ms=max(t_ops, t_bytes) * 1e3,
+                         bound_by="operations" if t_ops > t_bytes else "bytes",
+                         tf32_bound_ms=flops / TF32_FLOPS * 1e3,
+                         achieved_tflops_s=flops / (ms * 1e-3) / 1e12)
+        log(f"[time] fused_mlp forward {name:6s} N={N}: kernel {k1:.3f} / {k2:.3f} ms, plain "
+            f"{p_ms:.3f} ms, fp32 bound {fwd[name]['bound_ms']:.3f} ms ({fwd[name]['bound_by']}), "
+            f"TF32 bound {fwd[name]['tf32_bound_ms']:.3f} ms -> "
+            f"{fwd[name]['achieved_tflops_s']:.2f} TFLOP/s")
+        if name == "grid":
+            continue
+        dout = torch.randn((N, 4), generator=gen, device=device)
+
+        def kernel_bwd():
+            fm._bwd_launch(mlp, pe, de, pts, dirs, dout, False)
+
+        def plain_bwd():
+            out = fm.fused_mlp_reference(mlp, pe, de, pts, dirs)
+            torch.autograd.grad(out, params, dout)
+
+        reps = max(2, int(600_000 // N))
+        k1, p_ms, k2 = (cuda_time_ms(kernel_bwd, reps), cuda_time_ms(plain_bwd, reps),
+                        cuda_time_ms(kernel_bwd, reps))
+        flops = 2.0 * train_macs(mlp.cfg, pe.out_dim, de.out_dim) * N
+        # points, directions, dout in; weights in; dW out
+        nbytes = 4 * (6 * N + 4 * N + n_dw) + wbytes
+        t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+        ms = (k1 + k2) / 2
+        bwd[name] = dict(points=N, ms=ms, ms_runs=[k1, k2], plain_ms=p_ms,
+                         bound_ms=max(t_ops, t_bytes) * 1e3,
+                         bound_by="operations" if t_ops > t_bytes else "bytes",
+                         tf32_bound_ms=flops / TF32_FLOPS * 1e3,
+                         achieved_tflops_s=flops / (ms * 1e-3) / 1e12)
+        log(f"[time] fused_mlp backward {name:6s} N={N}: kernel {k1:.3f} / {k2:.3f} ms, plain "
+            f"fwd+bwd {p_ms:.3f} ms, fp32 bound {bwd[name]['bound_ms']:.3f} ms "
+            f"({bwd[name]['bound_by']}), TF32 bound {bwd[name]['tf32_bound_ms']:.3f} ms -> "
+            f"{bwd[name]['achieved_tflops_s']:.2f} TFLOP/s")
+    reset_launches()
+    return fwd, bwd
+
+
+OCC_TIMED_STEPS = 32  # two grid updates (steps 16 and 32) fall inside
+
+
+def phase_occ_timing(ds, device):
+    """lego_occ: the host seconds of a warm train step on the fused-train
+    route and on use_fused_train=False (OCC_TIMED_STEPS steps ending in one
+    synchronize, the grid updated every 16 steps as the preset says), peak
+    memory, the device's busy share of 5 fused-train steps under
+    torch.profiler, and the 400 x 400 frame time with the grid."""
+    import torch
+    from nerf_meets_mlx_torch.acceleration.occupancy import init_occupancy_grid
+    from nerf_meets_mlx_torch.cameras.pose import orbit_poses
+    from nerf_meets_mlx_torch.config import lego_occ
+    from nerf_meets_mlx_torch.datasets.synthetic import CAMERA_ANGLE_X
+    from nerf_meets_mlx_torch.engine import TrainState, make_nerf_train_step
+    from nerf_meets_mlx_torch.rendering import render_image
+
+    images = torch.as_tensor(ds.images[ds.i_train], device=device)
+    poses = torch.as_tensor(ds.poses[ds.i_train, :3, :4], device=device)
+    base = lego_occ().replace(use_fused_kernel=True)
+    out = {}
+    for route, cfg in (("fused_train", base), ("value_and_grad", base.replace(use_fused_train=False))):
+        model = make_model(cfg, device)
+        state = TrainState(model, cfg.train,
+                           occ_grid=init_occupancy_grid(cfg.render.occ_resolution, device=device))
+        step = make_nerf_train_step(model, ds.H, ds.W, ds.focal)
+        gen = torch.Generator(device=device).manual_seed(SEED + 7)
+        for _ in range(3):  # steps 0-2, the first grid update included
+            step(state, images, poses, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(OCC_TIMED_STEPS):
+            step(state, images, poses, gen)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / OCC_TIMED_STEPS
+        launches = launches_now()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n_rand = cfg.train.n_rand
+        log(f"[time] train step lego_occ ({route} route, {n_rand} rays, "
+            f"{cfg.render.n_samples} + {cfg.render.n_importance} samples, grid every "
+            f"{cfg.render.occ_update_every} steps): {step_s:.5f} s/step over {OCC_TIMED_STEPS} "
+            f"warm steps -> {n_rand / step_s:.1f} rays/s; launches {launches}; peak device "
+            f"memory {peak_gb:.2f} GB")
+        out[route] = {"step_s": step_s, "rays_per_s": n_rand / step_s, "peak_gb": peak_gb,
+                      "launches": launches}
+        if route == "fused_train":
+            def steps():
+                for _ in range(PROFILED_STEPS):
+                    step(state, images, poses, gen)
+
+            out[route]["trace"] = profile_device(steps, f"{PROFILED_STEPS} lego_occ train steps")
+            focal = 0.5 * RES / np.tan(0.5 * CAMERA_ANGLE_X)
+            K = np.array([[focal, 0, RES / 2], [0, focal, RES / 2], [0, 0, 1]], np.float32)
+            grid = state.occ_grid
+            times = []
+            for pose in orbit_poses(160)[:2]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                render_image(model, RES, RES, K, pose[:3, :4], occ_grid=grid)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            out["frame_trace"] = profile_device(
+                lambda: render_image(model, RES, RES, K, orbit_poses(160)[0][:3, :4], occ_grid=grid),
+                f"one {RES}x{RES} lego_occ frame",
+            )
+            occupied = float((grid > cfg.render.occ_threshold).float().mean())
+            log(f"[time] render_image {RES}x{RES} lego_occ with the grid ({occupied:.4f} of "
+                f"cells above the threshold): frames {times} s -> {min(times):.4f} s/frame, "
+                f"{RES * RES / min(times):.1f} rays/s")
+            out["frame"] = {"frame_seconds": times, "rays_per_s": RES * RES / min(times),
+                            "grid_occupied": occupied}
+        del model, state
+        torch.cuda.empty_cache()
+    reset_launches()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -789,15 +1165,22 @@ def main() -> int:
     phase_build()
     max_err = phase_compare(device)
     train_err, dw_ratio = phase_compare_train(device)
+    mlp_raw_err, mlp_grad_err, mlp_grad_ratio = phase_compare_mlp(device)
     launches, res, fused = phase_main_path(device)
     train_launches, train_run = phase_train_main_path(device)
+    occ_launches, occ_run = phase_train_main_path(device, preset="lego_occ")
     ds = train_scene(device)
     routes = phase_train_routes(ds, device)
+    occ_routes = phase_occ_routes(ds, device)
     per_level, frame = phase_timing(fused, res, device)
     train_level, train_step = phase_train_timing(ds, device)
+    mlp_fwd_t, mlp_bwd_t = phase_mlp_timing(device)
+    occ_time = phase_occ_timing(ds, device)
 
     # one entry per kernel; its times are the mean per launch over its main
-    # path's mix, which runs the coarse and the fine level equally often
+    # path's mix: the coarse and the fine level equally often (eval, train,
+    # the MLP backward on the value_and_grad route), the 64³ grid update for
+    # the MLP forward on lego_occ's training path
     def entry(name, source, replaces, n, err, levels):
         lv = list(levels.values())
 
@@ -825,11 +1208,23 @@ def main() -> int:
         entry("fused_train", "nerf_meets_mlx_torch/csrc/fused_train.cu",
               "nerf_meets_mlx_tpu/kernels/fused_train.py:219", train_launches["train"],
               train_err, train_level),
+        entry("fused_mlp_fwd", "nerf_meets_mlx_torch/csrc/fused_mlp.cu",
+              "nerf_meets_mlx_tpu/kernels/fused_mlp.py:342", occ_launches["mlp_fwd"],
+              mlp_raw_err, {"grid": mlp_fwd_t["grid"]}),
+        entry("fused_mlp_bwd", "nerf_meets_mlx_torch/csrc/fused_mlp.cu",
+              "nerf_meets_mlx_tpu/kernels/fused_mlp.py:480",
+              occ_routes["value_and_grad"]["launches"]["mlp_bwd"], mlp_grad_err, mlp_bwd_t),
     ]
+    for k in kernels:
+        if k["launches"] < 1:
+            raise AssertionError(f"{k['name']} was not launched on its path")
     detail = {
         "per_level": per_level, "frame": frame, "train_per_level": train_level,
         "train_step": train_step, "train_run": train_run, "routes": routes,
-        "train_dw_worst_ratio": dw_ratio, "card": smi,
+        "train_dw_worst_ratio": dw_ratio,
+        "mlp_forward": mlp_fwd_t, "mlp_backward": mlp_bwd_t, "mlp_grad_worst_ratio": mlp_grad_ratio,
+        "occ_train_run": occ_run, "occ_launches": occ_launches, "occ_routes": occ_routes,
+        "occ_timing": occ_time, "card": smi,
     }
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "result.json").write_text(json.dumps({"kernels": kernels, **detail}, indent=1))

@@ -7,6 +7,7 @@ from nerf_meets_mlx_torch.engine.train_state import TrainState, lr_at
 from nerf_meets_mlx_torch.engine.trainer import (
     Trainer,
     make_nerf_train_step,
+    maybe_update_occupancy,
     nerf_loss_fn,
     sample_train_rays,
 )
@@ -19,6 +20,7 @@ __all__ = [
     "lr_at",
     "Trainer",
     "make_nerf_train_step",
+    "maybe_update_occupancy",
     "nerf_loss_fn",
     "sample_train_rays",
 ]

@@ -5,7 +5,7 @@ Counterpart of ``nerf_meets_mlx_tpu/engine/checkpoint.py`` with the same
 ``state.pt`` with the step, the model's parameters and, for a training
 checkpoint, the optimizer's state (Adam moments and counts) and the train
 step's random-generator state, so a resumed run continues where it
-stopped. ``render_only`` reads the parameters alone. Orbax checkpoints of
+stopped, and the learned occupancy grid when the config has one. ``render_only`` reads the parameters alone. Orbax checkpoints of
 the JAX package are not read here; they cross over as numpy through
 ``interop.params_from_numpy``.
 """
@@ -41,6 +41,7 @@ def save_checkpoint(
     step: int,
     optimizer: Optional[torch.optim.Optimizer] = None,
     generator: Optional[torch.Generator] = None,
+    occ_grid: Optional[torch.Tensor] = None,
 ) -> Path:
     path = _ckpt_path(ckpt_dir, step)
     path.mkdir(parents=True, exist_ok=True)
@@ -49,6 +50,8 @@ def save_checkpoint(
         state["optimizer"] = _to_cpu(optimizer.state_dict())
     if generator is not None:
         state["rng"] = generator.get_state()
+    if occ_grid is not None:
+        state["occ_grid"] = _to_cpu(occ_grid)
     tmp = path / f"{_STATE}.tmp"
     torch.save(state, tmp)
     tmp.replace(path / _STATE)
@@ -61,11 +64,14 @@ def restore_checkpoint(
     step: int,
     optimizer: Optional[torch.optim.Optimizer] = None,
     generator: Optional[torch.Generator] = None,
+    occ_grid: Optional[torch.Tensor] = None,
 ) -> int:
     """Load the parameters of ``step`` into ``model`` (shapes must match;
     they are copied onto the device the parameters live on) and, when given
-    and saved, the optimizer's and the generator's state. Returns the step
-    the checkpoint was saved at."""
+    and saved, the optimizer's and the generator's state. ``occ_grid`` (the
+    caller's grid, given when its config has ``render.occupancy`` on) is
+    filled in place from the checkpoint's grid; a checkpoint without one
+    raises then. Returns the step the checkpoint was saved at."""
     state = torch.load(_ckpt_path(ckpt_dir, step) / _STATE, weights_only=True)
     model.load_state_dict(state["params"])
     if optimizer is not None:
@@ -74,6 +80,13 @@ def restore_checkpoint(
         optimizer.load_state_dict(state["optimizer"])
     if generator is not None and "rng" in state:
         generator.set_state(state["rng"])
+    if occ_grid is not None:
+        if "occ_grid" not in state:
+            raise ValueError(
+                f"checkpoint step {step} holds no occupancy grid, and the config uses one"
+            )
+        with torch.no_grad():
+            occ_grid.copy_(state["occ_grid"])
     return int(state["step"])
 
 

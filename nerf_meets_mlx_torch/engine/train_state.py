@@ -19,6 +19,8 @@ so a non-zero value raises instead of decaying nothing.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -35,10 +37,12 @@ def lr_at(cfg: TrainConfig, count: int) -> float:
 
 
 class TrainState:
-    """The model, its optimizer and the host-side count of applied updates
-    (``step``). Parameters are updated in place."""
+    """The model, its optimizer, the host-side count of applied updates
+    (``step``) and the learned occupancy grid (``occ_grid``, None when
+    ``render.occupancy`` is off). Parameters are updated in place."""
 
-    def __init__(self, model: nn.Module, cfg: TrainConfig):
+    def __init__(self, model: nn.Module, cfg: TrainConfig,
+                 occ_grid: Optional[torch.Tensor] = None):
         if cfg.encoding_weight_decay > 0.0:
             raise ValueError(
                 "encoding_weight_decay decays learned encoding parameters (hash "
@@ -47,6 +51,7 @@ class TrainState:
         self.model = model
         self.cfg = cfg
         self.step = 0
+        self.occ_grid = occ_grid
         self.optimizer = torch.optim.Adam(
             model.parameters(), lr=lr_at(cfg, 0), betas=(cfg.adam_b1, cfg.adam_b2),
             eps=ADAM_EPS,

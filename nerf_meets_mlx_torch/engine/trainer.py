@@ -102,19 +102,23 @@ def nerf_loss_fn(
     fused_train: bool = False,
     draws: Optional[Draws] = None,
     generator: Optional[torch.Generator] = None,
+    occ_grid: Optional[torch.Tensor] = None,
+    occ_active=True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, metrics): loss = MSE(coarse) + MSE(fine); on the fused route
     the levels return SSEs and each MSE is its SSE / target.numel()."""
+    occ = {"occ_grid": occ_grid, "occ_active": occ_active}
     if fused_train:
         out = model.render_rays_train(
-            rays_o, rays_d, target, viewdirs=viewdirs, draws=draws, generator=generator
+            rays_o, rays_d, target, viewdirs=viewdirs, draws=draws, generator=generator, **occ
         )
         denom = float(target.numel())
         loss_c = out["sse_coarse"] / denom
         loss_f = out["sse_fine"] / denom if "sse_fine" in out else None
     else:
         out = model.render_rays(
-            rays_o, rays_d, train=True, viewdirs=viewdirs, draws=draws, generator=generator
+            rays_o, rays_d, train=True, viewdirs=viewdirs, draws=draws, generator=generator,
+            **occ,
         )
         loss_c = torch.mean((out["rgb_coarse"] - target) ** 2)
         loss_f = torch.mean((out["rgb_fine"] - target) ** 2) if "rgb_fine" in out else None
@@ -126,6 +130,29 @@ def nerf_loss_fn(
     aux["psnr"] = mse_to_psnr(loss_f if loss_f is not None else loss_c)
     aux["loss"] = loss
     return loss, aux
+
+
+def maybe_update_occupancy(
+    model, state: TrainState, generator: Optional[torch.Generator] = None,
+    draws: Optional[Draws] = None,
+):
+    """The occupancy grid's upkeep inside a train step: every
+    ``occ_update_every`` steps (step 0 included) the grid is EMA-updated from
+    the parameters as they stand before this step's update, and its use is
+    gated on ``step >= occ_warmup``. Both are decided from the host-side
+    step, so the host never waits for the device. The cell jitter is
+    ``draws["occ_u"]`` or a draw from ``generator``. Returns (occ_grid,
+    occ_active); (None, True) when the grid is off."""
+    rcfg = model.cfg.render
+    if not rcfg.occupancy or state.occ_grid is None:
+        return None, True
+    if state.step % rcfg.occ_update_every == 0:
+        from nerf_meets_mlx_torch.acceleration.occupancy import update_occupancy_grid
+
+        state.occ_grid = update_occupancy_grid(
+            model, state.occ_grid, rcfg.occ_decay, u=_get(draws, "occ_u"), generator=generator
+        )
+    return state.occ_grid, state.step >= rcfg.occ_warmup
 
 
 def make_nerf_train_step(model, H: int, W: int, focal: float, n_inner: int = 1) -> Callable:
@@ -151,9 +178,10 @@ def make_nerf_train_step(model, H: int, W: int, focal: float, n_inner: int = 1) 
             # world-space directions
             viewdirs = rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
             rays_o, rays_d = ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
+        occ_grid, occ_active = maybe_update_occupancy(model, state, generator, draws)
         loss, aux = nerf_loss_fn(
             model, rays_o, rays_d, target, viewdirs, fused_train=fused_train,
-            draws=draws, generator=generator,
+            draws=draws, generator=generator, occ_grid=occ_grid, occ_active=occ_active,
         )
         loss.backward()
         state.apply_gradients()
@@ -191,7 +219,12 @@ class Trainer:
         self.save_secs = save_secs
         self.nan_check = nan_check
         model.init(torch.Generator().manual_seed(cfg.train.seed))
-        self.state = TrainState(model, cfg.train)
+        occ = None
+        if cfg.render.occupancy:
+            from nerf_meets_mlx_torch.acceleration.occupancy import init_occupancy_grid
+
+            occ = init_occupancy_grid(cfg.render.occ_resolution, device=model.device)
+        self.state = TrainState(model, cfg.train, occ_grid=occ)
         self.generator = torch.Generator(device=model.device).manual_seed(cfg.train.seed + 1)
         self.log_dir = Path(log_dir or Path(cfg.train.log_dir) / cfg.train.exp_name)
         self.logger = MetricsLogger(self.log_dir / "metrics.jsonl")
@@ -210,7 +243,8 @@ class Trainer:
         s = latest_step(self.log_dir / "ckpt")
         if s is not None:
             self.state.step = restore_checkpoint(
-                self.log_dir / "ckpt", self.model, s, self.state.optimizer, self.generator
+                self.log_dir / "ckpt", self.model, s, self.state.optimizer, self.generator,
+                occ_grid=self.state.occ_grid,
             )
             self._steps_last = self.step
         return self.step
@@ -219,7 +253,8 @@ class Trainer:
         from nerf_meets_mlx_torch.engine.checkpoint import save_checkpoint
 
         save_checkpoint(
-            self.log_dir / "ckpt", self.model, self.step, self.state.optimizer, self.generator
+            self.log_dir / "ckpt", self.model, self.step, self.state.optimizer, self.generator,
+            occ_grid=self.state.occ_grid,
         )
 
     def run(

@@ -23,6 +23,7 @@ from nerf_meets_mlx_torch.config import PRESETS, ExperimentConfig
 from nerf_meets_mlx_torch.engine.checkpoint import latest_step, restore_checkpoint
 from nerf_meets_mlx_torch.models import create_nerf
 from nerf_meets_mlx_torch.ops import psnr as psnr_fn
+from nerf_meets_mlx_torch.ops import ssim as ssim_fn
 from nerf_meets_mlx_torch.rendering import render_image
 from nerf_meets_mlx_torch.rendering.renderer import to8b
 from nerf_meets_mlx_torch.utils.tensors import resolve_device
@@ -65,8 +66,10 @@ def render_only(
 ) -> dict:
     """Render from the latest checkpoint under ``log_dir``.
 
-    render_test=True renders and scores the held-out test views (PSNR);
-    otherwise the first ``n_orbit`` orbit poses go to ``orbit_frames.npy``.
+    render_test=True renders and scores the held-out test views (PSNR and
+    SSIM); otherwise the first ``n_orbit`` orbit poses go to
+    ``orbit_frames.npy``. With ``render.occupancy`` the checkpoint's grid is
+    restored and every frame is tightened by it.
     ``synth_resolution`` sets the procedural scene's H = W. The result
     holds the host-clock seconds of every rendered frame (each ends in a
     copy to the host, which waits for the device)."""
@@ -101,7 +104,12 @@ def render_only(
     step = latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
-    restore_checkpoint(ckpt_dir, model, step)
+    occ = None
+    if cfg.render.occupancy:
+        from nerf_meets_mlx_torch.acceleration.occupancy import init_occupancy_grid
+
+        occ = init_occupancy_grid(cfg.render.occ_resolution, device=dev)
+    restore_checkpoint(ckpt_dir, model, step, occ_grid=occ)
     model.eval()
     out_path = Path(out_dir or (Path(log_dir) / f"render_only_{step}"))
     out_path.mkdir(parents=True, exist_ok=True)
@@ -109,21 +117,23 @@ def render_only(
     result: dict = {"step": step, "device": str(dev)}
     frame_seconds = []
     if render_test:
-        psnrs = []
+        psnrs, ssims = [], []
         for i in ds.i_test:
             t0 = time.perf_counter()
-            out = render_image(model, ds.H, ds.W, ds.K, ds.poses[i, :3, :4])
+            out = render_image(model, ds.H, ds.W, ds.K, ds.poses[i, :3, :4], occ_grid=occ)
             rgb = out["rgb_map"].cpu()
             frame_seconds.append(time.perf_counter() - t0)
             gt = torch.as_tensor(ds.images[i])
             psnrs.append(float(psnr_fn(rgb, gt)))
+            ssims.append(float(ssim_fn(rgb, gt)))
         result["test_psnr_mean"] = float(np.mean(psnrs))
+        result["test_ssim_mean"] = float(np.mean(ssims))
         result["test_psnrs"] = psnrs
     else:
         frames = []
         for c2w in ds.render_poses[:n_orbit]:
             t0 = time.perf_counter()
-            out = render_image(model, ds.H, ds.W, ds.K, np.asarray(c2w)[:3, :4])
+            out = render_image(model, ds.H, ds.W, ds.K, np.asarray(c2w)[:3, :4], occ_grid=occ)
             frames.append(to8b(out["rgb_map"]))
             frame_seconds.append(time.perf_counter() - t0)
         path = out_path / "orbit_frames.npy"

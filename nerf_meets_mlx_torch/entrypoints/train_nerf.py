@@ -7,7 +7,9 @@ caller passes ``device``, and raises when CUDA is asked for and absent. On a
 CUDA device the sinusoidal presets route through the fused CUDA kernels
 (``use_fused_kernel=True``): each train step launches the train kernel once
 per level and the renders launch the eval kernel; on the CPU they take the
-standard route. Held-out renders are written as ``render_XXXXXXXX.npy`` and
+standard route. With ``render.occupancy`` (``lego_occ``) the train step
+keeps the learned grid up to date (one launch of the fused MLP forward
+kernel per update on CUDA) and every render takes it. Held-out renders are written as ``render_XXXXXXXX.npy`` and
 the orbit as ``orbit_frames.npy`` (uint8 frames); the image and video
 writers come with a later slice.
 """
@@ -149,7 +151,9 @@ def train_nerf(
         n = min(tcfg.i_testset or tcfg.max_iters, tcfg.max_iters - trainer.step)
         metrics = trainer.run(n)
         # periodic held-out render
-        out = render_image(model, ds.H, ds.W, ds.K, ds.poses[view_i, :3, :4])
+        out = render_image(
+            model, ds.H, ds.W, ds.K, ds.poses[view_i, :3, :4], occ_grid=trainer.state.occ_grid
+        )
         gt = torch.as_tensor(ds.images[view_i], device=dev)
         trainer.logger.log(step=trainer.step, test_psnr=float(psnr_fn(out["rgb_map"], gt)))
         np.save(out_dir / f"render_{trainer.step:08d}.npy", to8b(out["rgb_map"]))
@@ -157,7 +161,9 @@ def train_nerf(
 
     psnrs, ssims = [], []
     for i in ds.i_test:
-        out = render_image(model, ds.H, ds.W, ds.K, ds.poses[i, :3, :4])
+        out = render_image(
+            model, ds.H, ds.W, ds.K, ds.poses[i, :3, :4], occ_grid=trainer.state.occ_grid
+        )
         gt = torch.as_tensor(ds.images[i], device=dev)
         psnrs.append(float(psnr_fn(out["rgb_map"], gt)))
         ssims.append(float(ssim_fn(out["rgb_map"], gt)))
@@ -174,6 +180,8 @@ def train_nerf(
         test_ssim_mean=result["test_ssim_mean"],
     )
     if render_video:
-        frames = np.stack(list(render_orbit(model, ds.H, ds.W, ds.K, ds.render_poses)))
+        frames = np.stack(list(render_orbit(
+            model, ds.H, ds.W, ds.K, ds.render_poses, occ_grid=trainer.state.occ_grid
+        )))
         np.save(out_dir / "orbit_frames.npy", frames)
     return result

@@ -13,7 +13,8 @@ their order: the skip layer's input is [encoded position, h] and the
 direction layer's is [feature, encoded direction], so the first rows of
 those ``w`` belong to the encoding and the feature respectively, in both
 packages alike. Only parameter-free encodings exist in this slice, so
-``pos_enc`` and ``dir_enc`` are empty.
+``pos_enc`` and ``dir_enc`` are empty. The learned occupancy grid crosses
+as a numpy [R, R, R] array (``occ_grid_from_numpy`` / ``occ_grid_to_numpy``).
 """
 
 from __future__ import annotations
@@ -80,3 +81,17 @@ def params_to_numpy(model) -> Dict[str, Any]:
     if model.fine is not None:
         tree["fine"] = _mlp_to_numpy(model.fine)
     return tree
+
+
+def occ_grid_from_numpy(grid, device=None) -> torch.Tensor:
+    """A JAX occupancy grid ([R, R, R] density, same (i, j, k) cell order in
+    both packages) as a float32 tensor on ``device``."""
+    a = np.asarray(grid, np.float32)
+    if a.ndim != 3 or len(set(a.shape)) != 1:
+        raise ValueError(f"an occupancy grid is [R, R, R], not {a.shape}")
+    return torch.tensor(a, device=device)
+
+
+def occ_grid_to_numpy(grid: torch.Tensor) -> np.ndarray:
+    """The inverse of ``occ_grid_from_numpy``."""
+    return grid.detach().cpu().numpy().copy()

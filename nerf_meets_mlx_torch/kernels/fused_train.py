@@ -14,7 +14,7 @@ math.
   (the counterparts of the JAX twins); ``fused_train_reference`` is
   differentiable by autograd.
 * ``LAUNCHES["eval"]`` / ``LAUNCHES["train"]`` count kernel launches, one
-  per CUDA call.
+  per CUDA call; the dict also holds ``kernels/fused_mlp.py``'s counts.
 """
 
 from __future__ import annotations
@@ -27,8 +27,9 @@ import torch
 
 from nerf_meets_mlx_torch.rendering.volume import exclusive_cumsum, softplus
 
-# kernel launches per wrapper; a run sets them to 0 and reads them after
-LAUNCHES: Dict[str, int] = {"eval": 0, "train": 0}
+# kernel launches per wrapper, of this module and of kernels/fused_mlp.py;
+# a run sets them to 0 and reads them after
+LAUNCHES: Dict[str, int] = {"eval": 0, "train": 0, "mlp_fwd": 0, "mlp_bwd": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -321,6 +322,17 @@ def fused_eval_apply(
 # ---------------------------------------------------------------------------
 
 
+def _train_pieces(mlp, pos_enc, dir_enc) -> List[torch.Tensor]:
+    cfg = mlp.cfg
+    pieces = _forward_pieces(mlp, pos_enc, dir_enc)
+    for j in range(1, cfg.net_depth):
+        w = mlp.pos_linears[j].weight
+        pieces.append(w[:, mlp.in_dim:] if (j - 1) in cfg.skips else w)
+    pieces.append(torch.cat([mlp.feature_linear.weight, mlp.alpha_linear.weight], dim=0))
+    pieces.append(mlp.dir_linear.weight[:, : cfg.net_width])
+    return pieces
+
+
 def pack_train_weights(mlp, pos_enc, dir_enc) -> Tuple[torch.Tensor, List[int]]:
     """The eval kernel's buffer (offsets 0 .. 2·D+9: the forward weights as
     [fan_in, fan_out], the biases, the bands) followed by the backward's
@@ -329,14 +341,7 @@ def pack_train_weights(mlp, pos_enc, dir_enc) -> Tuple[torch.Tensor, List[int]]:
     (offset 2·D+10+j−1), the feature weight with the alpha row under it
     (3·D+9), and the view layer's feature part (3·D+10). The kernel's dW
     buffer has the layout of the forward part (its first 2·D+8 pieces)."""
-    cfg = mlp.cfg
-    pieces = _forward_pieces(mlp, pos_enc, dir_enc)
-    for j in range(1, cfg.net_depth):
-        w = mlp.pos_linears[j].weight
-        pieces.append(w[:, mlp.in_dim:] if (j - 1) in cfg.skips else w)
-    pieces.append(torch.cat([mlp.feature_linear.weight, mlp.alpha_linear.weight], dim=0))
-    pieces.append(mlp.dir_linear.weight[:, : cfg.net_width])
-    return _pack_flat(pieces)
+    return _pack_flat(_train_pieces(mlp, pos_enc, dir_enc))
 
 
 def _train_lib():

@@ -17,8 +17,14 @@ on one of two routes:
   which returns the level's SSE and, on CUDA, its gradient in the same
   launch. Both launch their CUDA kernel for CUDA tensors and run their
   plain version on the CPU;
-* the standard route (``use_fused_kernel`` off): ``query`` (encode, then
-  the MLP) and ``raw2outputs``, differentiable by autograd in training.
+* the standard route (``use_fused_kernel`` off, or ``use_fused_train``
+  off): ``query`` and ``raw2outputs``, differentiable by autograd in
+  training. ``query`` is encode-then-MLP, or, with ``use_fused_kernel``, one
+  ``kernels.fused_mlp.fused_mlp_apply`` call (the point-major CUDA kernels).
+
+With ``render.occupancy`` every route takes the learned grid
+(``occ_grid``, ``occ_active``) and tightens each ray's interval before the
+coarse samples (``acceleration/occupancy.py``).
 
 Training draws (stratified jitter ``t``, density noise ``noise_c`` /
 ``noise_f`` as unit normals, importance queries ``u``) come from a
@@ -110,10 +116,21 @@ class NeRFModel(nn.Module):
         viewdirs: Optional[torch.Tensor],    # [B, 3] normalized
     ) -> torch.Tensor:
         """Encode points (and directions broadcast per sample), then run the
-        MLP: raw [B, S, 4]. The point-major fused kernel the JAX package
-        uses here (``fused_mlp._fwd_kernel``) is the next slice; this is the
-        unfused route."""
+        MLP: raw [B, S, 4]. With ``use_fused_kernel`` on a sinusoidal
+        view-direction model this is one ``fused_mlp_apply`` call (the CUDA
+        forward kernel, and its backward kernel under autograd) whatever
+        route the render takes, as the JAX model's query does; the points
+        are data there, so no dX is computed."""
         mlp_cfg = self._mlp_cfg(level)
+        if self._use_fused(mlp_cfg):
+            from nerf_meets_mlx_torch.kernels.fused_mlp import fused_mlp_apply
+
+            dirs = viewdirs[..., None, :].expand(*pts.shape[:-1], 3)
+            raw = fused_mlp_apply(
+                self._mlp(level), self.pos_enc, self.dir_enc,
+                pts.reshape(-1, 3), dirs.reshape(-1, 3), compute_dx=False,
+            )
+            return raw.reshape(*pts.shape[:-1], 4)
         x_pos = self.pos_enc.apply(pts)
         x_dir = None
         if mlp_cfg.use_viewdirs and self.dir_enc is not None:
@@ -130,15 +147,15 @@ class NeRFModel(nn.Module):
         train: bool,
         draws: Optional[Draws] = None,
         generator: Optional[torch.Generator] = None,
+        occ_grid: Optional[torch.Tensor] = None,
+        occ_active=True,
     ) -> torch.Tensor:
-        """[near, far] (AABB slab-tightened when configured) and the coarse
-        z samples [B, S], stratified-jittered in training (the uniform draw
-        ``draws["t"]`` or one from ``generator``)."""
+        """[near, far] (AABB slab-tightened when configured, then tightened
+        to the occupied cells of ``occ_grid`` when ``render.occupancy`` is on
+        and a grid is given; ``occ_active`` gates the grid during warmup)
+        and the coarse z samples [B, S], stratified-jittered in training
+        (the uniform draw ``draws["t"]`` or one from ``generator``)."""
         rcfg = self.cfg.render
-        if rcfg.occupancy:
-            raise NotImplementedError(
-                "occupancy-grid tightening is not ported yet (ROADMAP.md)"
-            )
         B = rays_o.shape[0]
         near = torch.full((B, 1), rcfg.near, dtype=torch.float32, device=rays_o.device)
         far = torch.full((B, 1), rcfg.far, dtype=torch.float32, device=rays_o.device)
@@ -147,6 +164,13 @@ class NeRFModel(nn.Module):
 
             near, far = intersect_aabb(
                 rays_o, rays_d, rcfg.aabb[:3], rcfg.aabb[3:], near, far
+            )
+        if rcfg.occupancy and occ_grid is not None:
+            from nerf_meets_mlx_torch.acceleration.occupancy import tighten_near_far
+
+            near, far = tighten_near_far(
+                occ_grid, rays_o, rays_d, near, far, rcfg.aabb,
+                rcfg.occ_threshold, rcfg.occ_n_probes, active=occ_active,
             )
         sample_fn = sample_z_lindisp if rcfg.lindisp else sample_z_uniform
         z_vals = sample_fn(near, far, rcfg.n_samples)
@@ -165,6 +189,8 @@ class NeRFModel(nn.Module):
         viewdirs: Optional[torch.Tensor] = None,  # [B, 3] normalized
         draws: Optional[Draws] = None,
         generator: Optional[torch.Generator] = None,
+        occ_grid: Optional[torch.Tensor] = None,  # [R, R, R] learned density
+        occ_active: bool = True,                  # warmup gate (host bool)
     ) -> Dict[str, torch.Tensor]:
         """Render a batch of rays; coarse + (optional) fine pass. Returns the
         rgb/disp/acc/depth maps of both passes ("rgb_map" etc. alias the
@@ -174,18 +200,21 @@ class NeRFModel(nn.Module):
         when it is configured. Training runs the standard route with
         autograd: jittered coarse samples, density noise (when
         ``raw_noise_std > 0``) and random importance queries, each from
-        ``draws`` ("t", "noise_c", "u", "noise_f") or ``generator``."""
+        ``draws`` ("t", "noise_c", "u", "noise_f") or ``generator``.
+        ``occ_grid`` tightens each ray's interval when ``render.occupancy``
+        is on (``_coarse_z``)."""
+        occ = (occ_grid, occ_active)
         if not train:
             with torch.no_grad():
-                return self._render_rays(rays_o, rays_d, False, viewdirs, None, None)
-        return self._render_rays(rays_o, rays_d, True, viewdirs, draws, generator)
+                return self._render_rays(rays_o, rays_d, False, viewdirs, None, None, occ)
+        return self._render_rays(rays_o, rays_d, True, viewdirs, draws, generator, occ)
 
-    def _render_rays(self, rays_o, rays_d, train, viewdirs, draws, generator):
+    def _render_rays(self, rays_o, rays_d, train, viewdirs, draws, generator, occ):
         rcfg = self.cfg.render
         dev = rays_o.device
         if viewdirs is None:
             viewdirs = rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
-        z_vals = self._coarse_z(rays_o, rays_d, train, draws, generator)
+        z_vals = self._coarse_z(rays_o, rays_d, train, draws, generator, *occ)
 
         if not train and self._fused_train_mode == "sinusoidal":
             return self._render_rays_eval_fused(rays_o, rays_d, viewdirs, z_vals)
@@ -349,6 +378,8 @@ class NeRFModel(nn.Module):
         viewdirs: Optional[torch.Tensor] = None,  # [B, 3] normalized
         draws: Optional[Draws] = None,
         generator: Optional[torch.Generator] = None,
+        occ_grid: Optional[torch.Tensor] = None,
+        occ_active=True,
     ) -> Dict[str, torch.Tensor]:
         """Train-mode hierarchical render through ``fused_train_apply``: per
         level one call runs encode + MLP, the transmittance scan and the
@@ -376,7 +407,7 @@ class NeRFModel(nn.Module):
         B = rays_o.shape[0]
         if viewdirs is None:
             viewdirs = rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
-        z_vals = self._coarse_z(rays_o, rays_d, True, draws, generator)
+        z_vals = self._coarse_z(rays_o, rays_d, True, draws, generator, occ_grid, occ_active)
         dnorm = torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
 
         def run_level(level, z, noise_key):

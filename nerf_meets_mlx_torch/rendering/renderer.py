@@ -30,9 +30,12 @@ def render_image(
     K,
     c2w,
     chunk: Optional[int] = None,
+    occ_grid: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """Render one H x W frame from camera-to-world matrix ``c2w``; maps stay
-    on the model's device."""
+    on the model's device. Pass the train state's ``occ_grid`` so that the
+    frame gets the learned interval tightening training used (None: the
+    full intervals)."""
     chunk = min(chunk or model.cfg.render.ray_chunk, H * W)
     dev = model.device
     rays_o, rays_d = get_rays(H, W, K, c2w, device=dev)
@@ -54,7 +57,7 @@ def render_image(
     for s in range(0, n + n_pad, chunk):
         out = model.render_rays(
             rays_o[s : s + chunk], rays_d[s : s + chunk], train=False,
-            viewdirs=viewdirs[s : s + chunk],
+            viewdirs=viewdirs[s : s + chunk], occ_grid=occ_grid,
         )
         for k in _MAP_KEYS:
             parts[k].append(out[k])
@@ -80,8 +83,9 @@ def render_orbit(
     K,
     poses: np.ndarray,
     chunk: Optional[int] = None,
+    occ_grid: Optional[torch.Tensor] = None,
 ) -> Iterator[np.ndarray]:
     """Render a pose path; yields uint8 [H, W, 3] frames."""
     for c2w in poses:
-        out = render_image(model, H, W, K, np.asarray(c2w)[:3, :4], chunk)
+        out = render_image(model, H, W, K, np.asarray(c2w)[:3, :4], chunk, occ_grid)
         yield to8b(out["rgb_map"])

@@ -99,16 +99,23 @@ def test_render_rays_eval_aabb_matches_jax(fused):
 def test_train_mode_is_the_next_slice():
     """Training came with the slice after serving: train-mode renders are
     differentiable (render_rays on the standard route, sse of
-    render_rays_train on the fused one); occupancy, a later slice, raises."""
+    render_rays_train on the fused one); occupancy came with the slice after
+    that: a model with the grid on renders on both routes, with a grid and
+    without one."""
     tm, _, _ = _pair(True, n_samples=8, n_importance=0)
     ro, rd = (torch.from_numpy(a) for a in _rays(B=4))
     gen = torch.Generator().manual_seed(0)
     assert tm.render_rays(ro, rd, train=True, generator=gen)["rgb_map"].requires_grad
     out = tm.render_rays_train(ro, rd, torch.zeros(4, 3), generator=gen)
     assert out["sse_coarse"].requires_grad and not out["rgb_coarse"].requires_grad
-    occ, _, _ = _pair(True, n_samples=8, n_importance=0, occupancy=True)
-    with pytest.raises(NotImplementedError):
-        occ.render_rays(ro, rd, train=True, generator=gen)
+    box = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
+    occ, _, _ = _pair(True, n_samples=8, n_importance=0, occupancy=True, aabb=box,
+                      occ_resolution=4)
+    for grid in (None, torch.ones(4, 4, 4)):
+        out = occ.render_rays(ro, rd, train=True, generator=gen, occ_grid=grid)
+        assert out["rgb_map"].requires_grad and bool(torch.isfinite(out["rgb_map"]).all())
+        out = occ.render_rays_train(ro, rd, torch.zeros(4, 3), generator=gen, occ_grid=grid)
+        assert out["sse_coarse"].requires_grad
 
 
 def _camera(res):
@@ -179,16 +186,57 @@ def test_render_only_orbit_matches_jax(tmp_path):
 
 
 def test_render_only_test_views_match_jax(tmp_path):
+    """16 x 16 views: render_test scores SSIM too, whose 11 x 11 window
+    needs at least 11 pixels a side."""
     jm, params = _saved_model(tmp_path, seed=1)
-    res = render_only(log_dir=str(tmp_path), device="cpu", synth_resolution=8, render_test=True)
-    ds = jsyn.make_synthetic_scene(20, 4, 4, 8)
+    res = render_only(log_dir=str(tmp_path), device="cpu", synth_resolution=16, render_test=True)
+    ds = jsyn.make_synthetic_scene(20, 4, 4, 16)
     want = [
-        float(j_psnr(j_render_image(jm, params, 8, 8, ds.K, ds.poses[i, :3, :4])["rgb_map"],
+        float(j_psnr(j_render_image(jm, params, 16, 16, ds.K, ds.poses[i, :3, :4])["rgb_map"],
                      jnp.asarray(ds.images[i])))
         for i in ds.i_test
     ]
     np.testing.assert_allclose(res["test_psnrs"], want, rtol=1e-4)
     assert res["test_psnr_mean"] == pytest.approx(float(np.mean(want)), rel=1e-4)
+
+
+def test_render_only_ssim_matches_jax_entry_point(tmp_path, monkeypatch):
+    """render_only(render_test=True) returns test_ssim_mean, as the JAX
+    entry point does: both packages serve the same weights (each from its
+    own checkpoint) on a tiny preset (depth 4, width 64, 8 + 8 samples,
+    16 x 16 views: SSIM's 11 x 11 window needs 11 pixels)."""
+    from nerf_meets_mlx_tpu.config import PRESETS as J_PRESETS
+    from nerf_meets_mlx_tpu.engine.checkpoint import save_checkpoint as j_save
+    from nerf_meets_mlx_tpu.engine.train_state import create_train_state
+    from nerf_meets_mlx_tpu.entrypoints.render_only import render_only as j_render_only
+    from nerf_meets_mlx_torch.config import PRESETS as T_PRESETS
+
+    def tiny(make):
+        cfg = make()
+        mlp = dataclasses.replace(cfg.mlp, net_depth=4, net_width=64, skips=(2,))
+        return cfg.replace(
+            mlp=mlp, mlp_fine=mlp,
+            render=dataclasses.replace(cfg.render, n_samples=8, n_importance=8),
+            data=dataclasses.replace(cfg.data, dataset_type="synthetic", synth_resolution=16,
+                                     synth_n_test=2),
+        )
+
+    monkeypatch.setitem(T_PRESETS, "tiny", lambda: tiny(t_lego))
+    monkeypatch.setitem(J_PRESETS, "tiny", lambda: tiny(j_lego))
+    jm = j_create(tiny(j_lego))
+    params = jm.init(jax.random.PRNGKey(4))
+    j_save(tmp_path / "jax" / "ckpt", create_train_state(params, jm.cfg.train), 2)
+    tm = t_create(tiny(t_lego), device="cpu")
+    interop.params_from_numpy(jax.tree_util.tree_map(np.asarray, params), tm)
+    save_checkpoint(tmp_path / "torch" / "ckpt", tm, 2)
+
+    want = j_render_only(preset="tiny", log_dir=str(tmp_path / "jax"), render_test=True)
+    got = render_only(preset="tiny", log_dir=str(tmp_path / "torch"), device="cpu",
+                      render_test=True)
+    assert len(got["test_psnrs"]) == 2
+    np.testing.assert_allclose(got["test_psnrs"], want["test_psnrs"], rtol=1e-4)
+    assert 0.0 < got["test_ssim_mean"] <= 1.0
+    assert got["test_ssim_mean"] == pytest.approx(want["test_ssim_mean"], rel=1e-4)
 
 
 def test_cli_render(tmp_path, capsys):

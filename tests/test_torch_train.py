@@ -105,6 +105,9 @@ def _jax_draws(cfg, key, step, n_images):
         d["px"] = jax.random.randint(kx, (N_RAND,), lo_hi[0], lo_hi[1])
         d["py"] = jax.random.randint(ky, (N_RAND,), lo_hi[2], lo_hi[3])
     d.update(_jax_render_draws(cfg, k_render, N_RAND))
+    if cfg.render.occupancy:  # the grid update's cell jitter (trainer.py:163)
+        k_occ = jax.random.fold_in(jax.random.fold_in(key, step), 0x0CC)
+        d["occ_u"] = jax.random.uniform(k_occ, (cfg.render.occ_resolution**3, 3))
     return d, k_render
 
 
@@ -255,6 +258,89 @@ def test_train_step_matches_jax(fused, noise, seed, key):
             a[settled], b[settled], rtol=PARAM_RTOL, atol=PARAM_ATOL, err_msg=msg
         )
         assert np.all(np.abs(a - b)[~settled] <= 2.0 * lr + PARAM_ATOL), msg
+
+
+OCC_STEPS = 3
+
+
+@pytest.mark.parametrize("fused_train", [True, False], ids=["fused_train_route", "value_and_grad_route"])
+def test_lego_occ_train_steps_match_jax(fused_train):
+    """Three lego_occ steps (cut to depth 4, width 64, 16 + 16 samples, an
+    8³ grid updated every step and gating from step 0) from the same weights
+    and draws, with use_fused_kernel on: on the fused-train route the grid
+    update runs the fused MLP query (JAX: the Pallas forward in interpret
+    mode), on use_fused_train=False the whole loss does (JAX: forward and
+    backward kernels). Losses at rtol 5e-4; the first step's gradients at
+    the kernel-test bounds; the parameters after 3 steps as
+    test_train_step_matches_jax holds them after one (those whose gradients
+    agree within 25% at every step at rtol 5e-3 / atol 1e-4, the rest within
+    one Adam step each way per step); the grid at rtol 5e-3 / atol 1e-4."""
+    from nerf_meets_mlx_torch.acceleration.occupancy import init_occupancy_grid as t_init_grid
+    from nerf_meets_mlx_torch.config import lego_occ as t_occ
+    from nerf_meets_mlx_tpu.acceleration.occupancy import init_occupancy_grid as j_init_grid
+    from nerf_meets_mlx_tpu.config import lego_occ as j_occ
+
+    def cfg_of(make):
+        cfg = _small(make, True, 0.0)
+        return cfg.replace(
+            use_fused_train=fused_train,
+            render=dataclasses.replace(cfg.render, occ_resolution=8, occ_update_every=1,
+                                       occ_warmup=0),
+        )
+
+    jc, tc = cfg_of(j_occ), cfg_of(t_occ)
+    jm = j_create(jc)
+    params = jm.init(jax.random.PRNGKey(0))
+    tm = t_create(tc, device="cpu")
+    interop.params_from_numpy(jax.tree_util.tree_map(np.asarray, params), tm)
+    assert jm.supports_fused_train == tm.supports_fused_train == fused_train
+    images, poses = _scene()
+    jkey = jax.random.PRNGKey(7)
+    jstep = jtr.make_nerf_train_step(jm, H, W, FOCAL)
+    jstate = jts.create_train_state(params, jc.train, occ_grid=j_init_grid(8))
+    tstate = tts.TrainState(tm, tc.train, occ_grid=t_init_grid(8))
+    tstep = ttr.make_nerf_train_step(tm, H, W, FOCAL)
+    grads_t = []
+    apply = tstate.apply_gradients
+
+    def record_then_apply():
+        grads_t.append(_grad_tree(tm))
+        apply()
+
+    tstate.apply_gradients = record_then_apply
+    b1 = jc.train.adam_b1
+    grads_j, mu_prev = [], None
+    for k in range(OCC_STEPS):
+        draws, _ = _jax_draws(jc, jkey, k, len(images))
+        jstate, aux_j = jstep(jstate, jnp.asarray(images), jnp.asarray(poses), jkey)
+        aux_t = tstep(tstate, torch.from_numpy(images), torch.from_numpy(poses), None,
+                      _to_torch(draws))
+        np.testing.assert_allclose(float(aux_t["loss"]), float(aux_j["loss"]), rtol=LOSS_RTOL)
+        # this step's gradient from Adam's first moment
+        mu = jax.tree_util.tree_map(np.asarray, jstate.opt_state[0].mu)
+        grads_j.append(jax.tree_util.tree_map(
+            lambda m, p: (m - b1 * p) / (1.0 - b1), mu,
+            mu_prev if mu_prev is not None else jax.tree_util.tree_map(np.zeros_like, mu)))
+        mu_prev = mu
+    assert tstate.step == OCC_STEPS == int(jstate.step)
+
+    np.testing.assert_allclose(interop.occ_grid_to_numpy(tstate.occ_grid),
+                               np.asarray(jstate.occ_grid), rtol=PARAM_RTOL, atol=PARAM_ATOL)
+    assert float(np.asarray(jstate.occ_grid).min()) > 0.0
+    got = dict(jax.tree_util.tree_leaves_with_path(interop.params_to_numpy(tm)))
+    lr = jc.train.lrate
+    gt = [dict(jax.tree_util.tree_leaves_with_path(g)) for g in grads_t]
+    gj = [dict(jax.tree_util.tree_leaves_with_path(g)) for g in grads_j]
+    for path, leaf in jax.tree_util.tree_leaves_with_path(jstate.params):
+        msg = jax.tree_util.keystr(path)
+        np.testing.assert_allclose(gt[0][path], gj[0][path], rtol=2e-4, atol=5e-6, err_msg=msg)
+        settled = np.ones(leaf.shape, bool)
+        for a, b in zip(gt, gj):
+            settled &= np.abs(a[path] - b[path]) <= 0.25 * np.abs(b[path])
+        a, b = got[path], np.asarray(leaf)
+        np.testing.assert_allclose(a[settled], b[settled], rtol=PARAM_RTOL, atol=PARAM_ATOL,
+                                   err_msg=msg)
+        assert np.all(np.abs(a - b)[~settled] <= 2.0 * OCC_STEPS * lr + PARAM_ATOL), msg
 
 
 def _tiny_module(seed=0):
