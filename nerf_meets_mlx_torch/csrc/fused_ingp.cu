@@ -1,0 +1,913 @@
+// Fused Instant-NGP render and train kernels for Hopper (sm_90a).
+//
+// Replaces nerf_meets_mlx_tpu/kernels/fused_ingp_train.py::_ingp_eval_kernel
+// (eval) and ::_ingp_train_kernel (train). Per level of the hierarchical
+// render, one call takes rays (origin, direction), their spherical
+// harmonics sh [R,DD] (computed per ray outside), sample depths z [R,S] and
+// deltas [R,S] (already scaled by |d|, terminal bin 1e10*|d|), and runs
+//
+//   points o + z*d -> hash encode (L levels x 8 corners of the [L,T,2]
+//   tables) -> the NeRF MLP over [features | sh] (depth D, width W, view
+//   head) -> compositing (exclusive transmittance scan, both modes, white
+//   background) -> rgb [R,3], weights [R,S];
+//
+// the train call adds pre-scaled density noise [R,S] and target colours
+// [R,3] and also writes sse = sum over rays |rgb - target|^2, d(sse)/d(every
+// weight and bias) laid out like the weights (fused_ingp_train.pack_weights)
+// and d(sse)/d(tables) [L,T,2].
+//
+// What bounds it on this card, at lego_ingp's shapes (L = 8, W = 64, D = 2,
+// 12,452 parameters, 4096 rays, 48 + 48 samples): neither the bytes of its
+// inputs and outputs (~40 bytes a point) nor its arithmetic (12,452 MACs a
+// point forward, ~25,000 more for the backward and dW: 9.8 GFLOP forward at
+// the fine level's 393,216 points, 0.15 ms at the 67 TFLOP/s fp32 peak), but
+// the 64 hashed table lookups a point (L2 hits: the tables are 1 MB) and
+// the latency of a thread-per-point MLP that reads its weights from shared
+// memory. The train call also writes every layer's input and cotangent
+// (~2 KB a point, 0.8 GB at the fine level) for its dW GEMM, and adds the
+// table gradient with atomics, which contend on the coarse levels' few
+// thousand rows (see kernels/hash_encode.py).
+//
+// Design (simple first; tensor cores, TMA and table staging are later
+// work):
+//
+// 1. ingp_eval_kernel / ingp_rays_kernel: a block of NT = 128 threads owns
+//    `rays_block` rays (~512 points) and first copies the MLP's weights
+//    (48.6 KB at lego_ingp: over the 48 KB static limit, so dynamic shared
+//    memory with cudaFuncAttributeMaxDynamicSharedMemorySize) into shared
+//    memory. Phase A, a thread per point: the point, its hash features
+//    (float2 lookups through the read-only cache), and the MLP in registers,
+//    layer by layer (fully unrolled over the width; every thread reads the
+//    same weight, a broadcast). Raw rgb and sigma go to shared memory; the
+//    train kernel also writes each layer's input, point-major, to device
+//    memory. Phase B, a thread per ray: the scan and composite as in
+//    fused_eval.cu / fused_train.cu, and for training the squared error and
+//    the closed-form compositing backward (the reverse suffix sum
+//    dq_t = dw_t*T_t*alpha'_t - sum_{s>t} dw_s*w_s). Phase C (train), a
+//    thread per point: the MLP backward in registers (relu masks read back
+//    from phase A's stores), every layer's pre-activation cotangent written
+//    out, and d(features) scattered into dG by atomicAdd over the 8 corners
+//    of each level (the corners are recomputed, the tables not read).
+// 2. dw_gemm_kernel: dW = X^T dZ (and db = colsum dZ) of every layer as a
+//    split-K GEMM of 64 x 64 tiles into per-split partials.
+// 3. reduce_kernel: sums the splits, and the per-block SSE partials, in a
+//    fixed order (deterministic; only dG's atomics are not).
+//
+// The TPU kernel's one-hot-GEMM radix lookup, [L,T/128,F*128] packed tables,
+// U/E/A selector GEMMs and 768-point sub-blocks are not carried over.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int NT = 128;           // threads per block of the ray kernels
+constexpr int MAX_LEVELS = 16;
+constexpr int MAX_DEPTH = 8;
+constexpr int N_OFFS = 2 * (MAX_DEPTH + 4);
+constexpr int GT = 64;            // dW tile edge
+constexpr int KB = 16;            // points per staged dW slice
+constexpr int GEMM_THREADS = 256;
+constexpr int MAX_JOBS = MAX_DEPTH + 6;
+constexpr int MAX_SMEM = 232448;  // bytes a block may use on sm_90
+
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+struct Args {
+  const float* rays_o;   // [R, 3]
+  const float* rays_d;   // [R, 3]
+  const float* sh;       // [R, DD]
+  const float* z;        // [R, S]
+  const float* deltas;   // [R, S]
+  const float* noise;    // [R, S] pre-scaled density noise (train)
+  const float* target;   // [R, 3] (train)
+  const float* tables;   // [L, T, 2]
+  const float* wbuf;     // the weights, [fan_in][fan_out] pieces (pack_weights)
+  float* rgb;            // [R, 3]
+  float* weights;        // [R, S]
+  // train only
+  float* sse_part;       // [n_blocks]
+  float* dG;             // [L, T, 2], zeroed by the caller
+  float* enc;            // [P][E]     layer 0's input
+  float* hs;             // [D][P][W]  trunk outputs (post-relu)
+  float* feat;           // [P][W]     feature layer output
+  float* shp;            // [P][SHP]   sh per point, zero-padded
+  float* hd;             // [P][W/2]   view layer output (post-relu)
+  float* dzs;            // [D][P][W]  trunk pre-activation cotangents
+  float* dalpha;         // [P]
+  float* dfeat;          // [P][W]
+  float* ddir;           // [P][W/2]
+  float* drgb;           // [P][3]
+  long long P;
+  int R, S, rays_block, depth, dd, shp_ld, n_w;
+  unsigned mask;         // T - 1
+  long long T;
+  float bmin, brange;
+  int mode;              // 0 canonical, 1 reference
+  int relu_density;      // canonical: 0 softplus, 1 relu
+  int white_bkgd;
+  int res[MAX_LEVELS];
+  int offs[N_OFFS];      // float offsets of the pieces in wbuf
+};
+
+// hash corners of point (x0, x1, x2) at level l, as csrc/hash_encode.cu
+struct Corners {
+  unsigned h[8];
+  float w[8];
+};
+
+__device__ __forceinline__ Corners corners_of(const Args& A, const float (&x)[3], int l) {
+  const float r = (float)A.res[l];
+  unsigned b[3];
+  float f[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float u = __fdiv_rn(__fsub_rn(x[a], A.bmin), A.brange);
+    u = fminf(fmaxf(u, 0.f), 1.f);
+    const float s = __fmul_rn(u, r);
+    const float fl = floorf(s);
+    b[a] = (unsigned)fl;
+    f[a] = __fsub_rn(s, fl);
+  }
+  Corners C;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const unsigned bx = c & 1, by = (c >> 1) & 1, bz = (c >> 2) & 1;
+    C.h[c] = (((b[0] + bx) * 1u) ^ ((b[1] + by) * 2654435761u) ^ ((b[2] + bz) * 805459861u)) &
+             A.mask;
+    const float wx = bx ? f[0] : __fsub_rn(1.f, f[0]);
+    const float wy = by ? f[1] : __fsub_rn(1.f, f[1]);
+    const float wz = bz ? f[2] : __fsub_rn(1.f, f[2]);
+    C.w[c] = __fmul_rn(__fmul_rn(wx, wy), wz);
+  }
+  return C;
+}
+
+// the point of global sample index gi (ray = gi / S): o + z*d, rounded as
+// the plain version's broadcast product and sum
+__device__ __forceinline__ void point_of(const Args& A, long long gi, float (&x)[3]) {
+  const long long ray = gi / A.S;
+  const float zz = __ldg(A.z + gi);
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    x[a] = __fadd_rn(__ldg(A.rays_o + ray * 3 + a), __fmul_rn(zz, __ldg(A.rays_d + ray * 3 + a)));
+}
+
+template <int L>
+__device__ __forceinline__ void hash_features(const Args& A, const float (&x)[3],
+                                              float (&e)[2 * L]) {
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    const Corners C = corners_of(A, x, l);
+    const float2* tl = reinterpret_cast<const float2*>(A.tables) + (size_t)l * A.T;
+    float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float2 g = __ldg(tl + C.h[c]);
+      a0 = __fadd_rn(a0, __fmul_rn(g.x, C.w[c]));
+      a1 = __fadd_rn(a1, __fmul_rn(g.y, C.w[c]));
+    }
+    e[2 * l] = a0;
+    e[2 * l + 1] = a1;
+  }
+}
+
+// acc[j] = b[j] (N a multiple of 4; b on 16 bytes)
+template <int N>
+__device__ __forceinline__ void load_bias(float (&acc)[N], const float* b) {
+#pragma unroll
+  for (int j = 0; j < N; j += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(b + j);
+    acc[j] = v.x; acc[j + 1] = v.y; acc[j + 2] = v.z; acc[j + 3] = v.w;
+  }
+}
+
+// acc[j] += sum_k in[k] * Wm[k][j], Wm row-major [K][N] in shared memory
+template <int K, int N>
+__device__ __forceinline__ void gemv(float (&acc)[N], const float (&in)[K], const float* Wm) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float x = in[k];
+#pragma unroll
+    for (int j = 0; j < N; j += 4) {
+      const float4 w = *reinterpret_cast<const float4*>(Wm + k * N + j);
+      acc[j] = fmaf(x, w.x, acc[j]);
+      acc[j + 1] = fmaf(x, w.y, acc[j + 1]);
+      acc[j + 2] = fmaf(x, w.z, acc[j + 2]);
+      acc[j + 3] = fmaf(x, w.w, acc[j + 3]);
+    }
+  }
+}
+
+// out[k] = sum_j Wm[k][j] * d[j] for k < K: the cotangent of a layer's input
+template <int K, int N>
+__device__ __forceinline__ void gemv_t(float (&out)[K], const float (&d)[N], const float* Wm) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < N; j += 4) {
+      const float4 w = *reinterpret_cast<const float4*>(Wm + k * N + j);
+      s = fmaf(w.x, d[j], s);
+      s = fmaf(w.y, d[j + 1], s);
+      s = fmaf(w.z, d[j + 2], s);
+      s = fmaf(w.w, d[j + 3], s);
+    }
+    out[k] = s;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_row(float* dst, const float (&v)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; j += 4)
+    *reinterpret_cast<float4*>(dst + j) = make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+}
+
+// out[j] = d[j] where the stored relu output hrow[j] > 0, else 0
+template <int N>
+__device__ __forceinline__ void relu_mask(float (&out)[N], const float (&d)[N], const float* hrow) {
+#pragma unroll
+  for (int j = 0; j < N; j += 4) {
+    const float4 h = *reinterpret_cast<const float4*>(hrow + j);
+    out[j] = h.x > 0.f ? d[j] : 0.f;
+    out[j + 1] = h.y > 0.f ? d[j + 1] : 0.f;
+    out[j + 2] = h.z > 0.f ? d[j + 2] : 0.f;
+    out[j + 3] = h.w > 0.f ? d[j + 3] : 0.f;
+  }
+}
+
+// Phase A for one point: raw rgb (3) and raw sigma of the MLP on the point's
+// hash features and its ray's sh. With STASH, every layer's input goes to
+// the train workspace at row gi.
+template <int W, int L, bool STASH>
+__device__ __forceinline__ void point_forward(const Args& A, const float* sw, long long gi,
+                                              float (&rgb)[3], float& sigma) {
+  constexpr int E = 2 * L, WH = W / 2;
+  const int D = A.depth;
+  const size_t P = (size_t)A.P;
+  float x[3];
+  point_of(A, gi, x);
+  float e[E];
+  hash_features<L>(A, x, e);
+  if (STASH) store_row<E>(A.enc + (size_t)gi * E, e);
+
+  float h[W], acc[W];
+  load_bias<W>(acc, sw + A.offs[1]);
+  gemv<E, W>(acc, e, sw + A.offs[0]);
+#pragma unroll
+  for (int j = 0; j < W; ++j) h[j] = fmaxf(acc[j], 0.f);
+  if (STASH) store_row<W>(A.hs + (size_t)gi * W, h);
+  for (int l = 1; l < D; ++l) {
+    load_bias<W>(acc, sw + A.offs[2 * l + 1]);
+    gemv<W, W>(acc, h, sw + A.offs[2 * l]);
+#pragma unroll
+    for (int j = 0; j < W; ++j) h[j] = fmaxf(acc[j], 0.f);
+    if (STASH) store_row<W>(A.hs + (size_t)l * P * W + (size_t)gi * W, h);
+  }
+  // alpha head (W -> 1)
+  {
+    const float* wa = sw + A.offs[2 * D];
+    float a = sw[A.offs[2 * D + 1]];
+#pragma unroll
+    for (int k = 0; k < W; ++k) a = fmaf(h[k], wa[k], a);
+    sigma = a;
+  }
+  // feature (W -> W, no activation)
+  float f[W];
+  load_bias<W>(f, sw + A.offs[2 * D + 3]);
+  gemv<W, W>(f, h, sw + A.offs[2 * D + 2]);
+  if (STASH) store_row<W>(A.feat + (size_t)gi * W, f);
+  // view layer on [feature, sh] (W + DD -> W/2, relu)
+  float hd[WH];
+  const float* wd = sw + A.offs[2 * D + 4];
+  load_bias<WH>(hd, sw + A.offs[2 * D + 5]);
+  gemv<W, WH>(hd, f, wd);
+  const float* shr = A.sh + (gi / A.S) * A.dd;
+  float* shp = STASH ? A.shp + (size_t)gi * A.shp_ld : nullptr;
+  for (int k = 0; k < A.dd; ++k) {
+    const float s = __ldg(shr + k);
+    if (STASH) shp[k] = s;
+    const float* wrow = wd + (W + k) * WH;
+#pragma unroll
+    for (int j = 0; j < WH; j += 4) {
+      const float4 w = *reinterpret_cast<const float4*>(wrow + j);
+      hd[j] = fmaf(s, w.x, hd[j]);
+      hd[j + 1] = fmaf(s, w.y, hd[j + 1]);
+      hd[j + 2] = fmaf(s, w.z, hd[j + 2]);
+      hd[j + 3] = fmaf(s, w.w, hd[j + 3]);
+    }
+  }
+  if (STASH)
+    for (int k = A.dd; k < A.shp_ld; ++k) shp[k] = 0.f;
+#pragma unroll
+  for (int j = 0; j < WH; ++j) hd[j] = fmaxf(hd[j], 0.f);
+  if (STASH) store_row<WH>(A.hd + (size_t)gi * WH, hd);
+  // rgb head (W/2 -> 3)
+  const float* wr = sw + A.offs[2 * D + 6];
+  const float* br = sw + A.offs[2 * D + 7];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float v = br[c];
+#pragma unroll
+    for (int k = 0; k < WH; ++k) v = fmaf(hd[k], wr[k * 3 + c], v);
+    rgb[c] = v;
+  }
+}
+
+// per-point compositing terms of fused_train.cu (_alpha_terms): q, alpha,
+// d(alpha)/dq and dq/d(raw sigma)
+__device__ __forceinline__ void alpha_terms(const Args& A, float raw, float delta, float& q,
+                                            float& alpha, float& da, float& dqd) {
+  if (A.mode == 0) {
+    float sigma, dsig;
+    if (A.relu_density) {
+      sigma = fmaxf(raw, 0.f);
+      dsig = raw > 0.f ? 1.f : 0.f;
+    } else {
+      sigma = fmaxf(raw, 0.f) + log1pf(expf(-fabsf(raw)));
+      dsig = 1.f / (1.f + expf(-raw));
+    }
+    q = sigma * delta;
+    const float e = expf(-q);
+    alpha = 1.f - e;
+    da = e;
+    dqd = delta * dsig;
+  } else {
+    q = delta * raw;  // raw density in the prefix sum: T may exceed 1
+    const float e = expf(-fmaxf(q, 0.f));
+    alpha = 1.f - e;
+    da = q > 0.f ? e : 0.f;
+    dqd = delta;
+  }
+}
+
+__device__ __forceinline__ void load_weights(const Args& A, float* sw) {
+  const int n4 = A.n_w / 4;
+  for (int i = threadIdx.x; i < n4; i += NT)
+    reinterpret_cast<float4*>(sw)[i] = __ldg(reinterpret_cast<const float4*>(A.wbuf) + i);
+  __syncthreads();
+}
+
+template <int W, int L>
+__global__ void __launch_bounds__(NT, 2) ingp_eval_kernel(const __grid_constant__ Args A) {
+  extern __shared__ __align__(16) float smem[];
+  const int S = A.S, RB = A.rays_block;
+  float* sw = smem;                      // [n_w] weights
+  float* pc = sw + A.n_w;                // [RB*S][3] raw rgb -> colour
+  float* pq = pc + RB * S * 3;           // raw sigma -> q
+  float* pa = pq + RB * S;               // alpha
+  const int r0 = blockIdx.x * RB;
+  const int nr = min(RB, A.R - r0);
+  if (nr <= 0) return;
+  const int npts = nr * S;
+  const long long gbase = (long long)r0 * S;
+  load_weights(A, sw);
+
+  for (int i = threadIdx.x; i < npts; i += NT) {
+    float rgb[3], sigma;
+    point_forward<W, L, false>(A, sw, gbase + i, rgb, sigma);
+    float q, alpha, da, dqd;
+    alpha_terms(A, sigma, __ldg(A.deltas + gbase + i), q, alpha, da, dqd);
+    pq[i] = q;
+    pa[i] = alpha;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) pc[i * 3 + c] = A.mode == 0 ? 1.f / (1.f + expf(-rgb[c])) : rgb[c];
+  }
+  __syncthreads();
+
+  for (int rr = threadIdx.x; rr < nr; rr += NT) {
+    const int ray = r0 + rr;
+    const int b = rr * S;
+    float* wout = A.weights + (size_t)ray * S;
+    float excl = 0.f, acc = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const int i = b + s;
+      const float w = pa[i] * expf(-excl);
+      wout[s] = w;
+      c0 = fmaf(w, pc[3 * i + 0], c0);
+      c1 = fmaf(w, pc[3 * i + 1], c1);
+      c2 = fmaf(w, pc[3 * i + 2], c2);
+      acc += w;
+      excl += pq[i];
+    }
+    if (A.white_bkgd) {
+      const float bgc = 1.f - acc;
+      c0 += bgc; c1 += bgc; c2 += bgc;
+    }
+    A.rgb[(size_t)ray * 3 + 0] = c0;
+    A.rgb[(size_t)ray * 3 + 1] = c1;
+    A.rgb[(size_t)ray * 3 + 2] = c2;
+  }
+}
+
+template <int W, int L>
+__global__ void __launch_bounds__(NT, 2) ingp_rays_kernel(const __grid_constant__ Args A) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int E = 2 * L, WH = W / 2;
+  const int S = A.S, RB = A.rays_block, D = A.depth;
+  const size_t P = (size_t)A.P;
+  float* sw = smem;                      // [n_w] weights
+  float* pc = sw + A.n_w;                // [RB*S][3] raw rgb -> colour -> d(raw rgb)
+  float* pq = pc + RB * S * 3;           // raw sigma -> q -> d(raw sigma)
+  float* pa = pq + RB * S;               // alpha -> weight
+  float* pda = pa + RB * S;              // d(alpha)/dq -> T * d(alpha)/dq
+  float* pdq = pda + RB * S;             // dq / d(raw sigma)
+  float* rsse = pdq + RB * S;            // [RB] squared error per ray
+  const int r0 = blockIdx.x * RB;
+  const int nr = min(RB, A.R - r0);
+  if (nr <= 0) return;
+  const int npts = nr * S;
+  const long long gbase = (long long)r0 * S;
+  load_weights(A, sw);
+
+  // ---------------- phase A: forward, a thread per point ----------------
+  for (int i = threadIdx.x; i < npts; i += NT) {
+    const long long gi = gbase + i;
+    float rgb[3], sigma;
+    point_forward<W, L, true>(A, sw, gi, rgb, sigma);
+    float q, alpha, da, dqd;
+    alpha_terms(A, sigma + __ldg(A.noise + gi), __ldg(A.deltas + gi), q, alpha, da, dqd);
+    pq[i] = q;
+    pa[i] = alpha;
+    pda[i] = da;
+    pdq[i] = dqd;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) pc[i * 3 + c] = A.mode == 0 ? 1.f / (1.f + expf(-rgb[c])) : rgb[c];
+  }
+  __syncthreads();
+
+  // ---------------- phase B: per ray, scan, composite, loss, backward ----------------
+  for (int rr = threadIdx.x; rr < nr; rr += NT) {
+    const int ray = r0 + rr;
+    const int b = rr * S;
+    float* wout = A.weights + (size_t)ray * S;
+    float excl = 0.f, acc = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const int i = b + s;
+      const float T = expf(-excl);
+      const float w = pa[i] * T;
+      wout[s] = w;
+      c0 = fmaf(w, pc[3 * i + 0], c0);
+      c1 = fmaf(w, pc[3 * i + 1], c1);
+      c2 = fmaf(w, pc[3 * i + 2], c2);
+      acc += w;
+      excl += pq[i];
+      pa[i] = w;
+      pda[i] *= T;
+    }
+    if (A.white_bkgd) {
+      const float bgc = 1.f - acc;
+      c0 += bgc; c1 += bgc; c2 += bgc;
+    }
+    A.rgb[(size_t)ray * 3 + 0] = c0;
+    A.rgb[(size_t)ray * 3 + 1] = c1;
+    A.rgb[(size_t)ray * 3 + 2] = c2;
+    const float* tg = A.target + (size_t)ray * 3;
+    const float e0 = c0 - tg[0], e1 = c1 - tg[1], e2 = c2 - tg[2];
+    rsse[rr] = e0 * e0 + e1 * e1 + e2 * e2;
+    const float g0 = 2.f * e0, g1 = 2.f * e1, g2 = 2.f * e2;
+    const float gs = A.white_bkgd ? g0 + g1 + g2 : 0.f;
+    float suffix = 0.f;  // sum_{s>t} dw_s * w_s
+    for (int s = S - 1; s >= 0; --s) {
+      const int i = b + s;
+      const float x0 = pc[3 * i + 0], x1 = pc[3 * i + 1], x2 = pc[3 * i + 2];
+      const float w = pa[i];
+      const float dw = x0 * g0 + x1 * g1 + x2 * g2 - gs;
+      const float dq = dw * pda[i] - suffix;
+      suffix = fmaf(dw, w, suffix);
+      pq[i] = dq * pdq[i];
+      float d0 = w * g0, d1 = w * g1, d2 = w * g2;
+      if (A.mode == 0) {
+        d0 *= x0 * (1.f - x0);
+        d1 *= x1 * (1.f - x1);
+        d2 *= x2 * (1.f - x2);
+      }
+      pc[3 * i + 0] = d0;
+      pc[3 * i + 1] = d1;
+      pc[3 * i + 2] = d2;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int rr = 0; rr < nr; ++rr) s += rsse[rr];
+    A.sse_part[blockIdx.x] = s;
+  }
+
+  // ---------------- phase C: MLP backward and dG, a thread per point ----------------
+  for (int i = threadIdx.x; i < npts; i += NT) {
+    const long long gi = gbase + i;
+    const float dr[3] = {pc[3 * i + 0], pc[3 * i + 1], pc[3 * i + 2]};
+    const float dsig = pq[i];
+    A.dalpha[gi] = dsig;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) A.drgb[gi * 3 + c] = dr[c];
+    // rgb head: d(hd) = (Wr d(raw rgb)) * (hd > 0)
+    float dhd[WH];
+    {
+      float s[WH];
+      const float* wr = sw + A.offs[2 * D + 6];
+#pragma unroll
+      for (int k = 0; k < WH; ++k)
+        s[k] = fmaf(dr[2], wr[k * 3 + 2], fmaf(dr[1], wr[k * 3 + 1], dr[0] * wr[k * 3]));
+      relu_mask<WH>(dhd, s, A.hd + (size_t)gi * WH);
+      store_row<WH>(A.ddir + (size_t)gi * WH, dhd);
+    }
+    // feature output: d(feat) = Wd[:W] d(hd) (no activation)
+    float df[W];
+    gemv_t<W, WH>(df, dhd, sw + A.offs[2 * D + 4]);
+    store_row<W>(A.dfeat + (size_t)gi * W, df);
+    // last trunk layer: dZ = (Wf d(feat) + wa d(alpha)) * (h > 0)
+    float dz[W], dh[W];
+    gemv_t<W, W>(dh, df, sw + A.offs[2 * D + 2]);
+    {
+      const float* wa = sw + A.offs[2 * D];
+#pragma unroll
+      for (int k = 0; k < W; ++k) dh[k] = fmaf(wa[k], dsig, dh[k]);
+      const size_t o = (size_t)(D - 1) * P * W + (size_t)gi * W;
+      relu_mask<W>(dz, dh, A.hs + o);
+      store_row<W>(A.dzs + o, dz);
+    }
+    for (int l = D - 1; l >= 1; --l) {
+      gemv_t<W, W>(dh, dz, sw + A.offs[2 * l]);
+      const size_t o = (size_t)(l - 1) * P * W + (size_t)gi * W;
+      relu_mask<W>(dz, dh, A.hs + o);
+      store_row<W>(A.dzs + o, dz);
+    }
+    // d(features) = W0 dZ_0, scattered into the tables' rows
+    float de[E];
+    gemv_t<E, W>(de, dz, sw + A.offs[0]);
+    float x[3];
+    point_of(A, gi, x);
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const float d0 = de[2 * l], d1 = de[2 * l + 1];
+      if (d0 == 0.f && d1 == 0.f) continue;
+      const Corners C = corners_of(A, x, l);
+      float* gl = A.dG + (size_t)l * A.T * 2;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        atomicAdd(gl + (size_t)C.h[c] * 2, __fmul_rn(C.w[c], d0));
+        atomicAdd(gl + (size_t)C.h[c] * 2 + 1, __fmul_rn(C.w[c], d1));
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dW = X^T dZ, split over the points
+// ---------------------------------------------------------------------------
+
+struct Job {              // C[k][n] = sum_p a[p][k] * b[p][n] for k < K, n < N
+  const float* a;         // [P][lda] the layer's input
+  const float* b;         // [P][ldb] the layer's pre-activation cotangent
+  int lda, ldb, K, N;
+  int c_off, ldc;         // where C's rows start in the dW layout, row stride
+  int bias_off;           // db = colsum(b) goes here; -1: none
+  int tile0, tiles_n;     // first tile of this job, tiles along n
+};
+
+struct GemmArgs {
+  Job jobs[MAX_JOBS];
+  int n_jobs;
+  long long P;
+  int pts_per_split;
+  long long part_stride;  // floats per split of `part`
+  float* part;            // [n_splits][part_stride]
+};
+
+// a slice of KB points x GT columns of an operand, 4 values a thread
+__device__ __forceinline__ float4 load_slice(const float* src, int ld, int c0, int lim,
+                                             long long p0, long long pe) {
+  const int tid = threadIdx.x;
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+  if ((ld & 3) == 0) {
+    const int pp = tid / (GT / 4), c = 4 * (tid % (GT / 4));
+    const long long p = p0 + pp;
+    if (p < pe) {
+      if (c0 + c + 3 < lim) {
+        const float4 q = __ldg(reinterpret_cast<const float4*>(src + p * ld + c0 + c));
+        v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c0 + c + j < lim) v[j] = __ldg(src + p * ld + c0 + c + j);
+      }
+    }
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
+  // narrow rows (dalpha, drgb): four scalars, column-fastest
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int idx = tid + j * GEMM_THREADS;
+    const int pp = idx / GT, col = idx % GT;
+    const long long p = p0 + pp;
+    v[j] = (p < pe && c0 + col < lim) ? __ldg(src + p * ld + c0 + col) : 0.f;
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void stash_slice(float* dst, float4 v, int ld) {
+  const int tid = threadIdx.x;
+  if ((ld & 3) == 0) {
+    reinterpret_cast<float4*>(dst)[tid] = v;  // [pp][c..c+3]
+  } else {
+    dst[tid] = v.x;
+    dst[tid + GEMM_THREADS] = v.y;
+    dst[tid + 2 * GEMM_THREADS] = v.z;
+    dst[tid + 3 * GEMM_THREADS] = v.w;
+  }
+}
+
+__global__ void __launch_bounds__(GEMM_THREADS) dw_gemm_kernel(const __grid_constant__ GemmArgs G) {
+  __shared__ __align__(16) float As[KB * GT];
+  __shared__ __align__(16) float Bs[KB * GT];
+  const int t = blockIdx.x;
+  int jn = 0;
+  while (jn + 1 < G.n_jobs && G.jobs[jn + 1].tile0 <= t) ++jn;
+  const Job& J = G.jobs[jn];
+  const int local = t - J.tile0;
+  const int k0 = (local / J.tiles_n) * GT, n0 = (local % J.tiles_n) * GT;
+  const long long pb = (long long)blockIdx.y * G.pts_per_split;
+  const long long pe = min(G.P, pb + (long long)G.pts_per_split);
+  float* out = G.part + (size_t)blockIdx.y * G.part_stride;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const bool bias = J.bias_off >= 0 && k0 == 0;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  float bsum[4] = {0.f, 0.f, 0.f, 0.f};
+
+  float4 sa = load_slice(J.a, J.lda, k0, J.K, pb, pe);
+  float4 sb = load_slice(J.b, J.ldb, n0, J.N, pb, pe);
+  for (long long p0 = pb; p0 < pe; p0 += KB) {
+    __syncthreads();
+    stash_slice(As, sa, J.lda);
+    stash_slice(Bs, sb, J.ldb);
+    __syncthreads();
+    if (p0 + KB < pe) {
+      sa = load_slice(J.a, J.lda, k0, J.K, p0 + KB, pe);
+      sb = load_slice(J.b, J.ldb, n0, J.N, p0 + KB, pe);
+    }
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(As + kk * GT + 4 * ty);
+      const float4 b = *reinterpret_cast<const float4*>(Bs + kk * GT + 4 * tx);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bsum[j] += bv[j];
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + 4 * ty + i;
+    if (k >= J.K) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + 4 * tx + j;
+      if (n < J.N) out[J.c_off + (size_t)k * J.ldc + n] = acc[i][j];
+    }
+  }
+  if (bias && ty == 0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + 4 * tx + j;
+      if (n < J.N) out[J.bias_off + n] = bsum[j];
+    }
+  }
+}
+
+// dw[i] = sum over splits of part[split][i], in split order; sse = sum of
+// the per-block partials, in block order.
+__global__ void reduce_kernel(const float* __restrict__ part, long long stride, int n_splits,
+                              float* __restrict__ dw, int n_dw,
+                              const float* __restrict__ sse_part, int n_blocks,
+                              float* __restrict__ sse) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n_dw) {
+    float s = 0.f;
+    for (int k = 0; k < n_splits; ++k) s += part[(size_t)k * stride + i];
+    dw[i] = s;
+  }
+  if (i == 0) {
+    float s = 0.f;
+    for (int b = 0; b < n_blocks; ++b) s += sse_part[b];
+    *sse = s;
+  }
+}
+
+size_t smem_bytes(int n_w, int S, int rays_block, bool train) {
+  const size_t pts = (size_t)rays_block * S;
+  return sizeof(float) * ((size_t)n_w + pts * (train ? 7 : 5) + (train ? (size_t)rays_block : 0));
+}
+
+struct Layout {
+  size_t enc, hs, feat, shp, hd, dzs, dalpha, dfeat, ddir, drgb, sse_part, part, total;
+  long long part_stride;
+  int n_blocks, n_splits;
+};
+
+Layout layout(int R, int S, int rays_block, int depth, int W, int E, int shp_ld,
+              int pts_per_split, int n_dw) {
+  Layout Lo{};
+  const size_t P = (size_t)R * S;
+  size_t o = 0;
+  auto take = [&](size_t n) {
+    const size_t at = o;
+    o += (n + 3) / 4 * 4;  // every piece starts on 16 bytes
+    return at;
+  };
+  Lo.enc = take(P * E);
+  Lo.hs = take((size_t)depth * P * W);
+  Lo.feat = take(P * W);
+  Lo.shp = take(P * shp_ld);
+  Lo.hd = take(P * (W / 2));
+  Lo.dzs = take((size_t)depth * P * W);
+  Lo.dalpha = take(P);
+  Lo.dfeat = take(P * W);
+  Lo.ddir = take(P * (W / 2));
+  Lo.drgb = take(P * 3);
+  Lo.n_blocks = (R + rays_block - 1) / rays_block;
+  Lo.sse_part = take((size_t)Lo.n_blocks);
+  Lo.n_splits = (int)((P + pts_per_split - 1) / pts_per_split);
+  Lo.part_stride = (n_dw + 3) / 4 * 4;
+  Lo.part = take((size_t)Lo.n_splits * Lo.part_stride);
+  Lo.total = o;
+  return Lo;
+}
+
+// the kernels of a (width, levels) pair; null if not instantiated
+struct Kernels {
+  void (*eval)(Args);
+  void (*train)(Args);
+};
+
+Kernels kernels_for(int W, int L) {
+  if (W == 64 && L == 8) return {ingp_eval_kernel<64, 8>, ingp_rays_kernel<64, 8>};
+  return {nullptr, nullptr};
+}
+
+int shp_ld_of(int dd) { return round_up(dd, 4); }
+
+bool valid(int R, int S, int rays_block, int depth, int W, int L, int dd, int log2_T,
+           int n_offs) {
+  return R >= 0 && S > 0 && rays_block > 0 && depth >= 1 && depth <= MAX_DEPTH &&
+         kernels_for(W, L).eval != nullptr && dd >= 0 && dd <= 64 && log2_T >= 1 &&
+         log2_T <= 31 && n_offs == 2 * (depth + 4);
+}
+
+Args base_args(const float* rays_o, const float* rays_d, const float* sh, const float* z,
+               const float* deltas, const float* tables, const float* wbuf, const int* offs,
+               int n_offs, int n_w, float* rgb, float* weights, int R, int S, int rays_block,
+               int depth, int dd, int log2_T, const int* res, int L, float bmin, float brange,
+               int mode, int relu_density, int white_bkgd) {
+  Args a{};
+  a.rays_o = rays_o; a.rays_d = rays_d; a.sh = sh; a.z = z; a.deltas = deltas;
+  a.tables = tables; a.wbuf = wbuf; a.rgb = rgb; a.weights = weights;
+  a.P = (long long)R * S;
+  a.R = R; a.S = S; a.rays_block = rays_block; a.depth = depth; a.dd = dd;
+  a.shp_ld = shp_ld_of(dd); a.n_w = n_w;
+  a.T = 1ll << log2_T;
+  a.mask = (unsigned)(a.T - 1);
+  a.bmin = bmin; a.brange = brange;
+  a.mode = mode; a.relu_density = relu_density; a.white_bkgd = white_bkgd;
+  for (int l = 0; l < L; ++l) a.res[l] = res[l];
+  for (int i = 0; i < n_offs; ++i) a.offs[i] = offs[i];
+  return a;
+}
+
+}  // namespace
+
+// Shared-memory bytes one block needs (0 if (width, levels) has no kernel).
+extern "C" long long fused_ingp_smem_bytes(int width, int levels, int n_w, int S, int rays_block,
+                                           int train) {
+  if (kernels_for(width, levels).eval == nullptr) return 0;
+  return (long long)smem_bytes(n_w, S, rays_block, train != 0);
+}
+
+// Floats of device scratch the train launch needs.
+extern "C" long long fused_ingp_workspace_floats(int R, int S, int rays_block, int depth,
+                                                 int width, int levels, int dd,
+                                                 int pts_per_split, int n_dw) {
+  if (R <= 0 || S <= 0 || rays_block <= 0 || pts_per_split <= 0) return 0;
+  return (long long)layout(R, S, rays_block, depth, width, 2 * levels, shp_ld_of(dd),
+                           pts_per_split, n_dw)
+      .total;
+}
+
+// rgb [R,3] and weights [R,S] of one level. offs: the 2*(depth+4) float
+// offsets of pack_weights (host array); n_w: floats of wbuf (a multiple of
+// 4); res: the L int32 resolutions. Returns the first cudaError_t.
+extern "C" int fused_ingp_eval_launch(const float* rays_o, const float* rays_d, const float* sh,
+                                      const float* z, const float* deltas, const float* tables,
+                                      const float* wbuf, const int* offs, int n_offs, int n_w,
+                                      float* rgb, float* weights, int R, int S, int rays_block,
+                                      int depth, int width, int levels, int dd, int log2_T,
+                                      const int* res, float bmin, float brange, int mode,
+                                      int relu_density, int white_bkgd, void* stream) {
+  if (!valid(R, S, rays_block, depth, width, levels, dd, log2_T, n_offs) || (n_w & 3))
+    return (int)cudaErrorInvalidValue;
+  if (R == 0) return 0;
+  const size_t smem = smem_bytes(n_w, S, rays_block, false);
+  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const Args a = base_args(rays_o, rays_d, sh, z, deltas, tables, wbuf, offs, n_offs, n_w, rgb,
+                           weights, R, S, rays_block, depth, dd, log2_T, res, levels, bmin, brange,
+                           mode, relu_density, white_bkgd);
+  void (*kernel)(Args) = kernels_for(width, levels).eval;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((R + rays_block - 1) / rays_block);
+  kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The train call of one level: rgb, weights, sse [1], dw [n_dw] (the
+// weights' layout) and dG [L,T,2] (zeroed by the caller); workspace:
+// fused_ingp_workspace_floats floats. Returns the first cudaError_t.
+extern "C" int fused_ingp_train_launch(const float* rays_o, const float* rays_d, const float* sh,
+                                       const float* z, const float* deltas, const float* noise,
+                                       const float* target, const float* tables,
+                                       const float* wbuf, const int* offs, int n_offs, int n_w,
+                                       float* rgb, float* weights, float* sse, float* dw,
+                                       float* dG, float* workspace, int R, int S, int rays_block,
+                                       int depth, int width, int levels, int dd, int log2_T,
+                                       const int* res, float bmin, float brange, int mode,
+                                       int relu_density, int white_bkgd, int pts_per_split,
+                                       void* stream) {
+  if (!valid(R, S, rays_block, depth, width, levels, dd, log2_T, n_offs) || (n_w & 3) ||
+      pts_per_split <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (R == 0) return 0;
+  const size_t smem = smem_bytes(n_w, S, rays_block, true);
+  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const int W = width, WH = width / 2, E = 2 * levels, D = depth;
+  const int n_dw = n_w;
+  const Layout Lo = layout(R, S, rays_block, depth, W, E, shp_ld_of(dd), pts_per_split, n_dw);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+
+  Args a = base_args(rays_o, rays_d, sh, z, deltas, tables, wbuf, offs, n_offs, n_w, rgb, weights,
+                     R, S, rays_block, depth, dd, log2_T, res, levels, bmin, brange, mode,
+                     relu_density, white_bkgd);
+  a.noise = noise; a.target = target; a.dG = dG;
+  a.sse_part = workspace + Lo.sse_part;
+  a.enc = workspace + Lo.enc; a.hs = workspace + Lo.hs; a.feat = workspace + Lo.feat;
+  a.shp = workspace + Lo.shp; a.hd = workspace + Lo.hd; a.dzs = workspace + Lo.dzs;
+  a.dalpha = workspace + Lo.dalpha; a.dfeat = workspace + Lo.dfeat;
+  a.ddir = workspace + Lo.ddir; a.drgb = workspace + Lo.drgb;
+
+  void (*kernel)(Args) = kernels_for(width, levels).train;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<Lo.n_blocks, NT, smem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // one dW job per (layer input segment); the view layer takes two inputs
+  // ([feature, sh]), so it has two jobs writing disjoint rows
+  GemmArgs G{};
+  const size_t P = (size_t)R * S;
+  int nj = 0, tiles = 0;
+  auto add = [&](const float* A_, int lda, const float* B_, int ldb, int K, int N, int c_off,
+                 int ldc, int bias_off) {
+    Job& J = G.jobs[nj++];
+    J.a = A_; J.lda = lda; J.b = B_; J.ldb = ldb; J.K = K; J.N = N;
+    J.c_off = c_off; J.ldc = ldc; J.bias_off = bias_off;
+    J.tile0 = tiles;
+    J.tiles_n = (N + GT - 1) / GT;
+    tiles += ((K + GT - 1) / GT) * J.tiles_n;
+  };
+  add(a.enc, E, a.dzs, W, E, W, offs[0], W, offs[1]);
+  for (int j = 1; j < D; ++j)
+    add(a.hs + (size_t)(j - 1) * P * W, W, a.dzs + (size_t)j * P * W, W, W, W, offs[2 * j], W,
+        offs[2 * j + 1]);
+  const float* h_last = a.hs + (size_t)(D - 1) * P * W;
+  add(h_last, W, a.dalpha, 1, W, 1, offs[2 * D], 1, offs[2 * D + 1]);
+  add(h_last, W, a.dfeat, W, W, W, offs[2 * D + 2], W, offs[2 * D + 3]);
+  add(a.feat, W, a.ddir, WH, W, WH, offs[2 * D + 4], WH, offs[2 * D + 5]);
+  if (dd > 0) add(a.shp, a.shp_ld, a.ddir, WH, dd, WH, offs[2 * D + 4] + W * WH, WH, -1);
+  add(a.hd, WH, a.drgb, 3, WH, 3, offs[2 * D + 6], 3, offs[2 * D + 7]);
+  G.n_jobs = nj;
+  G.P = (long long)P;
+  G.pts_per_split = pts_per_split;
+  G.part_stride = Lo.part_stride;
+  G.part = workspace + Lo.part;
+  dw_gemm_kernel<<<dim3((unsigned)tiles, (unsigned)Lo.n_splits), GEMM_THREADS, 0, st>>>(G);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  reduce_kernel<<<(n_dw + 255) / 256, 256, 0, st>>>(workspace + Lo.part, Lo.part_stride,
+                                                    Lo.n_splits, dw, n_dw,
+                                                    workspace + Lo.sse_part, Lo.n_blocks, sse);
+  return (int)cudaGetLastError();
+}

@@ -5,6 +5,11 @@ from nerf_meets_mlx_torch.encoding.sinusoidal import (
     sinusoidal_encode,
 )
 from nerf_meets_mlx_torch.encoding.identity import IdentityEncoding
+from nerf_meets_mlx_torch.encoding.hash_grid import HashGridEncoding
+from nerf_meets_mlx_torch.encoding.spherical_harmonics import (
+    SphericalHarmonicsEncoding,
+    sh_encode,
+)
 
 __all__ = [
     "Encoding",
@@ -13,4 +18,7 @@ __all__ = [
     "frequency_bands",
     "sinusoidal_encode",
     "IdentityEncoding",
+    "HashGridEncoding",
+    "SphericalHarmonicsEncoding",
+    "sh_encode",
 ]

@@ -11,10 +11,13 @@ number of updates already applied, as optax's ``exponential_decay`` is:
 the first update uses ``lrate``. ``torch.optim.Adam`` computes optax's
 ``adam`` (bias-corrected moments, eps 1e-8 outside the square root).
 
-The JAX package's ``encoding_weight_decay`` is a decoupled decay on the
-learned encoding parameters only (hash tables, CP lines), not scaled by the
-lr, so it is not ``AdamW``. The port's encodings have no parameters yet,
-so a non-zero value raises instead of decaying nothing.
+``encoding_weight_decay`` is the JAX package's
+``optax.chain(adam, add_decayed_weights(-wd, mask=pos_enc))``: after the
+Adam step, every parameter of the position encoding (the hash tables; the
+MLPs are never decayed) loses ``wd`` times its value from before the
+update, not scaled by the lr. So it is not ``torch.optim.AdamW``, whose
+decay is lr-scaled. A model whose position encoding has no parameters has
+nothing to decay, and a non-zero value raises there.
 """
 
 from __future__ import annotations
@@ -43,10 +46,12 @@ class TrainState:
 
     def __init__(self, model: nn.Module, cfg: TrainConfig,
                  occ_grid: Optional[torch.Tensor] = None):
-        if cfg.encoding_weight_decay > 0.0:
+        pos_enc = getattr(model, "pos_enc", None)
+        self.decayed = list(pos_enc.parameters()) if isinstance(pos_enc, nn.Module) else []
+        if cfg.encoding_weight_decay > 0.0 and not self.decayed:
             raise ValueError(
                 "encoding_weight_decay decays learned encoding parameters (hash "
-                "tables, CP lines); this model's encodings have none"
+                "tables); this model's position encoding has none"
             )
         self.model = model
         self.cfg = cfg
@@ -59,10 +64,17 @@ class TrainState:
 
     def apply_gradients(self) -> None:
         """One Adam update from the parameters' ``.grad``, at the scheduled
-        lr; clears the gradients and advances ``step``."""
+        lr, then the encoding weight decay on the position encoding's
+        parameters (their values before the update); clears the gradients
+        and advances ``step``."""
         lr = lr_at(self.cfg, self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
+        wd = self.cfg.encoding_weight_decay
+        decay = [wd * p.detach() for p in self.decayed] if wd > 0.0 else []
         self.optimizer.step()
+        with torch.no_grad():
+            for p, d in zip(self.decayed, decay):
+                p.sub_(d)
         self.optimizer.zero_grad(set_to_none=True)
         self.step += 1

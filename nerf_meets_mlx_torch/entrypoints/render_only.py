@@ -3,9 +3,10 @@
 Counterpart of ``nerf_meets_mlx_tpu/entrypoints/render_only.py`` — the
 serving path. It runs on ``cuda`` unless the caller passes ``device``, and
 raises when CUDA is asked for and absent. On a CUDA device the sinusoidal
-presets route through the fused eval kernel (``use_fused_kernel=True``), as
-the JAX trainer routes them on a TPU; on the CPU they take the standard
-route. The orbit frames are written as ``orbit_frames.npy`` (uint8
+presets route through the fused eval kernel and the hash-grid presets
+(``lego_ingp``, ``lego_ingp_occ``) through the fused INGP eval kernel
+(``use_fused_kernel=True``), as the JAX trainer routes them on a TPU; on the
+CPU they take the standard route. The orbit frames are written as ``orbit_frames.npy`` (uint8
 [N, H, W, 3]); the video writer comes with a later slice.
 """
 
@@ -45,11 +46,13 @@ def _load_dataset(cfg: ExperimentConfig, device):
 
 
 def _uses_fused_route(cfg: ExperimentConfig) -> bool:
+    """Whether CUDA runs turn ``use_fused_kernel`` on: the sinusoidal
+    presets and the hash-grid presets, as the JAX trainer does on a TPU."""
     return (
         cfg.pos_encoding.kind == "sinusoidal"
         and cfg.dir_encoding is not None
         and cfg.dir_encoding.kind == "sinusoidal"
-    )
+    ) or cfg.pos_encoding.kind == "hash_grid"
 
 
 def render_only(

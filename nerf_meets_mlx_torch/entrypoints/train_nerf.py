@@ -4,12 +4,14 @@ Counterpart of ``nerf_meets_mlx_tpu/entrypoints/train_nerf.py``: the train
 step, checkpoint/resume, JSONL metrics, periodic held-out renders, the final
 test-set PSNR and SSIM, and the orbit frames. It runs on ``cuda`` unless the
 caller passes ``device``, and raises when CUDA is asked for and absent. On a
-CUDA device the sinusoidal presets route through the fused CUDA kernels
-(``use_fused_kernel=True``): each train step launches the train kernel once
-per level and the renders launch the eval kernel; on the CPU they take the
-standard route. With ``render.occupancy`` (``lego_occ``) the train step
-keeps the learned grid up to date (one launch of the fused MLP forward
-kernel per update on CUDA) and every render takes it. Held-out renders are written as ``render_XXXXXXXX.npy`` and
+CUDA device the sinusoidal and hash-grid presets route through the fused
+CUDA kernels (``use_fused_kernel=True``): each train step launches the train
+kernel (``fused_train`` or, for ``lego_ingp`` / ``lego_ingp_occ``,
+``fused_ingp``) once per level and the renders launch the eval kernel; on
+the CPU they take the standard route. With ``render.occupancy``
+(``lego_occ``, ``lego_ingp_occ``) the train step keeps the learned grid up
+to date (one launch of the fused MLP forward kernel, or of the hash-encode
+forward kernel, per update on CUDA) and every render takes it. Held-out renders are written as ``render_XXXXXXXX.npy`` and
 the orbit as ``orbit_frames.npy`` (uint8 frames); the image and video
 writers come with a later slice.
 """

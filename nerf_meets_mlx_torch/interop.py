@@ -12,9 +12,12 @@ as numpy arrays. ``nn.Linear.weight`` is ``w.T``. The concatenations keep
 their order: the skip layer's input is [encoded position, h] and the
 direction layer's is [feature, encoded direction], so the first rows of
 those ``w`` belong to the encoding and the feature respectively, in both
-packages alike. Only parameter-free encodings exist in this slice, so
-``pos_enc`` and ``dir_enc`` are empty. The learned occupancy grid crosses
-as a numpy [R, R, R] array (``occ_grid_from_numpy`` / ``occ_grid_to_numpy``).
+packages alike. A hash-grid position encoding carries its tables as
+``tree["pos_enc"]["tables"]`` [L, T, F] (the canonical JAX leaf, not the
+TPU-packed [L, T/128, F·128] layout) into ``HashGridEncoding.tables``; the
+parameter-free encodings' entries are empty, as ``dir_enc`` always is. The
+learned occupancy grid crosses as a numpy [R, R, R] array
+(``occ_grid_from_numpy`` / ``occ_grid_to_numpy``).
 """
 
 from __future__ import annotations
@@ -62,9 +65,21 @@ def _mlp_to_numpy(mlp: NeRFMLP) -> Dict[str, Any]:
 def params_from_numpy(tree: Dict[str, Any], model) -> Any:
     """Load a JAX params pytree (numpy leaves) into a port ``NeRFModel``;
     returns the model."""
-    for enc in ("pos_enc", "dir_enc"):
-        if tree.get(enc):
-            raise NotImplementedError(f"learned {enc} parameters are not ported yet")
+    if tree.get("dir_enc"):
+        raise ValueError("the port's direction encodings have no parameters")
+    tables = getattr(model.pos_enc, "tables", None)
+    pos = tree.get("pos_enc") or {}
+    if set(pos) != ({"tables"} if tables is not None else set()):
+        raise ValueError(
+            f"pos_enc holds {sorted(pos)}, the model's position encoding wants "
+            f"{['tables'] if tables is not None else []}"
+        )
+    if tables is not None:
+        t = torch.from_numpy(np.array(pos["tables"], np.float32))
+        if tuple(t.shape) != tuple(tables.shape):
+            raise ValueError(f"tables are {tuple(t.shape)}, the model wants {tuple(tables.shape)}")
+        with torch.no_grad():
+            tables.copy_(t)
     _mlp_from_numpy(tree["coarse"], model.coarse)
     if model.fine is not None:
         _mlp_from_numpy(tree["fine"], model.fine)
@@ -73,9 +88,10 @@ def params_from_numpy(tree: Dict[str, Any], model) -> Any:
 
 def params_to_numpy(model) -> Dict[str, Any]:
     """The inverse of ``params_from_numpy``: the JAX pytree as numpy."""
+    tables = getattr(model.pos_enc, "tables", None)
     tree: Dict[str, Any] = {
         "coarse": _mlp_to_numpy(model.coarse),
-        "pos_enc": {},
+        "pos_enc": {} if tables is None else {"tables": tables.detach().cpu().numpy().copy()},
         "dir_enc": {},
     }
     if model.fine is not None:

@@ -14,7 +14,8 @@ math.
   (the counterparts of the JAX twins); ``fused_train_reference`` is
   differentiable by autograd.
 * ``LAUNCHES["eval"]`` / ``LAUNCHES["train"]`` count kernel launches, one
-  per CUDA call; the dict also holds ``kernels/fused_mlp.py``'s counts.
+  per CUDA call; the dict also holds the counts of ``kernels/fused_mlp.py``,
+  ``kernels/hash_encode.py`` and ``kernels/fused_ingp_train.py``.
 """
 
 from __future__ import annotations
@@ -27,9 +28,13 @@ import torch
 
 from nerf_meets_mlx_torch.rendering.volume import exclusive_cumsum, softplus
 
-# kernel launches per wrapper, of this module and of kernels/fused_mlp.py;
-# a run sets them to 0 and reads them after
-LAUNCHES: Dict[str, int] = {"eval": 0, "train": 0, "mlp_fwd": 0, "mlp_bwd": 0}
+# kernel launches per wrapper, of this module and of kernels/fused_mlp.py,
+# kernels/hash_encode.py and kernels/fused_ingp_train.py; a run sets them to
+# 0 and reads them after
+LAUNCHES: Dict[str, int] = {
+    "eval": 0, "train": 0, "mlp_fwd": 0, "mlp_bwd": 0,
+    "hash_fwd": 0, "hash_bwd": 0, "ingp_eval": 0, "ingp_train": 0,
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,25 +2,31 @@
 ray-rendering pipeline.
 
 Counterpart of ``nerf_meets_mlx_tpu/models/factory.py``. ``NeRFModel`` is an
-``nn.Module`` holding the coarse (and fine) ``NeRFMLP``; ``render_rays``
-runs
+``nn.Module`` holding the coarse (and fine) ``NeRFMLP`` and, for a learned
+encoding (the hash grid), the position encoding with its tables;
+``render_rays`` runs
 
     coarse samples -> coarse level -> inverse-CDF importance samples
     (detached) -> fine level
 
 on one of two routes:
 
-* the fused route (``_fused_train_mode == "sinusoidal"``): in eval each
-  level is one ``kernels.fused_train.fused_eval_apply`` call and the
-  depth/disp/acc maps are reductions over the dense weights; in training
-  ``render_rays_train`` makes each level one ``fused_train_apply`` call,
-  which returns the level's SSE and, on CUDA, its gradient in the same
-  launch. Both launch their CUDA kernel for CUDA tensors and run their
+* the fused route (``_fused_train_mode`` "sinusoidal" or "ingp"): in eval
+  each level is one ``kernels.fused_train.fused_eval_apply`` call
+  (sinusoidal) or one ``kernels.fused_ingp_train.fused_ingp_eval_apply``
+  call (hash grid + spherical harmonics), and the depth/disp/acc maps are
+  reductions over the dense weights; in training ``render_rays_train``
+  makes each level one ``fused_train_apply`` / ``fused_ingp_train_apply``
+  call, which returns the level's SSE and, on CUDA, its gradient in the
+  same launch. Both launch their CUDA kernel for CUDA tensors and run their
   plain version on the CPU;
 * the standard route (``use_fused_kernel`` off, or ``use_fused_train``
   off): ``query`` and ``raw2outputs``, differentiable by autograd in
   training. ``query`` is encode-then-MLP, or, with ``use_fused_kernel``, one
-  ``kernels.fused_mlp.fused_mlp_apply`` call (the point-major CUDA kernels).
+  ``kernels.fused_mlp.fused_mlp_apply`` call (the point-major CUDA kernels)
+  for sinusoidal models, and the hash encode through
+  ``kernels.hash_encode.hash_encode_apply`` (forward and table-gradient
+  CUDA kernels) for hash-grid models.
 
 With ``render.occupancy`` every route takes the learned grid
 (``occ_grid``, ``occ_active``) and tightens each ray's interval before the
@@ -63,7 +69,10 @@ def _draw(draws: Optional[Draws], key: str, shape, kind: str, generator, device)
 
 
 class NeRFModel(nn.Module):
-    """Encodings (parameter-free here) and the coarse/fine MLPs."""
+    """The encodings and the coarse/fine MLPs. A position encoding with
+    parameters (the hash grid) is a submodule, ``pos_enc``, so its tables
+    are in ``parameters()`` and ``state_dict()``; the parameter-free
+    encodings are plain attributes and add no state."""
 
     def __init__(self, cfg: ExperimentConfig, pos_enc, dir_enc, device=None):
         super().__init__()
@@ -85,10 +94,13 @@ class NeRFModel(nn.Module):
     # -- init ---------------------------------------------------------------
 
     def init(self, generator: torch.Generator) -> "NeRFModel":
-        """Fill every parameter from ``generator`` (see ``NeRFMLP.init``)."""
+        """Fill every parameter from ``generator`` (see ``NeRFMLP.init``):
+        the coarse MLP, the fine MLP, then the position encoding's tables."""
         self.coarse.init(generator)
         if self.fine is not None:
             self.fine.init(generator)
+        if isinstance(self.pos_enc, nn.Module):
+            self.pos_enc.init(generator)
         return self
 
     def _mlp(self, level: str) -> NeRFMLP:
@@ -109,6 +121,31 @@ class NeRFModel(nn.Module):
             and cfg.dir_encoding.kind == "sinusoidal"
         )
 
+    def _use_hash_kernel(self) -> bool:
+        """Route the hash-grid encode through ``hash_encode_apply`` (the CUDA
+        forward and table-gradient kernels) on the JAX package's condition:
+        ``use_fused_kernel``, a hash grid, and its packed tables within the
+        TPU kernel's VMEM budget (``HashEncodeSpec.vmem_ok``), so that a
+        config routes alike in both packages."""
+        pcfg = self.cfg.pos_encoding
+        if not (self.cfg.use_fused_kernel and pcfg.kind == "hash_grid"):
+            return False
+        T = 1 << pcfg.hash_log2_table_size
+        packed_bytes = pcfg.hash_n_levels * T * pcfg.hash_features_per_level * 4
+        return (
+            pcfg.hash_log2_table_size >= 7
+            and packed_bytes <= 6 * 1024 * 1024
+            and T // 128 <= 1024
+        )
+
+    def _encode_pos(self, pts: torch.Tensor) -> torch.Tensor:
+        # the points are data or detached z-samples: no dX on either path
+        if self._use_hash_kernel():
+            from nerf_meets_mlx_torch.kernels.hash_encode import hash_encode_apply
+
+            return hash_encode_apply(self.pos_enc, pts)
+        return self.pos_enc.apply(pts)
+
     def query(
         self,
         level: str,                          # "coarse" | "fine"
@@ -119,8 +156,10 @@ class NeRFModel(nn.Module):
         MLP: raw [B, S, 4]. With ``use_fused_kernel`` on a sinusoidal
         view-direction model this is one ``fused_mlp_apply`` call (the CUDA
         forward kernel, and its backward kernel under autograd) whatever
-        route the render takes, as the JAX model's query does; the points
-        are data there, so no dX is computed."""
+        route the render takes, as the JAX model's query does; on a
+        hash-grid model the encode is ``hash_encode_apply`` (``_encode_pos``)
+        and the MLP runs in plain torch, as the JAX model leaves it to XLA.
+        The points are data there, so no dX is computed."""
         mlp_cfg = self._mlp_cfg(level)
         if self._use_fused(mlp_cfg):
             from nerf_meets_mlx_torch.kernels.fused_mlp import fused_mlp_apply
@@ -131,7 +170,7 @@ class NeRFModel(nn.Module):
                 pts.reshape(-1, 3), dirs.reshape(-1, 3), compute_dx=False,
             )
             return raw.reshape(*pts.shape[:-1], 4)
-        x_pos = self.pos_enc.apply(pts)
+        x_pos = self._encode_pos(pts)
         x_dir = None
         if mlp_cfg.use_viewdirs and self.dir_enc is not None:
             dirs = viewdirs[..., None, :].expand(*pts.shape[:-1], viewdirs.shape[-1])
@@ -216,7 +255,7 @@ class NeRFModel(nn.Module):
             viewdirs = rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
         z_vals = self._coarse_z(rays_o, rays_d, train, draws, generator, *occ)
 
-        if not train and self._fused_train_mode == "sinusoidal":
+        if not train and self._fused_train_mode in ("sinusoidal", "ingp"):
             return self._render_rays_eval_fused(rays_o, rays_d, viewdirs, z_vals)
 
         noise_std = rcfg.raw_noise_std if train else 0.0
@@ -282,7 +321,9 @@ class NeRFModel(nn.Module):
         viewdirs: torch.Tensor,   # [B, 3] normalized
         z_vals: torch.Tensor,     # [B, S] coarse depths
     ) -> Dict[str, torch.Tensor]:
-        """Eval-mode hierarchical render through ``fused_eval_apply``: per
+        """Eval-mode hierarchical render through ``fused_eval_apply``
+        (sinusoidal) or ``fused_ingp_eval_apply`` (hash grid; the spherical
+        harmonics are computed per ray outside the kernel, [B, 25]): per
         level one call runs point construction, encode, MLP and compositing.
         Same outputs and keys as the standard route."""
         from nerf_meets_mlx_torch.kernels.fused_train import (
@@ -298,18 +339,37 @@ class NeRFModel(nn.Module):
             d = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e10)], dim=-1)
             return d * dnorm
 
-        def run_level(level, z, n_samples):
-            tspec = TrainSpec(
+        def tspec_of(n_samples, rays_block):
+            return TrainSpec(
                 n_samples=n_samples,
-                rays_block=eval_block(n_samples),
+                rays_block=rays_block,
                 mode=rcfg.compositing,
                 density_activation=rcfg.density_activation,
                 white_bkgd=rcfg.white_bkgd,
             )
-            return fused_eval_apply(
-                self._mlp(level), self.pos_enc, self.dir_enc, tspec,
-                rays_o, rays_d, viewdirs, z, deltas_of(z),
+
+        if self._fused_train_mode == "ingp":
+            from nerf_meets_mlx_torch.kernels.fused_ingp_train import (
+                fused_ingp_eval_apply,
+                ingp_rays_block,
             )
+
+            sh = self.dir_enc.apply(viewdirs)
+
+            def run_level(level, z, n_samples):
+                return fused_ingp_eval_apply(
+                    self._mlp(level), self.pos_enc, sh,
+                    tspec_of(n_samples, ingp_rays_block(n_samples)),
+                    rays_o, rays_d, z, deltas_of(z),
+                )
+        else:
+
+            def run_level(level, z, n_samples):
+                return fused_eval_apply(
+                    self._mlp(level), self.pos_enc, self.dir_enc,
+                    tspec_of(n_samples, eval_block(n_samples)),
+                    rays_o, rays_d, viewdirs, z, deltas_of(z),
+                )
 
         rgb_c, w_c = run_level("coarse", z_vals, rcfg.n_samples)
         depth_c, acc_c, disp_c = maps_from_weights(w_c, z_vals)
@@ -346,9 +406,21 @@ class NeRFModel(nn.Module):
 
     @property
     def _fused_train_mode(self) -> Optional[str]:
-        """Which fused kernel covers this config: "sinusoidal" (the 8x256-class
-        sinusoidal presets, kernels/fused_train.py) or None (unfused route).
-        The hash-grid modes ("ingp", "feats") come with the INGP slice."""
+        """Which fused kernel covers this config, on the JAX package's
+        conditions:
+
+        * "sinusoidal": the 8x256-class sinusoidal presets
+          (kernels/fused_train.py);
+        * "ingp": hash grid + spherical harmonics with view heads, at most
+          256 samples per ray and tables within ``_use_hash_kernel``'s
+          budget (kernels/fused_ingp_train.py: points, hash encode, MLP,
+          compositing and, in training, the backward with the table
+          gradient, in one call per level);
+        * "feats": the other hash-grid configs (tables too large, or more
+          than 256 samples), whose train route is not ported yet
+          (``render_rays_train`` raises);
+        * None: the unfused route.
+        """
         cfg = self.cfg
         if not (cfg.use_fused_kernel and cfg.use_fused_train):
             return None
@@ -362,6 +434,18 @@ class NeRFModel(nn.Module):
             # shared-memory guard: past the bound the unfused route runs
             if n_total <= max_fused_samples():
                 return "sinusoidal"
+            return None
+        if (
+            cfg.pos_encoding.kind == "hash_grid"
+            and cfg.dir_encoding is not None
+            and cfg.dir_encoding.kind == "spherical_harmonics"
+            and cfg.mlp.use_viewdirs
+            and fine_mlp.use_viewdirs
+            and n_total <= 2048
+        ):
+            if n_total <= 256 and self._use_hash_kernel():
+                return "ingp"
+            return "feats"
         return None
 
     @property
@@ -381,10 +465,12 @@ class NeRFModel(nn.Module):
         occ_grid: Optional[torch.Tensor] = None,
         occ_active=True,
     ) -> Dict[str, torch.Tensor]:
-        """Train-mode hierarchical render through ``fused_train_apply``: per
-        level one call runs encode + MLP, the transmittance scan and the
-        colour composite, the squared error against ``target`` and (on
-        CUDA) its whole backward.
+        """Train-mode hierarchical render through ``fused_train_apply``
+        (sinusoidal) or ``fused_ingp_train_apply`` (hash grid): per level one
+        call runs encode + MLP, the transmittance scan and the colour
+        composite, the squared error against ``target`` and (on CUDA) its
+        whole backward, the hash tables' gradient included. The two levels'
+        table gradients add up through autograd (one set of tables).
 
         Returns {"sse_coarse", "rgb_coarse", "z_vals", "weights"
         [, "sse_fine", "rgb_fine"]}. Differentiable only through sse_*
@@ -400,7 +486,14 @@ class NeRFModel(nn.Module):
             fused_train_apply,
         )
 
-        if self._fused_train_mode != "sinusoidal":
+        mode = self._fused_train_mode
+        if mode == "feats":
+            raise NotImplementedError(
+                "the \"feats\" train route (hash-grid configs whose tables or sample "
+                "counts exceed the fused INGP kernel's bounds) is not ported yet "
+                "(ROADMAP.md Queue 1)"
+            )
+        if mode not in ("sinusoidal", "ingp"):
             raise ValueError("render_rays_train needs the fused route (supports_fused_train)")
         rcfg = self.cfg.render
         dev = rays_o.device
@@ -409,6 +502,14 @@ class NeRFModel(nn.Module):
             viewdirs = rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
         z_vals = self._coarse_z(rays_o, rays_d, True, draws, generator, occ_grid, occ_active)
         dnorm = torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
+        if mode == "ingp":
+            from nerf_meets_mlx_torch.kernels.fused_ingp_train import (
+                fused_ingp_train_apply,
+                ingp_group,
+                ingp_rays_block,
+            )
+
+            sh = self.dir_enc.apply(viewdirs)
 
         def run_level(level, z, noise_key):
             S = z.shape[1]
@@ -420,6 +521,17 @@ class NeRFModel(nn.Module):
                 noise = noise * rcfg.raw_noise_std
             else:
                 noise = torch.zeros_like(z)
+            if mode == "ingp":
+                rb = ingp_rays_block(S)
+                tspec = TrainSpec(
+                    n_samples=S, rays_block=rb, mode=rcfg.compositing,
+                    density_activation=rcfg.density_activation,
+                    white_bkgd=rcfg.white_bkgd, group=ingp_group(S, rb),
+                )
+                return fused_ingp_train_apply(
+                    self._mlp(level), self.pos_enc, sh, tspec,
+                    rays_o, rays_d, z, deltas, noise, target,
+                )
             rb = default_rays_block(S)
             tspec = TrainSpec(
                 n_samples=S, rays_block=rb, mode=rcfg.compositing,
@@ -446,6 +558,6 @@ def create_nerf(cfg: ExperimentConfig, device=None) -> NeRFModel:
     """Build a NeRFModel from config. Its parameters are allocated on
     ``device`` but not filled: call ``init(generator)`` or load a checkpoint
     (``engine/checkpoint.py``) or JAX weights (``interop.params_from_numpy``)."""
-    pos_enc = make_encoding(cfg.pos_encoding)
-    dir_enc = make_encoding(cfg.dir_encoding) if cfg.dir_encoding else None
+    pos_enc = make_encoding(cfg.pos_encoding, device=device)
+    dir_enc = make_encoding(cfg.dir_encoding, device=device) if cfg.dir_encoding else None
     return NeRFModel(cfg, pos_enc, dir_enc, device=device)

@@ -80,3 +80,54 @@ def test_import_leaves_jax_unloaded():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+NERF_PRESETS = ("lego_coarse", "lego_hierarchical", "lego_fast", "lego_occ", "lego_full",
+                "lego_ingp", "lego_ingp_occ", "llff", "deepvoxels")
+
+
+@pytest.mark.parametrize("name", NERF_PRESETS)
+def test_routing_equals_jax(name):
+    """Every NeRF preset takes the same route in both packages, with the
+    fused kernels off, on, and on without the fused train op: the fused
+    mode ("sinusoidal", "ingp", "feats" or none) and the hash-encode kernel
+    of ``query``. The CUDA entry points turn the fused kernels on for the
+    sinusoidal and the hash-grid presets, as the JAX trainer does on a TPU."""
+    from nerf_meets_mlx_torch.entrypoints.render_only import _uses_fused_route
+    from nerf_meets_mlx_torch.models import create_nerf as t_create
+    from nerf_meets_mlx_tpu.models import create_nerf as j_create
+
+    for fused, fused_train in ((False, True), (True, True), (True, False)):
+        tc = tcfg.PRESETS[name]().replace(use_fused_kernel=fused, use_fused_train=fused_train)
+        jc = jcfg.PRESETS[name]().replace(use_fused_kernel=fused, use_fused_train=fused_train)
+        tm, jm = t_create(tc, device="meta"), j_create(jc)
+        assert tm._fused_train_mode == jm._fused_train_mode, (fused, fused_train)
+        assert tm._use_hash_kernel() == (fused and jc.pos_encoding.kind == "hash_grid")
+    hash_grid = tcfg.PRESETS[name]().pos_encoding.kind == "hash_grid"
+    assert _uses_fused_route(tcfg.PRESETS[name]()) == (
+        hash_grid or tcfg.PRESETS[name]().pos_encoding.kind == "sinusoidal")
+    if name == "lego_ingp":
+        assert t_create(tc.replace(use_fused_train=True), device="meta")._fused_train_mode == "ingp"
+
+
+def test_feats_route_raises():
+    """A hash-grid config past the fused INGP kernel's bounds (more than 256
+    samples a ray) takes the "feats" train route in both packages, which the
+    port does not have yet: its train render raises, naming ROADMAP.md; its
+    eval render takes the standard route, as the JAX package's does."""
+    import torch
+
+    from nerf_meets_mlx_torch.models import create_nerf as t_create
+    from nerf_meets_mlx_tpu.models import create_nerf as j_create
+
+    def cfg_of(mod):
+        cfg = mod.lego_ingp().replace(use_fused_kernel=True)
+        return cfg.replace(render=dataclasses.replace(cfg.render, n_samples=160, n_importance=160))
+
+    tm = t_create(cfg_of(tcfg), device="cpu").init(torch.Generator().manual_seed(0))
+    assert tm._fused_train_mode == j_create(cfg_of(jcfg))._fused_train_mode == "feats"
+    ro, rd = torch.zeros(2, 3), torch.tensor([[0.0, 0.0, 1.0]] * 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tm.render_rays_train(ro, rd, torch.zeros(2, 3), generator=torch.Generator())
+    out = tm.render_rays(ro, rd, train=False)
+    assert out["rgb_map"].shape == (2, 3)

@@ -253,3 +253,97 @@ def test_render_only_without_cuda_raises(tmp_path):
     _saved_model(tmp_path)
     with pytest.raises(RuntimeError, match="CUDA"):
         render_only(log_dir=str(tmp_path), synth_resolution=8, n_orbit=1)
+
+
+def _ingp_pair(fused, fused_train, seed=0, **render_kw):
+    """lego_ingp in both packages with the tables cut to 4 levels of
+    T = 2^9 (resolutions 4..16), on the same weights and tables."""
+    from nerf_meets_mlx_torch.config import lego_ingp as t_ingp
+    from nerf_meets_mlx_tpu.config import lego_ingp as j_ingp
+
+    out = []
+    for make in (t_ingp, j_ingp):
+        cfg = make()
+        out.append(cfg.replace(
+            pos_encoding=dataclasses.replace(
+                cfg.pos_encoding, hash_n_levels=4, hash_log2_table_size=9, hash_min_res=4,
+                hash_max_res=16,
+            ),
+            render=dataclasses.replace(cfg.render, **render_kw),
+            use_fused_kernel=fused, use_fused_train=fused_train,
+        ))
+    tc, jc = out
+    jm = j_create(jc)
+    params = jm.init(jax.random.PRNGKey(seed))
+    tm = t_create(tc, device="cpu")
+    interop.params_from_numpy(jax.tree_util.tree_map(np.asarray, params), tm)
+    assert tm._fused_train_mode == jm._fused_train_mode
+    return tm, jm, params
+
+
+@pytest.mark.parametrize(
+    "fused,fused_train",
+    [(True, True), (True, False), (False, True)],
+    ids=["fused_ingp_route", "hash_kernel_route", "standard_route"],
+)
+def test_render_rays_eval_ingp_matches_jax(fused, fused_train):
+    """lego_ingp's eval render (8 + 8 samples, 21 rays): on the fused route
+    each level is the fused INGP eval op (JAX: the Pallas
+    _ingp_eval_kernel in interpret mode), with use_fused_train off the
+    query's hash encode is hash_encode_apply (JAX: the Pallas hash
+    forward), else the plain encode and MLP; every map as the JAX model's."""
+    tm, jm, params = _ingp_pair(fused, fused_train, n_samples=8, n_importance=8)
+    assert (tm._fused_train_mode == "ingp") == (fused and fused_train)
+    ro, rd = _rays(B=21, seed=7)
+    ro = ro + np.float32([0.0, 0.0, 0.5])
+    out_t = tm.render_rays(torch.from_numpy(ro), torch.from_numpy(rd), train=False)
+    out_j = jm.render_rays(params, jnp.asarray(ro), jnp.asarray(rd), train=False)
+    assert set(out_t) == set(out_j)
+    for k in out_j:
+        _close(out_t[k], out_j[k], k)
+
+
+def _ingp_overlay(tmp_path):
+    """A text overlay that keeps the INGP presets' MLPs and tables and cuts
+    the samples, the batch and the scene for a CPU run."""
+    p = tmp_path / "tiny.txt"
+    p.write_text(
+        "N_samples = 8\nN_importance = 8\nN_rand = 32\ni_print = 1\n"
+        "synth_n_train = 2\ni_testset = 2\n"
+    )
+    return str(p)
+
+
+@pytest.mark.parametrize("preset", ["lego_ingp", "lego_ingp_occ"])
+def test_train_nerf_ingp_resume_then_render_only(tmp_path, preset):
+    """``train_nerf`` on the CPU (the plain versions) for 2 steps, then
+    again to 3, which resumes from the step-2 checkpoint (its tables and
+    their Adam moments, and the grid); then ``render_only`` and the
+    ``render`` CLI serve the step-3 checkpoint."""
+    from nerf_meets_mlx_torch.engine.checkpoint import latest_step
+    from nerf_meets_mlx_torch.entrypoints import train_nerf
+
+    log_dir = tmp_path / "run"
+    kw = dict(preset=preset, config_txt=_ingp_overlay(tmp_path), synth_resolution=12,
+              precrop_iters=1, render_video=False, device="cpu", log_dir=str(log_dir))
+    res = train_nerf(max_iters=2, **kw)
+    assert res["step"] == 2 and np.isfinite(res["loss"])
+    ck = torch.load(log_dir / "ckpt" / "step_00000002" / "state.pt", weights_only=True)
+    tables = ck["params"]["pos_enc.tables"]
+    assert tuple(tables.shape) == (8, 1 << 14, 2)
+    moments = [s for s in ck["optimizer"]["state"].values() if s["exp_avg"].shape == tables.shape]
+    assert len(moments) == 1 and float(moments[0]["exp_avg"].abs().max()) > 0.0
+    assert ("occ_grid" in ck) == (preset == "lego_ingp_occ")
+    res = train_nerf(max_iters=3, **kw)
+    assert res["step"] == 3 and latest_step(log_dir / "ckpt") == 3
+    ck3 = torch.load(log_dir / "ckpt" / "step_00000003" / "state.pt", weights_only=True)
+    assert not torch.equal(ck3["params"]["pos_enc.tables"], tables)
+    assert int(next(iter(ck3["optimizer"]["state"].values()))["step"]) == 3
+    served = render_only(preset=preset, log_dir=str(log_dir), device="cpu", synth_resolution=12,
+                         n_orbit=1)
+    assert served["step"] == 3
+    frames = np.load(served["frames"])
+    assert frames.shape == (1, 12, 12, 3) and frames.dtype == np.uint8
+    t_main(["render", "--preset", preset, "--log-dir", str(log_dir), "--device", "cpu",
+            "--synth-resolution", "12", "--n-orbit", "1", "--out-dir", str(tmp_path / "cli")])
+    np.testing.assert_array_equal(np.load(tmp_path / "cli" / "orbit_frames.npy"), frames)

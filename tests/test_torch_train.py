@@ -185,7 +185,8 @@ def test_train_render_matches_jax(fused):
 
 
 def _grad_tree(model):
-    """The parameters' ``.grad`` as the JAX pytree (numpy leaves)."""
+    """The parameters' ``.grad`` as the JAX pytree (numpy leaves), the hash
+    tables' included."""
     tree = {}
     for level in ("coarse", "fine"):
         mlp = getattr(model, level)
@@ -197,7 +198,23 @@ def _grad_tree(model):
             else:
                 sub[name] = leaf
         tree[level] = sub
+    tables = getattr(model.pos_enc, "tables", None)
+    if tables is not None:
+        tree["pos_enc"] = {"tables": tables.grad.numpy().copy()}
     return tree
+
+
+def _adam_mu(opt_state):
+    """Adam's first moment in an optax state (plain adam, or chained with
+    the encoding weight decay)."""
+    if hasattr(opt_state, "mu"):
+        return opt_state.mu
+    for sub in opt_state:
+        if isinstance(sub, tuple) or hasattr(sub, "mu"):
+            mu = _adam_mu(sub)
+            if mu is not None:
+                return mu
+    return None
 
 
 @pytest.mark.parametrize("seed,key", [(0, 7), (1, 7), (0, 11)])
@@ -242,7 +259,7 @@ def test_train_step_matches_jax(fused, noise, seed, key):
 
     # JAX's gradient from its first moment: mu = (1 - b1)·g after one step
     g_j = jax.tree_util.tree_map(lambda m: np.asarray(m) / (1.0 - jc.train.adam_b1),
-                                 jstate.opt_state[0].mu)
+                                 _adam_mu(jstate.opt_state))
     g_t = dict(jax.tree_util.tree_leaves_with_path(grads))
     got = dict(jax.tree_util.tree_leaves_with_path(interop.params_to_numpy(tm)))
     want = jax.tree_util.tree_leaves_with_path(jstate.params)
@@ -263,6 +280,86 @@ def test_train_step_matches_jax(fused, noise, seed, key):
 OCC_STEPS = 3
 
 
+def _steps_match_jax(jc, tc, n_steps, grid_res=None, key=7):
+    """``n_steps`` steps of both packages from the same weights and draws
+    (with the grid of ``grid_res``³ when given). Losses at rtol 5e-4; the
+    first step's gradients at the kernel-test bounds; the parameters after
+    the last step as test_train_step_matches_jax holds them after one
+    (those whose gradients agree within 25% at every step at rtol 5e-3 /
+    atol 1e-4, the rest within one Adam step each way per step); the grid
+    at rtol 5e-3 / atol 1e-4. Returns the port's model and train state."""
+    jm = j_create(jc)
+    params = jm.init(jax.random.PRNGKey(0))
+    tm = t_create(tc, device="cpu")
+    interop.params_from_numpy(jax.tree_util.tree_map(np.asarray, params), tm)
+    assert jm.supports_fused_train == tm.supports_fused_train
+    assert jm._fused_train_mode == tm._fused_train_mode
+    images, poses = _scene()
+    jkey = jax.random.PRNGKey(key)
+    jstep = jtr.make_nerf_train_step(jm, H, W, FOCAL)
+    if grid_res is None:
+        jstate = jts.create_train_state(params, jc.train)
+        tstate = tts.TrainState(tm, tc.train)
+    else:
+        from nerf_meets_mlx_torch.acceleration.occupancy import init_occupancy_grid as t_grid
+        from nerf_meets_mlx_tpu.acceleration.occupancy import init_occupancy_grid as j_grid
+
+        jstate = jts.create_train_state(params, jc.train, occ_grid=j_grid(grid_res))
+        tstate = tts.TrainState(tm, tc.train, occ_grid=t_grid(grid_res))
+    tstep = ttr.make_nerf_train_step(tm, H, W, FOCAL)
+    grads_t = []
+    apply = tstate.apply_gradients
+
+    def record_then_apply():
+        grads_t.append(_grad_tree(tm))
+        apply()
+
+    tstate.apply_gradients = record_then_apply
+    b1 = jc.train.adam_b1
+    grads_j, mu_prev = [], None
+    for k in range(n_steps):
+        draws, _ = _jax_draws(jc, jkey, k, len(images))
+        jstate, aux_j = jstep(jstate, jnp.asarray(images), jnp.asarray(poses), jkey)
+        aux_t = tstep(tstate, torch.from_numpy(images), torch.from_numpy(poses), None,
+                      _to_torch(draws))
+        for name in aux_j:
+            np.testing.assert_allclose(float(aux_t[name]), float(aux_j[name]), rtol=LOSS_RTOL,
+                                       err_msg=name)
+        # this step's gradient from Adam's first moment
+        mu = jax.tree_util.tree_map(np.asarray, _adam_mu(jstate.opt_state))
+        grads_j.append(jax.tree_util.tree_map(
+            lambda m, p: (m - b1 * p) / (1.0 - b1), mu,
+            mu_prev if mu_prev is not None else jax.tree_util.tree_map(np.zeros_like, mu)))
+        mu_prev = mu
+    assert tstate.step == n_steps == int(jstate.step)
+
+    if grid_res is not None:
+        np.testing.assert_allclose(interop.occ_grid_to_numpy(tstate.occ_grid),
+                                   np.asarray(jstate.occ_grid), rtol=PARAM_RTOL, atol=PARAM_ATOL)
+        assert float(np.asarray(jstate.occ_grid).min()) > 0.0
+    got = dict(jax.tree_util.tree_leaves_with_path(interop.params_to_numpy(tm)))
+    lr = jc.train.lrate
+    # a gradient difference of r moves an Adam step by up to ~r·lr: the 25%
+    # of lego's lr 5e-4 stays below atol; at the INGP presets' lr 1e-2 the
+    # settled parameters are those whose gradients agree within 1.25%
+    settle = min(0.25, 0.25 * 5e-4 / lr)
+    gt = [dict(jax.tree_util.tree_leaves_with_path(g)) for g in grads_t]
+    gj = [dict(jax.tree_util.tree_leaves_with_path(g)) for g in grads_j]
+    want = jax.tree_util.tree_leaves_with_path(jstate.params)
+    assert len(want) == len(got) == len(gt[0])
+    for path, leaf in want:
+        msg = jax.tree_util.keystr(path)
+        np.testing.assert_allclose(gt[0][path], gj[0][path], rtol=2e-4, atol=5e-6, err_msg=msg)
+        settled = np.ones(leaf.shape, bool)
+        for a, b in zip(gt, gj):
+            settled &= np.abs(a[path] - b[path]) <= settle * np.abs(b[path])
+        a, b = got[path], np.asarray(leaf)
+        np.testing.assert_allclose(a[settled], b[settled], rtol=PARAM_RTOL, atol=PARAM_ATOL,
+                                   err_msg=msg)
+        assert np.all(np.abs(a - b)[~settled] <= 2.0 * n_steps * lr + PARAM_ATOL), msg
+    return tm, tstate
+
+
 @pytest.mark.parametrize("fused_train", [True, False], ids=["fused_train_route", "value_and_grad_route"])
 def test_lego_occ_train_steps_match_jax(fused_train):
     """Three lego_occ steps (cut to depth 4, width 64, 16 + 16 samples, an
@@ -275,9 +372,7 @@ def test_lego_occ_train_steps_match_jax(fused_train):
     test_train_step_matches_jax holds them after one (those whose gradients
     agree within 25% at every step at rtol 5e-3 / atol 1e-4, the rest within
     one Adam step each way per step); the grid at rtol 5e-3 / atol 1e-4."""
-    from nerf_meets_mlx_torch.acceleration.occupancy import init_occupancy_grid as t_init_grid
     from nerf_meets_mlx_torch.config import lego_occ as t_occ
-    from nerf_meets_mlx_tpu.acceleration.occupancy import init_occupancy_grid as j_init_grid
     from nerf_meets_mlx_tpu.config import lego_occ as j_occ
 
     def cfg_of(make):
@@ -289,58 +384,61 @@ def test_lego_occ_train_steps_match_jax(fused_train):
         )
 
     jc, tc = cfg_of(j_occ), cfg_of(t_occ)
-    jm = j_create(jc)
-    params = jm.init(jax.random.PRNGKey(0))
-    tm = t_create(tc, device="cpu")
-    interop.params_from_numpy(jax.tree_util.tree_map(np.asarray, params), tm)
-    assert jm.supports_fused_train == tm.supports_fused_train == fused_train
-    images, poses = _scene()
-    jkey = jax.random.PRNGKey(7)
-    jstep = jtr.make_nerf_train_step(jm, H, W, FOCAL)
-    jstate = jts.create_train_state(params, jc.train, occ_grid=j_init_grid(8))
-    tstate = tts.TrainState(tm, tc.train, occ_grid=t_init_grid(8))
-    tstep = ttr.make_nerf_train_step(tm, H, W, FOCAL)
-    grads_t = []
-    apply = tstate.apply_gradients
+    assert j_create(jc).supports_fused_train == fused_train
+    _steps_match_jax(jc, tc, OCC_STEPS, grid_res=8)
 
-    def record_then_apply():
-        grads_t.append(_grad_tree(tm))
-        apply()
 
-    tstate.apply_gradients = record_then_apply
-    b1 = jc.train.adam_b1
-    grads_j, mu_prev = [], None
-    for k in range(OCC_STEPS):
-        draws, _ = _jax_draws(jc, jkey, k, len(images))
-        jstate, aux_j = jstep(jstate, jnp.asarray(images), jnp.asarray(poses), jkey)
-        aux_t = tstep(tstate, torch.from_numpy(images), torch.from_numpy(poses), None,
-                      _to_torch(draws))
-        np.testing.assert_allclose(float(aux_t["loss"]), float(aux_j["loss"]), rtol=LOSS_RTOL)
-        # this step's gradient from Adam's first moment
-        mu = jax.tree_util.tree_map(np.asarray, jstate.opt_state[0].mu)
-        grads_j.append(jax.tree_util.tree_map(
-            lambda m, p: (m - b1 * p) / (1.0 - b1), mu,
-            mu_prev if mu_prev is not None else jax.tree_util.tree_map(np.zeros_like, mu)))
-        mu_prev = mu
-    assert tstate.step == OCC_STEPS == int(jstate.step)
+def _ingp(make, fused_train, occ=False):
+    """lego_ingp / lego_ingp_occ at the preset's MLPs, lr, Adam b2 and
+    encoding weight decay, with the tables cut to 4 levels of T = 2^9
+    (resolutions 4..16), 32 rays of 16 x 16 images, 8 + 8 samples, density
+    noise on, use_fused_kernel on; with the grid, 8³ cells updated every
+    step and gating from step 0."""
+    cfg = make()
+    render = dataclasses.replace(cfg.render, n_samples=8, n_importance=8, raw_noise_std=0.5)
+    if occ:
+        render = dataclasses.replace(render, occ_resolution=8, occ_update_every=1, occ_warmup=0)
+    return cfg.replace(
+        pos_encoding=dataclasses.replace(
+            cfg.pos_encoding, hash_n_levels=4, hash_log2_table_size=9, hash_min_res=4,
+            hash_max_res=16,
+        ),
+        train=dataclasses.replace(cfg.train, n_rand=N_RAND, precrop_iters=1),
+        render=render,
+        use_fused_kernel=True,
+        use_fused_train=fused_train,
+    )
 
-    np.testing.assert_allclose(interop.occ_grid_to_numpy(tstate.occ_grid),
-                               np.asarray(jstate.occ_grid), rtol=PARAM_RTOL, atol=PARAM_ATOL)
-    assert float(np.asarray(jstate.occ_grid).min()) > 0.0
-    got = dict(jax.tree_util.tree_leaves_with_path(interop.params_to_numpy(tm)))
-    lr = jc.train.lrate
-    gt = [dict(jax.tree_util.tree_leaves_with_path(g)) for g in grads_t]
-    gj = [dict(jax.tree_util.tree_leaves_with_path(g)) for g in grads_j]
-    for path, leaf in jax.tree_util.tree_leaves_with_path(jstate.params):
-        msg = jax.tree_util.keystr(path)
-        np.testing.assert_allclose(gt[0][path], gj[0][path], rtol=2e-4, atol=5e-6, err_msg=msg)
-        settled = np.ones(leaf.shape, bool)
-        for a, b in zip(gt, gj):
-            settled &= np.abs(a[path] - b[path]) <= 0.25 * np.abs(b[path])
-        a, b = got[path], np.asarray(leaf)
-        np.testing.assert_allclose(a[settled], b[settled], rtol=PARAM_RTOL, atol=PARAM_ATOL,
-                                   err_msg=msg)
-        assert np.all(np.abs(a - b)[~settled] <= 2.0 * OCC_STEPS * lr + PARAM_ATOL), msg
+
+@pytest.mark.parametrize("fused_train", [True, False], ids=["fused_train_route", "value_and_grad_route"])
+def test_lego_ingp_train_step_matches_jax(fused_train):
+    """One lego_ingp step (``_ingp``) from the same weights, tables and
+    draws: on the fused route each level is the port's fused INGP op (JAX:
+    the Pallas ``_ingp_train_kernel`` in interpret mode), on
+    use_fused_train=False the hash encode goes through hash_encode_apply
+    (JAX: the Pallas hash forward and backward) and the MLP through
+    autograd. Losses, gradients and the parameters and tables after Adam
+    with the encoding weight decay, as ``_steps_match_jax`` holds them."""
+    from nerf_meets_mlx_torch.config import lego_ingp as t_make
+    from nerf_meets_mlx_tpu.config import lego_ingp as j_make
+
+    jc, tc = _ingp(j_make, fused_train), _ingp(t_make, fused_train)
+    assert tc.train.encoding_weight_decay == 1e-4 and tc.train.lrate == 1e-2
+    tm, _ = _steps_match_jax(jc, tc, 1, key=11)
+    assert tm._fused_train_mode == ("ingp" if fused_train else None)
+
+
+def test_lego_ingp_occ_train_steps_match_jax():
+    """Three lego_ingp_occ steps (``_ingp`` with the grid) on the fused
+    route: the grid update queries the hash encode through
+    hash_encode_apply (JAX: the Pallas forward), the levels run the fused
+    INGP op; the grid against JAX's after the last step."""
+    from nerf_meets_mlx_torch.config import lego_ingp_occ as t_make
+    from nerf_meets_mlx_tpu.config import lego_ingp_occ as j_make
+
+    jc, tc = _ingp(j_make, True, occ=True), _ingp(t_make, True, occ=True)
+    _, tstate = _steps_match_jax(jc, tc, OCC_STEPS, grid_res=8)
+    assert float(tstate.occ_grid.max()) > 0.0
 
 
 def _tiny_module(seed=0):
@@ -383,6 +481,56 @@ def test_adam_and_lr_schedule_match_optax(lrate_decay):
         np.testing.assert_allclose(st["exp_avg"].numpy(), np.asarray(adam_j.mu[i]), rtol=1e-6, atol=1e-8)
         np.testing.assert_allclose(st["exp_avg_sq"].numpy(), np.asarray(adam_j.nu[i]), rtol=1e-6, atol=1e-8)
         assert int(st["step"]) == int(adam_j.count) == 3
+
+
+class _EncModel(torch.nn.Module):
+    """A hash grid beside a linear layer: only the grid is decayed."""
+
+    def __init__(self):
+        super().__init__()
+        from nerf_meets_mlx_torch.encoding.hash_grid import HashGridEncoding
+
+        self.lin = torch.nn.Linear(3, 2)
+        self.pos_enc = HashGridEncoding(n_levels=2, min_res=2, max_res=4, log2_table_size=4)
+
+
+def test_encoding_weight_decay_matches_optax():
+    """The port's Adam + encoding_weight_decay against the JAX package's
+    optax.chain(adam, add_decayed_weights(-wd, mask=pos_enc)) over three
+    updates: the decay takes wd times the values from before each update,
+    not scaled by the lr, from the position encoding's tables alone."""
+    jcfg = dataclasses.replace(j_lego().train, lrate=1e-2, lrate_decay=0, adam_b2=0.99,
+                               encoding_weight_decay=0.05)
+    tcfg = dataclasses.replace(t_lego().train, lrate=1e-2, lrate_decay=0, adam_b2=0.99,
+                               encoding_weight_decay=0.05)
+    mod = _EncModel()
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.copy_(torch.from_numpy(rng.normal(size=p.shape).astype(np.float32)))
+    named = dict(mod.named_parameters())
+    params_j = {"lin": {"bias": named["lin.bias"].detach().numpy().copy(),
+                        "weight": named["lin.weight"].detach().numpy().copy()},
+                "pos_enc": {"tables": named["pos_enc.tables"].detach().numpy().copy()}}
+    tx = jts.make_optimizer(jcfg)
+    opt_j = tx.init(params_j)
+    state = tts.TrainState(mod, tcfg)
+    assert state.decayed == [mod.pos_enc.tables]
+    for _ in range(3):
+        grads = jax.tree_util.tree_map(
+            lambda a: rng.normal(size=a.shape).astype(np.float32), params_j)
+        grads["pos_enc"]["tables"][0, :5] = 0.0  # rows no point touched: decay alone
+        upd, opt_j = tx.update(grads, opt_j, params_j)
+        params_j = optax.apply_updates(params_j, upd)
+        for key, g in (("lin.bias", grads["lin"]["bias"]), ("lin.weight", grads["lin"]["weight"]),
+                       ("pos_enc.tables", grads["pos_enc"]["tables"])):
+            named[key].grad = torch.from_numpy(g.copy())
+        state.apply_gradients()
+    for key, want in (("lin.bias", params_j["lin"]["bias"]),
+                      ("lin.weight", params_j["lin"]["weight"]),
+                      ("pos_enc.tables", params_j["pos_enc"]["tables"])):
+        np.testing.assert_allclose(named[key].detach().numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6, err_msg=key)
 
 
 def test_encoding_weight_decay_needs_learned_encodings():
