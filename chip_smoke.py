@@ -9,9 +9,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    limit; turns TF32 off so fp32 matmuls of the plain versions are fp32.
 2. build: compiles every CUDA source of the main paths from the checkout
    (one ``nvcc`` per source, all started together) and prints the ptxas
-   report (registers, shared memory, spills); the INGP sources' build
-   (``fused_ingp.cu`` takes minutes) is joined only before the INGP
-   phases, so it overlaps phases 3-5, and before any timing.
+   report (registers, shared memory, spills); each source is joined only
+   before the first phase that needs it (``fused_ingp.cu`` and
+   ``fused_feat.cu`` take minutes), and all before any timing.
 3. kernels vs plain: each kernel against its plain PyTorch version at the
    main paths' shapes (full-width lego_hierarchical weights from a seeded
    init, 4096 rays, S = 64 and 192, both MLPs, both compositing modes; the
@@ -65,6 +65,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    decayed init; then, after phase 6, each INGP kernel per launch beside
    its bound and plain version, and both presets' warm step, frame, peak
    memory and busy share.
+
+8. the image path (``image2d``: 2-D sinusoidal encoding, 8 x 256 MLP):
+   the image train kernel against its plain version at 4096 and 4001
+   pixels (sse, every dW and db) and the forward kernel on a 400 x 400
+   frame; ``image_learning(size=400, max_iters=300, frame_every=100)`` with
+   every count at 0: 300 train and 4 forward launches, a rising PSNR; then
+   each kernel per launch and the warm step on both routes.
+
+9. the "feats" route: the feat train kernel against its plain version at
+   4096 rays x 48 / 96 samples with 16 and 32 feature channels, 1024 x 384
+   and 64 x 2048, both modes, white on and off, noise on (gradients also
+   against the plain version in float64); ``train_nerf(preset="lego_ingp")``
+   with the overlay of the Instant-NGP paper's tables (16 levels of 2^19,
+   resolutions to 512): 200 feat-train launches and no other, a falling
+   loss, a test PSNR, the tables and their Adam moments in the checkpoint;
+   3 lego_ingp steps at 128 + 256 samples on the fused-train route (hash
+   forward, feat train, hash dG) and on the plain route must agree; then
+   the kernel per level, the paper-tables step, frame and trace, and the
+   long-ray step.
 
 It prints the kernels' JSON line, the ``nvidia-smi`` line, and as its last
 line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -369,7 +388,8 @@ def phase_build():
     slow build of fused_ingp.cu overlaps the earlier phases."""
     from nerf_meets_mlx_torch.kernels import _build
 
-    sources = ["fused_eval", "fused_train", "fused_mlp", "hash_encode", "fused_ingp"]
+    sources = ["fused_eval", "fused_train", "fused_mlp", "hash_encode", "fused_ingp",
+               "fused_feat", "fused_image"]
     BUILD_T0[0] = time.perf_counter()
     ex = ThreadPoolExecutor(len(sources))
     futures = {name: ex.submit(_build.build, name) for name in sources}
@@ -712,21 +732,25 @@ def phase_compare_train(device):
     return worst_val, worst_dw
 
 
-def phase_train_main_path(device, preset="lego_hierarchical"):
+def phase_train_main_path(device, preset="lego_hierarchical", extra="", tag=None):
     """The training entry point with every launch count set to 0 before it
     and read after it, then the serving entry point on the checkpoint it
-    wrote (with its occupancy grid, when the preset has one)."""
+    wrote (with its occupancy grid, when the preset has one). ``extra``
+    holds text-overlay lines beyond ``i_print = 1``; a run with them (the
+    paper-size tables, ``tag``) is not served, since ``render_only`` takes
+    no overlay in either package."""
     import torch
-    from nerf_meets_mlx_torch.config import PRESETS
+    from nerf_meets_mlx_torch.config import PRESETS, config_from_text
     from nerf_meets_mlx_torch.entrypoints import render_only, train_nerf
 
-    cfg = PRESETS[preset]()
-    rcfg = cfg.render
-    log_dir = OUT / f"train_{preset}"
+    tag = tag or preset
+    log_dir = OUT / f"train_{tag}"
     shutil.rmtree(log_dir, ignore_errors=True)
     OUT.mkdir(parents=True, exist_ok=True)
-    overlay = OUT / "log_every_step.txt"  # i_print = 1: every step's loss is logged
-    overlay.write_text("i_print = 1\n")
+    overlay = OUT / f"overlay_{tag}.txt"  # i_print = 1: every step's loss is logged
+    overlay.write_text("i_print = 1\n" + extra)
+    cfg = config_from_text(overlay, PRESETS[preset]())
+    rcfg = cfg.render
 
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -744,7 +768,12 @@ def phase_train_main_path(device, preset="lego_hierarchical"):
     # the grid update runs at steps 0, occ_update_every, ... (one forward
     # launch each); the fused-train route never runs the MLP backward
     n_updates = -(-TRAIN_STEPS // rcfg.occ_update_every) if rcfg.occupancy else 0
-    if cfg.pos_encoding.kind == "hash_grid":
+    if extra:
+        # the "feats" route: the feat train kernel per level, the encode by
+        # the plain gather (tables past the hash kernels' budget), the
+        # renders on the standard route
+        want = counts(feat_train=2 * TRAIN_STEPS)
+    elif cfg.pos_encoding.kind == "hash_grid":
         # the INGP kernels; the grid update's query runs the hash forward
         want = counts(ingp_eval=2 * chunks * n_frames, ingp_train=2 * TRAIN_STEPS,
                       hash_fwd=n_updates)
@@ -752,7 +781,7 @@ def phase_train_main_path(device, preset="lego_hierarchical"):
     else:
         want = counts(eval=2 * chunks * n_frames, train=2 * TRAIN_STEPS, mlp_fwd=n_updates)
         want_served = counts(eval=2 * chunks)
-    log(f"[train] train_nerf {preset} {RES}x{RES}, {TRAIN_STEPS} steps: {wall:.1f} s "
+    log(f"[train] train_nerf {tag} {RES}x{RES}, {TRAIN_STEPS} steps: {wall:.1f} s "
         f"(data, steps, {n_frames} renders); launches {launches} (want {want}); "
         f"peak device memory {peak_gb:.2f} GB; result "
         + json.dumps({k: v for k, v in res.items() if k != "log_dir"}))
@@ -770,7 +799,7 @@ def phase_train_main_path(device, preset="lego_hierarchical"):
     first = float(np.mean(losses[PRECROP : PRECROP + 10]))
     last = float(np.mean(losses[-10:]))
     finite = all(np.isfinite(v) for r in recs for v in r.values() if isinstance(v, float))
-    log(f"[train] {preset} loss: mean of steps 1-10 (central crop) {crop:.5f}; of steps "
+    log(f"[train] {tag} loss: mean of steps 1-10 (central crop) {crop:.5f}; of steps "
         f"{PRECROP + 1}-{PRECROP + 10} (whole images) {first:.5f}, of the last 10 {last:.5f}; "
         f"all logged metrics finite: {finite}; steps/s of the logged intervals: median "
         f"{float(np.median([r['steps_per_sec'] for r in steps[1:]])):.3f}")
@@ -798,6 +827,17 @@ def phase_train_main_path(device, preset="lego_hierarchical"):
         out.update(grid_max=float(grid.max()), grid_occupied=occupied, grid_dilated=dilated)
 
     reset_launches()
+    if extra:
+        state = torch.load(log_dir / "ckpt" / f"step_{TRAIN_STEPS:08d}" / "state.pt",
+                           weights_only=True)
+        tables = state["params"]["pos_enc.tables"]
+        log(f"[train] {tag} checkpoint tables {tuple(tables.shape)}, Adam moments of "
+            f"{sum(v['exp_avg'].numel() for v in state['optimizer']['state'].values())} "
+            f"entries; test PSNR {res['test_psnr_mean']:.3f}")
+        if not np.isfinite(res["test_psnr_mean"]) or not bool(torch.isfinite(tables).all()):
+            raise AssertionError(f"{tag}: a non-finite test PSNR or table entry")
+        out["tables_shape"] = list(tables.shape)
+        return launches, out
     served = render_only(
         preset=preset, log_dir=str(log_dir), synth_resolution=RES, n_orbit=1, device=device,
     )
@@ -1222,6 +1262,7 @@ def phase_occ_timing(ds, device):
 # cuBLAS's sum (a few units in 393,216 points x 128) and moves that point's
 # whole contribution to the rows it touches.
 DG_REL = 1e-4
+GRAD_FLOOR = 1e-6  # feat kernel: of the largest plain gradient entry of all arrays
 INGP_TABLE_NOISE = 0.1  # N(0, 0.1) added to the tables of the kernel comparisons
 
 
@@ -1683,6 +1724,577 @@ def phase_ingp_e2e(ds, device):
     reset_launches()
     return out
 
+# ---------------------------------------------------------------------------
+# the "feats" route and the 2-D image task
+# ---------------------------------------------------------------------------
+
+# the Instant-NGP paper's grid (Müller et al. 2022, Table 1) on lego_ingp:
+# 16 levels of 2^19 entries of 2 features, resolutions 16..512; its 64 MiB
+# of tables put lego_ingp on the "feats" route
+PAPER_OVERLAY = "hash_n_levels = 16\nhash_log2_table_size = 19\nhash_max_res = 512\n"
+LONG_RAYS = (128, 256)  # N_samples, N_importance of the long-ray route check
+IMAGE_STEPS = 300       # steps of the image path
+IMAGE_FRAME_EVERY = 100
+IMAGE_TIMED_STEPS = 50
+
+
+def paper_cfg():
+    from nerf_meets_mlx_torch.config import lego_ingp
+
+    cfg = lego_ingp()
+    return cfg.replace(pos_encoding=dataclasses.replace(
+        cfg.pos_encoding, hash_n_levels=16, hash_log2_table_size=19, hash_max_res=512))
+
+
+def feat_model(kind, device):
+    """A seeded lego_ingp model (P = 16) or one with the paper's tables (P =
+    32) on the fused route, its tables with N(0, INGP_TABLE_NOISE) added so
+    that the features are at full scale."""
+    import torch
+    from nerf_meets_mlx_torch.config import lego_ingp
+
+    cfg = (paper_cfg() if kind == "paper" else lego_ingp()).replace(use_fused_kernel=True)
+    model = make_model(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    with torch.no_grad():
+        model.pos_enc.tables.add_(
+            torch.randn(model.pos_enc.tables.shape, generator=gen, device=device)
+            * INGP_TABLE_NOISE)
+    return model
+
+
+def feat_tspec(model, n_samples, mode=None, white=None):
+    from nerf_meets_mlx_torch.kernels.fused_feat_train import feat_group, feat_rays_block
+    from nerf_meets_mlx_torch.kernels.fused_train import TrainSpec
+
+    rcfg = model.cfg.render
+    rb = feat_rays_block(n_samples)
+    return TrainSpec(
+        n_samples=n_samples, rays_block=rb, mode=mode or rcfg.compositing,
+        density_activation=rcfg.density_activation,
+        white_bkgd=rcfg.white_bkgd if white is None else white,
+        group=feat_group(n_samples, rb),
+    )
+
+
+def feat_sets(device):
+    """(name, model, mlp, features [R, S, P], sh, deltas, noise, target) at
+    the feats route's shapes: 4096 rays at the coarse (S = 48) and fine (S =
+    96) level of lego_ingp (P = 16) and of the paper's tables (P = 32), as
+    the route makes them (jittered depths, importance samples, pre-scaled
+    noise, features of the points from the plain encode); and longer rays
+    from stratified depths over [near, far]: S = 384 at 1024 rays (P = 16,
+    the long-ray route's sample count) and S = 2048 at 64 rays (P = 32)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    ro, rd, vd = picked_rays(device)
+    target = torch.rand((ro.shape[0], 3), generator=gen, device=device)
+    out = []
+    for kind in ("ingp", "paper"):
+        model = feat_model(kind, device)
+        sh, coarse, fine = ingp_level_inputs(model, ro, rd, vd, target, gen, NOISE_STD)
+        for level, (z, dl, nz), mlp in (("coarse", coarse, model.coarse),
+                                         ("fine", fine, model.fine)):
+            pts = ro[:, None, :] + z[..., None] * rd[:, None, :]
+            with torch.no_grad():
+                feats = model.pos_enc.apply(pts)
+            out.append((f"{kind} {level}", model, mlp, feats, sh, dl, nz, target))
+    for kind, R, S in (("ingp", 1024, 384), ("paper", 64, 2048)):
+        model = feat_model(kind, device)
+        rcfg = model.cfg.render
+        R = min(R, ro.shape[0])
+        ro_, rd_, vd_ = ro[:R], rd[:R], vd[:R]
+        z = rcfg.near + (rcfg.far - rcfg.near) * torch.sort(
+            torch.rand((R, S), generator=gen, device=device), dim=-1).values
+        dnorm = torch.linalg.vector_norm(rd_, dim=-1, keepdim=True)
+        dl = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e10)], -1) * dnorm
+        nz = torch.randn((R, S), generator=gen, device=device) * NOISE_STD
+        with torch.no_grad():
+            feats = model.pos_enc.apply(ro_[:, None, :] + z[..., None] * rd_[:, None, :])
+        out.append((f"{kind} S={S}", model, model.fine, feats, model.dir_enc.apply(vd_), dl, nz,
+                    target[:R]))
+    return out
+
+
+def phase_compare_feat(device):
+    """The feat train kernel against its plain version at ``feat_sets``'
+    shapes, both compositing modes, the white background on and off,
+    density noise on: sse, rgb and weights to atol 1e-4 + rtol 1e-4; every
+    dW, db and d(feats) (i) to DW_REL of the array's largest plain value
+    plus GRAD_FLOOR of the largest plain gradient entry of all the arrays
+    (the criterion of the gpu tests of the INGP and feat kernels), or (ii)
+    no more than twice as far as the fp32 plain version from the plain
+    version evaluated in float64. Returns (max abs error of the values,
+    worst gradient ratio against the fp32 plain version)."""
+    import copy
+
+    import torch
+    from nerf_meets_mlx_torch.kernels import fused_feat_train as ff
+
+    worst_val, worst_ratio = 0.0, 0.0
+    n_by_ii = [0]
+    for name, model, mlp, feats, sh, dl, nz, target in feat_sets(device):
+        R, S, P = feats.shape
+        params = mlp_params(mlp)
+        mlp64 = copy.deepcopy(mlp).double()
+        params64 = mlp_params(mlp64)
+        for mode in ("canonical", "reference"):
+            for white in (True, False):
+                tspec = feat_tspec(model, S, mode=mode, white=white)
+                f = feats.clone().requires_grad_(True)
+                x = ff.pack_feat_inputs(f, sh, dl, nz)
+                sse_k, rgb_k, w_k = ff.fused_feat_train_apply(mlp, tspec, x, target)
+                g_k = torch.autograd.grad(sse_k, params + [f])
+                torch.cuda.synchronize()
+                sse_p, rgb_p, w_p = ff.fused_feat_train_reference(mlp, tspec, x, target)
+                g_p = torch.autograd.grad(sse_p, params + [f])
+                live = float((w_p > 1e-4).float().mean())
+                errs, ok = {}, True
+                for what, k, p in (("sse", sse_k, sse_p), ("rgb", rgb_k, rgb_p),
+                                   ("weights", w_k, w_p)):
+                    k, p = k.detach(), p.detach()
+                    errs[what] = float((k - p).abs().max())
+                    ok &= bool(torch.isfinite(k).all()) and bool(
+                        ((k - p).abs() <= ATOL + RTOL * p.abs()).all())
+                ratios = grad_ratios(g_k, g_p)
+                ok &= all(bool(torch.isfinite(a).all()) for a in g_k)
+                # each array (i) within DW_REL of its largest plain value plus
+                # GRAD_FLOOR of the largest plain entry of all the arrays (the
+                # gpu tests' criterion: a relu input within rounding of 0
+                # flips a point's cotangent), or (ii) at most twice as far as
+                # the fp32 plain version from the plain version evaluated in
+                # float64: in canonical mode the terminal bin (delta 1e10)
+                # makes the alpha head's sums cancel, and there the fp32
+                # plain version itself misses the float64 one by up to 1e-1
+                # of the array's largest value
+                f64 = feats.double().requires_grad_(True)
+                x64 = ff.pack_feat_inputs(f64, sh.double(), dl.double(), nz.double())
+                sse64, _, _ = ff.fused_feat_train_reference(mlp64, tspec, x64, target.double())
+                g64 = torch.autograd.grad(sse64, params64 + [f64])
+                r_k64 = grad_ratios([a.double() for a in g_k], g64)
+                r_p64 = grad_ratios([b.double() for b in g_p], g64)
+                floor = GRAD_FLOOR * max(float(b.abs().max()) for b in g_p)
+                by = []
+                for a, b, rk, rp in zip(g_k, g_p, r_k64, r_p64):
+                    if float((a - b).abs().max()) <= DW_REL * float(b.abs().max()) + floor:
+                        by.append("i")
+                    elif rk <= 2.0 * rp:
+                        by.append("ii")
+                    else:
+                        by.append("no")
+                ok &= "no" not in by
+                log(f"[compare] feat_train {name:12s} R={R} S={S} P={P} {mode:9s} white="
+                    f"{int(white)} max_abs sse={errs['sse']:.3e} rgb={errs['rgb']:.3e} "
+                    f"weights={errs['weights']:.3e} (weights > 1e-4: {live:.3f}); "
+                    f"max|dW-plain|/max|plain| per array: "
+                    + " ".join(f"{r:.1e}" for r in ratios[:-1])
+                    + f"; dfeats {ratios[-1]:.1e}; against the plain version in float64, "
+                    f"kernel / fp32 plain: alpha W {r_k64[4]:.1e} / {r_p64[4]:.1e}, alpha b "
+                    f"{r_k64[5]:.1e} / {r_p64[5]:.1e}, worst {max(r_k64):.1e} / "
+                    f"{max(r_p64):.1e}; criterion per array {' '.join(by)} "
+                    + ("ok" if ok else "FAIL"))
+                n_by_ii[0] += by.count("ii")
+                if not ok:
+                    raise AssertionError(
+                        f"feat_train disagrees with its plain version: {name} {mode} {white}")
+                worst_val = max(worst_val, errs["rgb"], errs["weights"])
+                worst_ratio = max(worst_ratio, max(ratios))
+    log(f"[compare] feat_train: {n_by_ii[0]} arrays held by criterion (ii)")
+    reset_launches()
+    return worst_val, worst_ratio
+
+
+def image_model(device, fused=True):
+    from nerf_meets_mlx_torch.config import image2d
+
+    return make_model(image2d().replace(use_fused_kernel=fused), device)
+
+
+def phase_compare_image(device):
+    """The image kernels against their plain version at image2d's full 8 x
+    256 from a seeded init: the train kernel at 4096 pixels and at 4001 (a
+    ragged last tile), sse to atol 1e-4 + rtol 1e-4 and every dW and db to
+    DW_REL of the array's largest plain value; the forward kernel on the
+    160,000 pixels of a 400 x 400 frame to atol 1e-4 + rtol 1e-4. Returns
+    (max abs error of sse, worst dW ratio, max abs error of the forward)."""
+    import torch
+    from nerf_meets_mlx_torch.datasets.image import make_test_image, pixel_dataset
+    from nerf_meets_mlx_torch.kernels import fused_image as fim
+
+    model = image_model(device)
+    mlp, enc = model.coarse, model.pos_enc
+    coords, colors = (torch.as_tensor(a, device=device)
+                      for a in pixel_dataset(make_test_image(RES)))
+    gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    params = mlp_params(mlp)
+    worst_sse, worst_ratio = 0.0, 0.0
+    for n in (4096, 4001):
+        idx = torch.randint(0, coords.shape[0], (n,), generator=gen, device=device)
+        x, y = coords[idx], colors[idx]
+        sse_k = fim.fused_image_train(mlp, enc, x, y)
+        g_k = torch.autograd.grad(sse_k, params)
+        torch.cuda.synchronize()
+        sse_p = torch.sum((fim.fused_image_reference(mlp, enc, x) - y) ** 2)
+        g_p = torch.autograd.grad(sse_p, params)
+        err = float((sse_k - sse_p).detach().abs())
+        ratios = grad_ratios(g_k, g_p)
+        ok = bool(torch.isfinite(sse_k.detach())) and err <= ATOL + RTOL * float(sse_p.detach().abs())
+        ok &= all(bool(torch.isfinite(a).all()) for a in g_k) and max(ratios) <= DW_REL
+        log(f"[compare] image_train N={n}: sse {float(sse_k.detach()):.6f} vs "
+            f"{float(sse_p.detach()):.6f} "
+            f"(abs err {err:.3e}); max|dW-plain|/max|plain| per array: "
+            + " ".join(f"{r:.1e}" for r in ratios) + (" ok" if ok else " FAIL"))
+        if not ok:
+            raise AssertionError(f"image_train disagrees with its plain version: N={n}")
+        worst_sse, worst_ratio = max(worst_sse, err), max(worst_ratio, max(ratios))
+    with torch.no_grad():
+        out_k = fim.fused_image_apply(mlp, enc, coords)
+        torch.cuda.synchronize()
+        out_p = fim.fused_image_reference(mlp, enc, coords)
+    err = (out_k - out_p).abs()
+    ok = bool(torch.isfinite(out_k).all()) and bool((err <= ATOL + RTOL * out_p.abs()).all())
+    log(f"[compare] image_fwd N={coords.shape[0]}: max_abs {float(err.max()):.3e} "
+        + ("ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("image_fwd disagrees with its plain version")
+    reset_launches()
+    return worst_sse, worst_ratio, float(err.max())
+
+
+def phase_long_ray_routes(ds, device):
+    """ROUTE_STEPS steps of lego_ingp at N_samples = 128, N_importance = 256
+    (384 samples a ray: the "feats" route, its tables within the hash
+    kernels' budget) from one seed on the fused-train route (per level the
+    hash forward kernel, the feat train kernel, then the hash dG kernel)
+    and on the plain route. Held as ``phase_ingp_routes`` holds lego_ingp's:
+    ``compare_params`` at lr 1e-2, and the table entries no point touched
+    equal on both routes and to the init decayed by the weight decay
+    alone."""
+    import torch
+    from nerf_meets_mlx_torch.config import lego_ingp
+
+    base = lego_ingp()
+    base = base.replace(render=dataclasses.replace(
+        base.render, n_samples=LONG_RAYS[0], n_importance=LONG_RAYS[1]))
+    S = ROUTE_STEPS
+    fused = run_route(base.replace(use_fused_kernel=True), ds, device, S, SEED + 23)
+    plain = run_route(base, ds, device, S, SEED + 23)
+    want = counts(hash_fwd=2 * S, feat_train=2 * S, hash_bwd=2 * S)
+    if fused[3] != want or plain[3] != counts():
+        raise AssertionError(f"long-ray routes launched {fused[3]} / {plain[3]}, want {want}")
+    init = make_model(base, device).pos_enc.tables.detach()
+    decayed = init.clone()
+    wd = base.train.encoding_weight_decay
+    for _ in range(S):
+        decayed.sub_(wd * decayed)
+    ti = next(i for i, p in enumerate(plain[0]) if p.shape == init.shape)
+    ok, n_settled, n_all, worst = compare_params(fused, plain, base.train.lrate, S)
+    untouched = torch.ones_like(init, dtype=torch.bool)
+    for g in fused[1] + plain[1]:
+        untouched &= g[ti] == 0
+    a, b = fused[0][ti][untouched], plain[0][ti][untouched]
+    exact = bool(torch.equal(a, b)) and bool(torch.equal(a, decayed[untouched]))
+    ok &= exact
+    log(f"[long routes] {S} lego_ingp steps at {LONG_RAYS[0]} + {LONG_RAYS[1]} samples, "
+        f"fused-train (feats) vs plain route: launches {fused[3]}; losses {fused[2]} vs "
+        f"{plain[2]}; {n_settled}/{n_all} parameters whose gradients agree within 1.25%, worst "
+        f"|diff|/(1e-4 + 5e-3|p|) among them {worst:.3f}, the other {n_all - n_settled} within "
+        f"{2 * S} lr; {int(untouched.sum())} untouched table entries equal to the decayed "
+        f"init: {exact}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the long-ray feats route disagrees with the plain route")
+    return {"losses_fused": fused[2], "losses_plain": plain[2], "launches": fused[3],
+            "unsettled": n_all - n_settled, "worst_ratio": worst,
+            "untouched": int(untouched.sum())}
+
+
+def phase_image_path(device):
+    """The image entry point, ``image_learning(size=400, max_iters=300,
+    frame_every=100)``, with every launch count set to 0 before it and read
+    after: one train-kernel launch a step, one forward-kernel launch a
+    frame and one for the final prediction, a rising PSNR."""
+    import torch
+    from nerf_meets_mlx_torch.entrypoints import image_learning
+
+    log_dir = OUT / "image"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = image_learning(size=RES, max_iters=IMAGE_STEPS, log_dir=str(log_dir),
+                         frame_every=IMAGE_FRAME_EVERY, device=device)
+    wall = time.perf_counter() - t0
+    launches = launches_now()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_frames = IMAGE_STEPS // IMAGE_FRAME_EVERY
+    want = counts(image_train=IMAGE_STEPS, image_fwd=n_frames + 1)
+    recs = [json.loads(x) for x in (log_dir / "metrics.jsonl").read_text().splitlines()]
+    psnrs = [(r["step"], r["psnr"]) for r in recs if "psnr" in r]
+    frames = np.load(log_dir / "progress_frames.npy")
+    log(f"[image] image_learning {RES}x{RES}, {IMAGE_STEPS} steps: {wall:.1f} s; launches "
+        f"{launches} (want {want}); batch PSNR at the logged steps {psnrs}; final PSNR "
+        f"{res['final_psnr']:.3f}; frames {frames.shape}; peak device memory {peak_gb:.2f} GB")
+    if launches != want:
+        raise AssertionError(f"image launches {launches}, want {want}")
+    if (len(psnrs) < 2 or not psnrs[-1][1] > psnrs[0][1] or not np.isfinite(res["final_psnr"])
+            or frames.shape != (n_frames, RES, RES, 3)):
+        raise AssertionError("the image task's PSNR did not rise, or its frames are wrong")
+    reset_launches()
+    return launches, {"wall_s": wall, "psnr_logged": psnrs, "final_psnr": res["final_psnr"],
+                      "peak_gb": peak_gb}
+
+
+def feat_train_macs(P, DD, W=64, D=2):
+    """(forward, train) multiply-adds per point of the feat MLP: the train
+    call is the forward, dW (as many) and the cotangents of every layer's
+    input, the features' included (the sh columns' not)."""
+    fwd = P * W + (D - 1) * W * W + W + W * W + (W + DD) * (W // 2) + (W // 2) * 3
+    dx = (D - 1) * W * W + W * W + W + W * (W // 2) + (W // 2) * 3 + P * W
+    return fwd, 2 * fwd + dx
+
+
+def image_macs(mlp_cfg, enc_dim):
+    """(forward, train) multiply-adds per pixel of the image MLP: the train
+    call is the forward, dW and the hidden layers' cotangents."""
+    D, W = mlp_cfg.net_depth, mlp_cfg.net_width
+    fwd = 0
+    for j in range(D):
+        fwd += (enc_dim if j == 0 else W + (enc_dim if (j - 1) in mlp_cfg.skips else 0)) * W
+    fwd += W * mlp_cfg.out_channels
+    dx = (D - 1) * W * W + W * mlp_cfg.out_channels
+    return fwd, 2 * fwd + dx
+
+
+def phase_feat_image_timing(device):
+    """Each new kernel per launch (CUDA events) beside its plain version
+    and its bound: the feat train kernel at the paper-size tables' coarse
+    (4096 x 48) and fine (4096 x 96) level (plain: forward + autograd
+    backward); the image train kernel at 4096 pixels (plain: forward +
+    autograd backward) and the forward kernel on a 400 x 400 frame. The
+    bound is the larger of the bytes each launch must move over 3.35 TB/s
+    and its fp32 operations over 67 TFLOP/s."""
+    import torch
+    from nerf_meets_mlx_torch.datasets.image import make_test_image, pixel_dataset
+    from nerf_meets_mlx_torch.kernels import fused_feat_train as ff
+    from nerf_meets_mlx_torch.kernels import fused_image as fim
+    from nerf_meets_mlx_torch.kernels import fused_ingp_train as fi
+
+    def entry(ms_runs, plain_ms, nbytes, flops, **extra):
+        t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+        ms = sum(ms_runs) / len(ms_runs)
+        return dict(ms=ms, ms_runs=ms_runs, plain_ms=plain_ms,
+                    bound_ms=max(t_ops, t_bytes) * 1e3,
+                    bound_by="operations" if t_ops > t_bytes else "bytes",
+                    achieved_tflops_s=flops / (ms * 1e-3) / 1e12, **extra)
+
+    feat = {}
+    sets = {n: rest for n, *rest in feat_sets(device)}
+    for name, reps in (("paper coarse", 10), ("paper fine", 6)):
+        model, mlp, feats, sh, dl, nz, target = sets[name]
+        R, S, P = feats.shape
+        params = mlp_params(mlp)
+        tspec = feat_tspec(model, S)
+        x = ff.pack_feat_inputs(feats, sh, dl, nz)
+
+        def kernel():
+            with torch.no_grad():
+                ff.fused_feat_train_apply(mlp, tspec, x, target)
+
+        f = feats.clone().requires_grad_(True)
+        xg = ff.pack_feat_inputs(f, sh, dl, nz)
+
+        def plain():
+            sse, _, _ = ff.fused_feat_train_reference(mlp, tspec, xg, target)
+            torch.autograd.grad(sse, params + [f], retain_graph=True)
+
+        k1, p_ms, k2 = cuda_time_ms(kernel, reps), cuda_time_ms(plain, reps), cuda_time_ms(kernel, reps)
+        DD = sh.shape[-1]
+        _, train = feat_train_macs(P, DD)
+        n_w = fi.pack_weights(mlp)[0].numel()
+        # in: x, target, weights; out: rgb, weights, sse, dW, dfeats
+        nbytes = 4 * (R * S * (P + DD + 2) + 3 * R + n_w + 3 * R + R * S + 1 + n_w + R * S * P)
+        key = name.split()[1]
+        feat[key] = entry([k1, k2], p_ms, nbytes, 2.0 * train * R * S, rays=R, samples=S,
+                          p_dim=P)
+        log(f"[time] feat_train {name} R={R} S={S} P={P}: kernel {k1:.3f} / {k2:.3f} ms, plain "
+            f"fwd+bwd {p_ms:.3f} ms, bound {feat[key]['bound_ms']:.3f} ms "
+            f"({feat[key]['bound_by']}), {feat[key]['achieved_tflops_s']:.2f} TFLOP/s")
+
+    model = image_model(device)
+    mlp, enc = model.coarse, model.pos_enc
+    coords, colors = (torch.as_tensor(a, device=device)
+                      for a in pixel_dataset(make_test_image(RES)))
+    gen = torch.Generator(device=device).manual_seed(SEED + 24)
+    idx = torch.randint(0, coords.shape[0], (4096,), generator=gen, device=device)
+    x, y = coords[idx], colors[idx]
+    params = mlp_params(mlp)
+    fwd_macs, train_macs_ = image_macs(mlp.cfg, enc.out_dim)
+    n_w = fim.pack_image_weights(mlp, enc)[1][2 * mlp.cfg.net_depth + 2]
+
+    def kernel():
+        with torch.no_grad():
+            fim.fused_image_train(mlp, enc, x, y)
+
+    def plain():
+        sse = torch.sum((fim.fused_image_reference(mlp, enc, x) - y) ** 2)
+        torch.autograd.grad(sse, params)
+
+    k1, p_ms, k2 = cuda_time_ms(kernel, 20), cuda_time_ms(plain, 20), cuda_time_ms(kernel, 20)
+    N = x.shape[0]
+    image_train = {"batch": entry([k1, k2], p_ms, 4 * (2 * N + 3 * N + 2 * n_w + 1),
+                                  2.0 * train_macs_ * N, pixels=N)}
+    log(f"[time] image_train N={N}: kernel {k1:.3f} / {k2:.3f} ms, plain fwd+bwd {p_ms:.3f} ms, "
+        f"bound {image_train['batch']['bound_ms']:.3f} ms ({image_train['batch']['bound_by']}), "
+        f"{image_train['batch']['achieved_tflops_s']:.2f} TFLOP/s")
+    N = coords.shape[0]
+    with torch.no_grad():
+        k1 = cuda_time_ms(lambda: fim.fused_image_apply(mlp, enc, coords), 5)
+        p_ms = cuda_time_ms(lambda: fim.fused_image_reference(mlp, enc, coords), 5)
+        k2 = cuda_time_ms(lambda: fim.fused_image_apply(mlp, enc, coords), 5)
+    image_fwd = {"frame": entry([k1, k2], p_ms, 4 * (2 * N + 3 * N + n_w),
+                                2.0 * fwd_macs * N, pixels=N)}
+    log(f"[time] image_fwd N={N}: kernel {k1:.3f} / {k2:.3f} ms, plain {p_ms:.3f} ms, bound "
+        f"{image_fwd['frame']['bound_ms']:.3f} ms ({image_fwd['frame']['bound_by']}), "
+        f"{image_fwd['frame']['achieved_tflops_s']:.2f} TFLOP/s")
+    reset_launches()
+    return feat, image_train, image_fwd
+
+
+def phase_feats_e2e(ds, device):
+    """lego_ingp with the paper's tables on the fused route (the feats
+    route: plain-gather encode, feat train kernel per level) end to end: the
+    host seconds of a warm train step (OCC_TIMED_STEPS steps ending in one
+    synchronize), rays/s, peak memory, the device's busy share and device
+    time by kernel of 5 steps under torch.profiler, and the 400 x 400 frame
+    (standard route: plain gather and MLP, no kernel) with its busy share;
+    then the long-ray overlay's warm step (hash kernels + feat train
+    kernel)."""
+    import torch
+    from nerf_meets_mlx_torch.cameras.pose import orbit_poses
+    from nerf_meets_mlx_torch.config import lego_ingp
+    from nerf_meets_mlx_torch.datasets.synthetic import CAMERA_ANGLE_X
+    from nerf_meets_mlx_torch.engine import TrainState, make_nerf_train_step
+    from nerf_meets_mlx_torch.rendering import render_image
+
+    images = torch.as_tensor(ds.images[ds.i_train], device=device)
+    poses = torch.as_tensor(ds.poses[ds.i_train, :3, :4], device=device)
+    focal = 0.5 * RES / np.tan(0.5 * CAMERA_ANGLE_X)
+    K = np.array([[focal, 0, RES / 2], [0, focal, RES / 2], [0, 0, 1]], np.float32)
+    long_cfg = lego_ingp()
+    long_cfg = long_cfg.replace(render=dataclasses.replace(
+        long_cfg.render, n_samples=LONG_RAYS[0], n_importance=LONG_RAYS[1]))
+    out = {}
+    for key, cfg, n_steps in (("paper_tables", paper_cfg(), OCC_TIMED_STEPS),
+                              ("long_rays", long_cfg, 10)):
+        model = make_model(cfg.replace(use_fused_kernel=True), device)
+        state = TrainState(model, cfg.train)
+        step = make_nerf_train_step(model, ds.H, ds.W, ds.focal)
+        gen = torch.Generator(device=device).manual_seed(SEED + 25)
+        for _ in range(3):
+            step(state, images, poses, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step(state, images, poses, gen)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / n_steps
+        launches = launches_now()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n_rand = cfg.train.n_rand
+        log(f"[time] train step lego_ingp+{key} ({n_rand} rays, {cfg.render.n_samples} + "
+            f"{cfg.render.n_importance} samples): {step_s:.5f} s/step over {n_steps} warm "
+            f"steps -> {n_rand / step_s:.1f} rays/s; launches {launches}; peak device memory "
+            f"{peak_gb:.2f} GB")
+        res = {"step_s": step_s, "rays_per_s": n_rand / step_s, "peak_gb": peak_gb,
+               "launches": launches}
+        if key == "paper_tables":
+            def steps():
+                for _ in range(PROFILED_STEPS):
+                    step(state, images, poses, gen)
+
+            res["trace"] = profile_device(steps, f"{PROFILED_STEPS} lego_ingp+{key} train steps")
+            times = []
+            for pose in orbit_poses(160)[:2]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                render_image(model, RES, RES, K, pose[:3, :4])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            render_image(model, RES, RES, K, orbit_poses(160)[0][:3, :4])
+            frame_peak = torch.cuda.max_memory_allocated() / 1e9
+            if launches_now() != counts():
+                raise AssertionError(f"the feats eval route launched {launches_now()}")
+            res["frame_trace"] = profile_device(
+                lambda: render_image(model, RES, RES, K, orbit_poses(160)[0][:3, :4]),
+                f"one {RES}x{RES} lego_ingp+{key} frame")
+            log(f"[time] render_image {RES}x{RES} lego_ingp+{key}: frames {times} s -> "
+                f"{min(times):.4f} s/frame, {RES * RES / min(times):.1f} rays/s; peak device "
+                f"memory {frame_peak:.2f} GB")
+            res["frame"] = {"frame_seconds": times, "rays_per_s": RES * RES / min(times),
+                            "peak_gb": frame_peak}
+        out[key] = res
+        del model, state
+        torch.cuda.empty_cache()
+    reset_launches()
+    return out
+
+
+def phase_image_timing(device):
+    """The image task's warm step (IMAGE_TIMED_STEPS steps of 4096 pixels
+    ending in one synchronize) on the kernel route and on the plain route,
+    the busy share of 5 kernel-route steps, and one 400 x 400 prediction
+    on each route (host clock, ends in a synchronize)."""
+    import torch
+    from nerf_meets_mlx_torch.datasets.image import make_test_image, pixel_dataset
+    from nerf_meets_mlx_torch.engine import TrainState, make_image_train_step
+    from nerf_meets_mlx_torch.kernels import fused_image as fim
+
+    coords, colors = (torch.as_tensor(a, device=device)
+                      for a in pixel_dataset(make_test_image(RES)))
+    out = {}
+    for route, fused in (("kernel", True), ("plain", False)):
+        model = image_model(device, fused=fused)
+        state = TrainState(model, model.cfg.train)
+        step = make_image_train_step(model)
+        gen = torch.Generator(device=device).manual_seed(SEED + 26)
+        for _ in range(5):
+            step(state, coords, colors, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(IMAGE_TIMED_STEPS):
+            step(state, coords, colors, gen)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / IMAGE_TIMED_STEPS
+        res = {"step_s": step_s, "pixels_per_s": model.cfg.train.n_rand / step_s}
+        if fused:
+            def steps():
+                for _ in range(PROFILED_STEPS):
+                    step(state, coords, colors, gen)
+
+            res["trace"] = profile_device(steps, f"{PROFILED_STEPS} image train steps")
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                if fused:
+                    fim.fused_image_apply(model.coarse, model.pos_enc, coords)
+                else:
+                    model.query("coarse", coords[:, None, :], None)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        res["frame_seconds"] = times
+        log(f"[time] image step ({route} route, {model.cfg.train.n_rand} pixels): {step_s:.6f} "
+            f"s/step over {IMAGE_TIMED_STEPS} warm steps; {RES}x{RES} prediction {times} s")
+        out[route] = res
+    reset_launches()
+    return out
+
 
 def main() -> int:
     import torch
@@ -1700,18 +2312,29 @@ def main() -> int:
     ds = train_scene(device)
     routes = phase_train_routes(ds, device)
     occ_routes = phase_occ_routes(ds, device)
-    # every build done before any timing: nvcc shares the host's cores
+    wait_builds(builds, ["fused_image"])
+    image_err = phase_compare_image(device)
+    image_launches, image_run = phase_image_path(device)
     wait_builds(builds, ["hash_encode", "fused_ingp"])
     ingp_err = phase_compare_ingp(device)
     ingp_launches, ingp_run = phase_train_main_path(device, preset="lego_ingp")
     ingp_occ_launches, ingp_occ_run = phase_train_main_path(device, preset="lego_ingp_occ")
     ingp_routes = phase_ingp_routes(ds, device)
+    # every build done before any timing: nvcc shares the host's cores
+    wait_builds(builds, ["fused_feat"])
+    feat_err = phase_compare_feat(device)
+    feat_launches, feat_run = phase_train_main_path(
+        device, preset="lego_ingp", extra=PAPER_OVERLAY, tag="lego_ingp_paper_tables")
+    long_routes = phase_long_ray_routes(ds, device)
     per_level, frame = phase_timing(fused, res, device)
     train_level, train_step = phase_train_timing(ds, device)
     mlp_fwd_t, mlp_bwd_t = phase_mlp_timing(device)
     occ_time = phase_occ_timing(ds, device)
     hash_fwd_t, hash_bwd_t, ingp_eval_t, ingp_train_t = phase_ingp_kernel_timing(device)
     ingp_time = phase_ingp_e2e(ds, device)
+    feat_t, image_train_t, image_fwd_t = phase_feat_image_timing(device)
+    feats_time = phase_feats_e2e(ds, device)
+    image_time = phase_image_timing(device)
 
     # one entry per kernel; its times are the mean per launch over its main
     # path's mix: the coarse and the fine level equally often (eval, train,
@@ -1764,6 +2387,15 @@ def main() -> int:
         entry("ingp_train", "nerf_meets_mlx_torch/csrc/fused_ingp.cu",
               "nerf_meets_mlx_tpu/kernels/fused_ingp_train.py:93", ingp_launches["ingp_train"],
               ingp_err["train_val"], ingp_train_t),
+        entry("feat_train", "nerf_meets_mlx_torch/csrc/fused_feat.cu",
+              "nerf_meets_mlx_tpu/kernels/fused_feat_train.py:308", feat_launches["feat_train"],
+              feat_err[0], feat_t),
+        entry("image_train", "nerf_meets_mlx_torch/csrc/fused_image.cu",
+              "nerf_meets_mlx_tpu/kernels/fused_image.py:262", image_launches["image_train"],
+              image_err[0], image_train_t),
+        entry("image_fwd", "nerf_meets_mlx_torch/csrc/fused_image.cu",
+              "nerf_meets_mlx_tpu/kernels/fused_image.py:304", image_launches["image_fwd"],
+              image_err[2], image_fwd_t),
     ]
     for k in kernels:
         if k["launches"] < 1:
@@ -1778,7 +2410,15 @@ def main() -> int:
         "ingp_launches": ingp_launches, "ingp_occ_train_run": ingp_occ_run,
         "ingp_occ_launches": ingp_occ_launches, "ingp_routes": ingp_routes,
         "hash_forward": hash_fwd_t, "hash_backward": hash_bwd_t, "ingp_eval_per_level": ingp_eval_t,
-        "ingp_train_per_level": ingp_train_t, "ingp_timing": ingp_time, "card": smi,
+        "ingp_train_per_level": ingp_train_t, "ingp_timing": ingp_time,
+        "feat_compare": {"max_abs_val": feat_err[0], "worst_grad_ratio": feat_err[1]},
+        "feat_train_run": feat_run, "feat_launches": feat_launches, "long_ray_routes": long_routes,
+        "feat_train_per_level": feat_t, "feats_timing": feats_time,
+        "image_compare": {"sse_abs": image_err[0], "worst_dw_ratio": image_err[1],
+                          "fwd_abs": image_err[2]},
+        "image_run": image_run, "image_launches": image_launches,
+        "image_train_per_launch": image_train_t, "image_fwd_per_launch": image_fwd_t,
+        "image_timing": image_time, "card": smi,
     }
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "result.json").write_text(json.dumps({"kernels": kernels, **detail}, indent=1))

@@ -6,11 +6,12 @@ reference every part of the port is tested against. Each Pallas TPU kernel
 on a ported path becomes a hand-written Hopper kernel (``csrc/``) with a
 plain PyTorch version beside it (``kernels/``).
 
-The port serves and trains: the hierarchical eval render and the train
-step of the sinusoidal presets (``python -m nerf_meets_mlx_torch render``
-and ``train``), with CUDA ports of ``fused_train._eval_kernel`` and
-``fused_train._train_kernel``. Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``.
+The port serves and trains the sinusoidal presets (``lego_hierarchical``,
+``lego_occ``) and the hash-grid presets (``lego_ingp``, ``lego_ingp_occ``,
+and through the "feats" route the larger hash grids), and fits the 2-D
+image task (``python -m nerf_meets_mlx_torch train``, ``render``,
+``image``). Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 
 from nerf_meets_mlx_torch.version import __version__

@@ -1,8 +1,7 @@
 """CLI shell: ``python -m nerf_meets_mlx_torch <command> [args]``.
 
-Counterpart of ``nerf_meets_mlx_tpu/__main__.py``. The port has the
-``train`` and ``render`` commands (each with ``--device``); ``image`` comes
-with a later slice.
+Counterpart of ``nerf_meets_mlx_tpu/__main__.py``: the ``train``, ``render``
+and ``image`` commands, each with ``--device``.
 """
 
 from __future__ import annotations
@@ -50,8 +49,27 @@ def main(argv=None):
     r.add_argument("--device", default=None, help=dev_help)
     r.add_argument("--synth-resolution", type=int, default=None, help="procedural scene resolution (synthetic dataset only)")
 
+    i = sub.add_parser("image", help="2-D image learning")
+    i.add_argument("--image-path", default=None)
+    i.add_argument("--size", type=int, default=400)
+    i.add_argument("--max-iters", type=int, default=1000)
+    i.add_argument("--log-dir", default=None)
+    i.add_argument("--viewer-port", type=int, default=None, help="serve the live web viewer on this port")
+    i.add_argument("--device", default=None, help=dev_help)
+
     args = p.parse_args(argv)
-    if args.cmd == "train":
+    if args.cmd == "image":
+        from nerf_meets_mlx_torch.entrypoints import image_learning
+
+        out = image_learning(
+            image_path=args.image_path,
+            size=args.size,
+            max_iters=args.max_iters,
+            log_dir=args.log_dir,
+            viewer_port=args.viewer_port,
+            device=args.device,
+        )
+    elif args.cmd == "train":
         from nerf_meets_mlx_torch.entrypoints import train_nerf
 
         out = train_nerf(

@@ -6,6 +6,7 @@ from nerf_meets_mlx_torch.engine.checkpoint import (
 from nerf_meets_mlx_torch.engine.train_state import TrainState, lr_at
 from nerf_meets_mlx_torch.engine.trainer import (
     Trainer,
+    make_image_train_step,
     make_nerf_train_step,
     maybe_update_occupancy,
     nerf_loss_fn,
@@ -19,6 +20,7 @@ __all__ = [
     "TrainState",
     "lr_at",
     "Trainer",
+    "make_image_train_step",
     "make_nerf_train_step",
     "maybe_update_occupancy",
     "nerf_loss_fn",

@@ -16,6 +16,9 @@ package's threefry draws.
 The host never waits for the device inside a step: the step count lives on
 the host, the lr is computed there, and ``Trainer.run`` reads a scalar only
 every ``sync_every`` steps and at the logging cadence.
+
+``make_image_train_step`` is the 2-D image task's step (pixel batch ->
+MLP -> MSE -> Adam), run by the same ``Trainer``.
 """
 
 from __future__ import annotations
@@ -192,6 +195,51 @@ def make_nerf_train_step(model, H: int, W: int, focal: float, n_inner: int = 1) 
         for _ in range(max(1, n_inner)):
             aux = body(state, images, poses, generator, draws)
         return aux
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# 2-D image-learning train step
+# ---------------------------------------------------------------------------
+
+
+def make_image_train_step(model) -> Callable:
+    """step(state, coords [N, 2], colors [N, 3], generator=None, draws=None)
+    -> metrics: one optimizer step on ``n_rand`` pixels drawn uniformly
+    with replacement (``draws["idx"]`` or from ``generator``), regressing
+    their colours directly. With ``use_fused_kernel`` (a sinusoidal
+    non-viewdir model) the loss is one ``fused_image_train`` call (on CUDA
+    the train kernel returns the gradient in the same launch), loss =
+    sse / y.numel(); otherwise ``model.query`` and the MSE by autograd. Adam
+    as ``TrainState`` configures it (the image task's lr 1e-3, b2 0.99,
+    constant lr)."""
+    cfg = model.cfg
+    batch = cfg.train.n_rand
+    use_fused = (
+        cfg.use_fused_kernel
+        and not cfg.mlp.use_viewdirs
+        and cfg.pos_encoding.kind == "sinusoidal"
+    )
+
+    def step(state: TrainState, coords, colors, generator=None, draws=None):
+        idx = _get(draws, "idx")
+        if idx is None:
+            idx = torch.randint(0, coords.shape[0], (batch,), generator=generator,
+                                device=coords.device)
+        idx = idx.to(coords.device)
+        xb, y = coords[idx], colors[idx]
+        if use_fused:
+            from nerf_meets_mlx_torch.kernels.fused_image import fused_image_train
+
+            loss = fused_image_train(model.coarse, model.pos_enc, xb, y) / float(y.numel())
+        else:
+            pred = model.query("coarse", xb[:, None, :], None)[:, 0, :]
+            loss = torch.mean((pred - y) ** 2)
+        loss.backward()
+        state.apply_gradients()
+        loss = loss.detach()
+        return {"loss": loss, "psnr": mse_to_psnr(loss)}
 
     return step
 

@@ -7,8 +7,11 @@ caller passes ``device``, and raises when CUDA is asked for and absent. On a
 CUDA device the sinusoidal and hash-grid presets route through the fused
 CUDA kernels (``use_fused_kernel=True``): each train step launches the train
 kernel (``fused_train`` or, for ``lego_ingp`` / ``lego_ingp_occ``,
-``fused_ingp``) once per level and the renders launch the eval kernel; on
-the CPU they take the standard route. With ``render.occupancy``
+``fused_ingp``) once per level and the renders launch the eval kernel; a
+hash grid past the INGP kernel's bounds (``config_txt`` with the paper's
+16 × 2^19 tables, or more than 256 samples) trains on the "feats" route
+(the hash encode, then ``fused_feat`` per level) and renders on the
+standard route; on the CPU they take the standard route. With ``render.occupancy``
 (``lego_occ``, ``lego_ingp_occ``) the train step keeps the learned grid up
 to date (one launch of the fused MLP forward kernel, or of the hash-encode
 forward kernel, per update on CUDA) and every render takes it. Held-out renders are written as ``render_XXXXXXXX.npy`` and

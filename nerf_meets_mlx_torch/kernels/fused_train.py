@@ -15,7 +15,8 @@ math.
   differentiable by autograd.
 * ``LAUNCHES["eval"]`` / ``LAUNCHES["train"]`` count kernel launches, one
   per CUDA call; the dict also holds the counts of ``kernels/fused_mlp.py``,
-  ``kernels/hash_encode.py`` and ``kernels/fused_ingp_train.py``.
+  ``kernels/hash_encode.py``, ``kernels/fused_ingp_train.py``,
+  ``kernels/fused_feat_train.py`` and ``kernels/fused_image.py``.
 """
 
 from __future__ import annotations
@@ -29,11 +30,13 @@ import torch
 from nerf_meets_mlx_torch.rendering.volume import exclusive_cumsum, softplus
 
 # kernel launches per wrapper, of this module and of kernels/fused_mlp.py,
-# kernels/hash_encode.py and kernels/fused_ingp_train.py; a run sets them to
+# kernels/hash_encode.py, kernels/fused_ingp_train.py,
+# kernels/fused_feat_train.py and kernels/fused_image.py; a run sets them to
 # 0 and reads them after
 LAUNCHES: Dict[str, int] = {
     "eval": 0, "train": 0, "mlp_fwd": 0, "mlp_bwd": 0,
     "hash_fwd": 0, "hash_bwd": 0, "ingp_eval": 0, "ingp_train": 0,
+    "feat_train": 0, "image_train": 0, "image_fwd": 0,
 }
 
 

@@ -11,15 +11,18 @@ encoding (the hash grid), the position encoding with its tables;
 
 on one of two routes:
 
-* the fused route (``_fused_train_mode`` "sinusoidal" or "ingp"): in eval
-  each level is one ``kernels.fused_train.fused_eval_apply`` call
-  (sinusoidal) or one ``kernels.fused_ingp_train.fused_ingp_eval_apply``
+* the fused route (``_fused_train_mode`` "sinusoidal", "ingp" or
+  "feats"): in eval each level is one ``kernels.fused_train.fused_eval_apply``
+  call (sinusoidal) or one ``kernels.fused_ingp_train.fused_ingp_eval_apply``
   call (hash grid + spherical harmonics), and the depth/disp/acc maps are
-  reductions over the dense weights; in training ``render_rays_train``
+  reductions over the dense weights ("feats" evaluates on the standard
+  route, as the JAX package does); in training ``render_rays_train``
   makes each level one ``fused_train_apply`` / ``fused_ingp_train_apply``
   call, which returns the level's SSE and, on CUDA, its gradient in the
-  same launch. Both launch their CUDA kernel for CUDA tensors and run their
-  plain version on the CPU;
+  same launch, or ("feats") the hash encode followed by one
+  ``kernels.fused_feat_train.fused_feat_train_apply`` call, whose gradient
+  of the features goes back through the encode. They launch their CUDA
+  kernel for CUDA tensors and run their plain version on the CPU;
 * the standard route (``use_fused_kernel`` off, or ``use_fused_train``
   off): ``query`` and ``raw2outputs``, differentiable by autograd in
   training. ``query`` is encode-then-MLP, or, with ``use_fused_kernel``, one
@@ -416,9 +419,13 @@ class NeRFModel(nn.Module):
           budget (kernels/fused_ingp_train.py: points, hash encode, MLP,
           compositing and, in training, the backward with the table
           gradient, in one call per level);
-        * "feats": the other hash-grid configs (tables too large, or more
-          than 256 samples), whose train route is not ported yet
-          (``render_rays_train`` raises);
+        * "feats": the other hash-grid configs, up to 2048 samples per ray
+          (tables past that budget, such as the Instant-NGP paper's 16
+          levels of 2^19 entries, or more than 256 samples): in training
+          the hash encode (``_encode_pos``), then
+          kernels/fused_feat_train.py (MLP, compositing and the backward,
+          with the gradient of the features, in one call per level); in
+          eval the standard route;
         * None: the unfused route.
         """
         cfg = self.cfg
@@ -469,8 +476,13 @@ class NeRFModel(nn.Module):
         (sinusoidal) or ``fused_ingp_train_apply`` (hash grid): per level one
         call runs encode + MLP, the transmittance scan and the colour
         composite, the squared error against ``target`` and (on CUDA) its
-        whole backward, the hash tables' gradient included. The two levels'
-        table gradients add up through autograd (one set of tables).
+        whole backward, the hash tables' gradient included. On the "feats"
+        route each level encodes its points first (``_encode_pos``: the
+        hash kernels, or the plain gather past their budget) and packs the
+        features with the rays' spherical harmonics, deltas and noise for
+        ``fused_feat_train_apply``, whose d(sse)/d(feats) reaches the
+        tables through the encode's backward. The two levels' table
+        gradients add up through autograd (one set of tables).
 
         Returns {"sse_coarse", "rgb_coarse", "z_vals", "weights"
         [, "sse_fine", "rgb_fine"]}. Differentiable only through sse_*
@@ -487,13 +499,7 @@ class NeRFModel(nn.Module):
         )
 
         mode = self._fused_train_mode
-        if mode == "feats":
-            raise NotImplementedError(
-                "the \"feats\" train route (hash-grid configs whose tables or sample "
-                "counts exceed the fused INGP kernel's bounds) is not ported yet "
-                "(ROADMAP.md Queue 1)"
-            )
-        if mode not in ("sinusoidal", "ingp"):
+        if mode not in ("sinusoidal", "ingp", "feats"):
             raise ValueError("render_rays_train needs the fused route (supports_fused_train)")
         rcfg = self.cfg.render
         dev = rays_o.device
@@ -508,8 +514,22 @@ class NeRFModel(nn.Module):
                 ingp_group,
                 ingp_rays_block,
             )
-
+        elif mode == "feats":
+            from nerf_meets_mlx_torch.kernels.fused_feat_train import (
+                feat_group,
+                feat_rays_block,
+                fused_feat_train_apply,
+                pack_feat_inputs,
+            )
+        if mode in ("ingp", "feats"):
             sh = self.dir_enc.apply(viewdirs)
+
+        def tspec_of(S, rb, group):
+            return TrainSpec(
+                n_samples=S, rays_block=rb, mode=rcfg.compositing,
+                density_activation=rcfg.density_activation,
+                white_bkgd=rcfg.white_bkgd, group=group,
+            )
 
         def run_level(level, z, noise_key):
             S = z.shape[1]
@@ -523,21 +543,19 @@ class NeRFModel(nn.Module):
                 noise = torch.zeros_like(z)
             if mode == "ingp":
                 rb = ingp_rays_block(S)
-                tspec = TrainSpec(
-                    n_samples=S, rays_block=rb, mode=rcfg.compositing,
-                    density_activation=rcfg.density_activation,
-                    white_bkgd=rcfg.white_bkgd, group=ingp_group(S, rb),
-                )
                 return fused_ingp_train_apply(
-                    self._mlp(level), self.pos_enc, sh, tspec,
+                    self._mlp(level), self.pos_enc, sh, tspec_of(S, rb, ingp_group(S, rb)),
                     rays_o, rays_d, z, deltas, noise, target,
                 )
+            if mode == "feats":
+                rb = feat_rays_block(S)
+                pts = rays_o[..., None, :] + z[..., :, None] * rays_d[..., None, :]
+                x = pack_feat_inputs(self._encode_pos(pts), sh, deltas, noise)
+                return fused_feat_train_apply(
+                    self._mlp(level), tspec_of(S, rb, feat_group(S, rb)), x, target
+                )
             rb = default_rays_block(S)
-            tspec = TrainSpec(
-                n_samples=S, rays_block=rb, mode=rcfg.compositing,
-                density_activation=rcfg.density_activation,
-                white_bkgd=rcfg.white_bkgd, group=default_group(S, rb),
-            )
+            tspec = tspec_of(S, rb, default_group(S, rb))
             return fused_train_apply(
                 self._mlp(level), self.pos_enc, self.dir_enc, tspec,
                 rays_o, rays_d, viewdirs, z, deltas, noise, target,

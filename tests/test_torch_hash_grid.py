@@ -103,6 +103,25 @@ def test_hash_apply_matches_jax_xla_at_preset_size():
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
+PAPER = dict(n_levels=16, min_res=16, max_res=512, features_per_level=2, log2_table_size=19)
+
+
+def test_hash_apply_matches_jax_xla_at_paper_size():
+    """The Instant-NGP paper's grid (Müller et al. 2022, Table 1; the JAX
+    package's default ``HashGridEncoding``): L = 16, T = 2^19, F = 2,
+    resolutions 16..512, on 1,000 points. At resolution 512 the corner
+    products wrap mod 2^32."""
+    import jax.numpy as jnp
+
+    tenc, jenc, params = _pair(**PAPER)
+    assert tuple(tenc.tables.shape) == (16, 1 << 19, 2) and tenc.resolutions[-1] == 512
+    x = _points(1000)
+    got = tenc.apply(torch.from_numpy(x)).detach().numpy()
+    want = np.asarray(jenc.apply(params, jnp.asarray(x)))
+    assert got.shape == (1000, 32)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
 def test_hash_table_grad_matches_jax_xla():
     """The table gradient of Σ co · feats at the preset size against
     jax.grad through the XLA apply (a scatter-add in both: sums in another

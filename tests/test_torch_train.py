@@ -441,6 +441,33 @@ def test_lego_ingp_occ_train_steps_match_jax():
     assert float(tstate.occ_grid.max()) > 0.0
 
 
+@pytest.mark.parametrize("trigger", ["paper_tables", "long_rays"])
+def test_feats_train_step_matches_jax(trigger):
+    """One lego_ingp step on the "feats" route, for each of its triggers
+    (``_ingp`` with the Instant-NGP paper's 16 levels of 2^19 entries at 8 +
+    8 samples, or its small tables at 8 + 250 samples), from the same
+    weights and draws: per level the hash encode (JAX: the XLA gather, or
+    the Pallas hash kernels in interpret mode) and the port's feat train op
+    (JAX: the Pallas ``_feat_train_kernel`` in interpret mode). Losses,
+    gradients and the parameters and tables after Adam with the encoding
+    weight decay, as ``_steps_match_jax`` holds them."""
+    from nerf_meets_mlx_torch.config import lego_ingp as t_make
+    from nerf_meets_mlx_tpu.config import lego_ingp as j_make
+
+    def cfg_of(make):
+        cfg = _ingp(make, True)
+        if trigger == "paper_tables":
+            return cfg.replace(pos_encoding=dataclasses.replace(
+                cfg.pos_encoding, hash_n_levels=16, hash_log2_table_size=19, hash_min_res=16,
+                hash_max_res=512))
+        return cfg.replace(render=dataclasses.replace(cfg.render, n_importance=250))
+
+    jc, tc = cfg_of(j_make), cfg_of(t_make)
+    tm, _ = _steps_match_jax(jc, tc, 1, key=13)
+    assert tm._fused_train_mode == "feats"
+    assert tm._use_hash_kernel() == (trigger == "long_rays")
+
+
 def _tiny_module(seed=0):
     torch.manual_seed(seed)
     return torch.nn.Sequential(torch.nn.Linear(5, 7), torch.nn.ReLU(), torch.nn.Linear(7, 3))
@@ -640,6 +667,54 @@ def test_train_cli_on_cpu(tmp_path, capsys):
     logged = [json.loads(x)["step"] for x in (log_dir / "metrics.jsonl").open()]
     assert logged[:3] == [2, 4, 6]
     assert np.load(log_dir / "orbit_frames.npy").shape == (160, 12, 12, 3)
+
+
+def test_train_nerf_paper_tables_resume_on_cpu(tmp_path):
+    """``train_nerf`` on lego_ingp with the Instant-NGP paper's tables (the
+    "feats" route) through a text overlay: the checkpoint holds the [16,
+    2^19, 2] tables and their Adam moments, a resumed run continues from
+    them, the encoding weight decay reaches all 16.8M entries (entries no
+    point touched are the init decayed once a step), and the tables cross
+    ``interop`` as they are."""
+    txt = tmp_path / "paper.txt"
+    txt.write_text(
+        "hash_n_levels = 16\nhash_log2_table_size = 19\nhash_max_res = 512\n"
+        "N_samples = 8\nN_importance = 8\nN_rand = 16\ni_print = 1\nsynth_n_train = 2\n"
+        "i_testset = 0\n"
+    )
+    log_dir = tmp_path / "run"
+    kw = dict(preset="lego_ingp", config_txt=str(txt), synth_resolution=12, precrop_iters=0,
+              render_video=False, device="cpu", log_dir=str(log_dir))
+    res = train_nerf(max_iters=2, **kw)
+    assert res["step"] == 2 and np.isfinite(res["test_psnr_mean"])
+    state = torch.load(log_dir / "ckpt" / "step_00000002" / "state.pt", weights_only=True)
+    tables = state["params"]["pos_enc.tables"]
+    assert tuple(tables.shape) == (16, 1 << 19, 2)
+    moments = [s for s in state["optimizer"]["state"].values()
+               if tuple(s["exp_avg"].shape) == (16, 1 << 19, 2)]
+    assert len(moments) == 1 and int(moments[0]["step"]) == 2
+    untouched = moments[0]["exp_avg"] == 0
+    tc = t_create(tts_cfg(txt), device="cpu").init(torch.Generator().manual_seed(0))
+    init = tc.pos_enc.tables.detach()
+    decayed = init.clone()
+    for _ in range(2):  # TrainState's decay: p -= wd * p, after Adam's zero step
+        decayed = decayed - 1e-4 * decayed
+    assert int(untouched.sum()) > 16_000_000
+    assert torch.equal(tables[untouched], decayed[untouched])
+    res = train_nerf(max_iters=3, **kw)
+    assert res["step"] == 3
+    later = torch.load(log_dir / "ckpt" / "step_00000003" / "state.pt", weights_only=True)
+    moved = later["params"]["pos_enc.tables"] != tables
+    assert bool(moved.any()) and int((~moved).sum()) == 0  # decay moves every entry
+    back = interop.params_to_numpy(tc)
+    assert back["pos_enc"]["tables"].shape == (16, 1 << 19, 2)
+    interop.params_from_numpy(back, t_create(tts_cfg(txt), device="cpu"))
+
+
+def tts_cfg(txt):
+    from nerf_meets_mlx_torch.config import config_from_text, lego_ingp
+
+    return config_from_text(txt, lego_ingp())
 
 
 def test_train_nerf_without_cuda_raises():
