@@ -85,6 +85,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    the kernel per level, the paper-tables step, frame and trace, and the
    long-ray step.
 
+10. the CP path (``lego_cp``: CP grid of 4 levels x 64..512 nodes x 16
+   components in bf16, degree-4 spherical harmonics, 2 x 64 MLPs, 48 + 48
+   samples, lr 1e-2): both CP kernels against their plain versions (the
+   Pallas semantics) at a train step's 196,608 and 393,216 points and an
+   eval chunk's 3,145,728, in bf16 and fp32; ``train_nerf(preset=
+   "lego_cp")`` as in phase 5 with every count at 0: no kernel launch (the
+   JAX route: plain encode and MLP), a falling loss, ``render_only``
+   serving it; 3 lego_cp steps from one seed with the kernels behind the
+   query (``with_cp_kernel``: 2 cp_fwd + 2 cp_bwd launches a step) against
+   the standard route, and a frame through the kernel; then the kernels
+   per launch beside their bound, their plain versions and
+   ``CPGridEncoding.apply``, and lego_cp's step and frame on both.
+
+11. the overlay commands whose shapes the fused kernels did not take
+   before (``PART_A``: width 32 on lego_ingp, 16 levels, 4 features a
+   level, bf16 hash compute, width 64 on lego_hierarchical and lego_occ):
+   each through ``train_nerf`` for 10 steps with every count at 0 (its
+   kernels launched, finite metrics), then its kernels at its shapes
+   against their plain versions.
+
 It prints the kernels' JSON line, the ``nvidia-smi`` line, and as its last
 line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
@@ -383,16 +403,18 @@ BUILD_T0 = [0.0]
 
 
 def phase_build():
-    """Starts one nvcc per CUDA source, all together; returns their futures.
-    ``wait_builds`` joins them where a phase first needs them, so that the
-    slow build of fused_ingp.cu overlaps the earlier phases."""
+    """Starts one nvcc per build (``build_variants``: a source, or one shape
+    of the per-shape INGP and feat sources), all together; returns their
+    futures by source. ``wait_builds`` joins a source's builds where a phase
+    first needs them, so that the slow ones overlap the earlier phases."""
     from nerf_meets_mlx_torch.kernels import _build
 
-    sources = ["fused_eval", "fused_train", "fused_mlp", "hash_encode", "fused_ingp",
-               "fused_feat", "fused_image"]
+    variants = build_variants()
     BUILD_T0[0] = time.perf_counter()
-    ex = ThreadPoolExecutor(len(sources))
-    futures = {name: ex.submit(_build.build, name) for name in sources}
+    ex = ThreadPoolExecutor(len(variants))
+    futures = {}
+    for name, defines in variants:
+        futures.setdefault(name, []).append((defines, ex.submit(_build.build, name, defines)))
     ex.shutdown(wait=False)
     return futures
 
@@ -401,14 +423,16 @@ def wait_builds(futures, names):
     from nerf_meets_mlx_torch.kernels import _build
 
     t0 = time.perf_counter()
-    paths = [futures[name].result() for name in names]
+    paths = [f.result() for name in names for _, f in futures[name]]
     log(f"[build] {', '.join(p.name for p in paths)}: waited {time.perf_counter() - t0:.1f} s, "
         f"{time.perf_counter() - BUILD_T0[0]:.1f} s after the builds started")
     for name in names:
-        for line in _build.BUILD_LOG.get(name, "(cached build)").splitlines():
-            if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):
-                log(f"[build] {name}: {line.strip()}")
-        _build.load_library(name)
+        for defines, _ in futures[name]:
+            variant = _build.variant_name(name, defines)
+            for line in _build.BUILD_LOG.get(variant, "(cached build)").splitlines():
+                if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):
+                    log(f"[build] {variant}: {line.strip()}")
+            _build.load_library(name, defines)
 
 
 def phase_compare(device):
@@ -773,6 +797,10 @@ def phase_train_main_path(device, preset="lego_hierarchical", extra="", tag=None
         # the plain gather (tables past the hash kernels' budget), the
         # renders on the standard route
         want = counts(feat_train=2 * TRAIN_STEPS)
+    elif cfg.pos_encoding.kind == "cp_grid":
+        # lego_cp trains and serves on the standard route, as in JAX: the
+        # plain encode and MLP, no kernel
+        want = want_served = counts()
     elif cfg.pos_encoding.kind == "hash_grid":
         # the INGP kernels; the grid update's query runs the hash forward
         want = counts(ingp_eval=2 * chunks * n_frames, ingp_train=2 * TRAIN_STEPS,
@@ -858,17 +886,19 @@ def train_scene(device):
     return make_synthetic_scene(2, 1, 1, RES, device=device)
 
 
-def run_route(cfg, ds, device, steps: int, seed: int):
-    """``steps`` train steps of a fresh seeded model from one generator
-    seed, with every launch count set to 0 before them and read after:
-    (final parameters, per-step gradients, losses, launches, occupancy grid
-    after each step's update or None)."""
+def run_route(cfg, ds, device, steps: int, seed: int, patch=None):
+    """``steps`` train steps of a fresh seeded model (given to ``patch``
+    first, when set) from one generator seed, with every launch count set
+    to 0 before them and read after: (final parameters, per-step gradients,
+    losses, launches, occupancy grid after each step's update or None)."""
     import torch
     from nerf_meets_mlx_torch.engine import TrainState, make_nerf_train_step
 
     images = torch.as_tensor(ds.images[ds.i_train], device=device)
     poses = torch.as_tensor(ds.poses[ds.i_train, :3, :4], device=device)
     model = make_model(cfg, device)
+    if patch is not None:
+        patch(model)
     occ = None
     if cfg.render.occupancy:
         from nerf_meets_mlx_torch.acceleration.occupancy import init_occupancy_grid
@@ -2296,10 +2326,501 @@ def phase_image_timing(device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the shapes the overlay keys reach, and the CP path (lego_cp)
+# ---------------------------------------------------------------------------
+
+# (width, L·F) of the INGP builds: lego_ingp's (64, 8 x 2), netwidth = 32's
+# coarse MLP, and 16 levels of 2 or 8 levels of 4 features
+INGP_SHAPES = ((64, 16), (32, 16), (64, 32))
+# (width, P) of the feat builds: lego_ingp's 8 x 2 (long rays) and the
+# paper tables' 16 x 2
+FEAT_SHAPES = ((64, 16), (64, 32))
+PART_A_STEPS = 10
+# the overlay commands that train in JAX and failed on the card before the
+# fused kernels took their shapes: (tag, preset, overlay, kernels its
+# training must launch)
+PART_A = (
+    ("lego_ingp+netwidth32", "lego_ingp", "netwidth = 32\n", ("ingp_train", "ingp_eval")),
+    ("lego_ingp+16_levels", "lego_ingp", "hash_n_levels = 16\nhash_log2_table_size = 14\n",
+     ("ingp_train", "ingp_eval")),
+    ("lego_ingp+4_features", "lego_ingp", "hash_features_per_level = 4\n",
+     ("ingp_train", "ingp_eval")),
+    ("lego_ingp+bf16_hash", "lego_ingp", "hash_compute_dtype = bfloat16\n",
+     ("ingp_train", "ingp_eval")),
+    ("lego_hierarchical+netwidth64", "lego_hierarchical", "netwidth = 64\n", ("train", "eval")),
+    ("lego_occ+netwidth64", "lego_occ", "netwidth = 64\n", ("train", "eval", "mlp_fwd")),
+)
+# lego_cp's batches for the CP kernels: a train step's coarse and fine
+# points, and one eval chunk's fine points (rays, samples a ray)
+CP_BATCHES = (("coarse", 4096, 48), ("fine", 4096, 96), ("eval_chunk", 32768, 96))
+CP_VAL_ATOL, CP_VAL_RTOL = 1e-6, 1e-5  # the same roundings; sums of two exact products
+CP_DL_REL = 1e-4                       # dLines: atomics add in another order
+CP_ROUTE_RTOL = 1e-2                   # kernel route vs standard route, see phase_cp_routes
+CP_FRAME_ATOL = 1e-2                   # their frames' colours, the same semantics apart
+CP_TIMED_STEPS = 25
+
+
+# the further shapes that the gpu-marked tests hold against their plain
+# versions: 16 levels of 4 features; widths 32 and 64 with 16, 24 or 64
+# feature channels
+TEST_INGP_SHAPES = ((64, 64),)
+TEST_FEAT_SHAPES = ((32, 16), (64, 64), (32, 24))
+
+
+def build_variants(tests: bool = False):
+    """(source, defines) of every build the script's phases use, and with
+    ``tests`` those of the gpu-marked tests too."""
+    from nerf_meets_mlx_torch.kernels import fused_feat_train as ff
+    from nerf_meets_mlx_torch.kernels import fused_ingp_train as fi
+
+    ingp = INGP_SHAPES + (TEST_INGP_SHAPES if tests else ())
+    feat = FEAT_SHAPES + (TEST_FEAT_SHAPES if tests else ())
+    out = [(s, None) for s in ("fused_eval", "fused_train", "fused_mlp", "hash_encode",
+                               "fused_image", "cp_encode")]
+    out += [("fused_ingp", fi.kernel_defines(w, e)) for w, e in ingp]
+    out += [("fused_feat", ff.kernel_defines(w, p)) for w, p in feat]
+    return out
+
+
+def build_only() -> int:
+    """``python3 chip_smoke.py --build``: every build of the script and of
+    the gpu-marked tests, all started together (the tests would build each
+    on first use, one after another), with the ptxas report; then exits."""
+    from nerf_meets_mlx_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    variants = build_variants(tests=True)
+    with ThreadPoolExecutor(len(variants)) as ex:
+        futures = [(n, d, ex.submit(_build.build, n, d)) for n, d in variants]
+    failed = [f.exception() for _, _, f in futures if f.exception() is not None]
+    for e in failed:
+        log(f"[build] {e}")
+    if failed:
+        raise RuntimeError(f"{len(failed)} of {len(variants)} builds failed")
+    for name, defines, f in futures:
+        variant = _build.variant_name(name, defines)
+        for line in _build.BUILD_LOG.get(variant, "(cached build)").splitlines():
+            if any(k in line for k in ("registers", "spill")):
+                log(f"[build] {variant}: {line.strip()}")
+    log(f"[build] {len(variants)} builds in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def overlay_cfg(preset, overlay, tag):
+    """(config, overlay file) of ``preset`` under the text overlay."""
+    from nerf_meets_mlx_torch.config import PRESETS, config_from_text
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    txt = OUT / f"overlay_{tag}.txt"
+    txt.write_text("i_print = 1\n" + overlay)
+    return config_from_text(txt, PRESETS[preset]()), txt
+
+
+def check_values(what, pairs):
+    """max |kernel - plain| over (name, kernel, plain) value pairs, each
+    within ATOL + RTOL·|plain|; raises otherwise."""
+    import torch
+
+    worst = 0.0
+    for name, k, p in pairs:
+        k, p = k.detach(), p.detach()
+        err = float((k - p).abs().max())
+        worst = max(worst, err)
+        if not (bool(torch.isfinite(k).all())
+                and bool(((k - p).abs() <= ATOL + RTOL * p.abs()).all())):
+            raise AssertionError(f"{what}: {name} disagrees with its plain version ({err:.3e})")
+    return worst
+
+
+def check_grads(what, g_k, g_p, floor_rel=GRAD_FLOOR):
+    """Every gradient array within DW_REL of its largest plain value plus
+    ``floor_rel`` of the largest plain entry of all arrays."""
+    import torch
+
+    floor = floor_rel * max(float(b.abs().max()) for b in g_p)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(g_k, g_p)):
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        worst = max(worst, err / scale if scale > 0 else 0.0)
+        if not (bool(torch.isfinite(a).all()) and err <= DW_REL * scale + floor):
+            raise AssertionError(f"{what}: gradient {i} off by {err:.3e} of {scale:.3e}")
+    return worst
+
+
+def check_ingp_shape(cfg, device, tag):
+    """The INGP kernels at this config's shapes (both MLPs, 4096 rays, both
+    levels, its hash compute type, tables with N(0, 0.1) added) against
+    their plain versions (bf16: the rounding twin); returns the worst value
+    error and gradient ratio."""
+    import torch
+    from nerf_meets_mlx_torch.kernels import fused_ingp_train as fi
+
+    model = make_model(cfg.replace(use_fused_kernel=True), device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 40)
+    with torch.no_grad():
+        model.pos_enc.tables.add_(torch.randn(model.pos_enc.tables.shape, generator=gen,
+                                              device=device) * INGP_TABLE_NOISE)
+    ro, rd, vd = picked_rays(device)
+    target = torch.rand((ro.shape[0], 3), generator=gen, device=device)
+    sh, coarse, fine = ingp_level_inputs(model, ro, rd, vd, target, gen, NOISE_STD)
+    val = ratio = 0.0
+    for (z, dl, nz), mlp, level in ((coarse, model.coarse, "coarse"), (fine, model.fine, "fine")):
+        tspec = ingp_tspec(model, z.shape[1])
+        with torch.no_grad():
+            k = fi.fused_ingp_eval_apply(mlp, model.pos_enc, sh, tspec, ro, rd, z, dl)
+            torch.cuda.synchronize()
+            p = fi.fused_ingp_eval_reference(mlp, model.pos_enc, sh, tspec, ro, rd, z, dl)
+        val = max(val, check_values(f"{tag} ingp_eval {level}", zip(("rgb", "w"), k, p)))
+        params = mlp_params(mlp) + [model.pos_enc.tables]
+        args = (mlp, model.pos_enc, sh, tspec, ro, rd, z, dl, nz, target)
+        k = fi.fused_ingp_train_apply(*args)
+        g_k = torch.autograd.grad(k[0], params)
+        torch.cuda.synchronize()
+        p = fi.fused_ingp_train_reference(*args)
+        g_p = torch.autograd.grad(p[0], params)
+        val = max(val, check_values(f"{tag} ingp_train {level}", zip(("sse", "rgb", "w"), k, p)))
+        ratio = max(ratio, check_grads(f"{tag} ingp_train {level}", g_k, g_p))
+        log(f"[part-a] {tag} {level} width {mlp.cfg.net_width}, {model.pos_enc.n_levels} x "
+            f"{model.pos_enc.features_per_level} features ({model.pos_enc.compute_dtype}): "
+            f"INGP kernels vs plain, worst value {val:.3e}, gradient ratio {ratio:.2e} ok")
+    return val, ratio
+
+
+def check_sinusoidal_shape(cfg, device, tag):
+    """The eval and train kernels (and, with an occupancy grid, the MLP
+    forward and backward kernels) at this config's widths against their
+    plain versions, both levels at 4096 rays; returns the worst value error
+    and gradient ratio."""
+    import torch
+    from nerf_meets_mlx_torch.kernels import fused_mlp as fm
+    from nerf_meets_mlx_torch.kernels import fused_train as ft
+
+    model = make_model(cfg.replace(use_fused_kernel=True), device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 41)
+    ro, rd, vd = picked_rays(device)
+    target = torch.rand((ro.shape[0], 3), generator=gen, device=device)
+    val = ratio = 0.0
+    levels = zip(level_inputs(model, ro, rd, vd),
+                 train_level_inputs(model, ro, rd, vd, target, gen, NOISE_STD),
+                 (model.coarse, model.fine), ("coarse", "fine"))
+    for (z, dl), (zt, dlt, nz), mlp, level in levels:
+        S = z.shape[1]
+        with torch.no_grad():
+            k = ft.fused_eval_apply(mlp, model.pos_enc, model.dir_enc, tspec_for(model, S),
+                                    ro, rd, vd, z, dl)
+            torch.cuda.synchronize()
+            p = ft.fused_eval_reference(mlp, model.pos_enc, model.dir_enc, tspec_for(model, S),
+                                        ro, rd, vd, z, dl)
+        val = max(val, check_values(f"{tag} eval {level}", zip(("rgb", "w"), k, p)))
+        args = (mlp, model.pos_enc, model.dir_enc, train_tspec(model, S), ro, rd, vd, zt, dlt,
+                nz, target)
+        k = ft.fused_train_apply(*args)
+        g_k = torch.autograd.grad(k[0], mlp_params(mlp))
+        torch.cuda.synchronize()
+        p = ft.fused_train_reference(*args)
+        g_p = torch.autograd.grad(p[0], mlp_params(mlp))
+        val = max(val, check_values(f"{tag} train {level}", zip(("sse", "rgb", "w"), k, p)))
+        ratio = max(ratio, check_grads(f"{tag} train {level}", g_k, g_p, floor_rel=0.0))
+        if cfg.render.occupancy:
+            pts = (ro[:, None, :] + zt[..., None] * rd[:, None, :]).reshape(-1, 3)
+            dirs = vd[:, None, :].expand(-1, S, -1).reshape(-1, 3)
+            dout = torch.randn((pts.shape[0], 4), generator=gen, device=device)
+            k = fm.fused_mlp_apply(mlp, model.pos_enc, model.dir_enc, pts, dirs)
+            g_k = torch.autograd.grad((k * dout).sum(), mlp_params(mlp))
+            torch.cuda.synchronize()
+            p = fm.fused_mlp_reference(mlp, model.pos_enc, model.dir_enc, pts, dirs)
+            g_p = torch.autograd.grad((p * dout).sum(), mlp_params(mlp))
+            val = max(val, check_values(f"{tag} mlp {level}", [("raw", k, p)]))
+            ratio = max(ratio, check_grads(f"{tag} mlp {level}", g_k, g_p, floor_rel=0.0))
+        log(f"[part-a] {tag} {level} width {mlp.cfg.net_width}: sinusoidal kernels vs plain, "
+            f"worst value {val:.3e}, gradient ratio {ratio:.2e} ok")
+    return val, ratio
+
+
+def phase_part_a(device):
+    """Each overlay command of PART_A through the training entry point for
+    PART_A_STEPS steps with every launch count at 0 before it: the kernels
+    of its route launched (the INGP or the sinusoidal train kernel once a
+    level a step, the eval kernel in its renders), finite metrics; then the
+    kernels at its shapes against their plain versions."""
+    from nerf_meets_mlx_torch.entrypoints import train_nerf
+
+    out = {}
+    for tag, preset, overlay, kernels in PART_A:
+        cfg, txt = overlay_cfg(preset, overlay, tag)
+        log_dir = OUT / f"train_{tag}"
+        shutil.rmtree(log_dir, ignore_errors=True)
+        reset_launches()
+        t0 = time.perf_counter()
+        res = train_nerf(preset=preset, synth_resolution=RES, max_iters=PART_A_STEPS,
+                         precrop_iters=0, render_video=False, device=device,
+                         log_dir=str(log_dir), config_txt=str(txt))
+        wall = time.perf_counter() - t0
+        launches = launches_now()
+        train_key = "ingp_train" if "ingp_train" in kernels else "train"
+        losses = [json.loads(x)["loss"] for x in (log_dir / "metrics.jsonl").read_text().splitlines()
+                  if '"loss"' in x]
+        log(f"[part-a] train_nerf {tag}, {PART_A_STEPS} steps: {wall:.1f} s; launches "
+            f"{ {k: v for k, v in launches.items() if v} }; losses {losses[0]:.5f} -> "
+            f"{losses[-1]:.5f}; test PSNR {res['test_psnr_mean']:.3f}")
+        if (launches[train_key] != 2 * PART_A_STEPS or any(launches[k] < 1 for k in kernels)
+                or not all(np.isfinite(losses)) or not np.isfinite(res["test_psnr_mean"])):
+            raise AssertionError(f"{tag}: its kernels did not run, or a metric is not finite")
+        check = check_ingp_shape if cfg.pos_encoding.kind == "hash_grid" else check_sinusoidal_shape
+        val, ratio = check(cfg, device, tag)
+        out[tag] = {"wall_s": wall, "launches": {k: launches[k] for k in kernels},
+                    "loss_first": losses[0], "loss_last": losses[-1],
+                    "test_psnr_mean": res["test_psnr_mean"], "max_abs_err": val,
+                    "worst_grad_ratio": ratio}
+    reset_launches()
+    return out
+
+
+def cp_model(device, cfg=None):
+    from nerf_meets_mlx_torch.config import lego_cp
+
+    return make_model(cfg or lego_cp(), device)
+
+
+def with_cp_kernel(model):
+    """The model with its position encode replaced, on this model object
+    only, by the CP drop-in ``cp_encode_apply`` (the Pallas semantics on the
+    CUDA kernels). No config key does this: the JAX package keeps the XLA
+    encode on lego_cp's path and measured its kernel slower there."""
+    from nerf_meets_mlx_torch.kernels.cp_encode import cp_encode_apply
+
+    model._encode_pos = lambda pts: cp_encode_apply(model.pos_enc, pts)
+    return model
+
+
+def cp_point_sets(device):
+    """(name, points) of CP_BATCHES: rays of orbit frame 0 at RES x RES with
+    lego_cp's AABB-tightened, jittered depths."""
+    import torch
+    from nerf_meets_mlx_torch.config import lego_cp
+
+    ro, rd, _ = frame_rays(RES, RES, device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    out = []
+    for name, n_rays, S in CP_BATCHES:
+        cfg = lego_cp()
+        cfg = cfg.replace(render=dataclasses.replace(cfg.render, n_samples=S))
+        model = cp_model(device, cfg)
+        pick = torch.randperm(ro.shape[0], generator=gen, device=device)[:n_rays]
+        o, d = ro[pick], rd[pick]
+        z = model._coarse_z(o, d, train=True, generator=gen)
+        out.append((name, (o[:, None, :] + z[..., None] * d[:, None, :]).reshape(-1, 3)))
+    return out
+
+
+def phase_compare_cp(device):
+    """Both CP kernels against their plain versions (the Pallas semantics)
+    at CP_BATCHES, in lego_cp's bf16 compute and in fp32: the features to
+    CP_VAL_ATOL + CP_VAL_RTOL·|plain|, dLines (random cotangent) to
+    CP_DL_REL of the largest plain value."""
+    import torch
+    from nerf_meets_mlx_torch.kernels import cp_encode as ce
+
+    out = {"fwd": 0.0, "bwd": 0.0, "bwd_ratio": 0.0}
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    model = cp_model(device)
+    enc = model.pos_enc
+    for name, pts in cp_point_sets(device):
+        for dtype in ("bfloat16", "float32"):
+            enc.compute_dtype = dtype
+            spec = ce.CPEncodeSpec.from_encoding(enc)
+            flat = ce.flatten_lines(enc.lines)
+            f_k = ce.cp_fwd_launch(spec, flat, pts)
+            dout = torch.randn(f_k.shape, generator=gen, device=device)
+            d_k = ce.split_lines(spec, ce.cp_bwd_launch(spec, flat, pts, dout))
+            torch.cuda.synchronize()
+            f_p = ce.cp_fwd_reference(spec, enc.lines, pts)
+            d_p = ce.cp_bwd_reference(spec, enc.lines, pts, dout)
+            err = float((f_k - f_p).abs().max())
+            ok = bool(torch.isfinite(f_k).all()) and bool(
+                ((f_k - f_p).abs() <= CP_VAL_ATOL + CP_VAL_RTOL * f_p.abs()).all())
+            ratios = grad_ratios(d_k, d_p)
+            ok &= all(bool(torch.isfinite(a).all()) for a in d_k) and max(ratios) <= CP_DL_REL
+            log(f"[compare] cp_fwd/cp_bwd {name:10s} N={pts.shape[0]} {dtype}: max_abs features "
+                f"{err:.3e}; max|dLines-plain|/max|plain| per level "
+                + " ".join(f"{r:.1e}" for r in ratios) + (" ok" if ok else " FAIL"))
+            if not ok:
+                raise AssertionError(f"the CP kernels disagree with their plain versions: {name}")
+            out["fwd"] = max(out["fwd"], err)
+            out["bwd"] = max(out["bwd"], max(float((a - b).abs().max()) for a, b in zip(d_k, d_p)))
+            out["bwd_ratio"] = max(out["bwd_ratio"], max(ratios))
+    enc.compute_dtype = "bfloat16"
+    reset_launches()
+    return out
+
+
+def phase_cp_routes(ds, device):
+    """ROUTE_STEPS lego_cp steps from one seed on the standard route (the
+    plain encode, XLA semantics) and with the CP kernels behind the query
+    (``with_cp_kernel``): exactly 2 cp_fwd and 2 cp_bwd launches a step on
+    the kernel route and none on the standard one; the losses within
+    CP_ROUTE_RTOL and the parameters within ``compare_params`` at lego_cp's
+    lr (the two differ by the Pallas semantics: the box normalisation moves
+    some bf16 weights by one bf16 ulp, and dLines keeps fp32 sums where the
+    XLA path rounds them to bf16). Then one RES x RES frame through the
+    kernel (2 cp_fwd launches a chunk) against the standard route's."""
+    import torch
+    from nerf_meets_mlx_torch.cameras.pose import orbit_poses
+    from nerf_meets_mlx_torch.config import lego_cp
+    from nerf_meets_mlx_torch.datasets.synthetic import CAMERA_ANGLE_X
+    from nerf_meets_mlx_torch.rendering import render_image
+
+    cfg = lego_cp()
+    kern = run_route(cfg, ds, device, ROUTE_STEPS, SEED + 5, patch=with_cp_kernel)
+    plain = run_route(cfg, ds, device, ROUTE_STEPS, SEED + 5)
+    if kern[3] != counts(cp_fwd=2 * ROUTE_STEPS, cp_bwd=2 * ROUTE_STEPS) or plain[3] != counts():
+        raise AssertionError(f"lego_cp routes launched {kern[3]} / {plain[3]}")
+    ok, n_settled, n_all, worst = compare_params(kern, plain, cfg.train.lrate, ROUTE_STEPS)
+    loss_ok = bool(np.allclose(kern[2], plain[2], rtol=CP_ROUTE_RTOL))
+    # parameters() order: the position encoding's lines first, then the MLPs
+    lines_err = max(float((a - b).abs().max()) for a, b in zip(kern[0][:4], plain[0][:4]))
+    log(f"[routes] lego_cp {ROUTE_STEPS} steps, CP kernels vs standard route: losses "
+        f"{kern[2]} vs {plain[2]} (rtol {CP_ROUTE_RTOL}: {loss_ok}); {n_settled}/{n_all} "
+        f"parameters whose gradients agree within {min(0.25, 0.25 * 5e-4 / cfg.train.lrate):.4f},"
+        f" worst ratio among them {worst:.3f}; the rest within {2 * ROUTE_STEPS} lr; lines max "
+        f"|diff| {lines_err:.3e}: {'ok' if ok and loss_ok else 'FAIL'}")
+    if not (ok and loss_ok):
+        raise AssertionError("lego_cp: the CP-kernel route and the standard route disagree")
+
+    focal = 0.5 * RES / np.tan(0.5 * CAMERA_ANGLE_X)
+    K = np.array([[focal, 0, RES / 2], [0, focal, RES / 2], [0, 0, 1]], np.float32)
+    pose = orbit_poses(160)[0][:3, :4]
+    model = cp_model(device)
+    with torch.no_grad():
+        std = render_image(model, RES, RES, K, pose)
+        reset_launches()
+        frame = render_image(with_cp_kernel(model), RES, RES, K, pose)
+        torch.cuda.synchronize()
+    launches = launches_now()
+    chunks = -(-RES * RES // cfg.render.ray_chunk)
+    ferr = float((frame["rgb_map"] - std["rgb_map"]).abs().max())
+    log(f"[routes] lego_cp {RES}x{RES} frame through the CP kernel: launches "
+        f"{ {k: v for k, v in launches.items() if v} } (want {2 * chunks} cp_fwd); max |rgb - "
+        f"standard route| {ferr:.3e}")
+    if launches != counts(cp_fwd=2 * chunks) or not bool(torch.isfinite(frame["rgb_map"]).all()) \
+            or ferr > CP_FRAME_ATOL:
+        raise AssertionError("lego_cp: the frame through the CP kernel is off")
+    reset_launches()
+    return {"losses_kernel": kern[2], "losses_standard": plain[2], "unsettled": n_all - n_settled,
+            "worst_ratio": worst, "lines_max_abs": lines_err, "launches": kern[3],
+            "frame_launches": launches, "frame_max_abs": ferr}
+
+
+def phase_cp_timing(ds, device):
+    """The CP kernels per launch at CP_BATCHES beside their bound (bytes: 12
+    bytes of position and L·C·4 of features or cotangent a point, the lines
+    read once, dLines written once, over HBM_BYTES_PER_S), their plain
+    versions, and CPGridEncoding.apply (with autograd for the backward);
+    lego_cp's warm step on the standard route and with the kernel (mean of
+    CP_TIMED_STEPS ending in a synchronize), rays/s, peak memory, busy
+    share of 5 steps; a RES x RES frame on both."""
+    import torch
+    from nerf_meets_mlx_torch.cameras.pose import orbit_poses
+    from nerf_meets_mlx_torch.config import lego_cp
+    from nerf_meets_mlx_torch.datasets.synthetic import CAMERA_ANGLE_X
+    from nerf_meets_mlx_torch.engine import TrainState, make_nerf_train_step
+    from nerf_meets_mlx_torch.kernels import cp_encode as ce
+    from nerf_meets_mlx_torch.rendering import render_image
+
+    model = cp_model(device)
+    enc = model.pos_enc
+    spec = ce.CPEncodeSpec.from_encoding(enc)
+    flat = ce.flatten_lines(enc.lines)
+    line_bytes = 4 * flat.numel()
+    fwd_t, bwd_t = {}, {}
+    gen = torch.Generator(device=device).manual_seed(SEED + 32)
+    for name, pts in cp_point_sets(device):
+        N = pts.shape[0]
+        dout = torch.randn((N, spec.out_dim), generator=gen, device=device)
+        n = 20 if N < 1_000_000 else 5
+        io = N * (12 + 4 * spec.out_dim)
+        fwd = {"ms": cuda_time_ms(lambda: ce.cp_fwd_launch(spec, flat, pts), n),
+               "plain_ms": cuda_time_ms(lambda: ce.cp_fwd_reference(spec, enc.lines, pts), n),
+               "bound_ms": (io + line_bytes) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+        with torch.no_grad():
+            fwd["apply_ms"] = cuda_time_ms(lambda: enc.apply(pts), n)
+
+        def apply_bwd():
+            f = enc.apply(pts)
+            torch.autograd.grad((f * dout).sum(), list(enc.lines))
+
+        bwd = {"ms": cuda_time_ms(lambda: ce.cp_bwd_launch(spec, flat, pts, dout), n),
+               "plain_ms": cuda_time_ms(lambda: ce.cp_bwd_reference(spec, enc.lines, pts, dout),
+                                        n),
+               "bound_ms": (io + 2 * line_bytes) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+               "apply_fwd_bwd_ms": cuda_time_ms(apply_bwd, n)}
+        log(f"[time] cp_fwd {name:10s} N={N}: {fwd['ms']:.4f} ms (bound {fwd['bound_ms']:.4f} ms "
+            f"bytes; plain {fwd['plain_ms']:.4f} ms; CPGridEncoding.apply {fwd['apply_ms']:.4f} ms)"
+            f" | cp_bwd {bwd['ms']:.4f} ms (bound {bwd['bound_ms']:.4f}; plain "
+            f"{bwd['plain_ms']:.4f}; apply + autograd {bwd['apply_fwd_bwd_ms']:.4f} ms)")
+        fwd_t[name], bwd_t[name] = fwd, bwd
+
+    images = torch.as_tensor(ds.images[ds.i_train], device=device)
+    poses = torch.as_tensor(ds.poses[ds.i_train, :3, :4], device=device)
+    focal = 0.5 * RES / np.tan(0.5 * CAMERA_ANGLE_X)
+    K = np.array([[focal, 0, RES / 2], [0, focal, RES / 2], [0, 0, 1]], np.float32)
+    e2e = {}
+    for key, patch in (("standard", None), ("cp_kernel", with_cp_kernel),
+                       ("cp_kernel_2", with_cp_kernel), ("standard_2", None)):
+        cfg = lego_cp()
+        model = cp_model(device, cfg)
+        if patch:
+            patch(model)
+        state = TrainState(model, cfg.train)
+        step = make_nerf_train_step(model, ds.H, ds.W, ds.focal)
+        g = torch.Generator(device=device).manual_seed(SEED + 33)
+        for _ in range(3):
+            step(state, images, poses, g)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(CP_TIMED_STEPS):
+            step(state, images, poses, g)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / CP_TIMED_STEPS
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        times = []
+        with torch.no_grad():
+            for pose in orbit_poses(160)[:2]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                render_image(model, RES, RES, K, pose[:3, :4])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        res = {"step_s": step_s, "rays_per_s": cfg.train.n_rand / step_s, "peak_gb": peak_gb,
+               "frame_seconds": times}
+        log(f"[time] lego_cp train step ({key}): {step_s:.5f} s/step over {CP_TIMED_STEPS} warm "
+            f"steps -> {cfg.train.n_rand / step_s:.1f} rays/s, peak {peak_gb:.2f} GB; "
+            f"{RES}x{RES} frames {times} s")
+        if not key.endswith("_2"):
+
+            def steps():
+                for _ in range(PROFILED_STEPS):
+                    step(state, images, poses, g)
+
+            res["trace"] = profile_device(steps, f"{PROFILED_STEPS} lego_cp {key} train steps")
+            res["frame_trace"] = profile_device(
+                lambda: render_image(model, RES, RES, K, orbit_poses(160)[0][:3, :4]),
+                f"one {RES}x{RES} lego_cp {key} frame")
+        e2e[key] = res
+        del model, state
+        torch.cuda.empty_cache()
+    reset_launches()
+    return fwd_t, bwd_t, e2e
+
+
 def main() -> int:
     import torch
 
     name, smi = phase_device()
+    if "--build" in sys.argv[1:]:
+        return build_only()
     device = torch.device("cuda", 0)
     builds = phase_build()
     wait_builds(builds, ["fused_eval", "fused_train", "fused_mlp"])
@@ -2326,6 +2847,11 @@ def main() -> int:
     feat_launches, feat_run = phase_train_main_path(
         device, preset="lego_ingp", extra=PAPER_OVERLAY, tag="lego_ingp_paper_tables")
     long_routes = phase_long_ray_routes(ds, device)
+    wait_builds(builds, ["cp_encode"])
+    cp_err = phase_compare_cp(device)
+    cp_launches, cp_run = phase_train_main_path(device, preset="lego_cp")
+    cp_routes = phase_cp_routes(ds, device)
+    part_a = phase_part_a(device)
     per_level, frame = phase_timing(fused, res, device)
     train_level, train_step = phase_train_timing(ds, device)
     mlp_fwd_t, mlp_bwd_t = phase_mlp_timing(device)
@@ -2335,6 +2861,7 @@ def main() -> int:
     feat_t, image_train_t, image_fwd_t = phase_feat_image_timing(device)
     feats_time = phase_feats_e2e(ds, device)
     image_time = phase_image_timing(device)
+    cp_fwd_t, cp_bwd_t, cp_time = phase_cp_timing(ds, device)
 
     # one entry per kernel; its times are the mean per launch over its main
     # path's mix: the coarse and the fine level equally often (eval, train,
@@ -2396,6 +2923,14 @@ def main() -> int:
         entry("image_fwd", "nerf_meets_mlx_torch/csrc/fused_image.cu",
               "nerf_meets_mlx_tpu/kernels/fused_image.py:304", image_launches["image_fwd"],
               image_err[2], image_fwd_t),
+        # the CP kernels' path: lego_cp's train steps with the kernel behind
+        # its query (a coarse and a fine launch a step)
+        entry("cp_fwd", "nerf_meets_mlx_torch/csrc/cp_encode.cu",
+              "nerf_meets_mlx_tpu/kernels/cp_encode.py:108", cp_routes["launches"]["cp_fwd"],
+              cp_err["fwd"], {k: cp_fwd_t[k] for k in ("coarse", "fine")}),
+        entry("cp_bwd", "nerf_meets_mlx_torch/csrc/cp_encode.cu",
+              "nerf_meets_mlx_tpu/kernels/cp_encode.py:128", cp_routes["launches"]["cp_bwd"],
+              cp_err["bwd"], {k: cp_bwd_t[k] for k in ("coarse", "fine")}),
     ]
     for k in kernels:
         if k["launches"] < 1:
@@ -2418,7 +2953,9 @@ def main() -> int:
                           "fwd_abs": image_err[2]},
         "image_run": image_run, "image_launches": image_launches,
         "image_train_per_launch": image_train_t, "image_fwd_per_launch": image_fwd_t,
-        "image_timing": image_time, "card": smi,
+        "image_timing": image_time, "cp_compare": cp_err, "cp_train_run": cp_run,
+        "cp_launches": cp_launches, "cp_routes": cp_routes, "cp_fwd_per_batch": cp_fwd_t,
+        "cp_bwd_per_batch": cp_bwd_t, "cp_timing": cp_time, "part_a": part_a, "card": smi,
     }
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "result.json").write_text(json.dumps({"kernels": kernels, **detail}, indent=1))

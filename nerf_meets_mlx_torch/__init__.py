@@ -7,9 +7,9 @@ on a ported path becomes a hand-written Hopper kernel (``csrc/``) with a
 plain PyTorch version beside it (``kernels/``).
 
 The port serves and trains the sinusoidal presets (``lego_hierarchical``,
-``lego_occ``) and the hash-grid presets (``lego_ingp``, ``lego_ingp_occ``,
-and through the "feats" route the larger hash grids), and fits the 2-D
-image task (``python -m nerf_meets_mlx_torch train``, ``render``,
+``lego_occ``), the hash-grid presets (``lego_ingp``, ``lego_ingp_occ``,
+and through the "feats" route the larger hash grids) and the CP-grid
+preset (``lego_cp``), and fits the 2-D image task (``python -m nerf_meets_mlx_torch train``, ``render``,
 ``image``). Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``.
 """

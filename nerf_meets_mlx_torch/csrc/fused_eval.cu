@@ -77,18 +77,61 @@ __device__ __forceinline__ float pick(int a, float x0, float x1, float x2) {
   return a == 0 ? x0 : (a == 1 ? x1 : x2);
 }
 
+// CW neighbouring floats at p (16-byte aligned for CW = 4, 8-byte for 2)
+template <int CW>
+__device__ __forceinline__ void ld_cols(const float* p, float (&v)[CW]) {
+  if constexpr (CW == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (CW == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int CW>
+__device__ __forceinline__ void ldg_cols(const float* p, float (&v)[CW]) {
+  if constexpr (CW == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (CW == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+template <int CW>
+__device__ __forceinline__ void st_cols(float* p, const float (&v)[CW]) {
+  if constexpr (CW == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (CW == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
 // out[col][p] = act(b[col] + sum_k in[k][p] * Wg[k][col]) for the TILE
 // points of the tile. The input is the concatenation of up to two
 // shared-memory segments (rows kA of inA, then kB of inB, each padded with
 // zero rows to a multiple of KB); Wg holds kA + kB rows of N floats.
-template <int NG>
+template <int N>
 __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
                                       const float* __restrict__ inB, int kB,
                                       const float* __restrict__ Wg,
                                       const float* __restrict__ bg,
                                       float* __restrict__ out, bool relu,
                                       float* __restrict__ wtile) {
-  constexpr int N = 64 * NG;
+  // a thread holds CW neighbouring columns of each of NG groups, column
+  // 16*CW*n + CW*tx + j: 4 columns a group past 64 columns, as before, and
+  // 2 or 1 for the 32 and 16 columns of the narrow widths
+  constexpr int CW = N >= 64 ? 4 : N / 16;
+  constexpr int NG = N / (16 * CW);
+  static_assert(N % 16 == 0 && N >= 16 && N <= 256, "dense takes 16..256 columns");
   constexpr int N4 = N / 4;
   constexpr int SLICE4 = KB * N4;  // float4 per staged slice
   constexpr int LOADS = (SLICE4 + NTHREADS - 1) / NTHREADS;
@@ -96,11 +139,11 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
   const int nA = round_up(kA, KB) / KB;
   const int nT = nA + round_up(kB, KB) / KB;
 
-  float acc[4][4 * NG];
+  float acc[4][CW * NG];
 #pragma unroll
   for (int m = 0; m < 4; ++m)
 #pragma unroll
-    for (int c = 0; c < 4 * NG; ++c) acc[m][c] = 0.f;
+    for (int c = 0; c < CW * NG; ++c) acc[m][c] = 0.f;
 
   float4 stage[LOADS];
   auto fetch = [&](int t) {
@@ -137,14 +180,14 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
       const float4 a = *reinterpret_cast<const float4*>(in + kk * LD + 4 * ty);
 #pragma unroll
       for (int n = 0; n < NG; ++n) {
-        const float4 w = *reinterpret_cast<const float4*>(wtile + kk * N + 64 * n + 4 * tx);
-        const float wv[4] = {w.x, w.y, w.z, w.w};
+        float wv[CW];
+        ld_cols<CW>(wtile + kk * N + 16 * CW * n + CW * tx, wv);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[0][4 * n + j] = fmaf(a.x, wv[j], acc[0][4 * n + j]);
-          acc[1][4 * n + j] = fmaf(a.y, wv[j], acc[1][4 * n + j]);
-          acc[2][4 * n + j] = fmaf(a.z, wv[j], acc[2][4 * n + j]);
-          acc[3][4 * n + j] = fmaf(a.w, wv[j], acc[3][4 * n + j]);
+        for (int j = 0; j < CW; ++j) {
+          acc[0][CW * n + j] = fmaf(a.x, wv[j], acc[0][CW * n + j]);
+          acc[1][CW * n + j] = fmaf(a.y, wv[j], acc[1][CW * n + j]);
+          acc[2][CW * n + j] = fmaf(a.z, wv[j], acc[2][CW * n + j]);
+          acc[3][CW * n + j] = fmaf(a.w, wv[j], acc[3][CW * n + j]);
         }
       }
     }
@@ -153,11 +196,11 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
 #pragma unroll
   for (int n = 0; n < NG; ++n)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = 64 * n + 4 * tx + j;
+    for (int j = 0; j < CW; ++j) {
+      const int col = 16 * CW * n + CW * tx + j;
       const float b = __ldg(bg + col);
-      float4 v = make_float4(acc[0][4 * n + j] + b, acc[1][4 * n + j] + b,
-                             acc[2][4 * n + j] + b, acc[3][4 * n + j] + b);
+      float4 v = make_float4(acc[0][CW * n + j] + b, acc[1][CW * n + j] + b,
+                             acc[2][CW * n + j] + b, acc[3][CW * n + j] + b);
       if (relu) {
         v.x = fmaxf(v.x, 0.f); v.y = fmaxf(v.y, 0.f);
         v.z = fmaxf(v.z, 0.f); v.w = fmaxf(v.w, 0.f);
@@ -238,14 +281,14 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_eval_kernel(Args A) {
     // ---- the layer chain ----
     float* h = bufA;
     float* g = bufB;
-    dense<W / 64>(encP, pos_dim, nullptr, 0, wb + offs[0], wb + offs[1], h, true, wtile);
+    dense<W>(encP, pos_dim, nullptr, 0, wb + offs[0], wb + offs[1], h, true, wtile);
     for (int j = 1; j < D; ++j) {
       const float* Wj = wb + offs[2 * j];
       const float* bj = wb + offs[2 * j + 1];
       if ((A.skip_mask >> j) & 1u)
-        dense<W / 64>(encP, pos_dim, h, W, Wj, bj, g, true, wtile);
+        dense<W>(encP, pos_dim, h, W, Wj, bj, g, true, wtile);
       else
-        dense<W / 64>(h, W, nullptr, 0, Wj, bj, g, true, wtile);
+        dense<W>(h, W, nullptr, 0, Wj, bj, g, true, wtile);
       float* tmp = h; h = g; g = tmp;
     }
     // alpha head (W -> 1) from the last hidden layer
@@ -257,8 +300,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_eval_kernel(Args A) {
     }
     // feature (W -> W, no activation), then the view-direction layer on
     // [feature, encoded direction] (W + dir_dim -> W/2, relu)
-    dense<W / 64>(h, W, nullptr, 0, wb + offs[2 * D + 2], wb + offs[2 * D + 3], g, false, wtile);
-    dense<W / 128>(g, W, encD, dir_dim, wb + offs[2 * D + 4], wb + offs[2 * D + 5], h, true, wtile);
+    dense<W>(h, W, nullptr, 0, wb + offs[2 * D + 2], wb + offs[2 * D + 3], g, false, wtile);
+    dense<W / 2>(g, W, encD, dir_dim, wb + offs[2 * D + 4], wb + offs[2 * D + 5], h, true, wtile);
     // rgb head (W/2 -> 3)
     if (tid < 3 * TILE) {
       const int p = tid % TILE, c = tid / TILE;
@@ -321,6 +364,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_eval_kernel(Args A) {
   }
 }
 
+bool width_ok(int w) { return w == 32 || w == 64 || w == 128 || w == 256; }
+
 size_t smem_bytes(int W, int S, int rays_block, int pos_dim, int dir_dim) {
   return sizeof(float) * ((size_t)(2 * W + round_up(pos_dim, KB) + round_up(dir_dim, KB)) * LD +
                           (size_t)KB * W + (size_t)rays_block * S * 5);
@@ -332,7 +377,7 @@ size_t smem_bytes(int W, int S, int rays_block, int pos_dim, int dir_dim) {
 // is not supported); lets the wrapper check a shape before launching.
 extern "C" long long fused_eval_smem_bytes(int width, int S, int rays_block, int pos_dim,
                                            int dir_dim) {
-  if (width != 128 && width != 256) return 0;
+  if (!width_ok(width)) return 0;
   return (long long)smem_bytes(width, S, rays_block, pos_dim, dir_dim);
 }
 
@@ -353,6 +398,10 @@ extern "C" int fused_eval_launch(const float* rays_o, const float* rays_d, const
     kernel = fused_eval_kernel<256>;
   else if (width == 128)
     kernel = fused_eval_kernel<128>;
+  else if (width == 64)
+    kernel = fused_eval_kernel<64>;
+  else if (width == 32)
+    kernel = fused_eval_kernel<32>;
   else
     return (int)cudaErrorInvalidValue;
   cudaError_t err =

@@ -18,6 +18,14 @@
 // The caller's encoding takes dfeats on (the hash dG kernel, or autograd
 // through the plain gather).
 //
+// Shapes. A build instantiates one (W, PP) pair, chosen by the macros
+// FEAT_W (32 or 64) and FEAT_PP (16, 32 or 64): the MLP's width and the
+// register width of layer 0's input. The feature channels P (1..PP) are a
+// runtime value; the columns past P are zero and layer 0's weight rows past
+// P are not read. The wrapper builds each pair it meets as its own library
+// (kernels/_build.py), so the pairs compile as separate translation units,
+// in parallel.
+//
 // What bounds it on this card, at the hash presets' shapes (W = 64, D = 2,
 // P = 16 or 32, DD = 25): its arithmetic. At P = 32 a point costs 13,280
 // MACs forward and about as many again for dW and for the cotangents: ~31
@@ -70,6 +78,15 @@ constexpr int MAX_JOBS = MAX_DEPTH + 6;
 constexpr int MAX_SMEM = 232448;  // bytes a block may use on sm_90
 constexpr unsigned FULL = 0xffffffffu;
 
+#ifndef FEAT_W
+#define FEAT_W 64
+#endif
+#ifndef FEAT_PP
+#define FEAT_PP 32
+#endif
+static_assert(FEAT_W == 32 || FEAT_W == 64, "FEAT_W is 32 or 64");
+static_assert(FEAT_PP == 16 || FEAT_PP == 32 || FEAT_PP == 64, "FEAT_PP is 16, 32 or 64");
+
 struct Args {
   const float* x;        // [Ptot, C] feats | sh | delta | noise
   const float* target;   // [R, 3]
@@ -88,6 +105,7 @@ struct Args {
   float* drgb;           // [Ptot][3]
   long long Ptot;
   int R, S, rays_block, depth, dd, C, n_w;
+  int p;                 // feature channels, <= PP
   int mode;              // 0 canonical, 1 reference
   int relu_density;      // canonical: 0 softplus, 1 relu
   int white_bkgd;
@@ -104,11 +122,14 @@ __device__ __forceinline__ void load_bias(float (&acc)[N], const float* b) {
   }
 }
 
-// acc[j] += sum_k in[k] * Wm[k][j], Wm row-major [K][N] in shared memory
+// acc[j] += sum_k in[k] * Wm[k][j] for k < kmax (K by default), Wm
+// row-major [kmax][N] in shared memory
 template <int K, int N>
-__device__ __forceinline__ void gemv(float (&acc)[N], const float (&in)[K], const float* Wm) {
+__device__ __forceinline__ void gemv(float (&acc)[N], const float (&in)[K], const float* Wm,
+                                     int kmax = K) {
 #pragma unroll
   for (int k = 0; k < K; ++k) {
+    if (k >= kmax) break;
     const float x = in[k];
 #pragma unroll
     for (int j = 0; j < N; j += 4) {
@@ -121,12 +142,18 @@ __device__ __forceinline__ void gemv(float (&acc)[N], const float (&in)[K], cons
   }
 }
 
-// out[k] = sum_j Wm[k][j] * d[j] for k < K: the cotangent of a layer's input
+// out[k] = sum_j Wm[k][j] * d[j] for k < kmax (K by default), 0 past it:
+// the cotangent of a layer's input
 template <int K, int N>
-__device__ __forceinline__ void gemv_t(float (&out)[K], const float (&d)[N], const float* Wm) {
+__device__ __forceinline__ void gemv_t(float (&out)[K], const float (&d)[N], const float* Wm,
+                                       int kmax = K) {
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     float s = 0.f;
+    if (k >= kmax) {
+      out[k] = 0.f;
+      continue;
+    }
 #pragma unroll
     for (int j = 0; j < N; j += 4) {
       const float4 w = *reinterpret_cast<const float4*>(Wm + k * N + j);
@@ -161,20 +188,20 @@ __device__ __forceinline__ void relu_mask(float (&out)[N], const float (&d)[N], 
 
 // Phase A for one point: raw rgb (3) and raw sigma of the MLP on the
 // point's row of x; every layer's output goes to the workspace at row gi.
-template <int W, int P>
+template <int W, int PP>
 __device__ __forceinline__ void point_forward(const Args& A, const float* sw, long long gi,
                                               float (&rgb)[3], float& sigma) {
   constexpr int WH = W / 2;
   const int D = A.depth;
   const size_t Pt = (size_t)A.Ptot;
   const float* xr = A.x + (size_t)gi * A.C;
-  float e[P];
+  float e[PP];
 #pragma unroll
-  for (int k = 0; k < P; ++k) e[k] = __ldg(xr + k);
+  for (int k = 0; k < PP; ++k) e[k] = k < A.p ? __ldg(xr + k) : 0.f;
 
   float h[W], acc[W];
   load_bias<W>(acc, sw + A.offs[1]);
-  gemv<P, W>(acc, e, sw + A.offs[0]);
+  gemv<PP, W>(acc, e, sw + A.offs[0], A.p);
 #pragma unroll
   for (int j = 0; j < W; ++j) h[j] = fmaxf(acc[j], 0.f);
   store_row<W>(A.hs + (size_t)gi * W, h);
@@ -204,7 +231,7 @@ __device__ __forceinline__ void point_forward(const Args& A, const float* sw, lo
   load_bias<WH>(hd, sw + A.offs[2 * D + 5]);
   gemv<W, WH>(hd, f, wd);
   for (int k = 0; k < A.dd; ++k) {
-    const float s = __ldg(xr + P + k);
+    const float s = __ldg(xr + A.p + k);
     const float* wrow = wd + (W + k) * WH;
 #pragma unroll
     for (int j = 0; j < WH; j += 4) {
@@ -263,7 +290,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int W, int P>
+template <int W, int PP>
 __global__ void __launch_bounds__(NT, 2) feat_rays_kernel(const __grid_constant__ Args A) {
   extern __shared__ __align__(16) float smem[];
   constexpr int WH = W / 2;
@@ -292,8 +319,8 @@ __global__ void __launch_bounds__(NT, 2) feat_rays_kernel(const __grid_constant_
   for (int i = threadIdx.x; i < npts; i += NT) {
     const long long gi = gbase + i;
     float rgb[3], sigma;
-    point_forward<W, P>(A, sw, gi, rgb, sigma);
-    const float* xr = A.x + (size_t)gi * C + P + A.dd;
+    point_forward<W, PP>(A, sw, gi, rgb, sigma);
+    const float* xr = A.x + (size_t)gi * C + A.p + A.dd;
     float q, alpha, da, dqd;
     alpha_terms(A, sigma + __ldg(xr + 1), __ldg(xr), q, alpha, da, dqd);
     pq[i] = q;
@@ -444,9 +471,12 @@ __global__ void __launch_bounds__(NT, 2) feat_rays_kernel(const __grid_constant_
       store_row<W>(A.dzs + o, dz);
     }
     // d(feats) = W0 dZ_0
-    float de[P];
-    gemv_t<P, W>(de, dz, sw + A.offs[0]);
-    store_row<P>(A.dfeats + (size_t)gi * P, de);
+    float de[PP];
+    gemv_t<PP, W>(de, dz, sw + A.offs[0], A.p);
+    float* dst = A.dfeats + (size_t)gi * A.p;
+#pragma unroll
+    for (int k = 0; k < PP; ++k)
+      if (k < A.p) dst[k] = de[k];
   }
 }
 
@@ -661,18 +691,18 @@ Layout layout(int R, int S, int rays_block, int depth, int W, int pts_per_split,
   return Lo;
 }
 
-// the kernel of a (width, feature channels) pair; null if not instantiated
+// this build's kernel, if it takes the (width, feature channels) shape
 using Kernel = void (*)(Args);
 
 Kernel kernel_for(int W, int P) {
-  if (W == 64 && P == 16) return feat_rays_kernel<64, 16>;
-  if (W == 64 && P == 32) return feat_rays_kernel<64, 32>;
+  if (W == FEAT_W && P >= 1 && P <= FEAT_PP) return feat_rays_kernel<FEAT_W, FEAT_PP>;
   return nullptr;
 }
 
 }  // namespace
 
-// Shared-memory bytes one block needs (0 if (width, p_dim) has no kernel).
+// Shared-memory bytes one block needs (0 if this build does not take
+// (width, p_dim)).
 extern "C" long long fused_feat_smem_bytes(int width, int p_dim, int n_w, int S, int rays_block) {
   if (kernel_for(width, p_dim) == nullptr) return 0;
   return (long long)smem_bytes(n_w, S, rays_block);
@@ -713,6 +743,7 @@ extern "C" int fused_feat_train_launch(const float* x, const float* target, cons
   a.x = x; a.target = target; a.wbuf = wbuf; a.rgb = rgb; a.weights = weights; a.dfeats = dfeats;
   a.Ptot = (long long)R * S;
   a.R = R; a.S = S; a.rays_block = rays_block; a.depth = depth; a.dd = dd; a.C = C; a.n_w = n_w;
+  a.p = p_dim;
   a.mode = mode; a.relu_density = relu_density; a.white_bkgd = white_bkgd;
   for (int i = 0; i < n_offs; ++i) a.offs[i] = offs[i];
   a.sse_part = workspace + Lo.sse_part;

@@ -87,6 +87,44 @@ struct Args {
   int offs[MAX_OFFS];     // float offsets into wbuf (fused_image.pack_image_weights)
 };
 
+// CW neighbouring floats at p (16-byte aligned for CW = 4, 8-byte for 2)
+template <int CW>
+__device__ __forceinline__ void ld_cols(const float* p, float (&v)[CW]) {
+  if constexpr (CW == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (CW == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int CW>
+__device__ __forceinline__ void ldg_cols(const float* p, float (&v)[CW]) {
+  if constexpr (CW == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (CW == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+template <int CW>
+__device__ __forceinline__ void st_cols(float* p, const float (&v)[CW]) {
+  if constexpr (CW == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (CW == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
 // out[col][p] = epi(b[col] + sum_k in[k][p] * Wg[k][col]) for the TILE
 // points of a tile and the first `nout` columns:
 //  * EPI_RELU: max(x, 0);
@@ -97,7 +135,7 @@ struct Args {
 // bg may be null (no bias). The input is up to two shared-memory segments
 // (kA rows of inA, then kB of inB), each padded to KB rows; rows past kA /
 // kB read zero weights.
-template <int NG>
+template <int N>
 __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
                                       const float* __restrict__ inB, int kB,
                                       const float* __restrict__ Wg,
@@ -105,7 +143,12 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
                                       int nout, int epi, const float* __restrict__ mask,
                                       float* __restrict__ gout, int nvalid,
                                       float* __restrict__ wtile) {
-  constexpr int N = 64 * NG;
+  // a thread holds CW neighbouring columns of each of NG groups, column
+  // 16*CW*n + CW*tx + j: 4 columns a group past 64 columns, as before, and
+  // 2 or 1 for the 32 and 16 columns of the narrow widths
+  constexpr int CW = N >= 64 ? 4 : N / 16;
+  constexpr int NG = N / (16 * CW);
+  static_assert(N % 16 == 0 && N >= 16 && N <= 256, "dense takes 16..256 columns");
   constexpr int N4 = N / 4;
   constexpr int SLICE4 = KB * N4;
   constexpr int LOADS = (SLICE4 + NTHREADS - 1) / NTHREADS;
@@ -113,11 +156,11 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
   const int nA = round_up(kA, KB) / KB;
   const int nT = nA + round_up(kB, KB) / KB;
 
-  float acc[4][4 * NG];
+  float acc[4][CW * NG];
 #pragma unroll
   for (int m = 0; m < 4; ++m)
 #pragma unroll
-    for (int c = 0; c < 4 * NG; ++c) acc[m][c] = 0.f;
+    for (int c = 0; c < CW * NG; ++c) acc[m][c] = 0.f;
 
   float4 stage[LOADS];
   auto fetch = [&](int t) {
@@ -154,14 +197,14 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
       const float4 a = *reinterpret_cast<const float4*>(in + kk * LD + 4 * ty);
 #pragma unroll
       for (int n = 0; n < NG; ++n) {
-        const float4 w = *reinterpret_cast<const float4*>(wtile + kk * N + 64 * n + 4 * tx);
-        const float wv[4] = {w.x, w.y, w.z, w.w};
+        float wv[CW];
+        ld_cols<CW>(wtile + kk * N + 16 * CW * n + CW * tx, wv);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[0][4 * n + j] = fmaf(a.x, wv[j], acc[0][4 * n + j]);
-          acc[1][4 * n + j] = fmaf(a.y, wv[j], acc[1][4 * n + j]);
-          acc[2][4 * n + j] = fmaf(a.z, wv[j], acc[2][4 * n + j]);
-          acc[3][4 * n + j] = fmaf(a.w, wv[j], acc[3][4 * n + j]);
+        for (int j = 0; j < CW; ++j) {
+          acc[0][CW * n + j] = fmaf(a.x, wv[j], acc[0][CW * n + j]);
+          acc[1][CW * n + j] = fmaf(a.y, wv[j], acc[1][CW * n + j]);
+          acc[2][CW * n + j] = fmaf(a.z, wv[j], acc[2][CW * n + j]);
+          acc[3][CW * n + j] = fmaf(a.w, wv[j], acc[3][CW * n + j]);
         }
       }
     }
@@ -170,30 +213,32 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
   const int p0 = 4 * ty;
 #pragma unroll
   for (int n = 0; n < NG; ++n) {
-    const int c0 = 64 * n + 4 * tx;
-    float b[4];
+    const int c0 = 16 * CW * n + CW * tx;
+    float b[CW];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = bg ? __ldg(bg + c0 + j) : 0.f;
-    float v[4][4];
+    for (int j = 0; j < CW; ++j) b[j] = bg ? __ldg(bg + c0 + j) : 0.f;
+    float v[4][CW];
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
-      float mk[4] = {1.f, 1.f, 1.f, 1.f};
+      float mk[CW];
+#pragma unroll
+      for (int j = 0; j < CW; ++j) mk[j] = 1.f;
       if (epi == EPI_MASK) {
         // plain loads: the mask was written earlier in this launch
-        float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (p0 + m < nvalid) h = *reinterpret_cast<const float4*>(mask + (size_t)(p0 + m) * N + c0);
-        mk[0] = h.x; mk[1] = h.y; mk[2] = h.z; mk[3] = h.w;
+#pragma unroll
+        for (int j = 0; j < CW; ++j) mk[j] = 0.f;
+        if (p0 + m < nvalid) ld_cols<CW>(mask + (size_t)(p0 + m) * N + c0, mk);
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = acc[m][4 * n + j] + b[j];
+      for (int j = 0; j < CW; ++j) {
+        float x = acc[m][CW * n + j] + b[j];
         if (epi == EPI_RELU) x = fmaxf(x, 0.f);
         if (epi == EPI_MASK) x = mk[j] > 0.f ? x : 0.f;
         v[m][j] = x;
       }
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < CW; ++j) {
       if (c0 + j >= nout) continue;
       *reinterpret_cast<float4*>(out + (c0 + j) * LD + p0) =
           make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
@@ -202,8 +247,7 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
 #pragma unroll
       for (int m = 0; m < 4; ++m)
         if (p0 + m < nvalid)
-          *reinterpret_cast<float4*>(gout + (size_t)(p0 + m) * N + c0) =
-              make_float4(v[m][0], v[m][1], v[m][2], v[m][3]);
+          st_cols<CW>(gout + (size_t)(p0 + m) * N + c0, v[m]);
     }
   }
   __syncthreads();
@@ -272,16 +316,16 @@ __device__ __forceinline__ void forward_tile(const Args& A, const Smem& s, size_
 
   float* h = s.bufA;
   float* g = s.bufB;
-  dense<W / 64>(s.enc, enc_dim, nullptr, 0, wb + A.offs[0], wb + A.offs[1], h, W, EPI_RELU,
+  dense<W>(s.enc, enc_dim, nullptr, 0, wb + A.offs[0], wb + A.offs[1], h, W, EPI_RELU,
                 nullptr, TRAIN ? A.hs + g0 * W : nullptr, nv, s.wtile);
   for (int j = 1; j < D; ++j) {
     const float* Wj = wb + A.offs[2 * j];
     const float* bj = wb + A.offs[2 * j + 1];
     float* gout = TRAIN ? A.hs + (size_t)j * N * W + g0 * W : nullptr;
     if ((A.skip_mask >> j) & 1u)
-      dense<W / 64>(s.enc, enc_dim, h, W, Wj, bj, g, W, EPI_RELU, nullptr, gout, nv, s.wtile);
+      dense<W>(s.enc, enc_dim, h, W, Wj, bj, g, W, EPI_RELU, nullptr, gout, nv, s.wtile);
     else
-      dense<W / 64>(h, W, nullptr, 0, Wj, bj, g, W, EPI_RELU, nullptr, gout, nv, s.wtile);
+      dense<W>(h, W, nullptr, 0, Wj, bj, g, W, EPI_RELU, nullptr, gout, nv, s.wtile);
     float* tmp = h; h = g; g = tmp;
   }
   // output head (W -> out_ch, no activation)
@@ -354,7 +398,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) image_train_kernel(const __grid_c
     for (int j = D - 1; j >= 1; --j) {
       // dZ_{j-1} = (dZ_j @ Wh_j^T) * (h_{j-1} > 0)
       const size_t o = (size_t)(j - 1) * N * W + g0 * W;
-      dense<W / 64>(cur, W, nullptr, 0, wb + A.offs[2 * D + 3 + (j - 1)], nullptr, nxt, W,
+      dense<W>(cur, W, nullptr, 0, wb + A.offs[2 * D + 3 + (j - 1)], nullptr, nxt, W,
                     EPI_MASK, A.hs + o, A.dzs + o, nv, s.wtile);
       float* tmp = cur; cur = nxt; nxt = tmp;
     }
@@ -538,6 +582,8 @@ __global__ void reduce_kernel(const float* __restrict__ part, long long stride, 
   }
 }
 
+bool width_ok(int w) { return w == 32 || w == 64 || w == 128 || w == 256; }
+
 size_t smem_bytes(int W, int enc_dim) {
   return sizeof(float) * ((size_t)(2 * W + round_up(enc_dim, KB)) * LD + (size_t)KB * W +
                           TILE * MAX_OUT + NTHREADS);
@@ -577,7 +623,7 @@ bool valid_common(long long N, int block_pts, int depth, int width, unsigned ski
                   int in_dim, int n_freqs, int inc, int out_ch, int n_offs, bool train) {
   return N > 0 && block_pts > 0 && block_pts % TILE == 0 && depth >= 1 &&
          n_offs == (train ? 3 * depth + 2 : 2 * depth + 3) && n_offs <= MAX_OFFS &&
-         (width == 128 || width == 256) &&
+         width_ok(width) &&
          (skip_mask & 1u) == 0 && (skip_mask >> depth) == 0 && in_dim >= 1 && in_dim <= 3 &&
          n_freqs >= 0 && out_ch >= 1 && out_ch <= MAX_OUT &&
          enc_dim_of(in_dim, n_freqs, inc) >= 1 && enc_dim_of(in_dim, n_freqs, inc) <= MAX_ENC;
@@ -599,7 +645,7 @@ Args make_args(const float* x, const float* wbuf, const int* offs, int n_offs, l
 // Shared-memory bytes one block of either kernel needs (0 if the width is
 // not supported); lets the wrapper check a shape before launching.
 extern "C" long long fused_image_smem_bytes(int width, int enc_dim) {
-  if (width != 128 && width != 256) return 0;
+  if (!width_ok(width)) return 0;
   return (long long)smem_bytes(width, enc_dim);
 }
 
@@ -626,7 +672,10 @@ extern "C" int fused_image_fwd_launch(const float* x, const float* wbuf, const i
   Args a = make_args(x, wbuf, offs, n_offs, N, block_pts, depth, skip_mask, in_dim, n_freqs,
                      include_input, out_ch);
   a.out = out;
-  void (*kernel)(Args) = width == 256 ? image_fwd_kernel<256> : image_fwd_kernel<128>;
+  void (*kernel)(Args) = width == 256   ? image_fwd_kernel<256>
+                         : width == 128 ? image_fwd_kernel<128>
+                         : width == 64  ? image_fwd_kernel<64>
+                                        : image_fwd_kernel<32>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -664,7 +713,10 @@ extern "C" int fused_image_train_launch(const float* x, const float* target, con
   a.enc = workspace + L.enc; a.hs = workspace + L.hs; a.dzs = workspace + L.dzs;
   a.dout = workspace + L.dout;
 
-  void (*kernel)(Args) = W == 256 ? image_train_kernel<256> : image_train_kernel<128>;
+  void (*kernel)(Args) = W == 256   ? image_train_kernel<256>
+                         : W == 128 ? image_train_kernel<128>
+                         : W == 64  ? image_train_kernel<64>
+                                    : image_train_kernel<32>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -6,7 +6,7 @@
 // harmonics sh [R,DD] (computed per ray outside), sample depths z [R,S] and
 // deltas [R,S] (already scaled by |d|, terminal bin 1e10*|d|), and runs
 //
-//   points o + z*d -> hash encode (L levels x 8 corners of the [L,T,2]
+//   points o + z*d -> hash encode (L levels x 8 corners of the [L,T,F]
 //   tables) -> the NeRF MLP over [features | sh] (depth D, width W, view
 //   head) -> compositing (exclusive transmittance scan, both modes, white
 //   background) -> rgb [R,3], weights [R,S];
@@ -14,7 +14,25 @@
 // the train call adds pre-scaled density noise [R,S] and target colours
 // [R,3] and also writes sse = sum over rays |rgb - target|^2, d(sse)/d(every
 // weight and bias) laid out like the weights (fused_ingp_train.pack_weights)
-// and d(sse)/d(tables) [L,T,2].
+// and d(sse)/d(tables) [L,T,F].
+//
+// Shapes. A build instantiates one (W, PP) pair, chosen by the macros
+// INGP_W (32 or 64) and INGP_PP (16, 32 or 64): the MLP's width and the
+// register width of its layer-0 input. The levels L (1..16) and features
+// per level F (1, 2 or 4) are runtime values with L*F <= PP; layer 0's
+// input columns past L*F are zero, and so are its weight rows there (the
+// wrapper pads them: fused_ingp_train.pack_weights(rows0=PP)), so layer 0
+// is a branch-free PP x W product. The
+// wrapper builds each pair it meets as its own library (kernels/_build.py),
+// so the pairs compile as separate translation units, in parallel. Past
+// width 64 a thread-per-point MLP no longer fits in registers, and the
+// wrapper raises.
+//
+// bf16 hash compute (hash_compute_dtype = "bfloat16") rounds where the
+// Pallas kernel rounds (fused_ingp_train.py:165-175 forward, :246-262 table
+// scatter), as csrc/hash_encode.cu does: a corner adds
+// bf16(bf16(w) * bf16(g)), the corners summed in fp32, and the table
+// gradient adds bf16(w) * bf16(d(features)) in fp32. The MLP stays fp32.
 //
 // What bounds it on this card, at lego_ingp's shapes (L = 8, W = 64, D = 2,
 // 12,452 parameters, 4096 rays, 48 + 48 samples): neither the bytes of its
@@ -56,6 +74,7 @@
 // The TPU kernel's one-hot-GEMM radix lookup, [L,T/128,F*128] packed tables,
 // U/E/A selector GEMMs and 768-point sub-blocks are not carried over.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -70,6 +89,15 @@ constexpr int GEMM_THREADS = 256;
 constexpr int MAX_JOBS = MAX_DEPTH + 6;
 constexpr int MAX_SMEM = 232448;  // bytes a block may use on sm_90
 
+#ifndef INGP_W
+#define INGP_W 64
+#endif
+#ifndef INGP_PP
+#define INGP_PP 16
+#endif
+static_assert(INGP_W == 32 || INGP_W == 64, "INGP_W is 32 or 64");
+static_assert(INGP_PP == 16 || INGP_PP == 32 || INGP_PP == 64, "INGP_PP is 16, 32 or 64");
+
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 struct Args {
@@ -80,14 +108,14 @@ struct Args {
   const float* deltas;   // [R, S]
   const float* noise;    // [R, S] pre-scaled density noise (train)
   const float* target;   // [R, 3] (train)
-  const float* tables;   // [L, T, 2]
+  const float* tables;   // [L, T, F]
   const float* wbuf;     // the weights, [fan_in][fan_out] pieces (pack_weights)
   float* rgb;            // [R, 3]
   float* weights;        // [R, S]
   // train only
   float* sse_part;       // [n_blocks]
-  float* dG;             // [L, T, 2], zeroed by the caller
-  float* enc;            // [P][E]     layer 0's input
+  float* dG;             // [L, T, F], zeroed by the caller
+  float* enc;            // [P][PP]    layer 0's input, zero-padded
   float* hs;             // [D][P][W]  trunk outputs (post-relu)
   float* feat;           // [P][W]     feature layer output
   float* shp;            // [P][SHP]   sh per point, zero-padded
@@ -99,6 +127,8 @@ struct Args {
   float* drgb;           // [P][3]
   long long P;
   int R, S, rays_block, depth, dd, shp_ld, n_w;
+  int L, F;              // levels, features a level; L*F <= PP
+  int bf16;              // 1: hash compute rounds as the Pallas kernel's bf16
   unsigned mask;         // T - 1
   long long T;
   float bmin, brange;
@@ -152,23 +182,131 @@ __device__ __forceinline__ void point_of(const Args& A, long long gi, float (&x)
     x[a] = __fadd_rn(__ldg(A.rays_o + ray * 3 + a), __fmul_rn(zz, __ldg(A.rays_d + ray * 3 + a)));
 }
 
-template <int L>
-__device__ __forceinline__ void hash_features(const Args& A, const float (&x)[3],
-                                              float (&e)[2 * L]) {
+__device__ __forceinline__ float rb(float v, int on) {
+  return on ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
+// F-float row of a table
+template <int F>
+__device__ __forceinline__ void load_row(const float* row, float (&g)[F]) {
+  if constexpr (F == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(row));
+    g[0] = v.x; g[1] = v.y; g[2] = v.z; g[3] = v.w;
+  } else if constexpr (F == 2) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(row));
+    g[0] = v.x; g[1] = v.y;
+  } else {
+    g[0] = __ldg(row);
+  }
+}
+
+// levels that a PP-wide input can hold at F features a level
+template <int F, int PP>
+__host__ __device__ constexpr int levels_of() { return PP / F < MAX_LEVELS ? PP / F : MAX_LEVELS; }
+
+// Every level that a PP-wide input holds at F features a level is computed
+// without a branch, so that the compiler keeps several levels' lookups in
+// flight (the lookups' latency bounds the kernel); a level l >= L re-reads
+// level L - 1 and is zeroed. BF16 rounds as the Pallas kernel does.
+template <int F, int PP, bool BF16>
+__device__ __forceinline__ void level_features(const Args& A, const float (&x)[3],
+                                               float (&e)[PP]) {
 #pragma unroll
-  for (int l = 0; l < L; ++l) {
-    const Corners C = corners_of(A, x, l);
-    const float2* tl = reinterpret_cast<const float2*>(A.tables) + (size_t)l * A.T;
-    float a0 = 0.f, a1 = 0.f;
+  for (int l = 0; l < levels_of<F, PP>(); ++l) {
+    const int lc = min(l, A.L - 1);
+    const Corners C = corners_of(A, x, lc);
+    const float* tl = A.tables + (size_t)lc * A.T * F;
+    float acc[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[f] = 0.f;
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-      const float2 g = __ldg(tl + C.h[c]);
-      a0 = __fadd_rn(a0, __fmul_rn(g.x, C.w[c]));
-      a1 = __fadd_rn(a1, __fmul_rn(g.y, C.w[c]));
+      float g[F];
+      load_row<F>(tl + (size_t)C.h[c] * F, g);
+      if constexpr (BF16) {
+        const float w = rb(C.w[c], 1);
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], rb(__fmul_rn(rb(g[f], 1), w), 1));
+      } else {
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], __fmul_rn(g[f], C.w[c]));
+      }
     }
-    e[2 * l] = a0;
-    e[2 * l + 1] = a1;
+#pragma unroll
+    for (int f = 0; f < F; ++f) e[l * F + f] = l < A.L ? acc[f] : 0.f;
   }
+}
+
+template <int F, int PP>
+__device__ __forceinline__ void features_of(const Args& A, const float (&x)[3], float (&e)[PP]) {
+  if (A.bf16)
+    level_features<F, PP, true>(A, x, e);
+  else
+    level_features<F, PP, false>(A, x, e);
+}
+
+// e[l*F + f] = the point's hash features, zero past L*F. F selects a body
+// whose register indices are compile-time; only the F that can fill PP
+// columns with at most MAX_LEVELS levels are compiled.
+template <int PP>
+__device__ __forceinline__ void hash_features(const Args& A, const float (&x)[3], float (&e)[PP]) {
+#pragma unroll
+  for (int k = 0; k < PP; ++k) e[k] = 0.f;
+  if constexpr (4 * MAX_LEVELS >= PP)
+    if (A.F == 4) features_of<4, PP>(A, x, e);
+  if constexpr (2 * MAX_LEVELS >= PP)
+    if (A.F == 2) features_of<2, PP>(A, x, e);
+  if constexpr (MAX_LEVELS >= PP)
+    if (A.F == 1) features_of<1, PP>(A, x, e);
+}
+
+// dG[l][h_c][f] += w_c * d(features)[l*F + f] over the 8 corners of each
+// level (BF16: bf16(w_c) * bf16(d))
+template <int F, int PP, bool BF16>
+__device__ __forceinline__ void level_scatter(const Args& A, const float (&x)[3],
+                                              const float (&de)[PP]) {
+#pragma unroll
+  for (int l = 0; l < levels_of<F, PP>(); ++l) {
+    if (l < A.L) {
+      float d[F];
+      bool any = false;
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        d[f] = rb(de[l * F + f], BF16);
+        any |= d[f] != 0.f;
+      }
+      if (any) {
+        const Corners C = corners_of(A, x, l);
+        float* gl = A.dG + (size_t)l * A.T * F;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const float w = rb(C.w[c], BF16);
+#pragma unroll
+          for (int f = 0; f < F; ++f) atomicAdd(gl + (size_t)C.h[c] * F + f, __fmul_rn(w, d[f]));
+        }
+      }
+    }
+  }
+}
+
+template <int F, int PP>
+__device__ __forceinline__ void scatter_of(const Args& A, const float (&x)[3],
+                                           const float (&de)[PP]) {
+  if (A.bf16)
+    level_scatter<F, PP, true>(A, x, de);
+  else
+    level_scatter<F, PP, false>(A, x, de);
+}
+
+template <int PP>
+__device__ __forceinline__ void hash_scatter(const Args& A, const float (&x)[3],
+                                             const float (&de)[PP]) {
+  if constexpr (4 * MAX_LEVELS >= PP)
+    if (A.F == 4) scatter_of<4, PP>(A, x, de);
+  if constexpr (2 * MAX_LEVELS >= PP)
+    if (A.F == 2) scatter_of<2, PP>(A, x, de);
+  if constexpr (MAX_LEVELS >= PP)
+    if (A.F == 1) scatter_of<1, PP>(A, x, de);
 }
 
 // acc[j] = b[j] (N a multiple of 4; b on 16 bytes)
@@ -239,21 +377,21 @@ __device__ __forceinline__ void relu_mask(float (&out)[N], const float (&d)[N], 
 // Phase A for one point: raw rgb (3) and raw sigma of the MLP on the point's
 // hash features and its ray's sh. With STASH, every layer's input goes to
 // the train workspace at row gi.
-template <int W, int L, bool STASH>
+template <int W, int PP, bool STASH>
 __device__ __forceinline__ void point_forward(const Args& A, const float* sw, long long gi,
                                               float (&rgb)[3], float& sigma) {
-  constexpr int E = 2 * L, WH = W / 2;
+  constexpr int WH = W / 2;
   const int D = A.depth;
   const size_t P = (size_t)A.P;
   float x[3];
   point_of(A, gi, x);
-  float e[E];
-  hash_features<L>(A, x, e);
-  if (STASH) store_row<E>(A.enc + (size_t)gi * E, e);
+  float e[PP];
+  hash_features<PP>(A, x, e);
+  if (STASH) store_row<PP>(A.enc + (size_t)gi * PP, e);
 
   float h[W], acc[W];
   load_bias<W>(acc, sw + A.offs[1]);
-  gemv<E, W>(acc, e, sw + A.offs[0]);
+  gemv<PP, W>(acc, e, sw + A.offs[0]);
 #pragma unroll
   for (int j = 0; j < W; ++j) h[j] = fmaxf(acc[j], 0.f);
   if (STASH) store_row<W>(A.hs + (size_t)gi * W, h);
@@ -348,7 +486,7 @@ __device__ __forceinline__ void load_weights(const Args& A, float* sw) {
   __syncthreads();
 }
 
-template <int W, int L>
+template <int W, int PP>
 __global__ void __launch_bounds__(NT, 2) ingp_eval_kernel(const __grid_constant__ Args A) {
   extern __shared__ __align__(16) float smem[];
   const int S = A.S, RB = A.rays_block;
@@ -365,7 +503,7 @@ __global__ void __launch_bounds__(NT, 2) ingp_eval_kernel(const __grid_constant_
 
   for (int i = threadIdx.x; i < npts; i += NT) {
     float rgb[3], sigma;
-    point_forward<W, L, false>(A, sw, gbase + i, rgb, sigma);
+    point_forward<W, PP, false>(A, sw, gbase + i, rgb, sigma);
     float q, alpha, da, dqd;
     alpha_terms(A, sigma, __ldg(A.deltas + gbase + i), q, alpha, da, dqd);
     pq[i] = q;
@@ -400,10 +538,10 @@ __global__ void __launch_bounds__(NT, 2) ingp_eval_kernel(const __grid_constant_
   }
 }
 
-template <int W, int L>
+template <int W, int PP>
 __global__ void __launch_bounds__(NT, 2) ingp_rays_kernel(const __grid_constant__ Args A) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int E = 2 * L, WH = W / 2;
+  constexpr int WH = W / 2;
   const int S = A.S, RB = A.rays_block, D = A.depth;
   const size_t P = (size_t)A.P;
   float* sw = smem;                      // [n_w] weights
@@ -424,7 +562,7 @@ __global__ void __launch_bounds__(NT, 2) ingp_rays_kernel(const __grid_constant_
   for (int i = threadIdx.x; i < npts; i += NT) {
     const long long gi = gbase + i;
     float rgb[3], sigma;
-    point_forward<W, L, true>(A, sw, gi, rgb, sigma);
+    point_forward<W, PP, true>(A, sw, gi, rgb, sigma);
     float q, alpha, da, dqd;
     alpha_terms(A, sigma + __ldg(A.noise + gi), __ldg(A.deltas + gi), q, alpha, da, dqd);
     pq[i] = q;
@@ -535,22 +673,11 @@ __global__ void __launch_bounds__(NT, 2) ingp_rays_kernel(const __grid_constant_
       store_row<W>(A.dzs + o, dz);
     }
     // d(features) = W0 dZ_0, scattered into the tables' rows
-    float de[E];
-    gemv_t<E, W>(de, dz, sw + A.offs[0]);
+    float de[PP];  // zero past L*F: the padding rows of W0 are zero
+    gemv_t<PP, W>(de, dz, sw + A.offs[0]);
     float x[3];
     point_of(A, gi, x);
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      const float d0 = de[2 * l], d1 = de[2 * l + 1];
-      if (d0 == 0.f && d1 == 0.f) continue;
-      const Corners C = corners_of(A, x, l);
-      float* gl = A.dG + (size_t)l * A.T * 2;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        atomicAdd(gl + (size_t)C.h[c] * 2, __fmul_rn(C.w[c], d0));
-        atomicAdd(gl + (size_t)C.h[c] * 2 + 1, __fmul_rn(C.w[c], d1));
-      }
-    }
+    hash_scatter<PP>(A, x, de);
   }
 }
 
@@ -745,37 +872,33 @@ Layout layout(int R, int S, int rays_block, int depth, int W, int E, int shp_ld,
   return Lo;
 }
 
-// the kernels of a (width, levels) pair; null if not instantiated
-struct Kernels {
-  void (*eval)(Args);
-  void (*train)(Args);
-};
-
-Kernels kernels_for(int W, int L) {
-  if (W == 64 && L == 8) return {ingp_eval_kernel<64, 8>, ingp_rays_kernel<64, 8>};
-  return {nullptr, nullptr};
+// this build's (width, layer-0 columns) pair
+bool shape_ok(int W, int L, int F) {
+  return W == INGP_W && L >= 1 && L <= MAX_LEVELS && (F == 1 || F == 2 || F == 4) &&
+         L * F <= INGP_PP;
 }
 
 int shp_ld_of(int dd) { return round_up(dd, 4); }
 
-bool valid(int R, int S, int rays_block, int depth, int W, int L, int dd, int log2_T,
+bool valid(int R, int S, int rays_block, int depth, int W, int L, int F, int dd, int log2_T,
            int n_offs) {
   return R >= 0 && S > 0 && rays_block > 0 && depth >= 1 && depth <= MAX_DEPTH &&
-         kernels_for(W, L).eval != nullptr && dd >= 0 && dd <= 64 && log2_T >= 1 &&
-         log2_T <= 31 && n_offs == 2 * (depth + 4);
+         shape_ok(W, L, F) && dd >= 0 && dd <= 64 && log2_T >= 1 && log2_T <= 31 &&
+         n_offs == 2 * (depth + 4);
 }
 
 Args base_args(const float* rays_o, const float* rays_d, const float* sh, const float* z,
                const float* deltas, const float* tables, const float* wbuf, const int* offs,
                int n_offs, int n_w, float* rgb, float* weights, int R, int S, int rays_block,
-               int depth, int dd, int log2_T, const int* res, int L, float bmin, float brange,
-               int mode, int relu_density, int white_bkgd) {
+               int depth, int dd, int log2_T, const int* res, int L, int F, int bf16, float bmin,
+               float brange, int mode, int relu_density, int white_bkgd) {
   Args a{};
   a.rays_o = rays_o; a.rays_d = rays_d; a.sh = sh; a.z = z; a.deltas = deltas;
   a.tables = tables; a.wbuf = wbuf; a.rgb = rgb; a.weights = weights;
   a.P = (long long)R * S;
   a.R = R; a.S = S; a.rays_block = rays_block; a.depth = depth; a.dd = dd;
   a.shp_ld = shp_ld_of(dd); a.n_w = n_w;
+  a.L = L; a.F = F; a.bf16 = bf16;
   a.T = 1ll << log2_T;
   a.mask = (unsigned)(a.T - 1);
   a.bmin = bmin; a.brange = brange;
@@ -787,42 +910,45 @@ Args base_args(const float* rays_o, const float* rays_d, const float* sh, const 
 
 }  // namespace
 
-// Shared-memory bytes one block needs (0 if (width, levels) has no kernel).
-extern "C" long long fused_ingp_smem_bytes(int width, int levels, int n_w, int S, int rays_block,
-                                           int train) {
-  if (kernels_for(width, levels).eval == nullptr) return 0;
+// Shared-memory bytes one block needs (0 if this build does not take the
+// (width, levels, features) shape).
+extern "C" long long fused_ingp_smem_bytes(int width, int levels, int features, int n_w, int S,
+                                           int rays_block, int train) {
+  if (!shape_ok(width, levels, features)) return 0;
   return (long long)smem_bytes(n_w, S, rays_block, train != 0);
 }
 
 // Floats of device scratch the train launch needs.
 extern "C" long long fused_ingp_workspace_floats(int R, int S, int rays_block, int depth,
-                                                 int width, int levels, int dd,
-                                                 int pts_per_split, int n_dw) {
+                                                 int width, int dd, int pts_per_split,
+                                                 int n_dw) {
   if (R <= 0 || S <= 0 || rays_block <= 0 || pts_per_split <= 0) return 0;
-  return (long long)layout(R, S, rays_block, depth, width, 2 * levels, shp_ld_of(dd),
-                           pts_per_split, n_dw)
+  return (long long)layout(R, S, rays_block, depth, width, INGP_PP, shp_ld_of(dd), pts_per_split,
+                           n_dw)
       .total;
 }
 
 // rgb [R,3] and weights [R,S] of one level. offs: the 2*(depth+4) float
 // offsets of pack_weights (host array); n_w: floats of wbuf (a multiple of
-// 4); res: the L int32 resolutions. Returns the first cudaError_t.
+// 4); res: the L int32 resolutions; bf16: the hash compute type. Returns
+// the first cudaError_t.
 extern "C" int fused_ingp_eval_launch(const float* rays_o, const float* rays_d, const float* sh,
                                       const float* z, const float* deltas, const float* tables,
                                       const float* wbuf, const int* offs, int n_offs, int n_w,
                                       float* rgb, float* weights, int R, int S, int rays_block,
-                                      int depth, int width, int levels, int dd, int log2_T,
-                                      const int* res, float bmin, float brange, int mode,
-                                      int relu_density, int white_bkgd, void* stream) {
-  if (!valid(R, S, rays_block, depth, width, levels, dd, log2_T, n_offs) || (n_w & 3))
+                                      int depth, int width, int levels, int features, int bf16,
+                                      int dd, int log2_T, const int* res, float bmin,
+                                      float brange, int mode, int relu_density, int white_bkgd,
+                                      void* stream) {
+  if (!valid(R, S, rays_block, depth, width, levels, features, dd, log2_T, n_offs) || (n_w & 3))
     return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
   const size_t smem = smem_bytes(n_w, S, rays_block, false);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   const Args a = base_args(rays_o, rays_d, sh, z, deltas, tables, wbuf, offs, n_offs, n_w, rgb,
-                           weights, R, S, rays_block, depth, dd, log2_T, res, levels, bmin, brange,
-                           mode, relu_density, white_bkgd);
-  void (*kernel)(Args) = kernels_for(width, levels).eval;
+                           weights, R, S, rays_block, depth, dd, log2_T, res, levels, features,
+                           bf16, bmin, brange, mode, relu_density, white_bkgd);
+  void (*kernel)(Args) = ingp_eval_kernel<INGP_W, INGP_PP>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -832,7 +958,7 @@ extern "C" int fused_ingp_eval_launch(const float* rays_o, const float* rays_d, 
 }
 
 // The train call of one level: rgb, weights, sse [1], dw [n_dw] (the
-// weights' layout) and dG [L,T,2] (zeroed by the caller); workspace:
+// weights' layout) and dG [L,T,F] (zeroed by the caller); workspace:
 // fused_ingp_workspace_floats floats. Returns the first cudaError_t.
 extern "C" int fused_ingp_train_launch(const float* rays_o, const float* rays_d, const float* sh,
                                        const float* z, const float* deltas, const float* noise,
@@ -840,24 +966,25 @@ extern "C" int fused_ingp_train_launch(const float* rays_o, const float* rays_d,
                                        const float* wbuf, const int* offs, int n_offs, int n_w,
                                        float* rgb, float* weights, float* sse, float* dw,
                                        float* dG, float* workspace, int R, int S, int rays_block,
-                                       int depth, int width, int levels, int dd, int log2_T,
-                                       const int* res, float bmin, float brange, int mode,
-                                       int relu_density, int white_bkgd, int pts_per_split,
-                                       void* stream) {
-  if (!valid(R, S, rays_block, depth, width, levels, dd, log2_T, n_offs) || (n_w & 3) ||
-      pts_per_split <= 0)
+                                       int depth, int width, int levels, int features, int bf16,
+                                       int dd, int log2_T, const int* res, float bmin,
+                                       float brange, int mode, int relu_density, int white_bkgd,
+                                       int pts_per_split, void* stream) {
+  if (!valid(R, S, rays_block, depth, width, levels, features, dd, log2_T, n_offs) ||
+      (n_w & 3) || pts_per_split <= 0)
     return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
   const size_t smem = smem_bytes(n_w, S, rays_block, true);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  const int W = width, WH = width / 2, E = 2 * levels, D = depth;
+  const int W = width, WH = width / 2, E = levels * features, D = depth;
   const int n_dw = n_w;
-  const Layout Lo = layout(R, S, rays_block, depth, W, E, shp_ld_of(dd), pts_per_split, n_dw);
+  const Layout Lo =
+      layout(R, S, rays_block, depth, W, INGP_PP, shp_ld_of(dd), pts_per_split, n_dw);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 
   Args a = base_args(rays_o, rays_d, sh, z, deltas, tables, wbuf, offs, n_offs, n_w, rgb, weights,
-                     R, S, rays_block, depth, dd, log2_T, res, levels, bmin, brange, mode,
-                     relu_density, white_bkgd);
+                     R, S, rays_block, depth, dd, log2_T, res, levels, features, bf16, bmin,
+                     brange, mode, relu_density, white_bkgd);
   a.noise = noise; a.target = target; a.dG = dG;
   a.sse_part = workspace + Lo.sse_part;
   a.enc = workspace + Lo.enc; a.hs = workspace + Lo.hs; a.feat = workspace + Lo.feat;
@@ -865,7 +992,7 @@ extern "C" int fused_ingp_train_launch(const float* rays_o, const float* rays_d,
   a.dalpha = workspace + Lo.dalpha; a.dfeat = workspace + Lo.dfeat;
   a.ddir = workspace + Lo.ddir; a.drgb = workspace + Lo.drgb;
 
-  void (*kernel)(Args) = kernels_for(width, levels).train;
+  void (*kernel)(Args) = ingp_rays_kernel<INGP_W, INGP_PP>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -887,7 +1014,7 @@ extern "C" int fused_ingp_train_launch(const float* rays_o, const float* rays_d,
     J.tiles_n = (N + GT - 1) / GT;
     tiles += ((K + GT - 1) / GT) * J.tiles_n;
   };
-  add(a.enc, E, a.dzs, W, E, W, offs[0], W, offs[1]);
+  add(a.enc, INGP_PP, a.dzs, W, E, W, offs[0], W, offs[1]);
   for (int j = 1; j < D; ++j)
     add(a.hs + (size_t)(j - 1) * P * W, W, a.dzs + (size_t)j * P * W, W, W, W, offs[2 * j], W,
         offs[2 * j + 1]);

@@ -106,6 +106,44 @@ __device__ __forceinline__ float pick(int a, float x0, float x1, float x2) {
   return a == 0 ? x0 : (a == 1 ? x1 : x2);
 }
 
+// CW neighbouring floats at p (16-byte aligned for CW = 4, 8-byte for 2)
+template <int CW>
+__device__ __forceinline__ void ld_cols(const float* p, float (&v)[CW]) {
+  if constexpr (CW == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (CW == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int CW>
+__device__ __forceinline__ void ldg_cols(const float* p, float (&v)[CW]) {
+  if constexpr (CW == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (CW == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+template <int CW>
+__device__ __forceinline__ void st_cols(float* p, const float (&v)[CW]) {
+  if constexpr (CW == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (CW == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
 // out[col][p] = epi(b[col] + sum_k in[k][p] * Wg[k][col]) for the TILE
 // points of a tile, as fused_eval.cu's dense, plus:
 //  * EPI_MASK: the value is kept where mask[p][col] > 0 and zeroed
@@ -114,7 +152,7 @@ __device__ __forceinline__ float pick(int a, float x0, float x1, float x2) {
 //    for the tile's first `nvalid` points.
 // bg may be null (no bias). Input segments are padded to KB rows; rows
 // past kA / kB read zero weights.
-template <int NG>
+template <int N>
 __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
                                       const float* __restrict__ inB, int kB,
                                       const float* __restrict__ Wg,
@@ -122,7 +160,12 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
                                       int epi, const float* __restrict__ mask,
                                       float* __restrict__ gout, int nvalid,
                                       float* __restrict__ wtile) {
-  constexpr int N = 64 * NG;
+  // a thread holds CW neighbouring columns of each of NG groups, column
+  // 16*CW*n + CW*tx + j: 4 columns a group past 64 columns, as before, and
+  // 2 or 1 for the 32 and 16 columns of the narrow widths
+  constexpr int CW = N >= 64 ? 4 : N / 16;
+  constexpr int NG = N / (16 * CW);
+  static_assert(N % 16 == 0 && N >= 16 && N <= 256, "dense takes 16..256 columns");
   constexpr int N4 = N / 4;
   constexpr int SLICE4 = KB * N4;
   constexpr int LOADS = (SLICE4 + NTHREADS - 1) / NTHREADS;
@@ -130,11 +173,11 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
   const int nA = round_up(kA, KB) / KB;
   const int nT = nA + round_up(kB, KB) / KB;
 
-  float acc[4][4 * NG];
+  float acc[4][CW * NG];
 #pragma unroll
   for (int m = 0; m < 4; ++m)
 #pragma unroll
-    for (int c = 0; c < 4 * NG; ++c) acc[m][c] = 0.f;
+    for (int c = 0; c < CW * NG; ++c) acc[m][c] = 0.f;
 
   float4 stage[LOADS];
   auto fetch = [&](int t) {
@@ -171,14 +214,14 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
       const float4 a = *reinterpret_cast<const float4*>(in + kk * LD + 4 * ty);
 #pragma unroll
       for (int n = 0; n < NG; ++n) {
-        const float4 w = *reinterpret_cast<const float4*>(wtile + kk * N + 64 * n + 4 * tx);
-        const float wv[4] = {w.x, w.y, w.z, w.w};
+        float wv[CW];
+        ld_cols<CW>(wtile + kk * N + 16 * CW * n + CW * tx, wv);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[0][4 * n + j] = fmaf(a.x, wv[j], acc[0][4 * n + j]);
-          acc[1][4 * n + j] = fmaf(a.y, wv[j], acc[1][4 * n + j]);
-          acc[2][4 * n + j] = fmaf(a.z, wv[j], acc[2][4 * n + j]);
-          acc[3][4 * n + j] = fmaf(a.w, wv[j], acc[3][4 * n + j]);
+        for (int j = 0; j < CW; ++j) {
+          acc[0][CW * n + j] = fmaf(a.x, wv[j], acc[0][CW * n + j]);
+          acc[1][CW * n + j] = fmaf(a.y, wv[j], acc[1][CW * n + j]);
+          acc[2][CW * n + j] = fmaf(a.z, wv[j], acc[2][CW * n + j]);
+          acc[3][CW * n + j] = fmaf(a.w, wv[j], acc[3][CW * n + j]);
         }
       }
     }
@@ -187,38 +230,38 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
   const int p0 = 4 * ty;
 #pragma unroll
   for (int n = 0; n < NG; ++n) {
-    const int c0 = 64 * n + 4 * tx;
-    float b[4];
+    const int c0 = 16 * CW * n + CW * tx;
+    float b[CW];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = bg ? __ldg(bg + c0 + j) : 0.f;
-    float v[4][4];
+    for (int j = 0; j < CW; ++j) b[j] = bg ? __ldg(bg + c0 + j) : 0.f;
+    float v[4][CW];
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
-      float mk[4] = {1.f, 1.f, 1.f, 1.f};
+      float mk[CW];
+#pragma unroll
+      for (int j = 0; j < CW; ++j) mk[j] = 1.f;
       if (epi == EPI_MASK) {
-        float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (p0 + m < nvalid)
-          h = __ldg(reinterpret_cast<const float4*>(mask + (size_t)(p0 + m) * N + c0));
-        mk[0] = h.x; mk[1] = h.y; mk[2] = h.z; mk[3] = h.w;
+#pragma unroll
+        for (int j = 0; j < CW; ++j) mk[j] = 0.f;
+        if (p0 + m < nvalid) ldg_cols<CW>(mask + (size_t)(p0 + m) * N + c0, mk);
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = acc[m][4 * n + j] + b[j];
+      for (int j = 0; j < CW; ++j) {
+        float x = acc[m][CW * n + j] + b[j];
         if (epi == EPI_RELU) x = fmaxf(x, 0.f);
         if (epi == EPI_MASK) x = mk[j] > 0.f ? x : 0.f;
         v[m][j] = x;
       }
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < CW; ++j)
       *reinterpret_cast<float4*>(out + (c0 + j) * LD + p0) =
           make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
     if (gout) {
 #pragma unroll
       for (int m = 0; m < 4; ++m)
         if (p0 + m < nvalid)
-          *reinterpret_cast<float4*>(gout + (size_t)(p0 + m) * N + c0) =
-              make_float4(v[m][0], v[m][1], v[m][2], v[m][3]);
+          st_cols<CW>(gout + (size_t)(p0 + m) * N + c0, v[m]);
     }
   }
   __syncthreads();
@@ -307,16 +350,16 @@ __global__ void __launch_bounds__(NTHREADS, 1) train_rays_kernel(const __grid_co
 
     float* h = bufA;
     float* g = bufB;
-    dense<W / 64>(encP, pos_dim, nullptr, 0, wb + A.offs[0], wb + A.offs[1], h, EPI_RELU,
+    dense<W>(encP, pos_dim, nullptr, 0, wb + A.offs[0], wb + A.offs[1], h, EPI_RELU,
                   nullptr, A.hs + g0 * W, nv, wtile);
     for (int j = 1; j < D; ++j) {
       const float* Wj = wb + A.offs[2 * j];
       const float* bj = wb + A.offs[2 * j + 1];
       float* gout = A.hs + (size_t)j * P * W + g0 * W;
       if ((A.skip_mask >> j) & 1u)
-        dense<W / 64>(encP, pos_dim, h, W, Wj, bj, g, EPI_RELU, nullptr, gout, nv, wtile);
+        dense<W>(encP, pos_dim, h, W, Wj, bj, g, EPI_RELU, nullptr, gout, nv, wtile);
       else
-        dense<W / 64>(h, W, nullptr, 0, Wj, bj, g, EPI_RELU, nullptr, gout, nv, wtile);
+        dense<W>(h, W, nullptr, 0, Wj, bj, g, EPI_RELU, nullptr, gout, nv, wtile);
       float* tmp = h; h = g; g = tmp;
     }
     // alpha head (W -> 1) from the last hidden layer
@@ -328,9 +371,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) train_rays_kernel(const __grid_co
     }
     // feature (W -> W, no activation), then the view layer on
     // [feature, encoded direction] (W + dir_dim -> W/2, relu)
-    dense<W / 64>(h, W, nullptr, 0, wb + A.offs[2 * D + 2], wb + A.offs[2 * D + 3], g, EPI_NONE,
+    dense<W>(h, W, nullptr, 0, wb + A.offs[2 * D + 2], wb + A.offs[2 * D + 3], g, EPI_NONE,
                   nullptr, A.feat + g0 * W, nv, wtile);
-    dense<W / 128>(g, W, encD, dir_dim, wb + A.offs[2 * D + 4], wb + A.offs[2 * D + 5], h,
+    dense<W / 2>(g, W, encD, dir_dim, wb + A.offs[2 * D + 4], wb + A.offs[2 * D + 5], h,
                    EPI_RELU, nullptr, A.hd + g0 * WH, nv, wtile);
     // rgb head (W/2 -> 3)
     if (tid < 3 * TILE) {
@@ -472,11 +515,11 @@ __global__ void __launch_bounds__(NTHREADS, 1) train_rays_kernel(const __grid_co
     }
     __syncthreads();
     // feature output: d(feat) = d(hd) @ Wd[:W]^T (no activation)
-    dense<W / 64>(bufA, WH, nullptr, 0, wb + A.offs[3 * D + 10], nullptr, bufB, EPI_NONE,
+    dense<W>(bufA, WH, nullptr, 0, wb + A.offs[3 * D + 10], nullptr, bufB, EPI_NONE,
                   nullptr, A.dfeat + g0 * W, nv, wtile);
     // last trunk layer: dZ = (d(feat) @ Wf^T + d(alpha) * wa^T) * (h > 0)
     const size_t last = (size_t)(D - 1) * P * W + g0 * W;
-    dense<W / 64>(bufB, W, encP, 1, wb + A.offs[3 * D + 9], nullptr, bufA, EPI_MASK,
+    dense<W>(bufB, W, encP, 1, wb + A.offs[3 * D + 9], nullptr, bufA, EPI_MASK,
                   A.hs + last, A.dzs + last, nv, wtile);
     float* cur = bufA;
     float* nxt = bufB;
@@ -484,7 +527,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) train_rays_kernel(const __grid_co
       // dZ_{j-1} = (dZ_j @ Wh_j^T) * (h_{j-1} > 0); the skip's encoding
       // rows get no cotangent (the encoding has no parameters)
       const size_t o = (size_t)(j - 1) * P * W + g0 * W;
-      dense<W / 64>(cur, W, nullptr, 0, wb + A.offs[2 * D + 10 + (j - 1)], nullptr, nxt, EPI_MASK,
+      dense<W>(cur, W, nullptr, 0, wb + A.offs[2 * D + 10 + (j - 1)], nullptr, nxt, EPI_MASK,
                     A.hs + o, A.dzs + o, nv, wtile);
       float* tmp = cur; cur = nxt; nxt = tmp;
     }
@@ -661,6 +704,8 @@ __global__ void reduce_kernel(const float* __restrict__ part, long long stride, 
   }
 }
 
+bool width_ok(int w) { return w == 32 || w == 64 || w == 128 || w == 256; }
+
 size_t smem_bytes(int W, int S, int rays_block, int pos_dim, int dir_dim) {
   return sizeof(float) * ((size_t)(2 * W + round_up(pos_dim, KB) + round_up(dir_dim, KB)) * LD +
                           (size_t)KB * W + (size_t)rays_block * S * 7 + (size_t)rays_block);
@@ -707,7 +752,7 @@ Layout layout(int R, int S, int rays_block, int depth, int W, int pos_dim, int d
 // is not supported); lets the wrapper check a shape before launching.
 extern "C" long long fused_train_smem_bytes(int width, int S, int rays_block, int pos_dim,
                                             int dir_dim) {
-  if (width != 128 && width != 256) return 0;
+  if (!width_ok(width)) return 0;
   return (long long)smem_bytes(width, S, rays_block, pos_dim, dir_dim);
 }
 
@@ -734,7 +779,7 @@ extern "C" int fused_train_launch(const float* rays_o, const float* rays_d, cons
   if (S <= 0 || rays_block <= 0 || depth <= 1 || pts_per_split <= 0 || n_dw <= 0)
     return (int)cudaErrorInvalidValue;
   if (n_offs != 3 * depth + 11 || n_offs > MAX_OFFS) return (int)cudaErrorInvalidValue;
-  if (width != 128 && width != 256) return (int)cudaErrorInvalidValue;
+  if (!width_ok(width)) return (int)cudaErrorInvalidValue;
   const int W = width;
   const int pos_dim = 6 * pos_freqs + 3 * pos_inc, dir_dim = 6 * dir_freqs + 3 * dir_inc;
   const size_t smem = smem_bytes(W, S, rays_block, pos_dim, dir_dim);
@@ -756,7 +801,10 @@ extern "C" int fused_train_launch(const float* rays_o, const float* rays_d, cons
   a.mode = mode; a.relu_density = relu_density; a.white_bkgd = white_bkgd;
   for (int i = 0; i < n_offs; ++i) a.offs[i] = offs[i];
 
-  void (*kernel)(Args) = W == 256 ? train_rays_kernel<256> : train_rays_kernel<128>;
+  void (*kernel)(Args) = W == 256   ? train_rays_kernel<256>
+                         : W == 128 ? train_rays_kernel<128>
+                         : W == 64  ? train_rays_kernel<64>
+                                    : train_rays_kernel<32>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -16,6 +16,13 @@
 // with the plain version's to the last bit). The backward adds
 // w_c * dout[n][l*F + k] into dG[l][h_c][k].
 //
+// bf16 mode (hash_compute_dtype = "bfloat16") rounds where the Pallas body
+// kernels round (hash_encode.py:340-375, :376-426): the trilinear weight
+// and the table value are rounded to bf16 and their product (exact in
+// fp32) is rounded to bf16 again (the one-hot GEMM's output cast), and the
+// 8 corners are summed in fp32; the backward adds bf16(w_c) * bf16(dout),
+// exact in fp32, in fp32 (the transposed GEMM's fp32 accumulation).
+//
 // What bounds it on this card: the gathers. A point reads 8 corners x L
 // levels table rows of F floats at hashed (random) rows, 64 lookups at the
 // lego_ingp shape (L = 8, F = 2: one 8-byte float2 each); the tables are
@@ -35,6 +42,7 @@
 // 128 KB table in shared memory, and a segmented reduction in place of the
 // contended atomics, are later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,8 +61,13 @@ struct HashArgs {
   unsigned mask;         // T - 1
   long long T;
   float bmin, brange;
+  int bf16;              // 1: round as the Pallas kernels' bf16 compute
   int res[MAX_LEVELS];
 };
+
+__device__ __forceinline__ float rb(float v, int on) {
+  return on ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
 
 struct Corners {
   unsigned h[8];
@@ -100,16 +113,28 @@ __global__ void __launch_bounds__(NTHREADS) hash_fwd_kernel(const __grid_constan
   float acc[F];
 #pragma unroll
   for (int k = 0; k < F; ++k) acc[k] = 0.f;
+  if (A.bf16) {
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const float* row = tl + (size_t)C.h[c] * F;
-    if constexpr (F == 2) {
-      const float2 g = __ldg(reinterpret_cast<const float2*>(row));
-      acc[0] = __fadd_rn(acc[0], __fmul_rn(g.x, C.w[c]));
-      acc[1] = __fadd_rn(acc[1], __fmul_rn(g.y, C.w[c]));
-    } else {
+    for (int c = 0; c < 8; ++c) {
+      const float* row = tl + (size_t)C.h[c] * F;
+      const float w = rb(C.w[c], 1);
 #pragma unroll
-      for (int k = 0; k < F; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(__ldg(row + k), C.w[c]));
+      for (int k = 0; k < F; ++k)
+        acc[k] = __fadd_rn(acc[k], rb(__fmul_rn(rb(__ldg(row + k), 1), w), 1));
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float* row = tl + (size_t)C.h[c] * F;
+      if constexpr (F == 2) {
+        const float2 g = __ldg(reinterpret_cast<const float2*>(row));
+        acc[0] = __fadd_rn(acc[0], __fmul_rn(g.x, C.w[c]));
+        acc[1] = __fadd_rn(acc[1], __fmul_rn(g.y, C.w[c]));
+      } else {
+#pragma unroll
+        for (int k = 0; k < F; ++k)
+          acc[k] = __fadd_rn(acc[k], __fmul_rn(__ldg(row + k), C.w[c]));
+      }
     }
   }
   float* o = A.out + (size_t)n * A.L * F + (size_t)l * F;
@@ -126,7 +151,7 @@ __global__ void __launch_bounds__(NTHREADS) hash_bwd_kernel(const __grid_constan
   float d[F];
   const float* dp = A.dout + (size_t)n * A.L * F + (size_t)l * F;
 #pragma unroll
-  for (int k = 0; k < F; ++k) d[k] = __ldg(dp + k);
+  for (int k = 0; k < F; ++k) d[k] = rb(__ldg(dp + k), A.bf16);
   bool any = false;
 #pragma unroll
   for (int k = 0; k < F; ++k) any |= d[k] != 0.f;
@@ -137,18 +162,18 @@ __global__ void __launch_bounds__(NTHREADS) hash_bwd_kernel(const __grid_constan
   for (int c = 0; c < 8; ++c) {
     float* row = gl + (size_t)C.h[c] * F;
 #pragma unroll
-    for (int k = 0; k < F; ++k) atomicAdd(row + k, __fmul_rn(C.w[c], d[k]));
+    for (int k = 0; k < F; ++k) atomicAdd(row + k, __fmul_rn(rb(C.w[c], A.bf16), d[k]));
   }
 }
 
 HashArgs make_args(const float* x, const float* tables, const float* dout, float* out, long long N,
-                   int L, int F, int log2_T, const int* res, float bmin, float brange) {
+                   int L, int F, int log2_T, const int* res, float bmin, float brange, int bf16) {
   HashArgs a{};
   a.x = x; a.tables = tables; a.dout = dout; a.out = out;
   a.N = N; a.L = L; a.F = F;
   a.T = 1ll << log2_T;
   a.mask = (unsigned)(a.T - 1);
-  a.bmin = bmin; a.brange = brange;
+  a.bmin = bmin; a.brange = brange; a.bf16 = bf16;
   for (int l = 0; l < L; ++l) a.res[l] = res[l];
   return a;
 }
@@ -161,13 +186,15 @@ bool valid(long long N, int L, int F, int log2_T) {
 }  // namespace
 
 // feats [N, L*F] from points x [N, 3] and tables [L, 2^log2_T, F]; res: the
-// L int32 resolutions (host array). Returns the first cudaError_t.
+// L int32 resolutions (host array); bf16: round as the Pallas kernel's bf16
+// compute. Returns the first cudaError_t.
 extern "C" int hash_fwd_launch(const float* x, const float* tables, float* feats, long long N,
                                int L, int F, int log2_T, const int* res, float bmin, float brange,
-                               void* stream) {
+                               int bf16, void* stream) {
   if (!valid(N, L, F, log2_T)) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
-  const HashArgs a = make_args(x, tables, nullptr, feats, N, L, F, log2_T, res, bmin, brange);
+  const HashArgs a =
+      make_args(x, tables, nullptr, feats, N, L, F, log2_T, res, bmin, brange, bf16);
   const long long threads = N * L;
   const unsigned blocks = (unsigned)((threads + NTHREADS - 1) / NTHREADS);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -181,10 +208,10 @@ extern "C" int hash_fwd_launch(const float* x, const float* tables, float* feats
 // the caller. Returns the first cudaError_t.
 extern "C" int hash_bwd_launch(const float* x, const float* dout, float* dG, long long N, int L,
                                int F, int log2_T, const int* res, float bmin, float brange,
-                               void* stream) {
+                               int bf16, void* stream) {
   if (!valid(N, L, F, log2_T)) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
-  const HashArgs a = make_args(x, nullptr, dout, dG, N, L, F, log2_T, res, bmin, brange);
+  const HashArgs a = make_args(x, nullptr, dout, dG, N, L, F, log2_T, res, bmin, brange, bf16);
   const long long threads = N * L;
   const unsigned blocks = (unsigned)((threads + NTHREADS - 1) / NTHREADS);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

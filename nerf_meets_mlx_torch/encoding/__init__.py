@@ -6,6 +6,7 @@ from nerf_meets_mlx_torch.encoding.sinusoidal import (
 )
 from nerf_meets_mlx_torch.encoding.identity import IdentityEncoding
 from nerf_meets_mlx_torch.encoding.hash_grid import HashGridEncoding
+from nerf_meets_mlx_torch.encoding.cp_grid import CPGridEncoding
 from nerf_meets_mlx_torch.encoding.spherical_harmonics import (
     SphericalHarmonicsEncoding,
     sh_encode,
@@ -19,6 +20,7 @@ __all__ = [
     "sinusoidal_encode",
     "IdentityEncoding",
     "HashGridEncoding",
+    "CPGridEncoding",
     "SphericalHarmonicsEncoding",
     "sh_encode",
 ]

@@ -1,10 +1,10 @@
 """Encoding abstraction (counterpart of ``nerf_meets_mlx_tpu/encoding/base.py``).
 
 An encoding exposes ``out_dim`` and ``apply(x)``. The sinusoidal, identity
-and spherical-harmonics kinds hold no parameters; the hash grid is an
-``nn.Module`` whose one parameter is its [L, T, F] tables, so a model that
-holds it as a submodule carries the tables in ``parameters()`` and the
-checkpoint. The CP grid comes with a later slice of the port.
+and spherical-harmonics kinds hold no parameters; the hash grid (its
+[L, T, F] tables) and the CP grid (its per-level [3, R_l, C] lines) are
+``nn.Module``s, so a model that holds one as a submodule carries its
+parameters in ``parameters()`` and the checkpoint.
 """
 
 from __future__ import annotations
@@ -60,7 +60,16 @@ def make_encoding(cfg: EncodingConfig, device=None) -> "Encoding":
             device=device,
         )
     if cfg.kind == "cp_grid":
-        raise NotImplementedError(
-            f"encoding kind {cfg.kind!r} is not ported yet (ROADMAP.md Queue 1)"
+        from nerf_meets_mlx_torch.encoding.cp_grid import CPGridEncoding
+
+        # no compute_dtype: the CP grid interpolates in bf16, as in JAX
+        return CPGridEncoding(
+            in_dim=cfg.in_dim,
+            n_levels=cfg.cp_n_levels,
+            min_res=cfg.cp_min_res,
+            max_res=cfg.cp_max_res,
+            n_components=cfg.cp_n_components,
+            init_scale=cfg.cp_init_scale,
+            device=device,
         )
     raise ValueError(f"unknown encoding kind: {cfg.kind}")

@@ -105,13 +105,10 @@ class HashGridEncoding(nn.Module):
         self.tables.copy_((u * 2.0 - 1.0) * self.init_scale)
         return self
 
-    def apply(self, x: torch.Tensor) -> torch.Tensor:
-        """Encode world positions [..., 3] -> [..., L·F], feature l·F + f.
-        (The encodings' ``apply``; it stands in for ``nn.Module.apply``,
-        which nothing in the port calls.)"""
-        tables = self.tables
-        lead = x.shape[:-1]
-        x = x.reshape(-1, 3)
+    def corners(self, x: torch.Tensor):
+        """The 8 cell corners of points ``x`` [N, 3] at every level, in the
+        order c = bx | by<<1 | bz<<2: a list of (rows [N, L] int64, trilinear
+        weights [N, L]), as ``apply`` blends them."""
         # a true division: PyTorch's CUDA division by a host scalar multiplies
         # by its reciprocal, which rounds some points into another cell
         brange = torch.tensor(self.bbox_max - self.bbox_min, dtype=torch.float32, device=x.device)
@@ -121,17 +118,28 @@ class HashGridEncoding(nn.Module):
         floor = torch.floor(scaled)
         frac = scaled - floor
         base = floor.to(torch.int64)
-        level = torch.arange(self.n_levels, device=x.device)[None, :]
         fx, fy, fz = frac[..., 0], frac[..., 1], frac[..., 2]
-        feats = torch.zeros(
-            (x.shape[0], self.n_levels, self.features_per_level), dtype=torch.float32,
-            device=x.device,
-        )
+        out = []
         for c in range(8):
             bx, by, bz = c & 1, (c >> 1) & 1, (c >> 2) & 1
             h = corner_hash(base[..., 0] + bx, base[..., 1] + by, base[..., 2] + bz,
                             self.table_size)
-            g = tables[level, h]                             # [N, L, F]
             w = (fx if bx else 1.0 - fx) * (fy if by else 1.0 - fy) * (fz if bz else 1.0 - fz)
-            feats = feats + g * w[..., None]
+            out.append((h, w))
+        return out
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """Encode world positions [..., 3] -> [..., L·F], feature l·F + f.
+        (The encodings' ``apply``; it stands in for ``nn.Module.apply``,
+        which nothing in the port calls.)"""
+        tables = self.tables
+        lead = x.shape[:-1]
+        x = x.reshape(-1, 3)
+        level = torch.arange(self.n_levels, device=x.device)[None, :]
+        feats = torch.zeros(
+            (x.shape[0], self.n_levels, self.features_per_level), dtype=torch.float32,
+            device=x.device,
+        )
+        for h, w in self.corners(x):
+            feats = feats + tables[level, h] * w[..., None]     # [N, L, F]
         return feats.reshape(*lead, self.out_dim)

@@ -3,8 +3,9 @@
 Counterpart of ``nerf_meets_mlx_tpu/engine/checkpoint.py`` with the same
 ``<ckpt_dir>/step_XXXXXXXX`` naming: each step is a directory holding
 ``state.pt`` with the step, the model's parameters (the MLPs and, for a
-hash-grid model, its [L, T, F] tables) and, for a training checkpoint, the
-optimizer's state (Adam moments and counts, the tables' included) and the
+hash-grid model, its [L, T, F] tables, for a CP-grid model its per-level
+[3, R_l, C] lines) and, for a training checkpoint, the optimizer's state
+(Adam moments and counts, the encoding's included) and the
 train step's random-generator state, so a resumed run continues where it
 stopped, and the learned occupancy grid when the config has one.
 ``render_only`` reads the parameters alone. Orbax checkpoints of

@@ -13,8 +13,8 @@ the first update uses ``lrate``. ``torch.optim.Adam`` computes optax's
 
 ``encoding_weight_decay`` is the JAX package's
 ``optax.chain(adam, add_decayed_weights(-wd, mask=pos_enc))``: after the
-Adam step, every parameter of the position encoding (the hash tables; the
-MLPs are never decayed) loses ``wd`` times its value from before the
+Adam step, every parameter of the position encoding (the hash tables or the
+CP lines; the MLPs are never decayed) loses ``wd`` times its value from before the
 update, not scaled by the lr. So it is not ``torch.optim.AdamW``, whose
 decay is lr-scaled. A model whose position encoding has no parameters has
 nothing to decay, and a non-zero value raises there.
@@ -51,7 +51,7 @@ class TrainState:
         if cfg.encoding_weight_decay > 0.0 and not self.decayed:
             raise ValueError(
                 "encoding_weight_decay decays learned encoding parameters (hash "
-                "tables); this model's position encoding has none"
+                "tables, CP lines); this model's position encoding has none"
             )
         self.model = model
         self.cfg = cfg

@@ -5,8 +5,8 @@ serving path. It runs on ``cuda`` unless the caller passes ``device``, and
 raises when CUDA is asked for and absent. On a CUDA device the sinusoidal
 presets route through the fused eval kernel and the hash-grid presets
 (``lego_ingp``, ``lego_ingp_occ``) through the fused INGP eval kernel
-(``use_fused_kernel=True``), as the JAX trainer routes them on a TPU; on the
-CPU they take the standard route. The orbit frames are written as ``orbit_frames.npy`` (uint8
+(``use_fused_kernel=True``), as the JAX trainer routes them on a TPU;
+``lego_cp`` and every preset on the CPU take the standard route. The orbit frames are written as ``orbit_frames.npy`` (uint8
 [N, H, W, 3]); the video writer comes with a later slice.
 """
 

@@ -11,7 +11,9 @@ kernel (``fused_train`` or, for ``lego_ingp`` / ``lego_ingp_occ``,
 hash grid past the INGP kernel's bounds (``config_txt`` with the paper's
 16 × 2^19 tables, or more than 256 samples) trains on the "feats" route
 (the hash encode, then ``fused_feat`` per level) and renders on the
-standard route; on the CPU they take the standard route. With ``render.occupancy``
+standard route; ``lego_cp`` (the CP grid) trains and renders on the standard
+route, as the JAX trainer leaves it to XLA; on the CPU every preset takes
+the standard route. With ``render.occupancy``
 (``lego_occ``, ``lego_ingp_occ``) the train step keeps the learned grid up
 to date (one launch of the fused MLP forward kernel, or of the hash-encode
 forward kernel, per update on CUDA) and every render takes it. Held-out renders are written as ``render_XXXXXXXX.npy`` and

@@ -14,8 +14,11 @@ direction layer's is [feature, encoded direction], so the first rows of
 those ``w`` belong to the encoding and the feature respectively, in both
 packages alike. A hash-grid position encoding carries its tables as
 ``tree["pos_enc"]["tables"]`` [L, T, F] (the canonical JAX leaf, not the
-TPU-packed [L, T/128, F·128] layout) into ``HashGridEncoding.tables``; the
-parameter-free encodings' entries are empty, as ``dir_enc`` always is. The
+TPU-packed [L, T/128, F·128] layout) into ``HashGridEncoding.tables``, and
+a CP-grid position encoding its per-level lines as
+``tree["pos_enc"]["lines"]``, a list of [3, R_l, C] arrays, into
+``CPGridEncoding.lines``; the parameter-free encodings' entries are empty,
+as ``dir_enc`` always is. The
 learned occupancy grid crosses as a numpy [R, R, R] array
 (``occ_grid_from_numpy`` / ``occ_grid_to_numpy``).
 """
@@ -62,17 +65,13 @@ def _mlp_to_numpy(mlp: NeRFMLP) -> Dict[str, Any]:
     return out
 
 
-def params_from_numpy(tree: Dict[str, Any], model) -> Any:
-    """Load a JAX params pytree (numpy leaves) into a port ``NeRFModel``;
-    returns the model."""
-    if tree.get("dir_enc"):
-        raise ValueError("the port's direction encodings have no parameters")
-    tables = getattr(model.pos_enc, "tables", None)
-    pos = tree.get("pos_enc") or {}
-    if set(pos) != ({"tables"} if tables is not None else set()):
+def _pos_enc_from_numpy(pos: Dict[str, Any], enc) -> None:
+    tables = getattr(enc, "tables", None)
+    lines = getattr(enc, "lines", None)
+    want = {"tables"} if tables is not None else {"lines"} if lines is not None else set()
+    if set(pos) != want:
         raise ValueError(
-            f"pos_enc holds {sorted(pos)}, the model's position encoding wants "
-            f"{['tables'] if tables is not None else []}"
+            f"pos_enc holds {sorted(pos)}, the model's position encoding wants {sorted(want)}"
         )
     if tables is not None:
         t = torch.from_numpy(np.array(pos["tables"], np.float32))
@@ -80,18 +79,48 @@ def params_from_numpy(tree: Dict[str, Any], model) -> Any:
             raise ValueError(f"tables are {tuple(t.shape)}, the model wants {tuple(tables.shape)}")
         with torch.no_grad():
             tables.copy_(t)
+    if lines is not None:
+        if len(pos["lines"]) != len(lines):
+            raise ValueError(
+                f"pos_enc holds {len(pos['lines'])} CP levels, the model wants {len(lines)}"
+            )
+        for li, (src, dst) in enumerate(zip(pos["lines"], lines)):
+            t = torch.from_numpy(np.array(src, np.float32))
+            if tuple(t.shape) != tuple(dst.shape):
+                raise ValueError(
+                    f"CP level {li} lines are {tuple(t.shape)}, the model wants {tuple(dst.shape)}"
+                )
+            with torch.no_grad():
+                dst.copy_(t)
+
+
+def params_from_numpy(tree: Dict[str, Any], model) -> Any:
+    """Load a JAX params pytree (numpy leaves) into a port ``NeRFModel``;
+    returns the model."""
+    if tree.get("dir_enc"):
+        raise ValueError("the port's direction encodings have no parameters")
+    _pos_enc_from_numpy(tree.get("pos_enc") or {}, model.pos_enc)
     _mlp_from_numpy(tree["coarse"], model.coarse)
     if model.fine is not None:
         _mlp_from_numpy(tree["fine"], model.fine)
     return model
 
 
+def _pos_enc_to_numpy(enc) -> Dict[str, Any]:
+    tables = getattr(enc, "tables", None)
+    if tables is not None:
+        return {"tables": tables.detach().cpu().numpy().copy()}
+    lines = getattr(enc, "lines", None)
+    if lines is not None:
+        return {"lines": [p.detach().cpu().numpy().copy() for p in lines]}
+    return {}
+
+
 def params_to_numpy(model) -> Dict[str, Any]:
     """The inverse of ``params_from_numpy``: the JAX pytree as numpy."""
-    tables = getattr(model.pos_enc, "tables", None)
     tree: Dict[str, Any] = {
         "coarse": _mlp_to_numpy(model.coarse),
-        "pos_enc": {} if tables is None else {"tables": tables.detach().cpu().numpy().copy()},
+        "pos_enc": _pos_enc_to_numpy(model.pos_enc),
         "dir_enc": {},
     }
     if model.fine is not None:

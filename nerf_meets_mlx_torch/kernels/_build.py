@@ -3,8 +3,12 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, under ``nerf_meets_mlx_torch/build/``
 (listed in ``.gitignore``), keyed by a hash of the source and the flags:
-a changed source is rebuilt, an unchanged one is loaded as it is. Nothing
-here runs at import time; the CPU tests never reach it.
+a changed source is rebuilt, an unchanged one is loaded as it is. A source
+that instantiates its kernels per shape takes preprocessor ``defines`` (as
+``-DNAME=value``): each set of defines is its own translation unit and
+library, so the shapes a run needs build in parallel and no build compiles
+shapes that it does not use. Nothing here runs at import time; the CPU
+tests never reach it.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Mapping, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -29,9 +33,20 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+Defines = Optional[Mapping[str, int]]
+
+_LIBS: Dict[Tuple[str, Tuple[Tuple[str, int], ...]], ctypes.CDLL] = {}
 _LOCK = threading.Lock()
-BUILD_LOG: Dict[str, str] = {}  # name -> nvcc's stderr (ptxas report)
+BUILD_LOG: Dict[str, str] = {}  # variant name -> nvcc's stderr (ptxas report)
+
+
+def _flags(defines: Defines) -> List[str]:
+    return [f"-D{k}={v}" for k, v in sorted((defines or {}).items())]
+
+
+def variant_name(name: str, defines: Defines = None) -> str:
+    """``name`` with its defines, e.g. ``fused_ingp_INGP_PP16_INGP_W64``."""
+    return "_".join([name] + [f"{k}{v}" for k, v in sorted((defines or {}).items())])
 
 
 def _nvcc() -> str:
@@ -45,34 +60,39 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: building the CUDA kernels needs the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines: Defines = None) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    h.update(" ".join(NVCC_FLAGS + _flags(defines)).encode())
+    return BUILD_DIR / f"lib{variant_name(name, defines)}_{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
-    out = library_path(name)
+def build(name: str, defines: Defines = None) -> Path:
+    """Compile ``csrc/<name>.cu`` (with ``defines``) unless an up-to-date
+    library exists."""
+    out = library_path(name, defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd: List[str] = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd: List[str] = [
+        _nvcc(), *NVCC_FLAGS, *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu"),
+    ]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-    BUILD_LOG[name] = proc.stderr
+        raise RuntimeError(f"nvcc failed for {variant_name(name, defines)}:\n{proc.stderr}")
+    BUILD_LOG[variant_name(name, defines)] = proc.stderr
     os.replace(tmp, out)
     return out
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+def load_library(name: str, defines: Defines = None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` with ``defines``, built on
+    first use."""
+    key = (name, tuple(sorted((defines or {}).items())))
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            _LIBS[name] = lib
+            lib = ctypes.CDLL(str(build(name, defines)))
+            _LIBS[key] = lib
         return lib

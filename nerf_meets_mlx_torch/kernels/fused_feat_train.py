@@ -39,9 +39,17 @@ FEAT_TARGET_POINTS = 512
 FEAT_SPLIT_POINTS = 4096
 # the most samples a ray the kernel takes, as the JAX op's bound
 MAX_FEAT_SAMPLES = 2048
-# (width, feature channels) pairs that csrc/fused_feat.cu instantiates:
-# the hash grid's 8 or 16 levels of 2 features under a 64-wide MLP
-KERNEL_SHAPES = ((64, 16), (64, 32))
+# the shapes csrc/fused_feat.cu instantiates: width 32 or 64, and up to 64
+# feature channels, each build holding them in PP = 16, 32 or 64 registers
+WIDTHS = (32, 64)
+PP_SIZES = (16, 32, 64)
+
+
+def kernel_defines(net_width: int, p_dim: int):
+    """The build of ``csrc/fused_feat.cu`` that takes this shape: the width
+    and the smallest layer-0 register width PP that holds ``p_dim``."""
+    pp = next(p for p in PP_SIZES if p_dim <= p)
+    return {"FEAT_W": net_width, "FEAT_PP": pp}
 
 
 def feat_rays_block(n_samples: int) -> int:
@@ -102,10 +110,10 @@ def fused_feat_train_reference(
 # ---------------------------------------------------------------------------
 
 
-def _feat_lib():
+def _feat_lib(net_width: int, p_dim: int):
     from nerf_meets_mlx_torch.kernels import _build
 
-    lib = _build.load_library("fused_feat")
+    lib = _build.load_library("fused_feat", kernel_defines(net_width, p_dim))
     if not getattr(lib, "_typed", False):
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.fused_feat_train_launch.argtypes = (
@@ -127,11 +135,11 @@ def _check_feat_config(mlp) -> None:
             "the CUDA feat train kernel computes in fp32 only; bf16 compute is queued in "
             "ROADMAP.md (the plain path runs it on the CPU)"
         )
-    shape = (cfg.net_width, mlp.in_dim)
-    if shape not in KERNEL_SHAPES:
+    if cfg.net_width not in WIDTHS or not 1 <= mlp.in_dim <= PP_SIZES[-1]:
         raise ValueError(
-            f"the feat train kernel takes (net_width, feature channels) in {KERNEL_SHAPES}, "
-            f"not {shape}"
+            f"the feat train kernel takes net_width in {WIDTHS} (a thread-per-point MLP past "
+            f"64 does not fit in registers) and 1..{PP_SIZES[-1]} feature channels, not "
+            f"width {cfg.net_width} with {mlp.in_dim}"
         )
     if not cfg.use_viewdirs or cfg.skips or not 1 <= cfg.net_depth <= 8:
         raise ValueError(
@@ -149,7 +157,7 @@ def _train_launch(mlp, tspec: TrainSpec, x: torch.Tensor, target: torch.Tensor):
     dev = x.device
     R, S = target.shape[0], tspec.n_samples
     cfg = mlp.cfg
-    lib = _feat_lib()
+    lib = _feat_lib(cfg.net_width, mlp.in_dim)
     wbuf, offs = pack_weights(mlp)
     n_w = wbuf.numel()
     smem = lib.fused_feat_smem_bytes(cfg.net_width, mlp.in_dim, n_w, S, tspec.rays_block)

@@ -28,7 +28,7 @@ from typing import List, Tuple
 
 import torch
 
-from nerf_meets_mlx_torch.kernels.fused_train import LAUNCHES, _pack_flat
+from nerf_meets_mlx_torch.kernels.fused_train import KERNEL_WIDTHS, LAUNCHES, _pack_flat
 
 # Points per CUDA block of the forward kernel: 8 tiles of 64; a 400 x 400
 # frame makes 313 blocks (one block of ~170 KB shared memory per SM).
@@ -116,9 +116,9 @@ def _check_config(mlp, pos_enc, x: torch.Tensor) -> None:
         )
     if cfg.use_viewdirs or not hasattr(pos_enc, "bands"):
         raise ValueError("the image kernels take a sinusoidal encoding and the output head")
-    if cfg.net_width not in (128, 256) or not 1 <= cfg.net_depth <= 20:
+    if cfg.net_width not in KERNEL_WIDTHS or not 1 <= cfg.net_depth <= 20:
         raise ValueError(
-            f"the image kernels take net_width 128 or 256 and depth 1..20, not "
+            f"the image kernels take net_width in {KERNEL_WIDTHS} and depth 1..20, not "
             f"{cfg.net_width} and {cfg.net_depth}"
         )
     if any(not 0 <= s < cfg.net_depth - 1 for s in cfg.skips):

@@ -13,10 +13,17 @@ versions.
   ``fused_ingp_train_reference`` for CPU tensors. There is no other
   fallback.
 * The plain versions are the XLA composition that the JAX package's
-  ``fused_ingp_train_reference`` describes: the gather hash encode
-  (``HashGridEncoding.apply``), the ``NeRFMLP`` over [features, sh], and
-  the compositing of ``kernels/fused_train.py``; the train version is
-  differentiable by autograd with respect to the MLP and the tables.
+  ``fused_ingp_train_reference`` describes: the hash encode in the
+  kernels' compute type (``hash_encode_reference``: the gather encode in
+  fp32, the Pallas kernel's roundings in bf16), the ``NeRFMLP`` over
+  [features, sh], and the compositing of ``kernels/fused_train.py``; the
+  train version is differentiable by autograd with respect to the MLP and
+  the tables.
+* Shapes: width 32 or 64, 1..16 levels of 1, 2 or 4 features. Each
+  (width, PP) pair, PP the smallest of 16, 32, 64 that holds the L·F
+  features, is its own build of ``csrc/fused_ingp.cu`` (``kernel_defines``).
+  A width past 64 raises: a thread-per-point MLP no longer fits in
+  registers there.
 * The spherical harmonics come in per ray, [R, DD], as the JAX op takes
   them. The weights are taken as the ``nn.Linear`` modules hold them and the
   tables as [L, T, F]; the JAX package's packed layouts are a TPU's.
@@ -48,8 +55,10 @@ INGP_TARGET_POINTS = 512
 # dW = X^T dZ is summed over the points in splits of about this many points:
 # the fine level's 393,216 points give 96 splits x 7 tiles = 672 GEMM blocks.
 INGP_SPLIT_POINTS = 4096
-# (width, levels) pairs that csrc/fused_ingp.cu instantiates
-KERNEL_SHAPES = ((64, 8),)
+# the shapes csrc/fused_ingp.cu instantiates: (width, layer-0 columns) pairs
+WIDTHS = (32, 64)
+PP_SIZES = (16, 32, 64)
+MAX_LEVELS = 16
 
 
 def ingp_rays_block(n_samples: int) -> int:
@@ -79,9 +88,11 @@ def _composite(tspec: TrainSpec, raw: torch.Tensor, deltas: torch.Tensor, noise=
 
 
 def _raw(mlp, pos_enc, sh, rays_o, rays_d, z_vals) -> torch.Tensor:
+    from nerf_meets_mlx_torch.kernels.hash_encode import hash_encode_reference
+
     R, S = z_vals.shape
     pts = rays_o[:, None, :] + z_vals[..., None] * rays_d[:, None, :]
-    feats = pos_enc.apply(pts.reshape(R * S, 3))
+    feats = hash_encode_reference(pos_enc, pts.reshape(R * S, 3))
     shb = sh[:, None, :].expand(R, S, sh.shape[-1]).reshape(R * S, sh.shape[-1])
     return mlp(feats, shb).reshape(R, S, 4)
 
@@ -112,35 +123,53 @@ def fused_ingp_train_reference(
 # ---------------------------------------------------------------------------
 
 
-def pack_weights(mlp) -> Tuple[torch.Tensor, List[int]]:
+def pack_weights(mlp, rows0: int = 0) -> Tuple[torch.Tensor, List[int]]:
     """One flat fp32 buffer with every weight as [fan_in, fan_out] (the JAX
     pytree's ``w``, i.e. ``nn.Linear.weight`` transposed) and its bias, in
     ``mlp.linears()`` order (trunk, alpha, feature, view, rgb), each piece
-    on a 16-byte boundary, and the piece offsets. The train kernel's dW
-    buffer has the same layout."""
+    on a 16-byte boundary, and the piece offsets. With ``rows0`` the first
+    layer's weight is padded with zero rows to ``rows0`` (the INGP kernels'
+    layer-0 register width PP: they multiply all PP columns, the padding
+    ones zero). The train kernel's dW buffer has the same layout; its
+    padding rows are not read back."""
     pieces: List[torch.Tensor] = []
-    for _, lin in mlp.linears():
-        pieces += [lin.weight.t(), lin.bias]
+    for i, (_, lin) in enumerate(mlp.linears()):
+        w = lin.weight.t()
+        if i == 0 and rows0 > w.shape[0]:
+            w = torch.cat([w, w.new_zeros((rows0 - w.shape[0], w.shape[1]))])
+        pieces += [w, lin.bias]
     return _pack_flat(pieces)
 
 
-def _ingp_lib():
+def kernel_defines(net_width: int, n_features: int):
+    """The build of ``csrc/fused_ingp.cu`` that takes this shape: the
+    width and the smallest layer-0 register width PP that holds the
+    ``n_features`` = L·F hash features."""
+    pp = next(p for p in PP_SIZES if n_features <= p)
+    return {"INGP_W": net_width, "INGP_PP": pp}
+
+
+def _layer0_rows(mlp, pos_enc) -> int:
+    return kernel_defines(mlp.cfg.net_width, pos_enc.out_dim)["INGP_PP"]
+
+
+def _ingp_lib(mlp, pos_enc):
     from nerf_meets_mlx_torch.kernels import _build
 
-    lib = _build.load_library("fused_ingp")
+    lib = _build.load_library("fused_ingp", kernel_defines(mlp.cfg.net_width, pos_enc.out_dim))
     if not getattr(lib, "_typed", False):
         vp, ci, cf, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.fused_ingp_eval_launch.argtypes = (
-            [vp] * 8 + [ci] * 2 + [vp] * 2 + [ci] * 8 + [vp, cf, cf] + [ci] * 3 + [vp]
+            [vp] * 8 + [ci] * 2 + [vp] * 2 + [ci] * 10 + [vp, cf, cf] + [ci] * 3 + [vp]
         )
         lib.fused_ingp_eval_launch.restype = ci
         lib.fused_ingp_train_launch.argtypes = (
-            [vp] * 10 + [ci] * 2 + [vp] * 6 + [ci] * 8 + [vp, cf, cf] + [ci] * 4 + [vp]
+            [vp] * 10 + [ci] * 2 + [vp] * 6 + [ci] * 10 + [vp, cf, cf] + [ci] * 4 + [vp]
         )
         lib.fused_ingp_train_launch.restype = ci
-        lib.fused_ingp_smem_bytes.argtypes = [ci] * 6
+        lib.fused_ingp_smem_bytes.argtypes = [ci] * 7
         lib.fused_ingp_smem_bytes.restype = cll
-        lib.fused_ingp_workspace_floats.argtypes = [ci] * 9
+        lib.fused_ingp_workspace_floats.argtypes = [ci] * 8
         lib.fused_ingp_workspace_floats.restype = cll
         lib._typed = True
     return lib
@@ -152,15 +181,16 @@ def _check_ingp_config(mlp, pos_enc, sh, kernel: str) -> None:
     cfg = mlp.cfg
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
-            f"the CUDA INGP {kernel} kernel computes in fp32 only; bf16 compute is queued in "
-            "ROADMAP.md (the plain path runs it on the CPU)"
+            f"the CUDA INGP {kernel} kernel computes the MLP in fp32 only; bf16 MLP compute "
+            "is queued in ROADMAP.md (the plain path runs it on the CPU)"
         )
     check_hash_encoding(pos_enc)
-    shape = (cfg.net_width, pos_enc.n_levels)
-    if shape not in KERNEL_SHAPES or pos_enc.features_per_level != 2:
+    L, F = pos_enc.n_levels, pos_enc.features_per_level
+    if cfg.net_width not in WIDTHS or not 1 <= L <= MAX_LEVELS or F not in (1, 2, 4):
         raise ValueError(
-            f"the fused INGP kernels take (net_width, levels) in {KERNEL_SHAPES} with 2 "
-            f"features a level, not {shape} with {pos_enc.features_per_level}"
+            f"the fused INGP kernels take net_width in {WIDTHS} (a thread-per-point MLP "
+            f"past 64 does not fit in registers), 1..{MAX_LEVELS} levels and 1, 2 or 4 "
+            f"features a level, not width {cfg.net_width}, {L} levels of {F}"
         )
     if not cfg.use_viewdirs or cfg.skips or not 1 <= cfg.net_depth <= 8:
         raise ValueError(
@@ -177,17 +207,18 @@ def _common_args(mlp, pos_enc, tspec: TrainSpec, R: int, S: int):
     from nerf_meets_mlx_torch.kernels.hash_encode import _geometry
 
     cfg = mlp.cfg
-    L, _, log2_t, c_res, bmin, brange = _geometry(pos_enc)
+    L, F, log2_t, c_res, bmin, brange, bf16 = _geometry(pos_enc)
     return (
-        R, S, tspec.rays_block, cfg.net_depth, cfg.net_width, L, mlp.in_dim_views, log2_t,
-        c_res, bmin, brange, 0 if tspec.mode == "canonical" else 1,
+        R, S, tspec.rays_block, cfg.net_depth, cfg.net_width, L, F, bf16, mlp.in_dim_views,
+        log2_t, c_res, bmin, brange, 0 if tspec.mode == "canonical" else 1,
         int(tspec.density_activation == "relu"), int(tspec.white_bkgd),
     )
 
 
 def _check_smem(lib, mlp, pos_enc, n_w: int, tspec: TrainSpec, S: int, train: bool):
     smem = lib.fused_ingp_smem_bytes(
-        mlp.cfg.net_width, pos_enc.n_levels, n_w, S, tspec.rays_block, int(train)
+        mlp.cfg.net_width, pos_enc.n_levels, pos_enc.features_per_level, n_w, S,
+        tspec.rays_block, int(train),
     )
     if not 0 < smem <= 232448:
         raise ValueError(
@@ -218,8 +249,8 @@ def fused_ingp_eval_apply(
         ("rays_o", rays_o, (R, 3)), ("rays_d", rays_d, (R, 3)),
         ("sh", sh, (R, sh.shape[-1])), ("z_vals", z_vals, (R, S)), ("deltas", deltas, (R, S)),
     ))
-    lib = _ingp_lib()
-    wbuf, offs = pack_weights(mlp)
+    lib = _ingp_lib(mlp, pos_enc)
+    wbuf, offs = pack_weights(mlp, _layer0_rows(mlp, pos_enc))
     _check_smem(lib, mlp, pos_enc, wbuf.numel(), tspec, S, train=False)
     rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)
     wts = torch.empty((R, S), dtype=torch.float32, device=dev)
@@ -244,14 +275,14 @@ def _train_launch(mlp, pos_enc, tspec: TrainSpec, args):
     dev = args[0].device
     R, S = args[3].shape
     cfg = mlp.cfg
-    lib = _ingp_lib()
-    wbuf, offs = pack_weights(mlp)
+    lib = _ingp_lib(mlp, pos_enc)
+    wbuf, offs = pack_weights(mlp, _layer0_rows(mlp, pos_enc))
     n_w = wbuf.numel()
     _check_smem(lib, mlp, pos_enc, n_w, tspec, S, train=True)
     pts_per_split = tspec.group * tspec.rays_block * S
     n_ws = lib.fused_ingp_workspace_floats(
-        R, S, tspec.rays_block, cfg.net_depth, cfg.net_width, pos_enc.n_levels,
-        mlp.in_dim_views, pts_per_split, n_w,
+        R, S, tspec.rays_block, cfg.net_depth, cfg.net_width, mlp.in_dim_views,
+        pts_per_split, n_w,
     )
     ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
     rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)

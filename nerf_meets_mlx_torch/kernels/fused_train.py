@@ -33,10 +33,14 @@ from nerf_meets_mlx_torch.rendering.volume import exclusive_cumsum, softplus
 # kernels/hash_encode.py, kernels/fused_ingp_train.py,
 # kernels/fused_feat_train.py and kernels/fused_image.py; a run sets them to
 # 0 and reads them after
+# MLP widths that csrc/fused_eval.cu, fused_train.cu, fused_mlp.cu and
+# fused_image.cu instantiate
+KERNEL_WIDTHS = (32, 64, 128, 256)
+
 LAUNCHES: Dict[str, int] = {
     "eval": 0, "train": 0, "mlp_fwd": 0, "mlp_bwd": 0,
     "hash_fwd": 0, "hash_bwd": 0, "ingp_eval": 0, "ingp_train": 0,
-    "feat_train": 0, "image_train": 0, "image_fwd": 0,
+    "feat_train": 0, "image_train": 0, "image_fwd": 0, "cp_fwd": 0, "cp_bwd": 0,
 }
 
 
@@ -233,9 +237,9 @@ def _check_kernel_config(mlp, pos_enc, dir_enc, kernel: str = "eval", max_depth:
         )
     if not cfg.use_viewdirs:
         raise ValueError(f"the fused {kernel} kernel covers the view-direction head")
-    if cfg.net_width not in (128, 256):
+    if cfg.net_width not in KERNEL_WIDTHS:
         raise ValueError(
-            f"the fused {kernel} kernel takes net_width 128 or 256, not {cfg.net_width}"
+            f"the fused {kernel} kernel takes net_width in {KERNEL_WIDTHS}, not {cfg.net_width}"
         )
     if cfg.net_depth > max_depth or any(not 0 <= s < cfg.net_depth - 1 for s in cfg.skips):
         raise ValueError(f"unsupported depth/skips: {cfg.net_depth}, {cfg.skips}")

@@ -3,7 +3,8 @@ ray-rendering pipeline.
 
 Counterpart of ``nerf_meets_mlx_tpu/models/factory.py``. ``NeRFModel`` is an
 ``nn.Module`` holding the coarse (and fine) ``NeRFMLP`` and, for a learned
-encoding (the hash grid), the position encoding with its tables;
+encoding (the hash grid, the CP grid), the position encoding with its
+tables or lines;
 ``render_rays`` runs
 
     coarse samples -> coarse level -> inverse-CDF importance samples
@@ -29,7 +30,10 @@ on one of two routes:
   ``kernels.fused_mlp.fused_mlp_apply`` call (the point-major CUDA kernels)
   for sinusoidal models, and the hash encode through
   ``kernels.hash_encode.hash_encode_apply`` (forward and table-gradient
-  CUDA kernels) for hash-grid models.
+  CUDA kernels) for hash-grid models. A CP-grid model (``lego_cp``) takes
+  no fused mode and encodes with the plain ``CPGridEncoding.apply``, as the
+  JAX model leaves it to XLA; ``kernels.cp_encode.cp_encode_apply`` is its
+  drop-in, which no config turns on.
 
 With ``render.occupancy`` every route takes the learned grid
 (``occ_grid``, ``occ_active``) and tightens each ray's interval before the
@@ -73,9 +77,9 @@ def _draw(draws: Optional[Draws], key: str, shape, kind: str, generator, device)
 
 class NeRFModel(nn.Module):
     """The encodings and the coarse/fine MLPs. A position encoding with
-    parameters (the hash grid) is a submodule, ``pos_enc``, so its tables
-    are in ``parameters()`` and ``state_dict()``; the parameter-free
-    encodings are plain attributes and add no state."""
+    parameters (the hash grid, the CP grid) is a submodule, ``pos_enc``, so
+    its tables or lines are in ``parameters()`` and ``state_dict()``; the
+    parameter-free encodings are plain attributes and add no state."""
 
     def __init__(self, cfg: ExperimentConfig, pos_enc, dir_enc, device=None):
         super().__init__()
@@ -98,7 +102,8 @@ class NeRFModel(nn.Module):
 
     def init(self, generator: torch.Generator) -> "NeRFModel":
         """Fill every parameter from ``generator`` (see ``NeRFMLP.init``):
-        the coarse MLP, the fine MLP, then the position encoding's tables."""
+        the coarse MLP, the fine MLP, then the position encoding's tables or
+        lines."""
         self.coarse.init(generator)
         if self.fine is not None:
             self.fine.init(generator)

@@ -39,3 +39,10 @@ def linspace(
     t = torch.arange(div, dtype=dtype, device=device) / div
     out = start * (1 - t) + stop * t
     return torch.cat([out, torch.full((1,), stop, dtype=dtype, device=device)])
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """fp32 values rounded to bf16 (nearest even) and back, differentiable
+    (the gradient is rounded to bf16 on its way back): a bf16 operand of the
+    JAX package's Pallas kernels and XLA dots."""
+    return t.to(torch.bfloat16).float()

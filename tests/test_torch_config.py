@@ -83,7 +83,7 @@ def test_import_leaves_jax_unloaded():
 
 
 NERF_PRESETS = ("lego_coarse", "lego_hierarchical", "lego_fast", "lego_occ", "lego_full",
-                "lego_ingp", "lego_ingp_occ", "llff", "deepvoxels")
+                "lego_ingp", "lego_ingp_occ", "llff", "deepvoxels", "lego_cp")
 # the "feats" route's two triggers, as text overlays on lego_ingp: the
 # Instant-NGP paper's tables, and more than 256 samples a ray
 FEATS_OVERLAYS = {
@@ -125,7 +125,7 @@ def test_routing_equals_jax(name, tmp_path):
     assert _uses_fused_route(base_t) == (
         hash_grid or (base_t.pos_encoding.kind == "sinusoidal" and name != "image2d"))
     want = {"lego_ingp": "ingp", "lego_ingp+paper_tables": "feats",
-            "lego_ingp+long_rays": "feats", "image2d": None}
+            "lego_ingp+long_rays": "feats", "image2d": None, "lego_cp": None}
     if name in want:
         assert t_create(tc.replace(use_fused_train=True), device="meta")._fused_train_mode == (
             want[name])

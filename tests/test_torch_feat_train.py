@@ -52,16 +52,16 @@ def _inputs(R, S, P, seed=0, noise=0.01):
     return feats, sh, deltas, nz, target
 
 
-def _mlps(P, seed=0, depth=2):
+def _mlps(P, seed=0, depth=2, width=64):
     """JAX (spec, params) and the port's NeRFMLP on the same weights: width
-    64, the view head, no skips (the hash presets' MLP)."""
+    64 (or ``width``), the view head, no skips (the hash presets' MLP)."""
     import jax
 
     from nerf_meets_mlx_tpu.config import MLPConfig as JMLPConfig
     from nerf_meets_mlx_tpu.kernels.fused_feat_train import FeatMLPSpec
     from nerf_meets_mlx_tpu.models.nerf_mlp import init_nerf_mlp
 
-    cfg = JMLPConfig(net_depth=depth, net_width=64, skips=(), use_viewdirs=True)
+    cfg = JMLPConfig(net_depth=depth, net_width=width, skips=(), use_viewdirs=True)
     params = init_nerf_mlp(jax.random.PRNGKey(seed), cfg, P, D_SH)
     tmlp = NeRFMLP(MLPConfig(**dataclasses.asdict(cfg)), P, D_SH)
     interop._mlp_from_numpy(jax.tree_util.tree_map(np.asarray, params), tmlp)
@@ -89,6 +89,24 @@ def _grad_tree(mlp):
     ],
 )
 def test_feat_train_op_matches_jax(mode, act, white, R, S, P):
+    _check_feat_op_against_jax(mode, act, white, R, S, P, 64)
+
+
+@pytest.mark.parametrize(
+    "mode,act,white,R,S,P,W",
+    [
+        # the shapes the overlay keys reach: width 32, 64 channels (16
+        # levels of 4 features), a count that fills no register width
+        ("canonical", "softplus", True, 6, 24, 16, 32),
+        ("canonical", "softplus", False, 4, 20, 64, 64),
+        ("reference", "softplus", True, 5, 12, 24, 32),
+    ],
+)
+def test_feat_train_op_matches_jax_at_new_shapes(mode, act, white, R, S, P, W):
+    _check_feat_op_against_jax(mode, act, white, R, S, P, W)
+
+
+def _check_feat_op_against_jax(mode, act, white, R, S, P, W):
     import jax
     import jax.numpy as jnp
 
@@ -99,7 +117,7 @@ def test_feat_train_op_matches_jax(mode, act, white, R, S, P):
     )
     from nerf_meets_mlx_tpu.kernels.fused_train import TrainSpec as JSpec
 
-    spec, params, tmlp = _mlps(P)
+    spec, params, tmlp = _mlps(P, width=W)
     feats, sh, deltas, nz, target = _inputs(R, S, P)
     kw = dict(n_samples=S, rays_block=4, mode=mode, density_activation=act, white_bkgd=white)
 
@@ -224,8 +242,8 @@ def test_feats_route_render_matches_jax(trigger):
     assert np.count_nonzero(g_t["pos_enc"]["tables"]) > 0
 
 
-def _mlp_port(P, seed=0):
-    cfg = MLPConfig(net_depth=2, net_width=64, skips=(), use_viewdirs=True)
+def _mlp_port(P, seed=0, width=64):
+    cfg = MLPConfig(net_depth=2, net_width=width, skips=(), use_viewdirs=True)
     mlp = NeRFMLP(cfg, P, D_SH)
     return cfg, mlp.init(torch.Generator().manual_seed(seed))
 
@@ -242,12 +260,30 @@ def test_wrapper_routes_by_device_and_guards_shapes():
     assert tff.feat_rays_block(2048) == 1 and tff.feat_group(96, 5) == 8
     with pytest.raises(ValueError, match="2048"):
         tff.feat_rays_block(2049)
-    assert tff.KERNEL_SHAPES == ((64, 16), (64, 32))
+    assert tff.WIDTHS == (32, 64)
+    assert tff.kernel_defines(64, 16) == {"FEAT_W": 64, "FEAT_PP": 16}
+    assert tff.kernel_defines(32, 24) == {"FEAT_W": 32, "FEAT_PP": 32}
+    assert tff.kernel_defines(64, 64) == {"FEAT_W": 64, "FEAT_PP": 64}
+    _, wide = _mlp_port(16, width=128)
+    with pytest.raises(ValueError, match="registers"):
+        tff._check_feat_config(wide)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("R,S,P", [(1001, 96, 32), (300, 40, 16), (3, 2048, 32), (33, 1, 16)])
 def test_cuda_feat_kernel_matches_plain(R, S, P):
+    _check_cuda_feat_kernel(R, S, P, 64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,S,P,W", [(501, 48, 16, 32), (257, 48, 64, 64), (129, 40, 24, 32)])
+def test_cuda_feat_kernel_matches_plain_at_new_shapes(R, S, P, W):
+    """As test_cuda_feat_kernel_matches_plain at width 32, 64 channels and a
+    channel count that fills no register width."""
+    _check_cuda_feat_kernel(R, S, P, W)
+
+
+def _check_cuda_feat_kernel(R, S, P, W):
     """The CUDA kernel against the plain version at the hash presets'
     widths: a ray count that is not a multiple of the block's rays, sample
     counts inside one 32-sample scan chunk, across chunks, and longer than
@@ -260,7 +296,7 @@ def test_cuda_feat_kernel_matches_plain(R, S, P):
         pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    _, mlp = _mlp_port(P)
+    _, mlp = _mlp_port(P, width=W)
     mlp = mlp.to(dev)
     g = torch.Generator(device=dev).manual_seed(2)
     feats = torch.randn((R, S, P), generator=g, device=dev) * 0.5

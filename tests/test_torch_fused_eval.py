@@ -12,6 +12,8 @@
   192 on the card (skipped where no card is present).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -28,16 +30,24 @@ RTOL, ATOL = 1e-5, 1e-6
 # (python -m pytest --noconftest -m gpu tests/test_torch_fused_eval.py).
 
 
-def _models(seed=0):
+def _narrow(cfg, width):
+    """``cfg`` with both MLPs at ``width`` (None: as published)."""
+    if width is None:
+        return cfg
+    mlp = dataclasses.replace(cfg.mlp, net_width=width)
+    return cfg.replace(mlp=mlp, mlp_fine=mlp)
+
+
+def _models(seed=0, width=None):
     import jax
 
     from nerf_meets_mlx_tpu.config import lego_hierarchical as j_lego
     from nerf_meets_mlx_tpu.models import create_nerf as j_create
 
-    jcfg = j_lego()
+    jcfg = _narrow(j_lego(), width)
     jm = j_create(jcfg)
     params = jm.init(jax.random.PRNGKey(seed))
-    tm = t_create(t_lego(), device="cpu")
+    tm = t_create(_narrow(t_lego(), width), device="cpu")
     interop.params_from_numpy(jax.tree_util.tree_map(np.asarray, params), tm)
     return jcfg, params, tm
 
@@ -62,13 +72,13 @@ def _tspec(S, R, mode, act, white, rays_block=8):
     )
 
 
-def _compare_with_jax(R, S, mode, act, white, group):
+def _compare_with_jax(R, S, mode, act, white, group, width=None):
     import jax.numpy as jnp
 
     from nerf_meets_mlx_tpu.kernels import fused_train as jft
     from nerf_meets_mlx_tpu.kernels.fused_mlp import FusedMLPSpec, pack_params
 
-    jcfg, params, tm = _models()
+    jcfg, params, tm = _models(width=width)
     spec = FusedMLPSpec.from_configs(
         jcfg.mlp, jcfg.pos_encoding, jcfg.dir_encoding, compute_dx=False
     )
@@ -99,6 +109,14 @@ def _compare_with_jax(R, S, mode, act, white, group):
 )
 def test_plain_matches_jax_eval_kernel(mode, act, white):
     _compare_with_jax(R=10, S=16, mode=mode, act=act, white=white, group=1)
+
+
+@pytest.mark.parametrize("width", [32, 64])
+def test_plain_matches_jax_eval_kernel_at_narrow_widths(width):
+    """The widths the overlay key netwidth reaches below 128 (the view
+    layer then has 16 or 32 outputs)."""
+    _compare_with_jax(R=10, S=16, mode="canonical", act="softplus", white=True, group=1,
+                      width=width)
 
 
 @pytest.mark.parametrize("group,R", [(2, 10), (3, 25)])
@@ -226,3 +244,27 @@ def test_cuda_kernel_matches_plain(S):
         # fp32 sums in another order than cuBLAS's (chip_smoke.py's bound)
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [32, 64])
+def test_cuda_kernel_matches_plain_at_narrow_widths(width):
+    """The eval kernel at widths 32 and 64 (lego_hierarchical's depth and
+    skip), as test_cuda_kernel_matches_plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    tm = t_create(_narrow(t_lego(), width), device=dev).init(torch.Generator().manual_seed(0))
+    S, R = 64, 1000
+    arrays = [torch.from_numpy(a).to(dev) for a in _inputs(R, S, seed=4)]
+    arrays[0] *= 0.3
+    tspec = tft.TrainSpec(n_samples=S, rays_block=tft.eval_block(S), mode="canonical",
+                          density_activation="softplus", white_bkgd=True)
+    n0 = tft.LAUNCHES["eval"]
+    got = tft.fused_eval_apply(tm.fine, tm.pos_enc, tm.dir_enc, tspec, *arrays)
+    torch.cuda.synchronize()
+    assert tft.LAUNCHES["eval"] == n0 + 1
+    want = tft.fused_eval_reference(tm.fine, tm.pos_enc, tm.dir_enc, tspec, *arrays)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)

@@ -178,6 +178,35 @@ def test_gradients_match_jax_kernel():
     assert np.abs(gx[:, :6]).max() > 0.0
 
 
+def test_forward_and_gradients_match_jax_kernel_at_width_32():
+    """netwidth = 32 (the view layer has 16 outputs): the forward and every
+    dW, db and dX against the Pallas kernels, at the bounds above."""
+    import jax
+    import jax.numpy as jnp
+
+    from nerf_meets_mlx_tpu.kernels.fused_mlp import fused_apply, pack_params
+
+    spec, params, tm = _pair(width=32)
+    pts, dirs = _points(200, seed=8)
+    x = jnp.asarray(_x8(pts, dirs))
+    want = fused_apply(spec, pack_params(spec, params), x)
+    np.testing.assert_allclose(_port_raw(tm, pts, dirs).detach().numpy(),
+                               np.asarray(want)[:, :4], rtol=1e-4, atol=1e-5)
+
+    def loss(p, x):
+        return jnp.sum(fused_apply(spec, pack_params(spec, p), x)[:, :4] ** 2)
+
+    gp, gx = jax.grad(loss, argnums=(0, 1))(params, x)
+    g_t, gpts, gdirs = _port_grads(tm, pts, dirs, compute_dx=True)
+    want = dict(jax.tree_util.tree_leaves_with_path(gp))
+    for path, a in jax.tree_util.tree_leaves_with_path(g_t):
+        np.testing.assert_allclose(a, np.asarray(want[path]), rtol=5e-3, atol=1e-4,
+                                   err_msg=jax.tree_util.keystr(path))
+    gx = np.asarray(gx)
+    np.testing.assert_allclose(gpts.numpy(), gx[:, :3], rtol=5e-3, atol=1e-4)
+    np.testing.assert_allclose(gdirs.numpy(), gx[:, 3:6], rtol=5e-3, atol=1e-4)
+
+
 def test_without_dx_parameter_gradients_are_the_same():
     """compute_dx=False (the model path): the same parameter gradients, and
     no gradient reaches the points or the directions."""
@@ -366,6 +395,18 @@ def test_cuda_kernels_match_plain(width):
     """Both kernels at full depth with the skip, 5,000 points (not a
     multiple of the 64-point tile or the 512-point block), both MLPs; the
     backward with compute_dx off and on."""
+    _check_cuda_kernels(width)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [64, 32])
+def test_cuda_kernels_match_plain_at_narrow_widths(width):
+    """As test_cuda_kernels_match_plain at the widths the overlay key
+    netwidth reaches below 128."""
+    _check_cuda_kernels(width)
+
+
+def _check_cuda_kernels(width):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -242,8 +242,64 @@ def test_wrapper_routes_by_device():
     with pytest.raises(ValueError):
         the.hash_encode_apply(tenc, x.detach().to("meta"))
     bf16 = HashGridEncoding(**SMALL, compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        the.check_hash_encoding(bf16)
+    the.check_hash_encoding(bf16)  # the CUDA kernels take bf16 compute
+    with pytest.raises(ValueError, match="compute_dtype"):
+        the.check_hash_encoding(HashGridEncoding(**SMALL, compute_dtype="float16"))
+
+
+def _agreeing_points(n, seed):
+    """Points (some outside the box) whose unit-cube coordinates the
+    Pallas kernels' normalisation, (x − bmin)·f32(1/3), and the port's,
+    (x − bmin)/3, round to the same float32 on every axis."""
+    x = _points(4 * n, seed=seed)
+    d = x - np.float32(-1.5)
+    same = (d / np.float32(3.0) == d * np.float32(1.0 / 3.0)).all(axis=1)
+    return np.ascontiguousarray(x[same][:n])
+
+
+@pytest.mark.parametrize("f", [1, 2, 4])
+def test_bf16_hash_encode_matches_jax_pallas(f):
+    """hash_compute_dtype = bfloat16: the port's op on the CPU (its bf16
+    twin) against JAX's hash_encode_apply with compute_dtype "bfloat16" (the
+    Pallas body kernels in interpret mode).
+
+    * On JAX's init tables, within tests/test_hash_encode.py's bf16 bounds
+      (features atol 5e-6; dG atol 2e-2 of its largest value).
+    * On noisy tables, at points where both normalisations agree, the
+      rounding sites themselves: features and dG to fp32 summation order
+      (rtol 1e-5 / atol 1e-7)."""
+    import jax
+    import jax.numpy as jnp
+
+    from nerf_meets_mlx_tpu.kernels.hash_encode import hash_encode_apply as j_apply
+
+    kw = dict(SMALL, features_per_level=f, compute_dtype="bfloat16")
+    for noisy, x, bounds in (
+        (False, _points(300, seed=4, scale=0.9), dict(rtol=0, atol=5e-6)),
+        (True, _agreeing_points(300, seed=4), dict(rtol=1e-5, atol=1e-7)),
+    ):
+        tenc, jenc, params = _pair(noisy=noisy, **kw)
+        assert tenc.compute_dtype == jenc.compute_dtype == "bfloat16"
+        co = np.random.default_rng(9).normal(size=(len(x), tenc.out_dim)).astype(np.float32)
+        feats = the.hash_encode_apply(tenc, torch.from_numpy(x))
+        (g_t,) = torch.autograd.grad((feats * torch.from_numpy(co)).sum(), tenc.tables)
+        want = np.asarray(j_apply(jenc, params, jnp.asarray(x), block=128))
+        np.testing.assert_allclose(feats.detach().numpy(), want, **bounds)
+        g_j = jax.grad(lambda p: jnp.sum(j_apply(jenc, p, jnp.asarray(x), block=128) * co))(
+            params)
+        g_j = np.asarray(g_j["tables"])
+        if noisy:
+            np.testing.assert_allclose(g_t.numpy(), g_j, rtol=1e-5, atol=1e-6)
+        else:
+            scale = float(np.abs(g_j).max())
+            np.testing.assert_allclose(g_t.numpy(), g_j, rtol=0, atol=2e-2 * scale)
+    # the model's plain encode reads the tables in fp32 in either mode
+    f32 = HashGridEncoding(**dict(kw, compute_dtype="float32"))
+    with torch.no_grad():
+        f32.tables.copy_(tenc.tables)
+        plain = tenc.apply(torch.from_numpy(x))
+        torch.testing.assert_close(plain, f32.apply(torch.from_numpy(x)), rtol=0, atol=0)
+        assert not torch.equal(plain, feats)
 
 
 @pytest.mark.gpu
@@ -271,5 +327,31 @@ def test_cuda_hash_kernels_match_plain():
     assert LAUNCHES["hash_bwd"] == n0["hash_bwd"] + 1
     feats_p = tenc.apply(x)
     (g_p,) = torch.autograd.grad((feats_p * dout).sum(), tenc.tables)
+    torch.testing.assert_close(feats, feats_p, rtol=0, atol=0)
+    torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [1, 2, 4])
+def test_cuda_bf16_hash_kernels_match_twin(f):
+    """bf16 hash compute on the card: the forward kernel equal to the bf16
+    twin (the same roundings in the same order), dG to rtol 1e-4 / atol
+    1e-5 of the twin's (atomics add in another order), on 100,003 points at
+    the lego_ingp levels with F features a level."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    kw = dict(_preset_kw(), features_per_level=f, compute_dtype="bfloat16")
+    tenc = HashGridEncoding(**kw, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        tenc.tables.add_(torch.randn(tenc.tables.shape, device=dev) * 0.1)
+    x = torch.from_numpy(_points(100_003, seed=6)).to(dev)
+    feats = the.hash_encode_apply(tenc, x)
+    dout = torch.randn(feats.shape, generator=torch.Generator(device=dev).manual_seed(1),
+                       device=dev)
+    (g,) = torch.autograd.grad((feats * dout).sum(), tenc.tables)
+    feats_p = the.hash_encode_reference(tenc, x)
+    (g_p,) = torch.autograd.grad((feats_p * dout).sum(), tenc.tables)
+    torch.cuda.synchronize()
     torch.testing.assert_close(feats, feats_p, rtol=0, atol=0)
     torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-5)

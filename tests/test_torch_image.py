@@ -101,8 +101,9 @@ def test_image_dataset_matches_jax():
     [
         (dict(depth=3, width=64, skips=(1,), include_input=True), 300),
         (dict(), 130),
+        (dict(depth=4, width=32, skips=(2,)), 200),
     ],
-    ids=["small", "image2d"],
+    ids=["small", "image2d", "width32"],
 )
 def test_image_ops_match_jax(kw, n):
     import jax
@@ -266,11 +267,26 @@ def test_cuda_image_kernels_match_plain(n):
     at rtol 1e-4, every dW and db within 1e-3 of its array's largest plain
     value; a pixel count that is not a multiple of the kernels' 64-point
     tile (4001), and a 400 x 400 frame (160,000)."""
+    _check_cuda_image_kernels(n, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [64, 32])
+def test_cuda_image_kernels_match_plain_at_narrow_widths(width):
+    """As test_cuda_image_kernels_match_plain at widths 64 and 32, 4001
+    pixels."""
+    _check_cuda_image_kernels(4001, width)
+
+
+def _check_cuda_image_kernels(n, width):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    tm = t_create(t_image2d(), device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    cfg = t_image2d()
+    if width is not None:
+        cfg = cfg.replace(mlp=dataclasses.replace(cfg.mlp, net_width=width))
+    tm = t_create(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.rand((n, 2), generator=g, device=dev)
     y = torch.rand((n, 3), generator=g, device=dev)

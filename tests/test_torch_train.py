@@ -186,7 +186,7 @@ def test_train_render_matches_jax(fused):
 
 def _grad_tree(model):
     """The parameters' ``.grad`` as the JAX pytree (numpy leaves), the hash
-    tables' included."""
+    tables' or the CP lines' included."""
     tree = {}
     for level in ("coarse", "fine"):
         mlp = getattr(model, level)
@@ -201,6 +201,9 @@ def _grad_tree(model):
     tables = getattr(model.pos_enc, "tables", None)
     if tables is not None:
         tree["pos_enc"] = {"tables": tables.grad.numpy().copy()}
+    lines = getattr(model.pos_enc, "lines", None)
+    if lines is not None:
+        tree["pos_enc"] = {"lines": [p.grad.numpy().copy() for p in lines]}
     return tree
 
 
