@@ -100,10 +100,22 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 11. the overlay commands whose shapes the fused kernels did not take
    before (``PART_A``: width 32 on lego_ingp, 16 levels, 4 features a
-   level, bf16 hash compute, width 64 on lego_hierarchical and lego_occ):
-   each through ``train_nerf`` for 10 steps with every count at 0 (its
-   kernels launched, finite metrics), then its kernels at its shapes
-   against their plain versions.
+   level, bf16 hash compute, width 64 on lego_hierarchical and lego_occ;
+   widths 128 and 256 on lego_ingp, 32 levels, 8 features a level, the
+   paper tables at width 128 and at 32 levels of 4 features (128
+   channels, the feats route), width 96 on lego_hierarchical and 48 on
+   lego_occ): each through ``train_nerf`` for 10 steps with every count at
+   0 (its kernels launched, finite metrics, a falling loss), then its
+   kernels at its shapes against their plain versions, timed per level;
+   and the image kernels of a width-96 image model (the Python API's
+   ``image2d()``) against their plain version.
+
+12. the hash API's last four kernels (``hash_encode_apply(...,
+   compute_dx=True)`` and ``levels_in_body=False``): forward and backward
+   at a lego_ingp train step's coarse and fine points with every count at
+   0 (2 launches of each); each kernel against its plain version at those
+   batches and at the Instant-NGP paper's tables, in fp32 and with a bf16
+   encoding; each per launch beside its plain version and its byte bound.
 
 It prints the kernels' JSON line, the ``nvidia-smi`` line, and as its last
 line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -1847,112 +1859,121 @@ def feat_sets(device):
     return out
 
 
-def phase_compare_feat(device):
-    """The feat train kernel against its plain version at ``feat_sets``'
-    shapes, both compositing modes, the white background on and off,
-    density noise on: sse, rgb and weights to atol 1e-4 + rtol 1e-4; every
-    dW, db and d(feats) (i) to DW_REL of the array's largest plain value
-    plus GRAD_FLOOR of the largest plain gradient entry of all the arrays
-    (the criterion of the gpu tests of the INGP and feat kernels), or (ii)
-    no more than twice as far as the fp32 plain version from the plain
-    version evaluated in float64. Returns (max abs error of the values,
-    worst gradient ratio against the fp32 plain version)."""
-    import copy
-
+def feat_case(name, model, mlp, mlp64, feats, sh, dl, nz, target, mode, white):
+    """The feat train kernel against its plain version on one input set,
+    one compositing mode and background: sse, rgb and weights to atol 1e-4
+    + rtol 1e-4; every dW, db and d(feats) (i) to DW_REL of the array's
+    largest plain value plus GRAD_FLOOR of the largest plain gradient entry
+    of all the arrays (the criterion of the gpu tests of the INGP and feat
+    kernels), or (ii) no more than twice as far as the fp32 plain version
+    from the plain version evaluated in float64 (``mlp64``). Raises if not;
+    returns (max abs error of the values, the gradient ratios against the
+    fp32 plain version, how many arrays criterion (ii) held)."""
     import torch
     from nerf_meets_mlx_torch.kernels import fused_feat_train as ff
 
-    worst_val, worst_ratio = 0.0, 0.0
-    n_by_ii = [0]
+    R, S, P = feats.shape
+    params, params64 = mlp_params(mlp), mlp_params(mlp64)
+    tspec = feat_tspec(model, S, mode=mode, white=white)
+    f = feats.clone().requires_grad_(True)
+    x = ff.pack_feat_inputs(f, sh, dl, nz)
+    sse_k, rgb_k, w_k = ff.fused_feat_train_apply(mlp, tspec, x, target)
+    g_k = torch.autograd.grad(sse_k, params + [f])
+    torch.cuda.synchronize()
+    sse_p, rgb_p, w_p = ff.fused_feat_train_reference(mlp, tspec, x, target)
+    g_p = torch.autograd.grad(sse_p, params + [f])
+    live = float((w_p > 1e-4).float().mean())
+    errs, ok = {}, True
+    for what, k, p in (("sse", sse_k, sse_p), ("rgb", rgb_k, rgb_p), ("weights", w_k, w_p)):
+        k, p = k.detach(), p.detach()
+        errs[what] = float((k - p).abs().max())
+        ok &= bool(torch.isfinite(k).all()) and bool(
+            ((k - p).abs() <= ATOL + RTOL * p.abs()).all())
+    ratios = grad_ratios(g_k, g_p)
+    ok &= all(bool(torch.isfinite(a).all()) for a in g_k)
+    # each array (i) within DW_REL of its largest plain value plus
+    # GRAD_FLOOR of the largest plain entry of all the arrays (the gpu
+    # tests' criterion: a relu input within rounding of 0 flips a point's
+    # cotangent), or (ii) at most twice as far as the fp32 plain version
+    # from the plain version evaluated in float64: in canonical mode the
+    # terminal bin (delta 1e10) makes the alpha head's sums cancel, and
+    # there the fp32 plain version itself misses the float64 one by up to
+    # 1e-1 of the array's largest value
+    f64 = feats.double().requires_grad_(True)
+    x64 = ff.pack_feat_inputs(f64, sh.double(), dl.double(), nz.double())
+    sse64, _, _ = ff.fused_feat_train_reference(mlp64, tspec, x64, target.double())
+    g64 = torch.autograd.grad(sse64, params64 + [f64])
+    r_k64 = grad_ratios([a.double() for a in g_k], g64)
+    r_p64 = grad_ratios([b.double() for b in g_p], g64)
+    floor = GRAD_FLOOR * max(float(b.abs().max()) for b in g_p)
+    by = []
+    for a, b, rk, rp in zip(g_k, g_p, r_k64, r_p64):
+        if float((a - b).abs().max()) <= DW_REL * float(b.abs().max()) + floor:
+            by.append("i")
+        elif rk <= 2.0 * rp:
+            by.append("ii")
+        else:
+            by.append("no")
+    ok &= "no" not in by
+    log(f"[compare] feat_train {name:12s} R={R} S={S} P={P} {mode:9s} white="
+        f"{int(white)} max_abs sse={errs['sse']:.3e} rgb={errs['rgb']:.3e} "
+        f"weights={errs['weights']:.3e} (weights > 1e-4: {live:.3f}); "
+        f"max|dW-plain|/max|plain| per array: "
+        + " ".join(f"{r:.1e}" for r in ratios[:-1])
+        + f"; dfeats {ratios[-1]:.1e}; against the plain version in float64, "
+        f"kernel / fp32 plain: alpha W {r_k64[4]:.1e} / {r_p64[4]:.1e}, alpha b "
+        f"{r_k64[5]:.1e} / {r_p64[5]:.1e}, worst {max(r_k64):.1e} / "
+        f"{max(r_p64):.1e}; criterion per array {' '.join(by)} "
+        + ("ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError(f"feat_train disagrees with its plain version: {name} {mode} {white}")
+    return max(errs["rgb"], errs["weights"]), ratios, by.count("ii")
+
+
+def phase_compare_feat(device):
+    """The feat train kernel against its plain version at ``feat_sets``'
+    shapes, both compositing modes, the white background on and off,
+    density noise on (``feat_case``). Returns (max abs error of the values,
+    worst gradient ratio against the fp32 plain version)."""
+    import copy
+
+    worst_val, worst_ratio, n_by_ii = 0.0, 0.0, 0
     for name, model, mlp, feats, sh, dl, nz, target in feat_sets(device):
-        R, S, P = feats.shape
-        params = mlp_params(mlp)
         mlp64 = copy.deepcopy(mlp).double()
-        params64 = mlp_params(mlp64)
         for mode in ("canonical", "reference"):
             for white in (True, False):
-                tspec = feat_tspec(model, S, mode=mode, white=white)
-                f = feats.clone().requires_grad_(True)
-                x = ff.pack_feat_inputs(f, sh, dl, nz)
-                sse_k, rgb_k, w_k = ff.fused_feat_train_apply(mlp, tspec, x, target)
-                g_k = torch.autograd.grad(sse_k, params + [f])
-                torch.cuda.synchronize()
-                sse_p, rgb_p, w_p = ff.fused_feat_train_reference(mlp, tspec, x, target)
-                g_p = torch.autograd.grad(sse_p, params + [f])
-                live = float((w_p > 1e-4).float().mean())
-                errs, ok = {}, True
-                for what, k, p in (("sse", sse_k, sse_p), ("rgb", rgb_k, rgb_p),
-                                   ("weights", w_k, w_p)):
-                    k, p = k.detach(), p.detach()
-                    errs[what] = float((k - p).abs().max())
-                    ok &= bool(torch.isfinite(k).all()) and bool(
-                        ((k - p).abs() <= ATOL + RTOL * p.abs()).all())
-                ratios = grad_ratios(g_k, g_p)
-                ok &= all(bool(torch.isfinite(a).all()) for a in g_k)
-                # each array (i) within DW_REL of its largest plain value plus
-                # GRAD_FLOOR of the largest plain entry of all the arrays (the
-                # gpu tests' criterion: a relu input within rounding of 0
-                # flips a point's cotangent), or (ii) at most twice as far as
-                # the fp32 plain version from the plain version evaluated in
-                # float64: in canonical mode the terminal bin (delta 1e10)
-                # makes the alpha head's sums cancel, and there the fp32
-                # plain version itself misses the float64 one by up to 1e-1
-                # of the array's largest value
-                f64 = feats.double().requires_grad_(True)
-                x64 = ff.pack_feat_inputs(f64, sh.double(), dl.double(), nz.double())
-                sse64, _, _ = ff.fused_feat_train_reference(mlp64, tspec, x64, target.double())
-                g64 = torch.autograd.grad(sse64, params64 + [f64])
-                r_k64 = grad_ratios([a.double() for a in g_k], g64)
-                r_p64 = grad_ratios([b.double() for b in g_p], g64)
-                floor = GRAD_FLOOR * max(float(b.abs().max()) for b in g_p)
-                by = []
-                for a, b, rk, rp in zip(g_k, g_p, r_k64, r_p64):
-                    if float((a - b).abs().max()) <= DW_REL * float(b.abs().max()) + floor:
-                        by.append("i")
-                    elif rk <= 2.0 * rp:
-                        by.append("ii")
-                    else:
-                        by.append("no")
-                ok &= "no" not in by
-                log(f"[compare] feat_train {name:12s} R={R} S={S} P={P} {mode:9s} white="
-                    f"{int(white)} max_abs sse={errs['sse']:.3e} rgb={errs['rgb']:.3e} "
-                    f"weights={errs['weights']:.3e} (weights > 1e-4: {live:.3f}); "
-                    f"max|dW-plain|/max|plain| per array: "
-                    + " ".join(f"{r:.1e}" for r in ratios[:-1])
-                    + f"; dfeats {ratios[-1]:.1e}; against the plain version in float64, "
-                    f"kernel / fp32 plain: alpha W {r_k64[4]:.1e} / {r_p64[4]:.1e}, alpha b "
-                    f"{r_k64[5]:.1e} / {r_p64[5]:.1e}, worst {max(r_k64):.1e} / "
-                    f"{max(r_p64):.1e}; criterion per array {' '.join(by)} "
-                    + ("ok" if ok else "FAIL"))
-                n_by_ii[0] += by.count("ii")
-                if not ok:
-                    raise AssertionError(
-                        f"feat_train disagrees with its plain version: {name} {mode} {white}")
-                worst_val = max(worst_val, errs["rgb"], errs["weights"])
+                val, ratios, n_ii = feat_case(name, model, mlp, mlp64, feats, sh, dl, nz,
+                                              target, mode, white)
+                worst_val = max(worst_val, val)
                 worst_ratio = max(worst_ratio, max(ratios))
-    log(f"[compare] feat_train: {n_by_ii[0]} arrays held by criterion (ii)")
+                n_by_ii += n_ii
+    log(f"[compare] feat_train: {n_by_ii} arrays held by criterion (ii)")
     reset_launches()
     return worst_val, worst_ratio
 
 
-def image_model(device, fused=True):
+def image_model(device, fused=True, width=None):
     from nerf_meets_mlx_torch.config import image2d
 
-    return make_model(image2d().replace(use_fused_kernel=fused), device)
+    cfg = image2d().replace(use_fused_kernel=fused)
+    if width is not None:
+        cfg = cfg.replace(mlp=dataclasses.replace(cfg.mlp, net_width=width))
+    return make_model(cfg, device)
 
 
-def phase_compare_image(device):
+def phase_compare_image(device, width=None):
     """The image kernels against their plain version at image2d's full 8 x
-    256 from a seeded init: the train kernel at 4096 pixels and at 4001 (a
-    ragged last tile), sse to atol 1e-4 + rtol 1e-4 and every dW and db to
-    DW_REL of the array's largest plain value; the forward kernel on the
+    256 (or ``width``: the image model the Python API makes at another
+    width) from a seeded init: the train kernel at 4096 pixels and at 4001
+    (a ragged last tile), sse to atol 1e-4 + rtol 1e-4 and every dW and db
+    to DW_REL of the array's largest plain value; the forward kernel on the
     160,000 pixels of a 400 x 400 frame to atol 1e-4 + rtol 1e-4. Returns
     (max abs error of sse, worst dW ratio, max abs error of the forward)."""
     import torch
     from nerf_meets_mlx_torch.datasets.image import make_test_image, pixel_dataset
     from nerf_meets_mlx_torch.kernels import fused_image as fim
 
-    model = image_model(device)
+    model = image_model(device, width=width)
     mlp, enc = model.coarse, model.pos_enc
     coords, colors = (torch.as_tensor(a, device=device)
                       for a in pixel_dataset(make_test_image(RES)))
@@ -1971,7 +1992,7 @@ def phase_compare_image(device):
         ratios = grad_ratios(g_k, g_p)
         ok = bool(torch.isfinite(sse_k.detach())) and err <= ATOL + RTOL * float(sse_p.detach().abs())
         ok &= all(bool(torch.isfinite(a).all()) for a in g_k) and max(ratios) <= DW_REL
-        log(f"[compare] image_train N={n}: sse {float(sse_k.detach()):.6f} vs "
+        log(f"[compare] image_train width {mlp.cfg.net_width} N={n}: sse {float(sse_k.detach()):.6f} vs "
             f"{float(sse_p.detach()):.6f} "
             f"(abs err {err:.3e}); max|dW-plain|/max|plain| per array: "
             + " ".join(f"{r:.1e}" for r in ratios) + (" ok" if ok else " FAIL"))
@@ -1984,7 +2005,7 @@ def phase_compare_image(device):
         out_p = fim.fused_image_reference(mlp, enc, coords)
     err = (out_k - out_p).abs()
     ok = bool(torch.isfinite(out_k).all()) and bool((err <= ATOL + RTOL * out_p.abs()).all())
-    log(f"[compare] image_fwd N={coords.shape[0]}: max_abs {float(err.max()):.3e} "
+    log(f"[compare] image_fwd width {mlp.cfg.net_width} N={coords.shape[0]}: max_abs {float(err.max()):.3e} "
         + ("ok" if ok else "FAIL"))
     if not ok:
         raise AssertionError("image_fwd disagrees with its plain version")
@@ -2330,16 +2351,27 @@ def phase_image_timing(device):
 # the shapes the overlay keys reach, and the CP path (lego_cp)
 # ---------------------------------------------------------------------------
 
-# (width, L·F) of the INGP builds: lego_ingp's (64, 8 x 2), netwidth = 32's
-# coarse MLP, and 16 levels of 2 or 8 levels of 4 features
-INGP_SHAPES = ((64, 16), (32, 16), (64, 32))
-# (width, P) of the feat builds: lego_ingp's 8 x 2 (long rays) and the
-# paper tables' 16 x 2
-FEAT_SHAPES = ((64, 16), (64, 32))
+# (width, levels, features) of the INGP builds: lego_ingp's (64, 8 x 2),
+# netwidth = 32's coarse MLP, 16 levels of 2 or 8 of 4 features; (128, 8 x
+# 2) stands for the runtime-shape build that the overlays past the register
+# builds take (fused_ingp_train.kernel_defines)
+INGP_SHAPES = ((64, 8, 2), (32, 8, 2), (64, 16, 2), (128, 8, 2))
+# (width, P) of the feat builds: lego_ingp's 8 x 2 (long rays), the paper
+# tables' 16 x 2, and (128, 32) for its runtime-shape build
+FEAT_SHAPES = ((64, 16), (64, 32), (128, 32))
+# the widths other than 32, 64, 128 and 256 that the sinusoidal and image
+# sources are built for, one build each (fused_train.width_defines): the
+# PART_A overlays' and the width-96 image model's
+KW_BUILDS = (("fused_eval", 96), ("fused_train", 96), ("fused_eval", 48), ("fused_train", 48),
+             ("fused_mlp", 48), ("fused_image", 96))
 PART_A_STEPS = 10
 # the overlay commands that train in JAX and failed on the card before the
 # fused kernels took their shapes: (tag, preset, overlay, kernels its
-# training must launch)
+# training must launch); PR 6's six, then the widths past 64 on the INGP and
+# feat kernels, 32 levels, 8 features a level, 128 channels, and sinusoidal
+# widths that are odd multiples of 16
+PAPER_32X4 = "hash_n_levels = 32\nhash_log2_table_size = 19\nhash_max_res = 512\n" \
+    "hash_features_per_level = 4\n"
 PART_A = (
     ("lego_ingp+netwidth32", "lego_ingp", "netwidth = 32\n", ("ingp_train", "ingp_eval")),
     ("lego_ingp+16_levels", "lego_ingp", "hash_n_levels = 16\nhash_log2_table_size = 14\n",
@@ -2350,7 +2382,20 @@ PART_A = (
      ("ingp_train", "ingp_eval")),
     ("lego_hierarchical+netwidth64", "lego_hierarchical", "netwidth = 64\n", ("train", "eval")),
     ("lego_occ+netwidth64", "lego_occ", "netwidth = 64\n", ("train", "eval", "mlp_fwd")),
+    ("lego_ingp+netwidth128", "lego_ingp", "netwidth = 128\n", ("ingp_train", "ingp_eval")),
+    ("lego_ingp+netwidth256", "lego_ingp", "netwidth = 256\n", ("ingp_train", "ingp_eval")),
+    ("lego_ingp+32_levels", "lego_ingp", "hash_n_levels = 32\nhash_log2_table_size = 12\n",
+     ("ingp_train", "ingp_eval")),
+    ("lego_ingp+8_features", "lego_ingp", "hash_features_per_level = 8\nhash_n_levels = 12\n",
+     ("ingp_train", "ingp_eval")),
+    ("paper_tables+netwidth128", "lego_ingp", PAPER_OVERLAY + "netwidth = 128\n",
+     ("feat_train",)),
+    ("paper_tables+32x4", "lego_ingp", PAPER_32X4, ("feat_train",)),
+    ("lego_hierarchical+netwidth96", "lego_hierarchical", "netwidth = 96\n", ("train", "eval")),
+    ("lego_occ+netwidth48", "lego_occ", "netwidth = 48\n", ("train", "eval", "mlp_fwd")),
 )
+# the image model's width reached through the Python API only (image2d())
+IMAGE_API_WIDTH = 96
 # lego_cp's batches for the CP kernels: a train step's coarse and fine
 # points, and one eval chunk's fine points (rays, samples a ray)
 CP_BATCHES = (("coarse", 4096, 48), ("fine", 4096, 96), ("eval_chunk", 32768, 96))
@@ -2363,24 +2408,36 @@ CP_TIMED_STEPS = 25
 
 # the further shapes that the gpu-marked tests hold against their plain
 # versions: 16 levels of 4 features; widths 32 and 64 with 16, 24 or 64
-# feature channels
-TEST_INGP_SHAPES = ((64, 64),)
+# feature channels; the widths 48 and 96 of the sinusoidal and image
+# kernels
+TEST_INGP_SHAPES = ((64, 16, 4),)
 TEST_FEAT_SHAPES = ((32, 16), (64, 64), (32, 24))
+TEST_KW_BUILDS = tuple((s, w) for s in ("fused_eval", "fused_train", "fused_mlp", "fused_image")
+                       for w in (48, 96))
 
 
 def build_variants(tests: bool = False):
     """(source, defines) of every build the script's phases use, and with
-    ``tests`` those of the gpu-marked tests too."""
+    ``tests`` those of the gpu-marked tests too, each once."""
     from nerf_meets_mlx_torch.kernels import fused_feat_train as ff
     from nerf_meets_mlx_torch.kernels import fused_ingp_train as fi
+    from nerf_meets_mlx_torch.kernels import fused_train as ft
 
     ingp = INGP_SHAPES + (TEST_INGP_SHAPES if tests else ())
     feat = FEAT_SHAPES + (TEST_FEAT_SHAPES if tests else ())
+    kw = KW_BUILDS + (TEST_KW_BUILDS if tests else ())
     out = [(s, None) for s in ("fused_eval", "fused_train", "fused_mlp", "hash_encode",
                                "fused_image", "cp_encode")]
-    out += [("fused_ingp", fi.kernel_defines(w, e)) for w, e in ingp]
+    out += [("fused_ingp", fi.kernel_defines(w, L, F)) for w, L, F in ingp]
     out += [("fused_feat", ff.kernel_defines(w, p)) for w, p in feat]
-    return out
+    out += [(s, ft.width_defines(w)) for s, w in kw]
+    seen, unique = set(), []
+    for name, defines in out:
+        key = (name, tuple(sorted((defines or {}).items())))
+        if key not in seen:
+            seen.add(key)
+            unique.append((name, defines))
+    return unique
 
 
 def build_only() -> int:
@@ -2451,8 +2508,10 @@ def check_grads(what, g_k, g_p, floor_rel=GRAD_FLOOR):
 def check_ingp_shape(cfg, device, tag):
     """The INGP kernels at this config's shapes (both MLPs, 4096 rays, both
     levels, its hash compute type, tables with N(0, 0.1) added) against
-    their plain versions (bf16: the rounding twin); returns the worst value
-    error and gradient ratio."""
+    their plain versions (bf16: the rounding twin), then each timed per
+    level (CUDA events, 3 launches; the eval kernel on the same 4096 rays);
+    returns the worst value error, the worst gradient ratio and the
+    times."""
     import torch
     from nerf_meets_mlx_torch.kernels import fused_ingp_train as fi
 
@@ -2465,6 +2524,7 @@ def check_ingp_shape(cfg, device, tag):
     target = torch.rand((ro.shape[0], 3), generator=gen, device=device)
     sh, coarse, fine = ingp_level_inputs(model, ro, rd, vd, target, gen, NOISE_STD)
     val = ratio = 0.0
+    times = {}
     for (z, dl, nz), mlp, level in ((coarse, model.coarse, "coarse"), (fine, model.fine, "fine")):
         tspec = ingp_tspec(model, z.shape[1])
         with torch.no_grad():
@@ -2481,10 +2541,18 @@ def check_ingp_shape(cfg, device, tag):
         g_p = torch.autograd.grad(p[0], params)
         val = max(val, check_values(f"{tag} ingp_train {level}", zip(("sse", "rgb", "w"), k, p)))
         ratio = max(ratio, check_grads(f"{tag} ingp_train {level}", g_k, g_p))
+        with torch.no_grad():
+            times[level] = {
+                "width": mlp.cfg.net_width, "rays": ro.shape[0], "samples": z.shape[1],
+                "train_ms": cuda_time_ms(lambda: fi.fused_ingp_train_apply(*args), 3),
+                "eval_ms": cuda_time_ms(lambda: fi.fused_ingp_eval_apply(
+                    mlp, model.pos_enc, sh, tspec, ro, rd, z, dl), 3)}
         log(f"[part-a] {tag} {level} width {mlp.cfg.net_width}, {model.pos_enc.n_levels} x "
             f"{model.pos_enc.features_per_level} features ({model.pos_enc.compute_dtype}): "
-            f"INGP kernels vs plain, worst value {val:.3e}, gradient ratio {ratio:.2e} ok")
-    return val, ratio
+            f"INGP kernels vs plain, worst value {val:.3e}, gradient ratio {ratio:.2e} ok; "
+            f"train {times[level]['train_ms']:.3f} ms, eval {times[level]['eval_ms']:.3f} ms "
+            f"a launch")
+    return val, ratio, times
 
 
 def check_sinusoidal_shape(cfg, device, tag):
@@ -2501,6 +2569,7 @@ def check_sinusoidal_shape(cfg, device, tag):
     ro, rd, vd = picked_rays(device)
     target = torch.rand((ro.shape[0], 3), generator=gen, device=device)
     val = ratio = 0.0
+    times = {}
     levels = zip(level_inputs(model, ro, rd, vd),
                  train_level_inputs(model, ro, rd, vd, target, gen, NOISE_STD),
                  (model.coarse, model.fine), ("coarse", "fine"))
@@ -2533,17 +2602,67 @@ def check_sinusoidal_shape(cfg, device, tag):
             g_p = torch.autograd.grad((p * dout).sum(), mlp_params(mlp))
             val = max(val, check_values(f"{tag} mlp {level}", [("raw", k, p)]))
             ratio = max(ratio, check_grads(f"{tag} mlp {level}", g_k, g_p, floor_rel=0.0))
+        with torch.no_grad():
+            times[level] = {
+                "width": mlp.cfg.net_width, "rays": ro.shape[0], "samples": S,
+                "train_ms": cuda_time_ms(lambda: ft.fused_train_apply(*args), 3),
+                "eval_ms": cuda_time_ms(lambda: ft.fused_eval_apply(
+                    mlp, model.pos_enc, model.dir_enc, tspec_for(model, S), ro, rd, vd, z, dl), 3)}
         log(f"[part-a] {tag} {level} width {mlp.cfg.net_width}: sinusoidal kernels vs plain, "
-            f"worst value {val:.3e}, gradient ratio {ratio:.2e} ok")
-    return val, ratio
+            f"worst value {val:.3e}, gradient ratio {ratio:.2e} ok; train "
+            f"{times[level]['train_ms']:.3f} ms, eval {times[level]['eval_ms']:.3f} ms a launch")
+    return val, ratio, times
+
+
+def check_feat_shape(cfg, device, tag):
+    """The feat train kernel at this config's shapes (both MLPs, 4096 rays,
+    both levels as the feats route makes them, tables with N(0, 0.1) added)
+    against its plain version (``feat_case``, its compositing mode and
+    background), then timed per level (CUDA events, 3 launches); returns the
+    worst value error, the worst gradient ratio and the times."""
+    import copy
+
+    import torch
+    from nerf_meets_mlx_torch.kernels import fused_feat_train as ff
+
+    model = make_model(cfg.replace(use_fused_kernel=True), device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 42)
+    with torch.no_grad():
+        model.pos_enc.tables.add_(torch.randn(model.pos_enc.tables.shape, generator=gen,
+                                              device=device) * INGP_TABLE_NOISE)
+    ro, rd, vd = picked_rays(device)
+    target = torch.rand((ro.shape[0], 3), generator=gen, device=device)
+    sh, coarse, fine = ingp_level_inputs(model, ro, rd, vd, target, gen, NOISE_STD)
+    rcfg = model.cfg.render
+    val = ratio = 0.0
+    times = {}
+    for level, (z, dl, nz), mlp in (("coarse", coarse, model.coarse), ("fine", fine, model.fine)):
+        with torch.no_grad():
+            feats = model.pos_enc.apply(ro[:, None, :] + z[..., None] * rd[:, None, :])
+        v, ratios, _ = feat_case(f"{tag} {level}", model, mlp, copy.deepcopy(mlp).double(), feats,
+                                 sh, dl, nz, target, rcfg.compositing, rcfg.white_bkgd)
+        val, ratio = max(val, v), max(ratio, max(ratios))
+        tspec = feat_tspec(model, z.shape[1])
+        x = ff.pack_feat_inputs(feats, sh, dl, nz)
+        with torch.no_grad():
+            times[level] = {"width": mlp.cfg.net_width, "rays": ro.shape[0],
+                            "samples": z.shape[1], "channels": feats.shape[-1],
+                            "train_ms": cuda_time_ms(
+                                lambda: ff.fused_feat_train_apply(mlp, tspec, x, target), 3)}
+        log(f"[part-a] {tag} {level} width {mlp.cfg.net_width}, {feats.shape[-1]} channels: "
+            f"feat kernel vs plain, worst value {val:.3e}, gradient ratio {ratio:.2e} ok; train "
+            f"{times[level]['train_ms']:.3f} ms a launch")
+    return val, ratio, times
 
 
 def phase_part_a(device):
     """Each overlay command of PART_A through the training entry point for
     PART_A_STEPS steps with every launch count at 0 before it: the kernels
-    of its route launched (the INGP or the sinusoidal train kernel once a
-    level a step, the eval kernel in its renders), finite metrics; then the
-    kernels at its shapes against their plain versions."""
+    of its route launched (the INGP, feat or sinusoidal train kernel once a
+    level a step, the eval kernel in its renders), finite metrics, a falling
+    loss (the last step's below the first's); then the kernels at its
+    shapes against their plain versions, timed per level. Then the image
+    kernels of a width-96 image model against their plain version."""
     from nerf_meets_mlx_torch.entrypoints import train_nerf
 
     out = {}
@@ -2558,23 +2677,181 @@ def phase_part_a(device):
                          log_dir=str(log_dir), config_txt=str(txt))
         wall = time.perf_counter() - t0
         launches = launches_now()
-        train_key = "ingp_train" if "ingp_train" in kernels else "train"
+        train_key = next(k for k in ("ingp_train", "feat_train", "train") if k in kernels)
         losses = [json.loads(x)["loss"] for x in (log_dir / "metrics.jsonl").read_text().splitlines()
                   if '"loss"' in x]
         log(f"[part-a] train_nerf {tag}, {PART_A_STEPS} steps: {wall:.1f} s; launches "
             f"{ {k: v for k, v in launches.items() if v} }; losses {losses[0]:.5f} -> "
             f"{losses[-1]:.5f}; test PSNR {res['test_psnr_mean']:.3f}")
         if (launches[train_key] != 2 * PART_A_STEPS or any(launches[k] < 1 for k in kernels)
-                or not all(np.isfinite(losses)) or not np.isfinite(res["test_psnr_mean"])):
-            raise AssertionError(f"{tag}: its kernels did not run, or a metric is not finite")
-        check = check_ingp_shape if cfg.pos_encoding.kind == "hash_grid" else check_sinusoidal_shape
-        val, ratio = check(cfg, device, tag)
+                or not all(np.isfinite(losses)) or not np.isfinite(res["test_psnr_mean"])
+                or not losses[-1] < losses[0]):
+            raise AssertionError(f"{tag}: its kernels did not run, a metric is not finite, or "
+                                 "the loss did not fall")
+        check = {"ingp_train": check_ingp_shape, "feat_train": check_feat_shape,
+                 "train": check_sinusoidal_shape}[train_key]
+        val, ratio, times = check(cfg, device, tag)
         out[tag] = {"wall_s": wall, "launches": {k: launches[k] for k in kernels},
                     "loss_first": losses[0], "loss_last": losses[-1],
                     "test_psnr_mean": res["test_psnr_mean"], "max_abs_err": val,
-                    "worst_grad_ratio": ratio}
+                    "worst_grad_ratio": ratio, "per_level": times}
+    # the image model at a width only the Python API reaches
+    sse_err, dw_ratio, fwd_err = phase_compare_image(device, width=IMAGE_API_WIDTH)
+    out[f"image2d+width{IMAGE_API_WIDTH}"] = {"max_abs_err": max(sse_err, fwd_err),
+                                             "worst_grad_ratio": dw_ratio}
     reset_launches()
     return out
+
+
+# lego_ingp's train-step batches (coarse, fine) and the Instant-NGP paper's
+# tables at the fine batch: the shapes of the compute_dx and grid kernels
+DX_REL = 1e-4   # dX: sums over levels and corners in another order
+HASH_DG_REL = 1e-3  # dG: atomics add in another order
+
+
+def hash_api_sets(device):
+    """(name, encoding, points [N, 3]) of the hash API paths: lego_ingp's
+    coarse (196,608) and fine (393,216) points of a train step, with tables
+    N(0, 0.1) added, and the fine points under the paper's 16 x 2^19 x 2
+    tables."""
+    import torch
+
+    model = ingp_model("lego_ingp", device, noisy=True)
+    sets = [(n, model.pos_enc, pts) for n, pts in ingp_point_sets(model, device) if n != "grid"]
+    paper = feat_model("paper", device)
+    sets.append(("paper", paper.pos_enc, sets[-1][2]))
+    return sets
+
+
+def phase_hash_api(device):
+    """The hash encode's last four kernels on the paths of the API that
+    reaches them (``hash_encode_apply(enc, x, compute_dx=True)`` and
+    ``levels_in_body=False``; no model path of the JAX package takes
+    either): every count at 0, forward and backward on a lego_ingp train
+    step's coarse and fine points, the counts read; then each kernel
+    against its plain version at ``hash_api_sets``' batches, in fp32 and
+    with a bf16 encoding (compute_dx: fp32 either way): features to atol
+    1e-4 + rtol 1e-4, dX to DX_REL and dG to HASH_DG_REL of the largest
+    plain value; then each timed per launch (CUDA events) beside its plain
+    version and its byte bound (points, features or cotangent and dX, the
+    tables read once where a kernel reads them, dG written once, over 3.35
+    TB/s). Returns
+    (launches, worst errors, times)."""
+    import copy
+
+    import torch
+    from nerf_meets_mlx_torch.kernels import hash_encode as he
+
+    sets = hash_api_sets(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    douts = {n: torch.randn((pts.shape[0], enc.out_dim), generator=gen, device=device)
+             for n, enc, pts in sets}
+
+    # the path: forward and backward through the API, coarse and fine
+    reset_launches()
+    for name, enc, pts in sets[:2]:
+        x = pts.clone().requires_grad_(True)
+        f = he.hash_encode_apply(enc, x, compute_dx=True)
+        torch.autograd.grad((f * douts[name]).sum(), [x, enc.tables])
+        f = he.hash_encode_apply(enc, pts, levels_in_body=False)
+        torch.autograd.grad((f * douts[name]).sum(), enc.tables)
+    torch.cuda.synchronize()
+    launches = launches_now()
+    want = counts(hash_dx_fwd=2, hash_dx_bwd=2, hash_grid_fwd=2, hash_grid_bwd=2)
+    log(f"[hash-api] launches {launches}")
+    if launches != want:
+        raise AssertionError(f"the hash API paths launched {launches}, not {want}")
+
+    errs = {"dx_fwd": 0.0, "dx_bwd": 0.0, "dx_dg_ratio": 0.0, "dx_ratio": 0.0, "grid_fwd": 0.0,
+            "grid_bwd": 0.0, "grid_dg_ratio": 0.0}
+    for name, enc, pts in sets:
+        dout = douts[name]
+        for dtype in ("float32", "bfloat16"):
+            e = enc
+            if dtype == "bfloat16":
+                e = copy.deepcopy(enc)
+                e.compute_dtype = dtype
+            # compute_dx
+            x = pts.clone().requires_grad_(True)
+            f_k = he.hash_encode_apply(e, x, compute_dx=True)
+            gx_k, gt_k = torch.autograd.grad((f_k * dout).sum(), [x, e.tables])
+            torch.cuda.synchronize()
+            f_p = he.hash_encode_dx_reference(e, x)
+            gx_p, gt_p = torch.autograd.grad((f_p * dout).sum(), [x, e.tables])
+            v = check_values(f"hash_dx_fwd {name} {dtype}", [("feats", f_k, f_p)])
+            rx, rg = grad_ratios([gx_k, gt_k], [gx_p, gt_p])
+            ok = (bool(torch.isfinite(gx_k).all()) and rx <= DX_REL
+                  and bool(torch.isfinite(gt_k).all()) and rg <= HASH_DG_REL)
+            errs["dx_fwd"] = max(errs["dx_fwd"], v)
+            errs["dx_bwd"] = max(errs["dx_bwd"], float((gx_k - gx_p).abs().max()))
+            errs["dx_ratio"] = max(errs["dx_ratio"], rx)
+            errs["dx_dg_ratio"] = max(errs["dx_dg_ratio"], rg)
+            log(f"[compare] hash_dx {name:6s} {dtype:8s} N={pts.shape[0]}: feats max_abs {v:.3e}; "
+                f"max|dX-plain|/max|plain| {rx:.2e} (max|dX| {float(gx_p.abs().max()):.3e}); "
+                f"dG {rg:.2e} " + ("ok" if ok else "FAIL"))
+            if not ok:
+                raise AssertionError(f"the compute_dx kernels disagree with plain: {name} {dtype}")
+            # one level per grid step
+            f_k = he.hash_encode_apply(e, pts, levels_in_body=False)
+            (g_k,) = torch.autograd.grad((f_k * dout).sum(), e.tables)
+            torch.cuda.synchronize()
+            f_p = he.hash_encode_reference(e, pts)
+            (g_p,) = torch.autograd.grad((f_p * dout).sum(), e.tables)
+            v = check_values(f"hash_grid_fwd {name} {dtype}", [("feats", f_k, f_p)])
+            (rg,) = grad_ratios([g_k], [g_p])
+            ok = bool(torch.isfinite(g_k).all()) and rg <= HASH_DG_REL
+            errs["grid_fwd"] = max(errs["grid_fwd"], v)
+            errs["grid_bwd"] = max(errs["grid_bwd"], float((g_k - g_p).abs().max()))
+            errs["grid_dg_ratio"] = max(errs["grid_dg_ratio"], rg)
+            log(f"[compare] hash_grid {name:6s} {dtype:8s} N={pts.shape[0]}: feats max_abs "
+                f"{v:.3e}; dG {rg:.2e} " + ("ok" if ok else "FAIL"))
+            if not ok:
+                raise AssertionError(f"the grid hash kernels disagree with plain: {name} {dtype}")
+
+    def entry(ms_runs, plain_ms, nbytes, **extra):
+        ms = sum(ms_runs) / len(ms_runs)
+        return dict(ms=ms, ms_runs=ms_runs, plain_ms=plain_ms,
+                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", **extra)
+
+    times = {k: {} for k in ("dx_fwd", "dx_bwd", "grid_fwd", "grid_bwd")}
+    for name, enc, pts in sets:
+        N, C = pts.shape[0], enc.out_dim
+        tb = 4 * enc.tables.numel()
+        dout = douts[name]
+        reps = max(5, int(4_000_000 // N))
+        x = pts.clone().requires_grad_(True)
+
+        def plain_dx_bwd():
+            torch.autograd.grad((he.hash_encode_dx_reference(enc, x) * dout).sum(),
+                                [x, enc.tables])
+
+        def plain_bwd():
+            torch.autograd.grad((he.hash_encode_reference(enc, pts) * dout).sum(), enc.tables)
+
+        for key, kern, plain, nbytes in (
+            ("dx_fwd", lambda: he._dx_fwd_launch(enc, pts),
+             lambda: he.hash_encode_dx_reference(enc, pts), 4 * N * (3 + C) + tb),
+            ("dx_bwd", lambda: he._dx_bwd_launch(enc, pts, dout), plain_dx_bwd,
+             4 * N * (3 + C + 3) + 2 * tb),
+            ("grid_fwd", lambda: he._fwd_launch(enc, pts, grid=True),
+             lambda: he.hash_encode_reference(enc, pts), 4 * N * (3 + C) + tb),
+            ("grid_bwd", lambda: he._bwd_launch(enc, pts, dout, grid=True), plain_bwd,
+             4 * N * (3 + C) + tb),
+        ):
+            if key.endswith("fwd"):
+                with torch.no_grad():
+                    k1 = cuda_time_ms(kern, reps)
+                    p_ms = cuda_time_ms(plain, max(2, reps // 4))
+                    k2 = cuda_time_ms(kern, reps)
+            else:
+                k1 = cuda_time_ms(kern, reps)
+                p_ms = cuda_time_ms(plain, max(2, reps // 4))
+                k2 = cuda_time_ms(kern, reps)
+            times[key][name] = entry([k1, k2], p_ms, nbytes, points=N)
+            log(f"[time] hash_{key} {name:6s} N={N}: kernel {k1:.4f} / {k2:.4f} ms, plain "
+                f"{p_ms:.3f} ms, bound {times[key][name]['bound_ms']:.4f} ms (bytes)")
+    reset_launches()
+    return launches, errs, times
 
 
 def cp_model(device, cfg=None):
@@ -2818,6 +3095,7 @@ def phase_cp_timing(ds, device):
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     name, smi = phase_device()
     if "--build" in sys.argv[1:]:
         return build_only()
@@ -2852,6 +3130,7 @@ def main() -> int:
     cp_launches, cp_run = phase_train_main_path(device, preset="lego_cp")
     cp_routes = phase_cp_routes(ds, device)
     part_a = phase_part_a(device)
+    hash_launches, hash_err, hash_t = phase_hash_api(device)
     per_level, frame = phase_timing(fused, res, device)
     train_level, train_step = phase_train_timing(ds, device)
     mlp_fwd_t, mlp_bwd_t = phase_mlp_timing(device)
@@ -2931,7 +3210,23 @@ def main() -> int:
         entry("cp_bwd", "nerf_meets_mlx_torch/csrc/cp_encode.cu",
               "nerf_meets_mlx_tpu/kernels/cp_encode.py:128", cp_routes["launches"]["cp_bwd"],
               cp_err["bwd"], {k: cp_bwd_t[k] for k in ("coarse", "fine")}),
+        # the hash API's paths (compute_dx, levels_in_body=False): forward
+        # and backward at a lego_ingp train step's coarse and fine points
+        entry("hash_dx_fwd", "nerf_meets_mlx_torch/csrc/hash_encode.cu",
+              "nerf_meets_mlx_tpu/kernels/hash_encode.py:428", hash_launches["hash_dx_fwd"],
+              hash_err["dx_fwd"], {k: hash_t["dx_fwd"][k] for k in ("coarse", "fine")}),
+        entry("hash_dx_bwd", "nerf_meets_mlx_torch/csrc/hash_encode.cu",
+              "nerf_meets_mlx_tpu/kernels/hash_encode.py:474", hash_launches["hash_dx_bwd"],
+              hash_err["dx_bwd"], {k: hash_t["dx_bwd"][k] for k in ("coarse", "fine")}),
+        entry("hash_grid_fwd", "nerf_meets_mlx_torch/csrc/hash_encode.cu",
+              "nerf_meets_mlx_tpu/kernels/hash_encode.py:249", hash_launches["hash_grid_fwd"],
+              hash_err["grid_fwd"], {k: hash_t["grid_fwd"][k] for k in ("coarse", "fine")}),
+        entry("hash_grid_bwd", "nerf_meets_mlx_torch/csrc/hash_encode.cu",
+              "nerf_meets_mlx_tpu/kernels/hash_encode.py:290", hash_launches["hash_grid_bwd"],
+              hash_err["grid_bwd"], {k: hash_t["grid_bwd"][k] for k in ("coarse", "fine")}),
     ]
+    if len(kernels) != 17:
+        raise AssertionError(f"{len(kernels)} kernels in the line, not the 17 Pallas kernels'")
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on its path")
@@ -2955,11 +3250,14 @@ def main() -> int:
         "image_train_per_launch": image_train_t, "image_fwd_per_launch": image_fwd_t,
         "image_timing": image_time, "cp_compare": cp_err, "cp_train_run": cp_run,
         "cp_launches": cp_launches, "cp_routes": cp_routes, "cp_fwd_per_batch": cp_fwd_t,
-        "cp_bwd_per_batch": cp_bwd_t, "cp_timing": cp_time, "part_a": part_a, "card": smi,
+        "cp_bwd_per_batch": cp_bwd_t, "cp_timing": cp_time, "part_a": part_a,
+        "hash_api": {"launches": hash_launches, "compare": hash_err, "times": hash_t},
+        "card": smi,
     }
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "result.json").write_text(json.dumps({"kernels": kernels, **detail}, indent=1))
     log("[detail] " + json.dumps(detail))
+    log(f"[main] chip_smoke.py took {time.perf_counter() - t_start:.1f} s, builds included")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -127,11 +127,15 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
                                       float* __restrict__ out, bool relu,
                                       float* __restrict__ wtile) {
   // a thread holds CW neighbouring columns of each of NG groups, column
-  // 16*CW*n + CW*tx + j: 4 columns a group past 64 columns, as before, and
-  // 2 or 1 for the 32 and 16 columns of the narrow widths
-  constexpr int CW = N >= 64 ? 4 : N / 16;
-  constexpr int NG = N / (16 * CW);
-  static_assert(N % 16 == 0 && N >= 16 && N <= 256, "dense takes 16..256 columns");
+  // 16*CW*n + CW*tx + j, of the N columns rounded up to NP, a multiple of
+  // 16: CW is 4 where NP/16 allows it (every power of two from 64 on), else
+  // 2 or 1. A group at or past N (the W/2 head of a width such as 48 has 24
+  // columns) reads zero weights, computes zeros and stores nothing to
+  // device memory.
+  constexpr int NP = (N + 15) / 16 * 16;
+  constexpr int CW = (NP / 16) % 4 == 0 ? 4 : ((NP / 16) % 2 == 0 ? 2 : 1);
+  constexpr int NG = NP / (16 * CW);
+  static_assert(N % 8 == 0 && N >= 8 && N <= 256, "dense takes 8..256 columns, a multiple of 8");
   constexpr int N4 = N / 4;
   constexpr int SLICE4 = KB * N4;  // float4 per staged slice
   constexpr int LOADS = (SLICE4 + NTHREADS - 1) / NTHREADS;
@@ -180,8 +184,9 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
       const float4 a = *reinterpret_cast<const float4*>(in + kk * LD + 4 * ty);
 #pragma unroll
       for (int n = 0; n < NG; ++n) {
-        float wv[CW];
-        ld_cols<CW>(wtile + kk * N + 16 * CW * n + CW * tx, wv);
+        float wv[CW] = {};
+        if (N % 16 == 0 || 16 * CW * n + CW * tx < N)
+          ld_cols<CW>(wtile + kk * N + 16 * CW * n + CW * tx, wv);
 #pragma unroll
         for (int j = 0; j < CW; ++j) {
           acc[0][CW * n + j] = fmaf(a.x, wv[j], acc[0][CW * n + j]);
@@ -198,7 +203,7 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
 #pragma unroll
     for (int j = 0; j < CW; ++j) {
       const int col = 16 * CW * n + CW * tx + j;
-      const float b = __ldg(bg + col);
+      const float b = N % 16 == 0 || col < N ? __ldg(bg + col) : 0.f;
       float4 v = make_float4(acc[0][CW * n + j] + b, acc[1][CW * n + j] + b,
                              acc[2][CW * n + j] + b, acc[3][CW * n + j] + b);
       if (relu) {
@@ -364,7 +369,19 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_eval_kernel(Args A) {
   }
 }
 
+// The MLP widths a build instantiates: 32, 64, 128 and 256, or with
+// -DKW=<width> that width alone, any multiple of 16 from 32 to 256
+// (kernels/fused_train.py::width_defines): a width the presets do not use
+// is a build of its own and adds nothing to the others' compile time.
+#ifdef KW
+static_assert(KW % 16 == 0 && KW >= 32 && KW <= 256, "KW is a multiple of 16 in 32..256");
+bool width_ok(int w) { return w == KW; }
+#define PICK_WIDTH(K, w) ((w) == KW ? K<KW> : nullptr)
+#else
 bool width_ok(int w) { return w == 32 || w == 64 || w == 128 || w == 256; }
+#define PICK_WIDTH(K, w)                                                                    \
+  ((w) == 256 ? K<256> : (w) == 128 ? K<128> : (w) == 64 ? K<64> : (w) == 32 ? K<32> : nullptr)
+#endif
 
 size_t smem_bytes(int W, int S, int rays_block, int pos_dim, int dir_dim) {
   return sizeof(float) * ((size_t)(2 * W + round_up(pos_dim, KB) + round_up(dir_dim, KB)) * LD +
@@ -393,17 +410,8 @@ extern "C" int fused_eval_launch(const float* rays_o, const float* rays_d, const
   const int pos_dim = 6 * pos_freqs + 3 * pos_inc, dir_dim = 6 * dir_freqs + 3 * dir_inc;
   const size_t smem = smem_bytes(width, S, rays_block, pos_dim, dir_dim);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  void (*kernel)(Args);
-  if (width == 256)
-    kernel = fused_eval_kernel<256>;
-  else if (width == 128)
-    kernel = fused_eval_kernel<128>;
-  else if (width == 64)
-    kernel = fused_eval_kernel<64>;
-  else if (width == 32)
-    kernel = fused_eval_kernel<32>;
-  else
-    return (int)cudaErrorInvalidValue;
+  void (*kernel)(Args) = PICK_WIDTH(fused_eval_kernel, width);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -24,7 +24,13 @@
 // runtime value; the columns past P are zero and layer 0's weight rows past
 // P are not read. The wrapper builds each pair it meets as its own library
 // (kernels/_build.py), so the pairs compile as separate translation units,
-// in parallel.
+// in parallel. Every other shape -- a width that is a multiple of 16 from 32
+// to 256, up to 128 feature channels -- runs in one more build, FEAT_W =
+// FEAT_PP = 0, whose kernel takes the width and P at run time, as
+// csrc/fused_ingp.cu's runtime-shape build does and for its reasons: a
+// point's activations in local memory, 16 output columns at a time in
+// registers (csrc/mlp_rt.cuh), the weights in shared memory where they fit and read through
+// L1/L2 from device memory otherwise.
 //
 // What bounds it on this card, at the hash presets' shapes (W = 64, D = 2,
 // P = 16 or 32, DD = 25): its arithmetic. At P = 32 a point costs 13,280
@@ -65,9 +71,14 @@
 
 #include <cuda_runtime.h>
 
+#include "mlp_rt.cuh"
+
 namespace {
 
 constexpr int NT = 128;           // threads per block of the ray kernel
+constexpr int RT_WIDTH = 256;     // the runtime-shape build's widest MLP
+constexpr int RT_FEATS = 128;     // its most feature channels
+constexpr int RT_DD = 64;         // its most sh channels
 constexpr int NWARPS = NT / 32;
 constexpr int MAX_DEPTH = 8;
 constexpr int N_OFFS = 2 * (MAX_DEPTH + 4);
@@ -84,8 +95,9 @@ constexpr unsigned FULL = 0xffffffffu;
 #ifndef FEAT_PP
 #define FEAT_PP 32
 #endif
-static_assert(FEAT_W == 32 || FEAT_W == 64, "FEAT_W is 32 or 64");
-static_assert(FEAT_PP == 16 || FEAT_PP == 32 || FEAT_PP == 64, "FEAT_PP is 16, 32 or 64");
+static_assert(FEAT_W == 0 || FEAT_W == 32 || FEAT_W == 64, "FEAT_W is 0, 32 or 64");
+static_assert(FEAT_W == 0 ? FEAT_PP == 0 : (FEAT_PP == 16 || FEAT_PP == 32 || FEAT_PP == 64),
+              "FEAT_PP is 16, 32 or 64 (0 with FEAT_W = 0: the runtime-shape build)");
 
 struct Args {
   const float* x;        // [Ptot, C] feats | sh | delta | noise
@@ -106,6 +118,8 @@ struct Args {
   long long Ptot;
   int R, S, rays_block, depth, dd, C, n_w;
   int p;                 // feature channels, <= PP
+  int W;                 // the MLP's width (read by the runtime-shape build)
+  int n_ws;              // floats of weights staged in shared memory: n_w or 0
   int mode;              // 0 canonical, 1 reference
   int relu_density;      // canonical: 0 softplus, 1 relu
   int white_bkgd;
@@ -257,6 +271,151 @@ __device__ __forceinline__ void point_forward(const Args& A, const float* sw, lo
   }
 }
 
+// ---------------------------------------------------------------------------
+// The runtime-shape build (FEAT_W = 0): width and feature channels at run
+// time; a point's vectors live in local memory, 16 output columns at a time
+// in registers (as csrc/fused_ingp.cu)
+// ---------------------------------------------------------------------------
+
+// point_forward of the runtime-shape build; sw: the weights (shared or
+// device memory)
+__device__ __forceinline__ void point_forward_rt(const Args& A, const float* sw, long long gi,
+                                                 float (&rgb)[3], float& sigma) {
+  const int W = A.W, WH = W / 2, D = A.depth;
+  const size_t Pt = (size_t)A.Ptot;
+  const float* xr = A.x + (size_t)gi * A.C;
+  float e[RT_FEATS], u[RT_WIDTH + RT_DD], v[RT_WIDTH + RT_DD];
+  for (int k = 0; k < A.p; ++k) e[k] = __ldg(xr + k);
+  float* h = u;
+  float* g = v;
+  rt_dense(h, e, A.p, sw + A.offs[0], sw + A.offs[1], W, true);
+  rt_store(A.hs + (size_t)gi * W, h, W);
+  for (int l = 1; l < D; ++l) {
+    rt_dense(g, h, W, sw + A.offs[2 * l], sw + A.offs[2 * l + 1], W, true);
+    rt_store(A.hs + (size_t)l * Pt * W + (size_t)gi * W, g, W);
+    float* t = h; h = g; g = t;
+  }
+  // alpha head (W -> 1)
+  {
+    const float* wa = sw + A.offs[2 * D];
+    float a = sw[A.offs[2 * D + 1]];
+    for (int k = 0; k < W; ++k) a = fmaf(h[k], wa[k], a);
+    sigma = a;
+  }
+  // feature (W -> W, no activation), then [feature, sh] in g
+  rt_dense(g, h, W, sw + A.offs[2 * D + 2], sw + A.offs[2 * D + 3], W, false);
+  rt_store(A.feat + (size_t)gi * W, g, W);
+  for (int k = 0; k < A.dd; ++k) g[W + k] = __ldg(xr + A.p + k);
+  // view layer on [feature, sh] (W + DD -> W/2, relu)
+  rt_dense(h, g, W + A.dd, sw + A.offs[2 * D + 4], sw + A.offs[2 * D + 5], WH, true);
+  rt_store(A.hd + (size_t)gi * WH, h, WH);
+  // rgb head (W/2 -> 3)
+  const float* wr = sw + A.offs[2 * D + 6];
+  const float* br = sw + A.offs[2 * D + 7];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float o = br[c];
+    for (int k = 0; k < WH; ++k) o = fmaf(h[k], wr[k * 3 + c], o);
+    rgb[c] = o;
+  }
+}
+
+// phase C for one point in the runtime-shape build: the MLP backward,
+// every layer's cotangent stored, dfeats written
+__device__ __forceinline__ void point_backward_rt(const Args& A, const float* sw, long long gi,
+                                                  const float (&dr)[3], float dsig) {
+  const int W = A.W, WH = W / 2, D = A.depth;
+  const size_t Pt = (size_t)A.Ptot;
+  float a[RT_WIDTH], b[RT_WIDTH];
+  // rgb head: d(hd) = (Wr d(raw rgb)) * (hd > 0)
+  {
+    const float* wr = sw + A.offs[2 * D + 6];
+    const float* hdr = A.hd + (size_t)gi * WH;
+    for (int k = 0; k < WH; ++k) {
+      const float s = fmaf(dr[2], wr[k * 3 + 2], fmaf(dr[1], wr[k * 3 + 1], dr[0] * wr[k * 3]));
+      a[k] = hdr[k] > 0.f ? s : 0.f;
+    }
+    rt_store(A.ddir + (size_t)gi * WH, a, WH);
+  }
+  // feature output: d(feat) = Wd[:W] d(hd) (no activation)
+  rt_dense_t(b, a, WH, sw + A.offs[2 * D + 4], W);
+  rt_store(A.dfeat + (size_t)gi * W, b, W);
+  // last trunk layer: dZ = (Wf d(feat) + wa d(alpha)) * (h > 0)
+  rt_dense_t(a, b, W, sw + A.offs[2 * D + 2], W);
+  {
+    const float* wa = sw + A.offs[2 * D];
+    const size_t o = (size_t)(D - 1) * Pt * W + (size_t)gi * W;
+    for (int k = 0; k < W; ++k) {
+      const float dh = fmaf(wa[k], dsig, a[k]);
+      a[k] = A.hs[o + k] > 0.f ? dh : 0.f;
+    }
+    rt_store(A.dzs + o, a, W);
+  }
+  float* dz = a;
+  float* t = b;
+  for (int l = D - 1; l >= 1; --l) {
+    rt_dense_t(t, dz, W, sw + A.offs[2 * l], W);
+    const size_t o = (size_t)(l - 1) * Pt * W + (size_t)gi * W;
+    for (int k = 0; k < W; ++k) t[k] = A.hs[o + k] > 0.f ? t[k] : 0.f;
+    rt_store(A.dzs + o, t, W);
+    float* tmp = dz; dz = t; t = tmp;
+  }
+  // d(feats) = W0 dZ_0
+  float de[RT_FEATS];
+  rt_dense_t(de, dz, W, sw + A.offs[0], A.p);
+  float* dst = A.dfeats + (size_t)gi * A.p;
+  for (int k = 0; k < A.p; ++k) dst[k] = de[k];
+}
+
+// phase C for one point of the register builds: the MLP backward, every
+// layer's cotangent stored, dfeats written
+template <int W, int PP>
+__device__ __forceinline__ void point_backward(const Args& A, const float* sw, long long gi,
+                                               const float (&dr)[3], float dsig) {
+  constexpr int WH = W / 2;
+  const int D = A.depth;
+  const size_t Pt = (size_t)A.Ptot;
+  // rgb head: d(hd) = (Wr d(raw rgb)) * (hd > 0)
+  float dhd[WH];
+  {
+    float s[WH];
+    const float* wr = sw + A.offs[2 * D + 6];
+#pragma unroll
+    for (int k = 0; k < WH; ++k)
+      s[k] = fmaf(dr[2], wr[k * 3 + 2], fmaf(dr[1], wr[k * 3 + 1], dr[0] * wr[k * 3]));
+    relu_mask<WH>(dhd, s, A.hd + (size_t)gi * WH);
+    store_row<WH>(A.ddir + (size_t)gi * WH, dhd);
+  }
+  // feature output: d(feat) = Wd[:W] d(hd) (no activation)
+  float df[W];
+  gemv_t<W, WH>(df, dhd, sw + A.offs[2 * D + 4]);
+  store_row<W>(A.dfeat + (size_t)gi * W, df);
+  // last trunk layer: dZ = (Wf d(feat) + wa d(alpha)) * (h > 0)
+  float dz[W], dh[W];
+  gemv_t<W, W>(dh, df, sw + A.offs[2 * D + 2]);
+  {
+    const float* wa = sw + A.offs[2 * D];
+#pragma unroll
+    for (int k = 0; k < W; ++k) dh[k] = fmaf(wa[k], dsig, dh[k]);
+    const size_t o = (size_t)(D - 1) * Pt * W + (size_t)gi * W;
+    relu_mask<W>(dz, dh, A.hs + o);
+    store_row<W>(A.dzs + o, dz);
+  }
+  for (int l = D - 1; l >= 1; --l) {
+    gemv_t<W, W>(dh, dz, sw + A.offs[2 * l]);
+    const size_t o = (size_t)(l - 1) * Pt * W + (size_t)gi * W;
+    relu_mask<W>(dz, dh, A.hs + o);
+    store_row<W>(A.dzs + o, dz);
+  }
+  // d(feats) = W0 dZ_0
+  float de[PP];
+  gemv_t<PP, W>(de, dz, sw + A.offs[0], A.p);
+  float* dst = A.dfeats + (size_t)gi * A.p;
+#pragma unroll
+  for (int k = 0; k < PP; ++k)
+    if (k < A.p) dst[k] = de[k];
+}
+
 // per-point compositing terms (fused_train._alpha_terms): q, alpha,
 // d(alpha)/dq and dq/d(raw sigma)
 __device__ __forceinline__ void alpha_terms(const Args& A, float raw, float delta, float& q,
@@ -293,11 +452,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 template <int W, int PP>
 __global__ void __launch_bounds__(NT, 2) feat_rays_kernel(const __grid_constant__ Args A) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int WH = W / 2;
-  const int S = A.S, RB = A.rays_block, D = A.depth, C = A.C;
-  const size_t Pt = (size_t)A.Ptot;
-  float* sw = smem;                      // [n_w] weights
-  float* pc = sw + A.n_w;                // [RB*S][3] raw rgb -> colour -> d(raw rgb)
+  const int S = A.S, RB = A.rays_block, C = A.C;
+  float* sw = smem;                      // [n_ws] weights
+  float* pc = sw + A.n_ws;               // [RB*S][3] raw rgb -> colour -> d(raw rgb)
   float* pq = pc + RB * S * 3;           // q -> d(raw sigma)
   float* pa = pq + RB * S;               // alpha -> weight
   float* pda = pa + RB * S;              // d(alpha)/dq -> T * d(alpha)/dq
@@ -309,17 +466,23 @@ __global__ void __launch_bounds__(NT, 2) feat_rays_kernel(const __grid_constant_
   const int npts = nr * S;
   const long long gbase = (long long)r0 * S;
   {
-    const int n4 = A.n_w / 4;
+    const int n4 = A.n_ws / 4;
     for (int i = threadIdx.x; i < n4; i += NT)
       reinterpret_cast<float4*>(sw)[i] = __ldg(reinterpret_cast<const float4*>(A.wbuf) + i);
     __syncthreads();
   }
+  // the runtime-shape build reads its weights from device memory where
+  // they do not fit in shared memory
+  const float* wts = W == 0 && A.n_ws == 0 ? A.wbuf : sw;
 
   // ---------------- phase A: forward, a thread per point ----------------
   for (int i = threadIdx.x; i < npts; i += NT) {
     const long long gi = gbase + i;
     float rgb[3], sigma;
-    point_forward<W, PP>(A, sw, gi, rgb, sigma);
+    if constexpr (W == 0)
+      point_forward_rt(A, wts, gi, rgb, sigma);
+    else
+      point_forward<W, PP>(A, wts, gi, rgb, sigma);
     const float* xr = A.x + (size_t)gi * C + A.p + A.dd;
     float q, alpha, da, dqd;
     alpha_terms(A, sigma + __ldg(xr + 1), __ldg(xr), q, alpha, da, dqd);
@@ -438,45 +601,10 @@ __global__ void __launch_bounds__(NT, 2) feat_rays_kernel(const __grid_constant_
     A.dalpha[gi] = dsig;
 #pragma unroll
     for (int c = 0; c < 3; ++c) A.drgb[gi * 3 + c] = dr[c];
-    // rgb head: d(hd) = (Wr d(raw rgb)) * (hd > 0)
-    float dhd[WH];
-    {
-      float s[WH];
-      const float* wr = sw + A.offs[2 * D + 6];
-#pragma unroll
-      for (int k = 0; k < WH; ++k)
-        s[k] = fmaf(dr[2], wr[k * 3 + 2], fmaf(dr[1], wr[k * 3 + 1], dr[0] * wr[k * 3]));
-      relu_mask<WH>(dhd, s, A.hd + (size_t)gi * WH);
-      store_row<WH>(A.ddir + (size_t)gi * WH, dhd);
-    }
-    // feature output: d(feat) = Wd[:W] d(hd) (no activation)
-    float df[W];
-    gemv_t<W, WH>(df, dhd, sw + A.offs[2 * D + 4]);
-    store_row<W>(A.dfeat + (size_t)gi * W, df);
-    // last trunk layer: dZ = (Wf d(feat) + wa d(alpha)) * (h > 0)
-    float dz[W], dh[W];
-    gemv_t<W, W>(dh, df, sw + A.offs[2 * D + 2]);
-    {
-      const float* wa = sw + A.offs[2 * D];
-#pragma unroll
-      for (int k = 0; k < W; ++k) dh[k] = fmaf(wa[k], dsig, dh[k]);
-      const size_t o = (size_t)(D - 1) * Pt * W + (size_t)gi * W;
-      relu_mask<W>(dz, dh, A.hs + o);
-      store_row<W>(A.dzs + o, dz);
-    }
-    for (int l = D - 1; l >= 1; --l) {
-      gemv_t<W, W>(dh, dz, sw + A.offs[2 * l]);
-      const size_t o = (size_t)(l - 1) * Pt * W + (size_t)gi * W;
-      relu_mask<W>(dz, dh, A.hs + o);
-      store_row<W>(A.dzs + o, dz);
-    }
-    // d(feats) = W0 dZ_0
-    float de[PP];
-    gemv_t<PP, W>(de, dz, sw + A.offs[0], A.p);
-    float* dst = A.dfeats + (size_t)gi * A.p;
-#pragma unroll
-    for (int k = 0; k < PP; ++k)
-      if (k < A.p) dst[k] = de[k];
+    if constexpr (W == 0)
+      point_backward_rt(A, wts, gi, dr, dsig);
+    else
+      point_backward<W, PP>(A, wts, gi, dr, dsig);
   }
 }
 
@@ -654,9 +782,17 @@ __global__ void reduce_kernel(const float* __restrict__ part, long long stride, 
   }
 }
 
-size_t smem_bytes(int n_w, int S, int rays_block) {
+size_t smem_bytes(int n_ws, int S, int rays_block) {
   const size_t pts = (size_t)rays_block * S;
-  return sizeof(float) * ((size_t)n_w + pts * 7 + (size_t)rays_block);
+  return sizeof(float) * ((size_t)n_ws + pts * 7 + (size_t)rays_block);
+}
+
+// floats of weights a block stages in shared memory: all of them in the
+// register builds; in the runtime-shape build, all where they fit beside
+// the compositing terms, else none (read from device memory)
+int staged_weights(int n_w, int S, int rays_block) {
+  if (FEAT_W != 0 || smem_bytes(n_w, S, rays_block) <= (size_t)MAX_SMEM) return n_w;
+  return 0;
 }
 
 struct Layout {
@@ -695,7 +831,10 @@ Layout layout(int R, int S, int rays_block, int depth, int W, int pts_per_split,
 using Kernel = void (*)(Args);
 
 Kernel kernel_for(int W, int P) {
-  if (W == FEAT_W && P >= 1 && P <= FEAT_PP) return feat_rays_kernel<FEAT_W, FEAT_PP>;
+  if (FEAT_W == 0 && W % 16 == 0 && W >= 32 && W <= RT_WIDTH && P >= 1 && P <= RT_FEATS)
+    return feat_rays_kernel<FEAT_W, FEAT_PP>;
+  if (FEAT_W != 0 && W == FEAT_W && P >= 1 && P <= FEAT_PP)
+    return feat_rays_kernel<FEAT_W, FEAT_PP>;
   return nullptr;
 }
 
@@ -705,7 +844,7 @@ Kernel kernel_for(int W, int P) {
 // (width, p_dim)).
 extern "C" long long fused_feat_smem_bytes(int width, int p_dim, int n_w, int S, int rays_block) {
   if (kernel_for(width, p_dim) == nullptr) return 0;
-  return (long long)smem_bytes(n_w, S, rays_block);
+  return (long long)smem_bytes(staged_weights(n_w, S, rays_block), S, rays_block);
 }
 
 // Floats of device scratch the train launch needs.
@@ -732,7 +871,8 @@ extern "C" int fused_feat_train_launch(const float* x, const float* target, cons
       pts_per_split <= 0)
     return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
-  const size_t smem = smem_bytes(n_w, S, rays_block);
+  const int n_ws = staged_weights(n_w, S, rays_block);
+  const size_t smem = smem_bytes(n_ws, S, rays_block);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   const int W = width, WH = width / 2, D = depth, C = p_dim + dd + 2;
   const int n_dw = n_w;
@@ -744,6 +884,8 @@ extern "C" int fused_feat_train_launch(const float* x, const float* target, cons
   a.Ptot = (long long)R * S;
   a.R = R; a.S = S; a.rays_block = rays_block; a.depth = depth; a.dd = dd; a.C = C; a.n_w = n_w;
   a.p = p_dim;
+  a.W = width;
+  a.n_ws = n_ws;
   a.mode = mode; a.relu_density = relu_density; a.white_bkgd = white_bkgd;
   for (int i = 0; i < n_offs; ++i) a.offs[i] = offs[i];
   a.sse_part = workspace + Lo.sse_part;

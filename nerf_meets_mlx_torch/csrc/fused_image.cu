@@ -144,11 +144,15 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
                                       float* __restrict__ gout, int nvalid,
                                       float* __restrict__ wtile) {
   // a thread holds CW neighbouring columns of each of NG groups, column
-  // 16*CW*n + CW*tx + j: 4 columns a group past 64 columns, as before, and
-  // 2 or 1 for the 32 and 16 columns of the narrow widths
-  constexpr int CW = N >= 64 ? 4 : N / 16;
-  constexpr int NG = N / (16 * CW);
-  static_assert(N % 16 == 0 && N >= 16 && N <= 256, "dense takes 16..256 columns");
+  // 16*CW*n + CW*tx + j, of the N columns rounded up to NP, a multiple of
+  // 16: CW is 4 where NP/16 allows it (every power of two from 64 on), else
+  // 2 or 1. A group at or past N (the W/2 head of a width such as 48 has 24
+  // columns) reads zero weights, computes zeros and stores nothing to
+  // device memory.
+  constexpr int NP = (N + 15) / 16 * 16;
+  constexpr int CW = (NP / 16) % 4 == 0 ? 4 : ((NP / 16) % 2 == 0 ? 2 : 1);
+  constexpr int NG = NP / (16 * CW);
+  static_assert(N % 8 == 0 && N >= 8 && N <= 256, "dense takes 8..256 columns, a multiple of 8");
   constexpr int N4 = N / 4;
   constexpr int SLICE4 = KB * N4;
   constexpr int LOADS = (SLICE4 + NTHREADS - 1) / NTHREADS;
@@ -197,8 +201,9 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
       const float4 a = *reinterpret_cast<const float4*>(in + kk * LD + 4 * ty);
 #pragma unroll
       for (int n = 0; n < NG; ++n) {
-        float wv[CW];
-        ld_cols<CW>(wtile + kk * N + 16 * CW * n + CW * tx, wv);
+        float wv[CW] = {};
+        if (N % 16 == 0 || 16 * CW * n + CW * tx < N)
+          ld_cols<CW>(wtile + kk * N + 16 * CW * n + CW * tx, wv);
 #pragma unroll
         for (int j = 0; j < CW; ++j) {
           acc[0][CW * n + j] = fmaf(a.x, wv[j], acc[0][CW * n + j]);
@@ -214,9 +219,10 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
 #pragma unroll
   for (int n = 0; n < NG; ++n) {
     const int c0 = 16 * CW * n + CW * tx;
+    const bool live = N % 16 == 0 || c0 < N;
     float b[CW];
 #pragma unroll
-    for (int j = 0; j < CW; ++j) b[j] = bg ? __ldg(bg + c0 + j) : 0.f;
+    for (int j = 0; j < CW; ++j) b[j] = bg && live ? __ldg(bg + c0 + j) : 0.f;
     float v[4][CW];
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
@@ -227,7 +233,7 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
         // plain loads: the mask was written earlier in this launch
 #pragma unroll
         for (int j = 0; j < CW; ++j) mk[j] = 0.f;
-        if (p0 + m < nvalid) ld_cols<CW>(mask + (size_t)(p0 + m) * N + c0, mk);
+        if (live && p0 + m < nvalid) ld_cols<CW>(mask + (size_t)(p0 + m) * N + c0, mk);
       }
 #pragma unroll
       for (int j = 0; j < CW; ++j) {
@@ -246,7 +252,7 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
     if (gout) {
 #pragma unroll
       for (int m = 0; m < 4; ++m)
-        if (p0 + m < nvalid)
+        if (live && p0 + m < nvalid)
           st_cols<CW>(gout + (size_t)(p0 + m) * N + c0, v[m]);
     }
   }
@@ -582,7 +588,19 @@ __global__ void reduce_kernel(const float* __restrict__ part, long long stride, 
   }
 }
 
+// The MLP widths a build instantiates: 32, 64, 128 and 256, or with
+// -DKW=<width> that width alone, any multiple of 16 from 32 to 256
+// (kernels/fused_train.py::width_defines): a width the presets do not use
+// is a build of its own and adds nothing to the others' compile time.
+#ifdef KW
+static_assert(KW % 16 == 0 && KW >= 32 && KW <= 256, "KW is a multiple of 16 in 32..256");
+bool width_ok(int w) { return w == KW; }
+#define PICK_WIDTH(K, w) ((w) == KW ? K<KW> : nullptr)
+#else
 bool width_ok(int w) { return w == 32 || w == 64 || w == 128 || w == 256; }
+#define PICK_WIDTH(K, w)                                                                    \
+  ((w) == 256 ? K<256> : (w) == 128 ? K<128> : (w) == 64 ? K<64> : (w) == 32 ? K<32> : nullptr)
+#endif
 
 size_t smem_bytes(int W, int enc_dim) {
   return sizeof(float) * ((size_t)(2 * W + round_up(enc_dim, KB)) * LD + (size_t)KB * W +
@@ -672,10 +690,8 @@ extern "C" int fused_image_fwd_launch(const float* x, const float* wbuf, const i
   Args a = make_args(x, wbuf, offs, n_offs, N, block_pts, depth, skip_mask, in_dim, n_freqs,
                      include_input, out_ch);
   a.out = out;
-  void (*kernel)(Args) = width == 256   ? image_fwd_kernel<256>
-                         : width == 128 ? image_fwd_kernel<128>
-                         : width == 64  ? image_fwd_kernel<64>
-                                        : image_fwd_kernel<32>;
+  void (*kernel)(Args) = PICK_WIDTH(image_fwd_kernel, width);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -713,10 +729,8 @@ extern "C" int fused_image_train_launch(const float* x, const float* target, con
   a.enc = workspace + L.enc; a.hs = workspace + L.hs; a.dzs = workspace + L.dzs;
   a.dout = workspace + L.dout;
 
-  void (*kernel)(Args) = W == 256   ? image_train_kernel<256>
-                         : W == 128 ? image_train_kernel<128>
-                         : W == 64  ? image_train_kernel<64>
-                                    : image_train_kernel<32>;
+  void (*kernel)(Args) = PICK_WIDTH(image_train_kernel, W);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -24,9 +24,22 @@
 // wrapper pads them: fused_ingp_train.pack_weights(rows0=PP)), so layer 0
 // is a branch-free PP x W product. The
 // wrapper builds each pair it meets as its own library (kernels/_build.py),
-// so the pairs compile as separate translation units, in parallel. Past
-// width 64 a thread-per-point MLP no longer fits in registers, and the
-// wrapper raises.
+// so the pairs compile as separate translation units, in parallel.
+//
+// Every other shape -- a width that is a multiple of 16 from 32 to 256,
+// 1..32 levels of 1, 2, 4 or 8 features, at most 128 feature channels --
+// runs in one more build, INGP_W = INGP_PP = 0, whose kernels take the
+// width and the channels as runtime values. Past width 64 a thread-per-point
+// MLP no longer fits in registers (one 256-wide layer is 256 KB of fp32
+// weights, more than a block's 227 KB of shared memory), so this form keeps
+// a point's activations in local memory (L1/L2) and computes each layer 16
+// output columns at a time in registers (csrc/mlp_rt.cuh), reading the weights from shared
+// memory where they fit beside the compositing terms (to width ~128 at
+// lego_ingp's depth) and through L1/L2 from device memory otherwise; all
+// threads of a warp read the same weight, so each load is a broadcast. The
+// same form takes F = 8 and more than 16 levels, which the register bodies
+// would need another instance for. Simple first: a tile-per-block GEMM
+// (csrc/fused_train.cu's dense tile, or wgmma) is later work.
 //
 // bf16 hash compute (hash_compute_dtype = "bfloat16") rounds where the
 // Pallas kernel rounds (fused_ingp_train.py:165-175 forward, :246-262 table
@@ -77,10 +90,16 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mlp_rt.cuh"
+
 namespace {
 
 constexpr int NT = 128;           // threads per block of the ray kernels
-constexpr int MAX_LEVELS = 16;
+constexpr int MAX_LEVELS = 16;    // of the register (W, PP) builds
+constexpr int RT_LEVELS = 32;     // of the runtime-shape build
+constexpr int RT_WIDTH = 256;     // its widest MLP
+constexpr int RT_FEATS = 128;     // its most feature channels (L*F)
+constexpr int RT_DD = 64;         // its most sh channels
 constexpr int MAX_DEPTH = 8;
 constexpr int N_OFFS = 2 * (MAX_DEPTH + 4);
 constexpr int GT = 64;            // dW tile edge
@@ -95,8 +114,9 @@ constexpr int MAX_SMEM = 232448;  // bytes a block may use on sm_90
 #ifndef INGP_PP
 #define INGP_PP 16
 #endif
-static_assert(INGP_W == 32 || INGP_W == 64, "INGP_W is 32 or 64");
-static_assert(INGP_PP == 16 || INGP_PP == 32 || INGP_PP == 64, "INGP_PP is 16, 32 or 64");
+static_assert(INGP_W == 0 || INGP_W == 32 || INGP_W == 64, "INGP_W is 0, 32 or 64");
+static_assert(INGP_W == 0 ? INGP_PP == 0 : (INGP_PP == 16 || INGP_PP == 32 || INGP_PP == 64),
+              "INGP_PP is 16, 32 or 64 (0 with INGP_W = 0: the runtime-shape build)");
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -128,6 +148,9 @@ struct Args {
   long long P;
   int R, S, rays_block, depth, dd, shp_ld, n_w;
   int L, F;              // levels, features a level; L*F <= PP
+  int W;                 // the MLP's width (read by the runtime-shape build)
+  int enc_ld;            // row stride of `enc`: PP, or L*F rounded up to 4
+  int n_ws;              // floats of weights staged in shared memory: n_w or 0
   int bf16;              // 1: hash compute rounds as the Pallas kernel's bf16
   unsigned mask;         // T - 1
   long long T;
@@ -135,7 +158,7 @@ struct Args {
   int mode;              // 0 canonical, 1 reference
   int relu_density;      // canonical: 0 softplus, 1 relu
   int white_bkgd;
-  int res[MAX_LEVELS];
+  int res[RT_LEVELS];
   int offs[N_OFFS];      // float offsets of the pieces in wbuf
 };
 
@@ -189,7 +212,12 @@ __device__ __forceinline__ float rb(float v, int on) {
 // F-float row of a table
 template <int F>
 __device__ __forceinline__ void load_row(const float* row, float (&g)[F]) {
-  if constexpr (F == 4) {
+  if constexpr (F == 8) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(row));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(row) + 1);
+    g[0] = a.x; g[1] = a.y; g[2] = a.z; g[3] = a.w;
+    g[4] = b.x; g[5] = b.y; g[6] = b.z; g[7] = b.w;
+  } else if constexpr (F == 4) {
     const float4 v = __ldg(reinterpret_cast<const float4*>(row));
     g[0] = v.x; g[1] = v.y; g[2] = v.z; g[3] = v.w;
   } else if constexpr (F == 2) {
@@ -452,6 +480,242 @@ __device__ __forceinline__ void point_forward(const Args& A, const float* sw, lo
   }
 }
 
+// ---------------------------------------------------------------------------
+// The runtime-shape build (INGP_W = 0): width, levels and features at run
+// time; a point's vectors live in local memory, 16 output columns at a time
+// in registers
+// ---------------------------------------------------------------------------
+
+// e[l*F + f] for every level l < L, as level_features
+template <int F, bool BF16>
+__device__ __forceinline__ void rt_levels(const Args& A, const float (&x)[3], float* e) {
+  for (int l = 0; l < A.L; ++l) {
+    const Corners C = corners_of(A, x, l);
+    const float* tl = A.tables + (size_t)l * A.T * F;
+    float acc[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[f] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float g[F];
+      load_row<F>(tl + (size_t)C.h[c] * F, g);
+      if constexpr (BF16) {
+        const float w = rb(C.w[c], 1);
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], rb(__fmul_rn(rb(g[f], 1), w), 1));
+      } else {
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], __fmul_rn(g[f], C.w[c]));
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < F; ++f) e[l * F + f] = acc[f];
+  }
+}
+
+template <bool BF16>
+__device__ __forceinline__ void rt_features_of(const Args& A, const float (&x)[3], float* e) {
+  switch (A.F) {
+    case 1: rt_levels<1, BF16>(A, x, e); break;
+    case 2: rt_levels<2, BF16>(A, x, e); break;
+    case 4: rt_levels<4, BF16>(A, x, e); break;
+    default: rt_levels<8, BF16>(A, x, e); break;
+  }
+}
+
+// dG[l][h_c][f] += w_c * de[l*F + f], as level_scatter
+template <int F, bool BF16>
+__device__ __forceinline__ void rt_scatter_levels(const Args& A, const float (&x)[3],
+                                                  const float* de) {
+  for (int l = 0; l < A.L; ++l) {
+    float d[F];
+    bool any = false;
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      d[f] = rb(de[l * F + f], BF16);
+      any |= d[f] != 0.f;
+    }
+    if (!any) continue;
+    const Corners C = corners_of(A, x, l);
+    float* gl = A.dG + (size_t)l * A.T * F;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float w = rb(C.w[c], BF16);
+#pragma unroll
+      for (int f = 0; f < F; ++f) atomicAdd(gl + (size_t)C.h[c] * F + f, __fmul_rn(w, d[f]));
+    }
+  }
+}
+
+template <bool BF16>
+__device__ __forceinline__ void rt_scatter_of(const Args& A, const float (&x)[3],
+                                              const float* de) {
+  switch (A.F) {
+    case 1: rt_scatter_levels<1, BF16>(A, x, de); break;
+    case 2: rt_scatter_levels<2, BF16>(A, x, de); break;
+    case 4: rt_scatter_levels<4, BF16>(A, x, de); break;
+    default: rt_scatter_levels<8, BF16>(A, x, de); break;
+  }
+}
+
+// point_forward of the runtime-shape build; sw: the weights (shared or
+// device memory)
+template <bool STASH>
+__device__ __forceinline__ void point_forward_rt(const Args& A, const float* sw, long long gi,
+                                                 float (&rgb)[3], float& sigma) {
+  const int W = A.W, WH = W / 2, D = A.depth, E = A.L * A.F;
+  const size_t P = (size_t)A.P;
+  float x[3];
+  point_of(A, gi, x);
+  float e[RT_FEATS], u[RT_WIDTH + RT_DD], v[RT_WIDTH + RT_DD];
+  if (A.bf16)
+    rt_features_of<true>(A, x, e);
+  else
+    rt_features_of<false>(A, x, e);
+  if (STASH) {
+    float* dst = A.enc + (size_t)gi * A.enc_ld;
+    for (int k = 0; k < A.enc_ld; ++k) dst[k] = k < E ? e[k] : 0.f;
+  }
+  float* h = u;
+  float* g = v;
+  rt_dense(h, e, E, sw + A.offs[0], sw + A.offs[1], W, true);
+  if (STASH) rt_store(A.hs + (size_t)gi * W, h, W);
+  for (int l = 1; l < D; ++l) {
+    rt_dense(g, h, W, sw + A.offs[2 * l], sw + A.offs[2 * l + 1], W, true);
+    if (STASH) rt_store(A.hs + (size_t)l * P * W + (size_t)gi * W, g, W);
+    float* t = h; h = g; g = t;
+  }
+  // alpha head (W -> 1)
+  {
+    const float* wa = sw + A.offs[2 * D];
+    float a = sw[A.offs[2 * D + 1]];
+    for (int k = 0; k < W; ++k) a = fmaf(h[k], wa[k], a);
+    sigma = a;
+  }
+  // feature (W -> W, no activation), then [feature, sh] in g
+  rt_dense(g, h, W, sw + A.offs[2 * D + 2], sw + A.offs[2 * D + 3], W, false);
+  if (STASH) rt_store(A.feat + (size_t)gi * W, g, W);
+  const float* shr = A.sh + (gi / A.S) * A.dd;
+  for (int k = 0; k < A.dd; ++k) g[W + k] = __ldg(shr + k);
+  if (STASH) {
+    float* shp = A.shp + (size_t)gi * A.shp_ld;
+    for (int k = 0; k < A.shp_ld; ++k) shp[k] = k < A.dd ? g[W + k] : 0.f;
+  }
+  // view layer on [feature, sh] (W + DD -> W/2, relu)
+  rt_dense(h, g, W + A.dd, sw + A.offs[2 * D + 4], sw + A.offs[2 * D + 5], WH, true);
+  if (STASH) rt_store(A.hd + (size_t)gi * WH, h, WH);
+  // rgb head (W/2 -> 3)
+  const float* wr = sw + A.offs[2 * D + 6];
+  const float* br = sw + A.offs[2 * D + 7];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float o = br[c];
+    for (int k = 0; k < WH; ++k) o = fmaf(h[k], wr[k * 3 + c], o);
+    rgb[c] = o;
+  }
+}
+
+// phase C for one point in the runtime-shape build: the MLP backward from
+// d(raw rgb) and d(raw sigma), every layer's cotangent stored, d(features)
+// scattered into dG
+__device__ __forceinline__ void point_backward_rt(const Args& A, const float* sw, long long gi,
+                                                  const float (&dr)[3], float dsig) {
+  const int W = A.W, WH = W / 2, D = A.depth, E = A.L * A.F;
+  const size_t P = (size_t)A.P;
+  float a[RT_WIDTH], b[RT_WIDTH];
+  // rgb head: d(hd) = (Wr d(raw rgb)) * (hd > 0)
+  {
+    const float* wr = sw + A.offs[2 * D + 6];
+    const float* hdr = A.hd + (size_t)gi * WH;
+    for (int k = 0; k < WH; ++k) {
+      const float s = fmaf(dr[2], wr[k * 3 + 2], fmaf(dr[1], wr[k * 3 + 1], dr[0] * wr[k * 3]));
+      a[k] = hdr[k] > 0.f ? s : 0.f;
+    }
+    rt_store(A.ddir + (size_t)gi * WH, a, WH);
+  }
+  // feature output: d(feat) = Wd[:W] d(hd) (no activation)
+  rt_dense_t(b, a, WH, sw + A.offs[2 * D + 4], W);
+  rt_store(A.dfeat + (size_t)gi * W, b, W);
+  // last trunk layer: dZ = (Wf d(feat) + wa d(alpha)) * (h > 0)
+  rt_dense_t(a, b, W, sw + A.offs[2 * D + 2], W);
+  {
+    const float* wa = sw + A.offs[2 * D];
+    const size_t o = (size_t)(D - 1) * P * W + (size_t)gi * W;
+    for (int k = 0; k < W; ++k) {
+      const float dh = fmaf(wa[k], dsig, a[k]);
+      a[k] = A.hs[o + k] > 0.f ? dh : 0.f;
+    }
+    rt_store(A.dzs + o, a, W);
+  }
+  float* dz = a;
+  float* t = b;
+  for (int l = D - 1; l >= 1; --l) {
+    rt_dense_t(t, dz, W, sw + A.offs[2 * l], W);
+    const size_t o = (size_t)(l - 1) * P * W + (size_t)gi * W;
+    for (int k = 0; k < W; ++k) t[k] = A.hs[o + k] > 0.f ? t[k] : 0.f;
+    rt_store(A.dzs + o, t, W);
+    float* tmp = dz; dz = t; t = tmp;
+  }
+  // d(features) = W0 dZ_0, scattered into the tables' rows
+  float de[RT_FEATS];
+  rt_dense_t(de, dz, W, sw + A.offs[0], E);
+  float x[3];
+  point_of(A, gi, x);
+  if (A.bf16)
+    rt_scatter_of<true>(A, x, de);
+  else
+    rt_scatter_of<false>(A, x, de);
+}
+
+// phase C for one point of the register builds: the MLP backward from
+// d(raw rgb) and d(raw sigma), every layer's cotangent stored, d(features)
+// scattered into dG
+template <int W, int PP>
+__device__ __forceinline__ void point_backward(const Args& A, const float* sw, long long gi,
+                                               const float (&dr)[3], float dsig) {
+  constexpr int WH = W / 2;
+  const int D = A.depth;
+  const size_t P = (size_t)A.P;
+  // rgb head: d(hd) = (Wr d(raw rgb)) * (hd > 0)
+  float dhd[WH];
+  {
+    float s[WH];
+    const float* wr = sw + A.offs[2 * D + 6];
+#pragma unroll
+    for (int k = 0; k < WH; ++k)
+      s[k] = fmaf(dr[2], wr[k * 3 + 2], fmaf(dr[1], wr[k * 3 + 1], dr[0] * wr[k * 3]));
+    relu_mask<WH>(dhd, s, A.hd + (size_t)gi * WH);
+    store_row<WH>(A.ddir + (size_t)gi * WH, dhd);
+  }
+  // feature output: d(feat) = Wd[:W] d(hd) (no activation)
+  float df[W];
+  gemv_t<W, WH>(df, dhd, sw + A.offs[2 * D + 4]);
+  store_row<W>(A.dfeat + (size_t)gi * W, df);
+  // last trunk layer: dZ = (Wf d(feat) + wa d(alpha)) * (h > 0)
+  float dz[W], dh[W];
+  gemv_t<W, W>(dh, df, sw + A.offs[2 * D + 2]);
+  {
+    const float* wa = sw + A.offs[2 * D];
+#pragma unroll
+    for (int k = 0; k < W; ++k) dh[k] = fmaf(wa[k], dsig, dh[k]);
+    const size_t o = (size_t)(D - 1) * P * W + (size_t)gi * W;
+    relu_mask<W>(dz, dh, A.hs + o);
+    store_row<W>(A.dzs + o, dz);
+  }
+  for (int l = D - 1; l >= 1; --l) {
+    gemv_t<W, W>(dh, dz, sw + A.offs[2 * l]);
+    const size_t o = (size_t)(l - 1) * P * W + (size_t)gi * W;
+    relu_mask<W>(dz, dh, A.hs + o);
+    store_row<W>(A.dzs + o, dz);
+  }
+  // d(features) = W0 dZ_0, scattered into the tables' rows
+  float de[PP];  // zero past L*F: the padding rows of W0 are zero
+  gemv_t<PP, W>(de, dz, sw + A.offs[0]);
+  float x[3];
+  point_of(A, gi, x);
+  hash_scatter<PP>(A, x, de);
+}
+
 // per-point compositing terms of fused_train.cu (_alpha_terms): q, alpha,
 // d(alpha)/dq and dq/d(raw sigma)
 __device__ __forceinline__ void alpha_terms(const Args& A, float raw, float delta, float& q,
@@ -480,7 +744,7 @@ __device__ __forceinline__ void alpha_terms(const Args& A, float raw, float delt
 }
 
 __device__ __forceinline__ void load_weights(const Args& A, float* sw) {
-  const int n4 = A.n_w / 4;
+  const int n4 = A.n_ws / 4;
   for (int i = threadIdx.x; i < n4; i += NT)
     reinterpret_cast<float4*>(sw)[i] = __ldg(reinterpret_cast<const float4*>(A.wbuf) + i);
   __syncthreads();
@@ -490,8 +754,8 @@ template <int W, int PP>
 __global__ void __launch_bounds__(NT, 2) ingp_eval_kernel(const __grid_constant__ Args A) {
   extern __shared__ __align__(16) float smem[];
   const int S = A.S, RB = A.rays_block;
-  float* sw = smem;                      // [n_w] weights
-  float* pc = sw + A.n_w;                // [RB*S][3] raw rgb -> colour
+  float* sw = smem;                      // [n_ws] weights
+  float* pc = sw + A.n_ws;               // [RB*S][3] raw rgb -> colour
   float* pq = pc + RB * S * 3;           // raw sigma -> q
   float* pa = pq + RB * S;               // alpha
   const int r0 = blockIdx.x * RB;
@@ -500,10 +764,16 @@ __global__ void __launch_bounds__(NT, 2) ingp_eval_kernel(const __grid_constant_
   const int npts = nr * S;
   const long long gbase = (long long)r0 * S;
   load_weights(A, sw);
+  // the runtime-shape build reads its weights from device memory where
+  // they do not fit in shared memory
+  const float* wts = W == 0 && A.n_ws == 0 ? A.wbuf : sw;
 
   for (int i = threadIdx.x; i < npts; i += NT) {
     float rgb[3], sigma;
-    point_forward<W, PP, false>(A, sw, gbase + i, rgb, sigma);
+    if constexpr (W == 0)
+      point_forward_rt<false>(A, wts, gbase + i, rgb, sigma);
+    else
+      point_forward<W, PP, false>(A, wts, gbase + i, rgb, sigma);
     float q, alpha, da, dqd;
     alpha_terms(A, sigma, __ldg(A.deltas + gbase + i), q, alpha, da, dqd);
     pq[i] = q;
@@ -541,11 +811,9 @@ __global__ void __launch_bounds__(NT, 2) ingp_eval_kernel(const __grid_constant_
 template <int W, int PP>
 __global__ void __launch_bounds__(NT, 2) ingp_rays_kernel(const __grid_constant__ Args A) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int WH = W / 2;
-  const int S = A.S, RB = A.rays_block, D = A.depth;
-  const size_t P = (size_t)A.P;
-  float* sw = smem;                      // [n_w] weights
-  float* pc = sw + A.n_w;                // [RB*S][3] raw rgb -> colour -> d(raw rgb)
+  const int S = A.S, RB = A.rays_block;
+  float* sw = smem;                      // [n_ws] weights
+  float* pc = sw + A.n_ws;               // [RB*S][3] raw rgb -> colour -> d(raw rgb)
   float* pq = pc + RB * S * 3;           // raw sigma -> q -> d(raw sigma)
   float* pa = pq + RB * S;               // alpha -> weight
   float* pda = pa + RB * S;              // d(alpha)/dq -> T * d(alpha)/dq
@@ -557,12 +825,18 @@ __global__ void __launch_bounds__(NT, 2) ingp_rays_kernel(const __grid_constant_
   const int npts = nr * S;
   const long long gbase = (long long)r0 * S;
   load_weights(A, sw);
+  // the runtime-shape build reads its weights from device memory where
+  // they do not fit in shared memory
+  const float* wts = W == 0 && A.n_ws == 0 ? A.wbuf : sw;
 
   // ---------------- phase A: forward, a thread per point ----------------
   for (int i = threadIdx.x; i < npts; i += NT) {
     const long long gi = gbase + i;
     float rgb[3], sigma;
-    point_forward<W, PP, true>(A, sw, gi, rgb, sigma);
+    if constexpr (W == 0)
+      point_forward_rt<true>(A, wts, gi, rgb, sigma);
+    else
+      point_forward<W, PP, true>(A, wts, gi, rgb, sigma);
     float q, alpha, da, dqd;
     alpha_terms(A, sigma + __ldg(A.noise + gi), __ldg(A.deltas + gi), q, alpha, da, dqd);
     pq[i] = q;
@@ -640,44 +914,10 @@ __global__ void __launch_bounds__(NT, 2) ingp_rays_kernel(const __grid_constant_
     A.dalpha[gi] = dsig;
 #pragma unroll
     for (int c = 0; c < 3; ++c) A.drgb[gi * 3 + c] = dr[c];
-    // rgb head: d(hd) = (Wr d(raw rgb)) * (hd > 0)
-    float dhd[WH];
-    {
-      float s[WH];
-      const float* wr = sw + A.offs[2 * D + 6];
-#pragma unroll
-      for (int k = 0; k < WH; ++k)
-        s[k] = fmaf(dr[2], wr[k * 3 + 2], fmaf(dr[1], wr[k * 3 + 1], dr[0] * wr[k * 3]));
-      relu_mask<WH>(dhd, s, A.hd + (size_t)gi * WH);
-      store_row<WH>(A.ddir + (size_t)gi * WH, dhd);
-    }
-    // feature output: d(feat) = Wd[:W] d(hd) (no activation)
-    float df[W];
-    gemv_t<W, WH>(df, dhd, sw + A.offs[2 * D + 4]);
-    store_row<W>(A.dfeat + (size_t)gi * W, df);
-    // last trunk layer: dZ = (Wf d(feat) + wa d(alpha)) * (h > 0)
-    float dz[W], dh[W];
-    gemv_t<W, W>(dh, df, sw + A.offs[2 * D + 2]);
-    {
-      const float* wa = sw + A.offs[2 * D];
-#pragma unroll
-      for (int k = 0; k < W; ++k) dh[k] = fmaf(wa[k], dsig, dh[k]);
-      const size_t o = (size_t)(D - 1) * P * W + (size_t)gi * W;
-      relu_mask<W>(dz, dh, A.hs + o);
-      store_row<W>(A.dzs + o, dz);
-    }
-    for (int l = D - 1; l >= 1; --l) {
-      gemv_t<W, W>(dh, dz, sw + A.offs[2 * l]);
-      const size_t o = (size_t)(l - 1) * P * W + (size_t)gi * W;
-      relu_mask<W>(dz, dh, A.hs + o);
-      store_row<W>(A.dzs + o, dz);
-    }
-    // d(features) = W0 dZ_0, scattered into the tables' rows
-    float de[PP];  // zero past L*F: the padding rows of W0 are zero
-    gemv_t<PP, W>(de, dz, sw + A.offs[0]);
-    float x[3];
-    point_of(A, gi, x);
-    hash_scatter<PP>(A, x, de);
+    if constexpr (W == 0)
+      point_backward_rt(A, wts, gi, dr, dsig);
+    else
+      point_backward<W, PP>(A, wts, gi, dr, dsig);
   }
 }
 
@@ -832,9 +1072,17 @@ __global__ void reduce_kernel(const float* __restrict__ part, long long stride, 
   }
 }
 
-size_t smem_bytes(int n_w, int S, int rays_block, bool train) {
+size_t smem_bytes(int n_ws, int S, int rays_block, bool train) {
   const size_t pts = (size_t)rays_block * S;
-  return sizeof(float) * ((size_t)n_w + pts * (train ? 7 : 5) + (train ? (size_t)rays_block : 0));
+  return sizeof(float) * ((size_t)n_ws + pts * (train ? 7 : 5) + (train ? (size_t)rays_block : 0));
+}
+
+// floats of weights a block stages in shared memory: all of them in the
+// register builds; in the runtime-shape build, all where they fit beside
+// the compositing terms, else none (read from device memory)
+int staged_weights(int n_w, int S, int rays_block, bool train) {
+  if (INGP_W != 0 || smem_bytes(n_w, S, rays_block, train) <= (size_t)MAX_SMEM) return n_w;
+  return 0;
 }
 
 struct Layout {
@@ -872,11 +1120,18 @@ Layout layout(int R, int S, int rays_block, int depth, int W, int E, int shp_ld,
   return Lo;
 }
 
-// this build's (width, layer-0 columns) pair
+// this build's (width, layer-0 columns) pair, or the runtime-shape build's
+// bounds
 bool shape_ok(int W, int L, int F) {
+  if (INGP_W == 0)
+    return W % 16 == 0 && W >= 32 && W <= RT_WIDTH && L >= 1 && L <= RT_LEVELS &&
+           (F == 1 || F == 2 || F == 4 || F == 8) && L * F <= RT_FEATS;
   return W == INGP_W && L >= 1 && L <= MAX_LEVELS && (F == 1 || F == 2 || F == 4) &&
          L * F <= INGP_PP;
 }
+
+// the row stride of layer 0's stored input
+int enc_ld_of(int E) { return INGP_W == 0 ? round_up(E, 4) : INGP_PP; }
 
 int shp_ld_of(int dd) { return round_up(dd, 4); }
 
@@ -899,6 +1154,7 @@ Args base_args(const float* rays_o, const float* rays_d, const float* sh, const 
   a.R = R; a.S = S; a.rays_block = rays_block; a.depth = depth; a.dd = dd;
   a.shp_ld = shp_ld_of(dd); a.n_w = n_w;
   a.L = L; a.F = F; a.bf16 = bf16;
+  a.enc_ld = enc_ld_of(L * F);
   a.T = 1ll << log2_T;
   a.mask = (unsigned)(a.T - 1);
   a.bmin = bmin; a.brange = brange;
@@ -915,16 +1171,17 @@ Args base_args(const float* rays_o, const float* rays_d, const float* sh, const 
 extern "C" long long fused_ingp_smem_bytes(int width, int levels, int features, int n_w, int S,
                                            int rays_block, int train) {
   if (!shape_ok(width, levels, features)) return 0;
-  return (long long)smem_bytes(n_w, S, rays_block, train != 0);
+  return (long long)smem_bytes(staged_weights(n_w, S, rays_block, train != 0), S, rays_block,
+                               train != 0);
 }
 
 // Floats of device scratch the train launch needs.
 extern "C" long long fused_ingp_workspace_floats(int R, int S, int rays_block, int depth,
-                                                 int width, int dd, int pts_per_split,
-                                                 int n_dw) {
+                                                 int width, int n_features, int dd,
+                                                 int pts_per_split, int n_dw) {
   if (R <= 0 || S <= 0 || rays_block <= 0 || pts_per_split <= 0) return 0;
-  return (long long)layout(R, S, rays_block, depth, width, INGP_PP, shp_ld_of(dd), pts_per_split,
-                           n_dw)
+  return (long long)layout(R, S, rays_block, depth, width, enc_ld_of(n_features), shp_ld_of(dd),
+                           pts_per_split, n_dw)
       .total;
 }
 
@@ -943,11 +1200,14 @@ extern "C" int fused_ingp_eval_launch(const float* rays_o, const float* rays_d, 
   if (!valid(R, S, rays_block, depth, width, levels, features, dd, log2_T, n_offs) || (n_w & 3))
     return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
-  const size_t smem = smem_bytes(n_w, S, rays_block, false);
+  const int n_ws = staged_weights(n_w, S, rays_block, false);
+  const size_t smem = smem_bytes(n_ws, S, rays_block, false);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  const Args a = base_args(rays_o, rays_d, sh, z, deltas, tables, wbuf, offs, n_offs, n_w, rgb,
-                           weights, R, S, rays_block, depth, dd, log2_T, res, levels, features,
-                           bf16, bmin, brange, mode, relu_density, white_bkgd);
+  Args a = base_args(rays_o, rays_d, sh, z, deltas, tables, wbuf, offs, n_offs, n_w, rgb,
+                     weights, R, S, rays_block, depth, dd, log2_T, res, levels, features,
+                     bf16, bmin, brange, mode, relu_density, white_bkgd);
+  a.W = width;
+  a.n_ws = n_ws;
   void (*kernel)(Args) = ingp_eval_kernel<INGP_W, INGP_PP>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -974,18 +1234,21 @@ extern "C" int fused_ingp_train_launch(const float* rays_o, const float* rays_d,
       (n_w & 3) || pts_per_split <= 0)
     return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
-  const size_t smem = smem_bytes(n_w, S, rays_block, true);
+  const int n_ws = staged_weights(n_w, S, rays_block, true);
+  const size_t smem = smem_bytes(n_ws, S, rays_block, true);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   const int W = width, WH = width / 2, E = levels * features, D = depth;
   const int n_dw = n_w;
   const Layout Lo =
-      layout(R, S, rays_block, depth, W, INGP_PP, shp_ld_of(dd), pts_per_split, n_dw);
+      layout(R, S, rays_block, depth, W, enc_ld_of(E), shp_ld_of(dd), pts_per_split, n_dw);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 
   Args a = base_args(rays_o, rays_d, sh, z, deltas, tables, wbuf, offs, n_offs, n_w, rgb, weights,
                      R, S, rays_block, depth, dd, log2_T, res, levels, features, bf16, bmin,
                      brange, mode, relu_density, white_bkgd);
   a.noise = noise; a.target = target; a.dG = dG;
+  a.W = width;
+  a.n_ws = n_ws;
   a.sse_part = workspace + Lo.sse_part;
   a.enc = workspace + Lo.enc; a.hs = workspace + Lo.hs; a.feat = workspace + Lo.feat;
   a.shp = workspace + Lo.shp; a.hd = workspace + Lo.hd; a.dzs = workspace + Lo.dzs;
@@ -1014,7 +1277,7 @@ extern "C" int fused_ingp_train_launch(const float* rays_o, const float* rays_d,
     J.tiles_n = (N + GT - 1) / GT;
     tiles += ((K + GT - 1) / GT) * J.tiles_n;
   };
-  add(a.enc, INGP_PP, a.dzs, W, E, W, offs[0], W, offs[1]);
+  add(a.enc, a.enc_ld, a.dzs, W, E, W, offs[0], W, offs[1]);
   for (int j = 1; j < D; ++j)
     add(a.hs + (size_t)(j - 1) * P * W, W, a.dzs + (size_t)j * P * W, W, W, W, offs[2 * j], W,
         offs[2 * j + 1]);

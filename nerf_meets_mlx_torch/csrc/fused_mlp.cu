@@ -155,11 +155,15 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
                                       float* __restrict__ gout, int nvalid,
                                       float* __restrict__ wtile) {
   // a thread holds CW neighbouring columns of each of NG groups, column
-  // 16*CW*n + CW*tx + j: 4 columns a group past 64 columns, as before, and
-  // 2 or 1 for the 32 and 16 columns of the narrow widths
-  constexpr int CW = N >= 64 ? 4 : N / 16;
-  constexpr int NG = N / (16 * CW);
-  static_assert(N % 16 == 0 && N >= 16 && N <= 256, "dense takes 16..256 columns");
+  // 16*CW*n + CW*tx + j, of the N columns rounded up to NP, a multiple of
+  // 16: CW is 4 where NP/16 allows it (every power of two from 64 on), else
+  // 2 or 1. A group at or past N (the W/2 head of a width such as 48 has 24
+  // columns) reads zero weights, computes zeros and stores nothing to
+  // device memory.
+  constexpr int NP = (N + 15) / 16 * 16;
+  constexpr int CW = (NP / 16) % 4 == 0 ? 4 : ((NP / 16) % 2 == 0 ? 2 : 1);
+  constexpr int NG = NP / (16 * CW);
+  static_assert(N % 8 == 0 && N >= 8 && N <= 256, "dense takes 8..256 columns, a multiple of 8");
   constexpr int N4 = N / 4;
   constexpr int SLICE4 = KB * N4;
   constexpr int LOADS = (SLICE4 + NTHREADS - 1) / NTHREADS;
@@ -208,8 +212,9 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
       const float4 a = *reinterpret_cast<const float4*>(in + kk * LD + 4 * ty);
 #pragma unroll
       for (int n = 0; n < NG; ++n) {
-        float wv[CW];
-        ld_cols<CW>(wtile + kk * N + 16 * CW * n + CW * tx, wv);
+        float wv[CW] = {};
+        if (N % 16 == 0 || 16 * CW * n + CW * tx < N)
+          ld_cols<CW>(wtile + kk * N + 16 * CW * n + CW * tx, wv);
 #pragma unroll
         for (int j = 0; j < CW; ++j) {
           acc[0][CW * n + j] = fmaf(a.x, wv[j], acc[0][CW * n + j]);
@@ -225,9 +230,10 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
 #pragma unroll
   for (int n = 0; n < NG; ++n) {
     const int c0 = 16 * CW * n + CW * tx;
+    const bool live = N % 16 == 0 || c0 < N;
     float b[CW];
 #pragma unroll
-    for (int j = 0; j < CW; ++j) b[j] = bg ? __ldg(bg + c0 + j) : 0.f;
+    for (int j = 0; j < CW; ++j) b[j] = bg && live ? __ldg(bg + c0 + j) : 0.f;
     float v[4][CW];
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
@@ -238,7 +244,7 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
         // plain loads: the mask was written earlier in this launch
 #pragma unroll
         for (int j = 0; j < CW; ++j) mk[j] = 0.f;
-        if (p0 + m < nvalid) ld_cols<CW>(mask + (size_t)(p0 + m) * N + c0, mk);
+        if (live && p0 + m < nvalid) ld_cols<CW>(mask + (size_t)(p0 + m) * N + c0, mk);
       }
 #pragma unroll
       for (int j = 0; j < CW; ++j) {
@@ -262,7 +268,7 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
     if (gout) {
 #pragma unroll
       for (int m = 0; m < 4; ++m)
-        if (p0 + m < nvalid)
+        if (live && p0 + m < nvalid)
           st_cols<CW>(gout + (size_t)(p0 + m) * N + c0, v[m]);
     }
   }
@@ -400,6 +406,7 @@ template <int W>
 __global__ void __launch_bounds__(NTHREADS, 1) mlp_bwd_kernel(const __grid_constant__ Args A) {
   extern __shared__ __align__(16) float smem[];
   constexpr int WH = W / 2;
+  constexpr int WHP = round_up(WH, KB);
   const int pos_dim = 6 * A.pos_freqs + 3 * A.pos_inc;
   const int dir_dim = 6 * A.dir_freqs + 3 * A.dir_inc;
   const int pos_pad = round_up(pos_dim, KB), dir_pad = round_up(dir_dim, KB);
@@ -422,10 +429,11 @@ __global__ void __launch_bounds__(NTHREADS, 1) mlp_bwd_kernel(const __grid_const
     forward_tile<W, true>(A, s, g0, nv);
 
     // rgb head: d(hd) = (dout[:, :3] @ Wr^T) * (hd > 0) -> bufA rows [0, W/2)
-    for (int idx = tid; idx < TILE * WH; idx += NTHREADS) {
-      const int p = idx / WH, c = idx - p * WH;
+    // (rows up to W/2 rounded up to KB: the next layers read whole slices)
+    for (int idx = tid; idx < TILE * WHP; idx += NTHREADS) {
+      const int p = idx / WHP, c = idx - p * WHP;
       float v = 0.f;
-      if (p < nv) {
+      if (p < nv && c < WH) {
         const float* d = A.dout + (g0 + p) * 4;
         const float sum = d[0] * __ldg(wr + c * 3 + 0) + d[1] * __ldg(wr + c * 3 + 1) +
                           d[2] * __ldg(wr + c * 3 + 2);
@@ -657,7 +665,19 @@ __global__ void reduce_kernel(const float* __restrict__ part, long long stride, 
   }
 }
 
+// The MLP widths a build instantiates: 32, 64, 128 and 256, or with
+// -DKW=<width> that width alone, any multiple of 16 from 32 to 256
+// (kernels/fused_train.py::width_defines): a width the presets do not use
+// is a build of its own and adds nothing to the others' compile time.
+#ifdef KW
+static_assert(KW % 16 == 0 && KW >= 32 && KW <= 256, "KW is a multiple of 16 in 32..256");
+bool width_ok(int w) { return w == KW; }
+#define PICK_WIDTH(K, w) ((w) == KW ? K<KW> : nullptr)
+#else
 bool width_ok(int w) { return w == 32 || w == 64 || w == 128 || w == 256; }
+#define PICK_WIDTH(K, w)                                                                    \
+  ((w) == 256 ? K<256> : (w) == 128 ? K<128> : (w) == 64 ? K<64> : (w) == 32 ? K<32> : nullptr)
+#endif
 
 // the weight tile holds KB rows of the widest dense: W columns, or the dX
 // pieces' up to 128
@@ -745,10 +765,8 @@ extern "C" int fused_mlp_fwd_launch(const float* pts, const float* dirs, const f
   Args a = make_args(pts, dirs, wbuf, offs, n_offs, N, block_pts, depth, skip_mask, pos_freqs,
                      pos_inc, dir_freqs, dir_inc);
   a.raw = raw;
-  void (*kernel)(Args) = width == 256   ? mlp_fwd_kernel<256>
-                         : width == 128 ? mlp_fwd_kernel<128>
-                         : width == 64  ? mlp_fwd_kernel<64>
-                                        : mlp_fwd_kernel<32>;
+  void (*kernel)(Args) = PICK_WIDTH(mlp_fwd_kernel, width);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -788,10 +806,8 @@ extern "C" int fused_mlp_bwd_launch(const float* pts, const float* dirs, const f
   a.feat = workspace + L.feat; a.hd = workspace + L.hd; a.dzs = workspace + L.dzs;
   a.dfeat = workspace + L.dfeat; a.ddir = workspace + L.ddir;
 
-  void (*kernel)(Args) = W == 256   ? mlp_bwd_kernel<256>
-                         : W == 128 ? mlp_bwd_kernel<128>
-                         : W == 64  ? mlp_bwd_kernel<64>
-                                    : mlp_bwd_kernel<32>;
+  void (*kernel)(Args) = PICK_WIDTH(mlp_bwd_kernel, W);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

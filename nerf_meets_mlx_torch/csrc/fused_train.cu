@@ -161,11 +161,15 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
                                       float* __restrict__ gout, int nvalid,
                                       float* __restrict__ wtile) {
   // a thread holds CW neighbouring columns of each of NG groups, column
-  // 16*CW*n + CW*tx + j: 4 columns a group past 64 columns, as before, and
-  // 2 or 1 for the 32 and 16 columns of the narrow widths
-  constexpr int CW = N >= 64 ? 4 : N / 16;
-  constexpr int NG = N / (16 * CW);
-  static_assert(N % 16 == 0 && N >= 16 && N <= 256, "dense takes 16..256 columns");
+  // 16*CW*n + CW*tx + j, of the N columns rounded up to NP, a multiple of
+  // 16: CW is 4 where NP/16 allows it (every power of two from 64 on), else
+  // 2 or 1. A group at or past N (the W/2 head of a width such as 48 has 24
+  // columns) reads zero weights, computes zeros and stores nothing to
+  // device memory.
+  constexpr int NP = (N + 15) / 16 * 16;
+  constexpr int CW = (NP / 16) % 4 == 0 ? 4 : ((NP / 16) % 2 == 0 ? 2 : 1);
+  constexpr int NG = NP / (16 * CW);
+  static_assert(N % 8 == 0 && N >= 8 && N <= 256, "dense takes 8..256 columns, a multiple of 8");
   constexpr int N4 = N / 4;
   constexpr int SLICE4 = KB * N4;
   constexpr int LOADS = (SLICE4 + NTHREADS - 1) / NTHREADS;
@@ -214,8 +218,9 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
       const float4 a = *reinterpret_cast<const float4*>(in + kk * LD + 4 * ty);
 #pragma unroll
       for (int n = 0; n < NG; ++n) {
-        float wv[CW];
-        ld_cols<CW>(wtile + kk * N + 16 * CW * n + CW * tx, wv);
+        float wv[CW] = {};
+        if (N % 16 == 0 || 16 * CW * n + CW * tx < N)
+          ld_cols<CW>(wtile + kk * N + 16 * CW * n + CW * tx, wv);
 #pragma unroll
         for (int j = 0; j < CW; ++j) {
           acc[0][CW * n + j] = fmaf(a.x, wv[j], acc[0][CW * n + j]);
@@ -231,9 +236,10 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
 #pragma unroll
   for (int n = 0; n < NG; ++n) {
     const int c0 = 16 * CW * n + CW * tx;
+    const bool live = N % 16 == 0 || c0 < N;
     float b[CW];
 #pragma unroll
-    for (int j = 0; j < CW; ++j) b[j] = bg ? __ldg(bg + c0 + j) : 0.f;
+    for (int j = 0; j < CW; ++j) b[j] = bg && live ? __ldg(bg + c0 + j) : 0.f;
     float v[4][CW];
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
@@ -243,7 +249,7 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
       if (epi == EPI_MASK) {
 #pragma unroll
         for (int j = 0; j < CW; ++j) mk[j] = 0.f;
-        if (p0 + m < nvalid) ldg_cols<CW>(mask + (size_t)(p0 + m) * N + c0, mk);
+        if (live && p0 + m < nvalid) ldg_cols<CW>(mask + (size_t)(p0 + m) * N + c0, mk);
       }
 #pragma unroll
       for (int j = 0; j < CW; ++j) {
@@ -260,7 +266,7 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
     if (gout) {
 #pragma unroll
       for (int m = 0; m < 4; ++m)
-        if (p0 + m < nvalid)
+        if (live && p0 + m < nvalid)
           st_cols<CW>(gout + (size_t)(p0 + m) * N + c0, v[m]);
     }
   }
@@ -287,6 +293,7 @@ template <int W>
 __global__ void __launch_bounds__(NTHREADS, 1) train_rays_kernel(const __grid_constant__ Args A) {
   extern __shared__ __align__(16) float smem[];
   constexpr int WH = W / 2;
+  constexpr int WHP = round_up(WH, KB);
   const int pos_dim = 6 * A.pos_freqs + 3 * A.pos_inc;
   const int dir_dim = 6 * A.dir_freqs + 3 * A.dir_inc;
   const int pos_pad = round_up(pos_dim, KB), dir_pad = round_up(dir_dim, KB);
@@ -489,10 +496,11 @@ __global__ void __launch_bounds__(NTHREADS, 1) train_rays_kernel(const __grid_co
     const int nv = min(TILE, npts - t0);
     const size_t g0 = gbase + t0;
     // rgb head: d(hd) = (d(raw rgb) @ Wr^T) * (hd > 0) -> bufA rows [0, W/2)
-    for (int idx = tid; idx < TILE * WH; idx += NTHREADS) {
-      const int p = idx / WH, c = idx - p * WH;
+    // (rows up to W/2 rounded up to KB: the next layers read whole slices)
+    for (int idx = tid; idx < TILE * WHP; idx += NTHREADS) {
+      const int p = idx / WHP, c = idx - p * WHP;
       float v = 0.f;
-      if (p < nv) {
+      if (p < nv && c < WH) {
         const float* d = pc + (t0 + p) * 3;
         const float s = d[0] * __ldg(wr + c * 3 + 0) + d[1] * __ldg(wr + c * 3 + 1) +
                         d[2] * __ldg(wr + c * 3 + 2);
@@ -704,7 +712,19 @@ __global__ void reduce_kernel(const float* __restrict__ part, long long stride, 
   }
 }
 
+// The MLP widths a build instantiates: 32, 64, 128 and 256, or with
+// -DKW=<width> that width alone, any multiple of 16 from 32 to 256
+// (kernels/fused_train.py::width_defines): a width the presets do not use
+// is a build of its own and adds nothing to the others' compile time.
+#ifdef KW
+static_assert(KW % 16 == 0 && KW >= 32 && KW <= 256, "KW is a multiple of 16 in 32..256");
+bool width_ok(int w) { return w == KW; }
+#define PICK_WIDTH(K, w) ((w) == KW ? K<KW> : nullptr)
+#else
 bool width_ok(int w) { return w == 32 || w == 64 || w == 128 || w == 256; }
+#define PICK_WIDTH(K, w)                                                                    \
+  ((w) == 256 ? K<256> : (w) == 128 ? K<128> : (w) == 64 ? K<64> : (w) == 32 ? K<32> : nullptr)
+#endif
 
 size_t smem_bytes(int W, int S, int rays_block, int pos_dim, int dir_dim) {
   return sizeof(float) * ((size_t)(2 * W + round_up(pos_dim, KB) + round_up(dir_dim, KB)) * LD +
@@ -801,10 +821,8 @@ extern "C" int fused_train_launch(const float* rays_o, const float* rays_d, cons
   a.mode = mode; a.relu_density = relu_density; a.white_bkgd = white_bkgd;
   for (int i = 0; i < n_offs; ++i) a.offs[i] = offs[i];
 
-  void (*kernel)(Args) = W == 256   ? train_rays_kernel<256>
-                         : W == 128 ? train_rays_kernel<128>
-                         : W == 64  ? train_rays_kernel<64>
-                                    : train_rays_kernel<32>;
+  void (*kernel)(Args) = PICK_WIDTH(train_rays_kernel, W);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

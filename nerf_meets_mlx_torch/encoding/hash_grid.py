@@ -105,14 +105,19 @@ class HashGridEncoding(nn.Module):
         self.tables.copy_((u * 2.0 - 1.0) * self.init_scale)
         return self
 
-    def corners(self, x: torch.Tensor):
+    def corners(self, x: torch.Tensor, u: torch.Tensor = None):
         """The 8 cell corners of points ``x`` [N, 3] at every level, in the
         order c = bx | by<<1 | bz<<2: a list of (rows [N, L] int64, trilinear
-        weights [N, L]), as ``apply`` blends them."""
-        # a true division: PyTorch's CUDA division by a host scalar multiplies
-        # by its reciprocal, which rounds some points into another cell
-        brange = torch.tensor(self.bbox_max - self.bbox_min, dtype=torch.float32, device=x.device)
-        u = torch.clamp((x - self.bbox_min) / brange, 0.0, 1.0)
+        weights [N, L]), as ``apply`` blends them. ``u``: the points already
+        normalised to the unit cube (by default (x − bbox_min) / range,
+        clipped)."""
+        if u is None:
+            # a true division: PyTorch's CUDA division by a host scalar
+            # multiplies by its reciprocal, which rounds some points into
+            # another cell
+            brange = torch.tensor(self.bbox_max - self.bbox_min, dtype=torch.float32,
+                                  device=x.device)
+            u = torch.clamp((x - self.bbox_min) / brange, 0.0, 1.0)
         res = torch.as_tensor(self.resolutions, dtype=torch.float32, device=x.device)
         scaled = u[:, None, :] * res[None, :, None]          # [N, L, 3]
         floor = torch.floor(scaled)

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, under ``nerf_meets_mlx_torch/build/``
-(listed in ``.gitignore``), keyed by a hash of the source and the flags:
-a changed source is rebuilt, an unchanged one is loaded as it is. A source
+(listed in ``.gitignore``), keyed by a hash of the source, the headers
+beside it and the flags: a changed source or header is rebuilt, an
+unchanged one is loaded as it is. A source
 that instantiates its kernels per shape takes preprocessor ``defines`` (as
 ``-DNAME=value``): each set of defines is its own translation unit and
 library, so the shapes a run needs build in parallel and no build compiles
@@ -63,6 +64,8 @@ def _nvcc() -> str:
 def library_path(name: str, defines: Defines = None) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # a source may include any of them
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS + _flags(defines)).encode())
     return BUILD_DIR / f"lib{variant_name(name, defines)}_{h.hexdigest()[:16]}.so"
 

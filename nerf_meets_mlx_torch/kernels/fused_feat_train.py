@@ -39,15 +39,22 @@ FEAT_TARGET_POINTS = 512
 FEAT_SPLIT_POINTS = 4096
 # the most samples a ray the kernel takes, as the JAX op's bound
 MAX_FEAT_SAMPLES = 2048
-# the shapes csrc/fused_feat.cu instantiates: width 32 or 64, and up to 64
-# feature channels, each build holding them in PP = 16, 32 or 64 registers
+# the register builds of csrc/fused_feat.cu: width 32 or 64, and up to 64
+# feature channels, each build holding them in PP = 16, 32 or 64 registers;
+# every other width that is a multiple of 16 up to MAX_WIDTH, and up to
+# MAX_CHANNELS channels, runs in its runtime-shape build (FEAT_W = 0)
 WIDTHS = (32, 64)
 PP_SIZES = (16, 32, 64)
+MIN_WIDTH, MAX_WIDTH = 32, 256
+MAX_CHANNELS = 128
 
 
 def kernel_defines(net_width: int, p_dim: int):
     """The build of ``csrc/fused_feat.cu`` that takes this shape: the width
-    and the smallest layer-0 register width PP that holds ``p_dim``."""
+    and the smallest layer-0 register width PP that holds ``p_dim``, or the
+    runtime-shape build (``FEAT_W = FEAT_PP = 0``) past the register builds."""
+    if net_width not in WIDTHS or p_dim > PP_SIZES[-1]:
+        return {"FEAT_W": 0, "FEAT_PP": 0}
     pp = next(p for p in PP_SIZES if p_dim <= p)
     return {"FEAT_W": net_width, "FEAT_PP": pp}
 
@@ -135,11 +142,12 @@ def _check_feat_config(mlp) -> None:
             "the CUDA feat train kernel computes in fp32 only; bf16 compute is queued in "
             "ROADMAP.md (the plain path runs it on the CPU)"
         )
-    if cfg.net_width not in WIDTHS or not 1 <= mlp.in_dim <= PP_SIZES[-1]:
+    W = cfg.net_width
+    if W % 16 or not MIN_WIDTH <= W <= MAX_WIDTH or not 1 <= mlp.in_dim <= MAX_CHANNELS:
         raise ValueError(
-            f"the feat train kernel takes net_width in {WIDTHS} (a thread-per-point MLP past "
-            f"64 does not fit in registers) and 1..{PP_SIZES[-1]} feature channels, not "
-            f"width {cfg.net_width} with {mlp.in_dim}"
+            f"the feat train kernel takes a net_width that is a multiple of 16 from "
+            f"{MIN_WIDTH} to {MAX_WIDTH} and 1..{MAX_CHANNELS} feature channels, not "
+            f"width {W} with {mlp.in_dim}"
         )
     if not cfg.use_viewdirs or cfg.skips or not 1 <= cfg.net_depth <= 8:
         raise ValueError(

@@ -28,7 +28,14 @@ from typing import List, Tuple
 
 import torch
 
-from nerf_meets_mlx_torch.kernels.fused_train import KERNEL_WIDTHS, LAUNCHES, _pack_flat
+from nerf_meets_mlx_torch.kernels.fused_train import (
+    LAUNCHES,
+    MAX_WIDTH,
+    MIN_WIDTH,
+    _pack_flat,
+    width_defines,
+    width_ok,
+)
 
 # Points per CUDA block of the forward kernel: 8 tiles of 64; a 400 x 400
 # frame makes 313 blocks (one block of ~170 KB shared memory per SM).
@@ -85,10 +92,10 @@ def pack_image_weights(mlp, pos_enc, backward: bool = False) -> Tuple[torch.Tens
     return _pack_flat(_pieces(mlp, pos_enc, backward))
 
 
-def _image_lib():
+def _image_lib(width: int):
     from nerf_meets_mlx_torch.kernels import _build
 
-    lib = _build.load_library("fused_image")
+    lib = _build.load_library("fused_image", width_defines(width))
     if not getattr(lib, "_typed", False):
         vp, ci, cll, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
         lib.fused_image_fwd_launch.argtypes = (
@@ -116,10 +123,10 @@ def _check_config(mlp, pos_enc, x: torch.Tensor) -> None:
         )
     if cfg.use_viewdirs or not hasattr(pos_enc, "bands"):
         raise ValueError("the image kernels take a sinusoidal encoding and the output head")
-    if cfg.net_width not in KERNEL_WIDTHS or not 1 <= cfg.net_depth <= 20:
+    if not width_ok(cfg.net_width) or not 1 <= cfg.net_depth <= 20:
         raise ValueError(
-            f"the image kernels take net_width in {KERNEL_WIDTHS} and depth 1..20, not "
-            f"{cfg.net_width} and {cfg.net_depth}"
+            f"the image kernels take a net_width that is a multiple of 16 from {MIN_WIDTH} to "
+            f"{MAX_WIDTH} and depth 1..20, not {cfg.net_width} and {cfg.net_depth}"
         )
     if any(not 0 <= s < cfg.net_depth - 1 for s in cfg.skips):
         raise ValueError(f"unsupported skips {cfg.skips} at depth {cfg.net_depth}")
@@ -165,7 +172,7 @@ def fused_image_apply(mlp, pos_enc, x: torch.Tensor) -> torch.Tensor:
     _check_config(mlp, pos_enc, x)
     x = x.contiguous()
     N = x.shape[0]
-    lib = _image_lib()
+    lib = _image_lib(mlp.cfg.net_width)
     _check_smem(lib, mlp, pos_enc)
     wbuf, offs = pack_image_weights(mlp, pos_enc)
     out = torch.empty((N, mlp.cfg.out_channels), dtype=torch.float32, device=dev)
@@ -188,7 +195,7 @@ def _train_launch(mlp, pos_enc, x: torch.Tensor, target: torch.Tensor):
     dev = x.device
     N = x.shape[0]
     cfg = mlp.cfg
-    lib = _image_lib()
+    lib = _image_lib(mlp.cfg.net_width)
     _check_smem(lib, mlp, pos_enc)
     wbuf, offs = pack_image_weights(mlp, pos_enc, backward=True)
     n_dw = offs[2 * cfg.net_depth + 2]

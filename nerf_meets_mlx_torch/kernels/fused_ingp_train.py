@@ -19,11 +19,13 @@ versions.
   [features, sh], and the compositing of ``kernels/fused_train.py``; the
   train version is differentiable by autograd with respect to the MLP and
   the tables.
-* Shapes: width 32 or 64, 1..16 levels of 1, 2 or 4 features. Each
+* Shapes: a width that is a multiple of 16 from 32 to 256, 1..32 levels of
+  1, 2, 4 or 8 features, at most 128 feature channels. Width 32 or 64 with
+  1..16 levels of 1, 2 or 4 features runs in a register build, one for each
   (width, PP) pair, PP the smallest of 16, 32, 64 that holds the L·F
-  features, is its own build of ``csrc/fused_ingp.cu`` (``kernel_defines``).
-  A width past 64 raises: a thread-per-point MLP no longer fits in
-  registers there.
+  features; every other shape runs in the runtime-shape build
+  (``kernel_defines``), where the MLP's activations live in local memory.
+  Past these bounds the wrapper raises, naming them.
 * The spherical harmonics come in per ray, [R, DD], as the JAX op takes
   them. The weights are taken as the ``nn.Linear`` modules hold them and the
   tables as [L, T, F]; the JAX package's packed layouts are a TPU's.
@@ -55,10 +57,16 @@ INGP_TARGET_POINTS = 512
 # dW = X^T dZ is summed over the points in splits of about this many points:
 # the fine level's 393,216 points give 96 splits x 7 tiles = 672 GEMM blocks.
 INGP_SPLIT_POINTS = 4096
-# the shapes csrc/fused_ingp.cu instantiates: (width, layer-0 columns) pairs
+# the register builds of csrc/fused_ingp.cu: (width, layer-0 columns) pairs
+# of up to MAX_LEVELS levels of 1, 2 or 4 features
 WIDTHS = (32, 64)
 PP_SIZES = (16, 32, 64)
 MAX_LEVELS = 16
+# the bounds of its runtime-shape build (INGP_W = 0)
+MIN_WIDTH, MAX_WIDTH = 32, 256
+RT_LEVELS = 32
+RT_FEATURES = (1, 2, 4, 8)
+MAX_CHANNELS = 128
 
 
 def ingp_rays_block(n_samples: int) -> int:
@@ -141,22 +149,31 @@ def pack_weights(mlp, rows0: int = 0) -> Tuple[torch.Tensor, List[int]]:
     return _pack_flat(pieces)
 
 
-def kernel_defines(net_width: int, n_features: int):
+def kernel_defines(net_width: int, n_levels: int, features_per_level: int):
     """The build of ``csrc/fused_ingp.cu`` that takes this shape: the
-    width and the smallest layer-0 register width PP that holds the
-    ``n_features`` = L·F hash features."""
+    width and the smallest layer-0 register width PP that holds the L·F
+    hash features, or the runtime-shape build (``INGP_W = INGP_PP = 0``)
+    past the register builds."""
+    n_features = n_levels * features_per_level
+    if (net_width not in WIDTHS or n_levels > MAX_LEVELS or features_per_level not in (1, 2, 4)
+            or n_features > PP_SIZES[-1]):
+        return {"INGP_W": 0, "INGP_PP": 0}
     pp = next(p for p in PP_SIZES if n_features <= p)
     return {"INGP_W": net_width, "INGP_PP": pp}
 
 
+def _defines(mlp, pos_enc):
+    return kernel_defines(mlp.cfg.net_width, pos_enc.n_levels, pos_enc.features_per_level)
+
+
 def _layer0_rows(mlp, pos_enc) -> int:
-    return kernel_defines(mlp.cfg.net_width, pos_enc.out_dim)["INGP_PP"]
+    return _defines(mlp, pos_enc)["INGP_PP"]
 
 
 def _ingp_lib(mlp, pos_enc):
     from nerf_meets_mlx_torch.kernels import _build
 
-    lib = _build.load_library("fused_ingp", kernel_defines(mlp.cfg.net_width, pos_enc.out_dim))
+    lib = _build.load_library("fused_ingp", _defines(mlp, pos_enc))
     if not getattr(lib, "_typed", False):
         vp, ci, cf, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.fused_ingp_eval_launch.argtypes = (
@@ -169,7 +186,7 @@ def _ingp_lib(mlp, pos_enc):
         lib.fused_ingp_train_launch.restype = ci
         lib.fused_ingp_smem_bytes.argtypes = [ci] * 7
         lib.fused_ingp_smem_bytes.restype = cll
-        lib.fused_ingp_workspace_floats.argtypes = [ci] * 8
+        lib.fused_ingp_workspace_floats.argtypes = [ci] * 9
         lib.fused_ingp_workspace_floats.restype = cll
         lib._typed = True
     return lib
@@ -185,12 +202,13 @@ def _check_ingp_config(mlp, pos_enc, sh, kernel: str) -> None:
             "is queued in ROADMAP.md (the plain path runs it on the CPU)"
         )
     check_hash_encoding(pos_enc)
-    L, F = pos_enc.n_levels, pos_enc.features_per_level
-    if cfg.net_width not in WIDTHS or not 1 <= L <= MAX_LEVELS or F not in (1, 2, 4):
+    L, F, W = pos_enc.n_levels, pos_enc.features_per_level, cfg.net_width
+    if (W % 16 or not MIN_WIDTH <= W <= MAX_WIDTH or not 1 <= L <= RT_LEVELS
+            or F not in RT_FEATURES or L * F > MAX_CHANNELS):
         raise ValueError(
-            f"the fused INGP kernels take net_width in {WIDTHS} (a thread-per-point MLP "
-            f"past 64 does not fit in registers), 1..{MAX_LEVELS} levels and 1, 2 or 4 "
-            f"features a level, not width {cfg.net_width}, {L} levels of {F}"
+            f"the fused INGP kernels take a net_width that is a multiple of 16 from "
+            f"{MIN_WIDTH} to {MAX_WIDTH}, 1..{RT_LEVELS} levels of {RT_FEATURES} features "
+            f"and at most {MAX_CHANNELS} feature channels, not width {W}, {L} levels of {F}"
         )
     if not cfg.use_viewdirs or cfg.skips or not 1 <= cfg.net_depth <= 8:
         raise ValueError(
@@ -281,8 +299,8 @@ def _train_launch(mlp, pos_enc, tspec: TrainSpec, args):
     _check_smem(lib, mlp, pos_enc, n_w, tspec, S, train=True)
     pts_per_split = tspec.group * tspec.rays_block * S
     n_ws = lib.fused_ingp_workspace_floats(
-        R, S, tspec.rays_block, cfg.net_depth, cfg.net_width, mlp.in_dim_views,
-        pts_per_split, n_w,
+        R, S, tspec.rays_block, cfg.net_depth, cfg.net_width, pos_enc.out_dim,
+        mlp.in_dim_views, pts_per_split, n_w,
     )
     ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
     rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)

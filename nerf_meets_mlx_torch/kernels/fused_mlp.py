@@ -90,10 +90,11 @@ def pack_mlp_weights(mlp, pos_enc, dir_enc, backward: bool = False,
     return _pack_flat(pieces)
 
 
-def _mlp_lib():
+def _mlp_lib(width: int):
     from nerf_meets_mlx_torch.kernels import _build
+    from nerf_meets_mlx_torch.kernels.fused_train import width_defines
 
-    lib = _build.load_library("fused_mlp")
+    lib = _build.load_library("fused_mlp", width_defines(width))
     if not getattr(lib, "_typed", False):
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.fused_mlp_fwd_launch.argtypes = (
@@ -131,7 +132,7 @@ def _fwd_launch(mlp, pos_enc, dir_enc, pts, dirs) -> torch.Tensor:
     dev = pts.device
     N = pts.shape[0]
     raw = torch.empty((N, 4), dtype=torch.float32, device=dev)
-    lib = _mlp_lib()
+    lib = _mlp_lib(mlp.cfg.net_width)
     _check_smem(lib, mlp, pos_enc, dir_enc)
     wbuf, offs = pack_mlp_weights(mlp, pos_enc, dir_enc)
     c_offs = (ctypes.c_int * len(offs))(*offs)
@@ -154,7 +155,7 @@ def _bwd_launch(mlp, pos_enc, dir_enc, pts, dirs, dout, compute_dx: bool):
     and dx [N, 6] (None without compute_dx)."""
     dev = pts.device
     N = pts.shape[0]
-    lib = _mlp_lib()
+    lib = _mlp_lib(mlp.cfg.net_width)
     _check_smem(lib, mlp, pos_enc, dir_enc)
     wbuf, offs = pack_mlp_weights(mlp, pos_enc, dir_enc, backward=True, compute_dx=compute_dx)
     D, W, skip_mask, pf, pi, df, di = _common(mlp, pos_enc, dir_enc)

@@ -33,14 +33,28 @@ from nerf_meets_mlx_torch.rendering.volume import exclusive_cumsum, softplus
 # kernels/hash_encode.py, kernels/fused_ingp_train.py,
 # kernels/fused_feat_train.py and kernels/fused_image.py; a run sets them to
 # 0 and reads them after
-# MLP widths that csrc/fused_eval.cu, fused_train.cu, fused_mlp.cu and
-# fused_image.cu instantiate
+# MLP widths of the default builds of csrc/fused_eval.cu, fused_train.cu,
+# fused_mlp.cu and fused_image.cu; every other multiple of 16 from 32 to 256
+# is a build of its own (width_defines)
 KERNEL_WIDTHS = (32, 64, 128, 256)
+MIN_WIDTH, MAX_WIDTH = 32, 256
+
+
+def width_ok(width: int) -> bool:
+    """Whether the sinusoidal and image kernels take this MLP width."""
+    return width % 16 == 0 and MIN_WIDTH <= width <= MAX_WIDTH
+
+
+def width_defines(width: int):
+    """The ``-D`` defines of the build that instantiates ``width``: none
+    for the default widths, ``KW`` for the others."""
+    return None if width in KERNEL_WIDTHS else {"KW": width}
 
 LAUNCHES: Dict[str, int] = {
     "eval": 0, "train": 0, "mlp_fwd": 0, "mlp_bwd": 0,
     "hash_fwd": 0, "hash_bwd": 0, "ingp_eval": 0, "ingp_train": 0,
     "feat_train": 0, "image_train": 0, "image_fwd": 0, "cp_fwd": 0, "cp_bwd": 0,
+    "hash_grid_fwd": 0, "hash_grid_bwd": 0, "hash_dx_fwd": 0, "hash_dx_bwd": 0,
 }
 
 
@@ -214,10 +228,10 @@ def pack_eval_weights(mlp, pos_enc, dir_enc) -> Tuple[torch.Tensor, torch.Tensor
     return wbuf, torch.tensor(offs, dtype=torch.int32, device=wbuf.device)
 
 
-def _kernel_lib():
+def _kernel_lib(width: int):
     from nerf_meets_mlx_torch.kernels import _build
 
-    lib = _build.load_library("fused_eval")
+    lib = _build.load_library("fused_eval", width_defines(width))
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.fused_eval_launch.argtypes = [vp] * 9 + [ci] * 5 + [ctypes.c_uint] + [ci] * 7 + [vp]
@@ -237,9 +251,10 @@ def _check_kernel_config(mlp, pos_enc, dir_enc, kernel: str = "eval", max_depth:
         )
     if not cfg.use_viewdirs:
         raise ValueError(f"the fused {kernel} kernel covers the view-direction head")
-    if cfg.net_width not in KERNEL_WIDTHS:
+    if not width_ok(cfg.net_width):
         raise ValueError(
-            f"the fused {kernel} kernel takes net_width in {KERNEL_WIDTHS}, not {cfg.net_width}"
+            f"the fused {kernel} kernel takes a net_width that is a multiple of 16 from "
+            f"{MIN_WIDTH} to {MAX_WIDTH}, not {cfg.net_width}"
         )
     if cfg.net_depth > max_depth or any(not 0 <= s < cfg.net_depth - 1 for s in cfg.skips):
         raise ValueError(f"unsupported depth/skips: {cfg.net_depth}, {cfg.skips}")
@@ -297,8 +312,8 @@ def fused_eval_apply(
     if mlp.pos_linears[0].weight.device != dev:
         raise ValueError("the MLP's parameters must be on the rays' device")
 
-    lib = _kernel_lib()
     cfg = mlp.cfg
+    lib = _kernel_lib(cfg.net_width)
     smem = lib.fused_eval_smem_bytes(
         cfg.net_width, S, tspec.rays_block, pos_enc.out_dim, dir_enc.out_dim
     )
@@ -356,10 +371,10 @@ def pack_train_weights(mlp, pos_enc, dir_enc) -> Tuple[torch.Tensor, List[int]]:
     return _pack_flat(_train_pieces(mlp, pos_enc, dir_enc))
 
 
-def _train_lib():
+def _train_lib(width: int):
     from nerf_meets_mlx_torch.kernels import _build
 
-    lib = _build.load_library("fused_train")
+    lib = _build.load_library("fused_train", width_defines(width))
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.fused_train_launch.argtypes = (
@@ -381,7 +396,7 @@ def _train_launch(mlp, pos_enc, dir_enc, tspec: TrainSpec, args):
     dev = rays_o.device
     R, S = args[3].shape
     cfg = mlp.cfg
-    lib = _train_lib()
+    lib = _train_lib(cfg.net_width)
     smem = lib.fused_train_smem_bytes(
         cfg.net_width, S, tspec.rays_block, pos_enc.out_dim, dir_enc.out_dim
     )

@@ -12,8 +12,8 @@ and 96 samples), the hash forward and dG (lego_ingp's 196,608 / 393,216
 points), the sinusoidal eval and train kernels (lego_hierarchical, 8 x 256),
 the MLP forward and backward (lego_occ's fine points), the feat train kernel
 (the paper tables' 32 channels) and the image kernels (image2d); and a
-400 x 400 lego_ingp frame. It prints one JSON line per turn and, last, each
-measurement's four times.
+400 x 400 frame of lego_ingp and of lego_hierarchical. It prints one JSON
+line per turn and, last, each measurement's four times.
 """
 
 from __future__ import annotations
@@ -53,9 +53,15 @@ def _build_all():
     jobs = [(n, None) for n in ("fused_eval", "fused_train", "fused_mlp", "hash_encode",
                                 "fused_image")]
     if hasattr(_build, "variant_name"):
+        import inspect
+
         from nerf_meets_mlx_torch.kernels import fused_feat_train, fused_ingp_train
 
-        jobs += [("fused_ingp", fused_ingp_train.kernel_defines(64, 16)),
+        # kernel_defines takes (width, levels, features), or (width, L·F)
+        # in checkouts that predate the runtime-shape build
+        ingp = fused_ingp_train.kernel_defines
+        n_args = len(inspect.signature(ingp).parameters)
+        jobs += [("fused_ingp", ingp(64, 8, 2) if n_args == 3 else ingp(64, 16)),
                  ("fused_feat", fused_feat_train.kernel_defines(64, 32))]
         call = _build.build
     else:
@@ -157,6 +163,9 @@ def worker():
             out[f"eval_{name}"] = _ms(lambda z=z, dl=dl, espec=espec: ft.fused_eval_apply(
                 m.fine, m.pos_enc, m.dir_enc, espec, ro[:32768], rd[:32768], vd[:32768], z, dl),
                 n=3)
+    with torch.no_grad():
+        out["lego_hierarchical_frame"] = _ms(
+            lambda: render_image(m, res, res, K, orbit_poses(160)[0][:3, :4]), n=2)
     z, _, _ = level(4096, 96)
     pts = (ro[:4096, None] + z[..., None] * rd[:4096, None]).reshape(-1, 3)
     dirs = vd[:4096, None].expand(-1, 96, -1).reshape(-1, 3)

@@ -92,22 +92,45 @@ FEATS_OVERLAYS = {
 }
 
 
+_PAPER = FEATS_OVERLAYS["lego_ingp+paper_tables"]
+# the overlay commands whose shapes the fused kernels took only once their
+# width, level and feature bounds were lifted: (preset, overlay, the fused
+# train route both packages take); the INGP ones keep their tables within
+# the ingp route's budget (HashEncodeSpec.vmem_ok: L·T·F·4 <= 6 MiB)
+SHAPE_OVERLAYS = {
+    "lego_ingp+netwidth128": ("lego_ingp", "netwidth = 128\n", "ingp"),
+    "lego_ingp+netwidth256": ("lego_ingp", "netwidth = 256\n", "ingp"),
+    "lego_ingp+32_levels": ("lego_ingp", "hash_n_levels = 32\nhash_log2_table_size = 12\n",
+                            "ingp"),
+    "lego_ingp+8_features": ("lego_ingp", "hash_features_per_level = 8\nhash_n_levels = 12\n",
+                             "ingp"),
+    "paper_tables+netwidth128": ("lego_ingp", _PAPER + "netwidth = 128\n", "feats"),
+    "paper_tables+32x4": ("lego_ingp", "hash_n_levels = 32\nhash_log2_table_size = 19\n"
+                          "hash_max_res = 512\nhash_features_per_level = 4\n", "feats"),
+    "lego_hierarchical+netwidth96": ("lego_hierarchical", "netwidth = 96\n", "sinusoidal"),
+    "lego_occ+netwidth48": ("lego_occ", "netwidth = 48\n", "sinusoidal"),
+}
+
+
 def _preset(mod, name, tmp_path):
-    if name in FEATS_OVERLAYS:
+    if name in FEATS_OVERLAYS or name in SHAPE_OVERLAYS:
+        preset, text, _ = SHAPE_OVERLAYS.get(name, ("lego_ingp", FEATS_OVERLAYS.get(name), None))
         txt = tmp_path / "overlay.txt"
-        txt.write_text(FEATS_OVERLAYS[name])
-        return mod.config_from_text(txt, mod.lego_ingp())
+        txt.write_text(text)
+        return mod.config_from_text(txt, mod.PRESETS[preset]())
     return mod.PRESETS[name]()
 
 
-@pytest.mark.parametrize("name", NERF_PRESETS + tuple(FEATS_OVERLAYS) + ("image2d",))
+@pytest.mark.parametrize(
+    "name", NERF_PRESETS + tuple(FEATS_OVERLAYS) + tuple(SHAPE_OVERLAYS) + ("image2d",))
 def test_routing_equals_jax(name, tmp_path):
-    """Every NeRF preset, lego_ingp under both "feats" overlays, and the
-    image task take the same route in both packages, with the fused kernels
-    off, on, and on without the fused train op: the fused mode
-    ("sinusoidal", "ingp", "feats" or none) and the hash-encode kernel of
-    ``query``. The CUDA entry points turn the fused kernels on for the
-    sinusoidal and the hash-grid presets, as the JAX trainer does on a TPU."""
+    """Every NeRF preset, lego_ingp under both "feats" overlays, the overlay
+    commands of the lifted shape bounds, and the image task take the same
+    route in both packages, with the fused kernels off, on, and on without
+    the fused train op: the fused mode ("sinusoidal", "ingp", "feats" or
+    none) and the hash-encode kernel of ``query``. The CUDA entry points
+    turn the fused kernels on for the sinusoidal and the hash-grid presets,
+    as the JAX trainer does on a TPU."""
     from nerf_meets_mlx_torch.entrypoints.render_only import _uses_fused_route
     from nerf_meets_mlx_torch.models import create_nerf as t_create
     from nerf_meets_mlx_tpu.models import create_nerf as j_create
@@ -120,12 +143,14 @@ def test_routing_equals_jax(name, tmp_path):
         tm, jm = t_create(tc, device="meta"), j_create(jc)
         assert tm._fused_train_mode == jm._fused_train_mode, (fused, fused_train)
         assert tm._use_hash_kernel() == (
-            fused and jc.pos_encoding.kind == "hash_grid" and name != "lego_ingp+paper_tables")
+            fused and jc.pos_encoding.kind == "hash_grid" and name != "lego_ingp+paper_tables"
+            and not name.startswith("paper_tables"))
     hash_grid = base_t.pos_encoding.kind == "hash_grid"
     assert _uses_fused_route(base_t) == (
         hash_grid or (base_t.pos_encoding.kind == "sinusoidal" and name != "image2d"))
     want = {"lego_ingp": "ingp", "lego_ingp+paper_tables": "feats",
-            "lego_ingp+long_rays": "feats", "image2d": None, "lego_cp": None}
+            "lego_ingp+long_rays": "feats", "image2d": None, "lego_cp": None,
+            **{k: v[2] for k, v in SHAPE_OVERLAYS.items()}}
     if name in want:
         assert t_create(tc.replace(use_fused_train=True), device="meta")._fused_train_mode == (
             want[name])

@@ -100,6 +100,12 @@ def test_feat_train_op_matches_jax(mode, act, white, R, S, P):
         ("canonical", "softplus", True, 6, 24, 16, 32),
         ("canonical", "softplus", False, 4, 20, 64, 64),
         ("reference", "softplus", True, 5, 12, 24, 32),
+        # the runtime-shape build: widths past 64 or odd multiples of 16,
+        # and up to 128 channels (32 levels of 4 features)
+        ("canonical", "softplus", True, 4, 12, 32, 128),
+        ("reference", "softplus", False, 3, 10, 16, 48),
+        ("canonical", "softplus", True, 3, 10, 128, 64),
+        ("canonical", "relu", True, 3, 8, 64, 96),
     ],
 )
 def test_feat_train_op_matches_jax_at_new_shapes(mode, act, white, R, S, P, W):
@@ -264,9 +270,14 @@ def test_wrapper_routes_by_device_and_guards_shapes():
     assert tff.kernel_defines(64, 16) == {"FEAT_W": 64, "FEAT_PP": 16}
     assert tff.kernel_defines(32, 24) == {"FEAT_W": 32, "FEAT_PP": 32}
     assert tff.kernel_defines(64, 64) == {"FEAT_W": 64, "FEAT_PP": 64}
-    _, wide = _mlp_port(16, width=128)
-    with pytest.raises(ValueError, match="registers"):
-        tff._check_feat_config(wide)
+    # past the register builds: the runtime-shape build
+    assert tff.kernel_defines(128, 32) == {"FEAT_W": 0, "FEAT_PP": 0}
+    assert tff.kernel_defines(64, 128) == {"FEAT_W": 0, "FEAT_PP": 0}
+    tff._check_feat_config(_mlp_port(128, width=256)[1])
+    for P, width in ((16, 272), (16, 40), (129, 64)):
+        _, wide = _mlp_port(P, width=width)
+        with pytest.raises(ValueError, match="multiple of 16 from 32 to 256"):
+            tff._check_feat_config(wide)
 
 
 @pytest.mark.gpu
@@ -276,10 +287,14 @@ def test_cuda_feat_kernel_matches_plain(R, S, P):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("R,S,P,W", [(501, 48, 16, 32), (257, 48, 64, 64), (129, 40, 24, 32)])
+@pytest.mark.parametrize("R,S,P,W", [
+    (501, 48, 16, 32), (257, 48, 64, 64), (129, 40, 24, 32),
+    (257, 48, 32, 128), (129, 40, 128, 64), (65, 96, 16, 256), (101, 48, 24, 48),
+])
 def test_cuda_feat_kernel_matches_plain_at_new_shapes(R, S, P, W):
     """As test_cuda_feat_kernel_matches_plain at width 32, 64 channels and a
-    channel count that fills no register width."""
+    channel count that fills no register width, and in the runtime-shape
+    build: widths 128, 256 and 48, 128 channels."""
     _check_cuda_feat_kernel(R, S, P, W)
 
 

@@ -111,10 +111,10 @@ def test_plain_matches_jax_eval_kernel(mode, act, white):
     _compare_with_jax(R=10, S=16, mode=mode, act=act, white=white, group=1)
 
 
-@pytest.mark.parametrize("width", [32, 64])
+@pytest.mark.parametrize("width", [32, 64, 48, 96, 128])
 def test_plain_matches_jax_eval_kernel_at_narrow_widths(width):
-    """The widths the overlay key netwidth reaches below 128 (the view
-    layer then has 16 or 32 outputs)."""
+    """The widths the overlay key netwidth reaches below 256 (the view
+    layer then has 16, 32, 24, 48 or 64 outputs)."""
     _compare_with_jax(R=10, S=16, mode="canonical", act="softplus", white=True, group=1,
                       width=width)
 
@@ -247,7 +247,7 @@ def test_cuda_kernel_matches_plain(S):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("width", [32, 64])
+@pytest.mark.parametrize("width", [32, 64, 48, 96])
 def test_cuda_kernel_matches_plain_at_narrow_widths(width):
     """The eval kernel at widths 32 and 64 (lego_hierarchical's depth and
     skip), as test_cuda_kernel_matches_plain."""

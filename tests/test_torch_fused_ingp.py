@@ -310,6 +310,16 @@ SHAPE_CASES = [
     pytest.param(32, ENC, "bfloat16", False, id="w32-L4F2-bf16"),
     pytest.param(64, dict(ENC, n_levels=8, features_per_level=4), "bfloat16", False,
                  id="w64-L8F4-bf16"),
+    # the runtime-shape build: widths 48, 96 and 128, 32 levels, 8
+    # features a level, 128 channels
+    pytest.param(48, ENC, "float32", True, id="w48-L4F2"),
+    pytest.param(96, ENC, "float32", True, id="w96-L4F2"),
+    pytest.param(128, ENC, "float32", True, id="w128-L4F2"),
+    pytest.param(32, dict(ENC, n_levels=32, max_res=64), "float32", True, id="w32-L32F2"),
+    pytest.param(64, dict(ENC, features_per_level=8), "float32", True, id="w64-L4F8"),
+    pytest.param(32, dict(ENC, n_levels=16, max_res=64, features_per_level=8), "float32", True,
+                 id="w32-L16F8"),
+    pytest.param(48, dict(ENC, features_per_level=8), "bfloat16", False, id="w48-L4F8-bf16"),
 ]
 
 
@@ -373,13 +383,17 @@ def test_ingp_ops_match_jax_at_new_shapes(width, enc, dtype, noisy):
 @pytest.mark.parametrize("width,levels,features,pp", [
     (64, 8, 2, 16), (32, 8, 2, 16), (64, 16, 2, 32), (64, 8, 4, 32), (64, 16, 4, 64),
     (32, 16, 1, 16), (32, 3, 1, 16),
+    # the runtime-shape build (INGP_W = INGP_PP = 0)
+    (128, 8, 2, 0), (256, 8, 2, 0), (48, 8, 2, 0), (64, 32, 2, 0), (64, 12, 8, 0),
+    (64, 17, 1, 0), (64, 32, 4, 0),
 ])
 def test_kernel_builds_cover_the_shapes(width, levels, features, pp):
     """Each (width, levels, features) the wrapper takes maps to one build of
-    csrc/fused_ingp.cu, the smallest layer-0 register width that holds the
-    features; past width 64 or 16 levels the wrapper raises, naming the
-    bound."""
-    assert tfi.kernel_defines(width, levels * features) == {"INGP_W": width, "INGP_PP": pp}
+    csrc/fused_ingp.cu: a register build with the smallest layer-0 register
+    width that holds the features, or past width 64, 16 levels or 4
+    features the runtime-shape build."""
+    want = {"INGP_W": width if pp else 0, "INGP_PP": pp}
+    assert tfi.kernel_defines(width, levels, features) == want
     tm = NeRFMLP(MLPConfig(net_depth=2, net_width=width, skips=(), use_viewdirs=True),
                  levels * features, 25)
     tenc = HashGridEncoding(n_levels=levels, min_res=4, max_res=64,
@@ -388,14 +402,22 @@ def test_kernel_builds_cover_the_shapes(width, levels, features, pp):
 
 
 def test_ingp_shape_bounds_raise():
-    wide = NeRFMLP(MLPConfig(net_depth=2, net_width=128, skips=(), use_viewdirs=True), 16, 25)
+    """Past width 256 (or a width that is no multiple of 16), 32 levels, 8
+    features or 128 feature channels the wrapper raises, naming the
+    bounds."""
     enc = HashGridEncoding(**ENC)
-    with pytest.raises(ValueError, match="registers"):
-        tfi._check_ingp_config(wide, enc, torch.zeros((1, 25)), "train")
-    deep = HashGridEncoding(**dict(ENC, n_levels=17))
-    tm = NeRFMLP(MLPConfig(net_depth=2, net_width=64, skips=(), use_viewdirs=True), 34, 25)
-    with pytest.raises(ValueError, match="1..16 levels"):
-        tfi._check_ingp_config(tm, deep, torch.zeros((1, 25)), "eval")
+    for width in (272, 40):
+        wide = NeRFMLP(MLPConfig(net_depth=2, net_width=width, skips=(), use_viewdirs=True),
+                       8, 25)
+        with pytest.raises(ValueError, match="multiple of 16 from 32 to 256"):
+            tfi._check_ingp_config(wide, enc, torch.zeros((1, 25)), "train")
+    for kw in (dict(n_levels=33), dict(features_per_level=16), dict(n_levels=32,
+                                                                      features_per_level=8)):
+        deep = HashGridEncoding(**dict(ENC, **kw))
+        tm = NeRFMLP(MLPConfig(net_depth=2, net_width=64, skips=(), use_viewdirs=True),
+                     deep.out_dim, 25)
+        with pytest.raises(ValueError, match="1..32 levels|feature channels"):
+            tfi._check_ingp_config(tm, deep, torch.zeros((1, 25)), "eval")
 
 
 def _cuda_shape_model(width, enc, dtype, dev):
@@ -418,6 +440,13 @@ CUDA_SHAPES = [
     (64, dict(hash_n_levels=8, hash_features_per_level=4), "float32"),
     (64, dict(hash_n_levels=16, hash_features_per_level=4), "float32"),
     (64, dict(hash_n_levels=8, hash_features_per_level=2), "bfloat16"),
+    # the runtime-shape build
+    (128, dict(hash_n_levels=8, hash_features_per_level=2), "float32"),
+    (256, dict(hash_n_levels=8, hash_features_per_level=2), "float32"),
+    (48, dict(hash_n_levels=8, hash_features_per_level=2), "float32"),
+    (64, dict(hash_n_levels=32, hash_features_per_level=2, hash_log2_table_size=12), "float32"),
+    (64, dict(hash_n_levels=12, hash_features_per_level=8), "float32"),
+    (96, dict(hash_n_levels=16, hash_features_per_level=8), "bfloat16"),
 ]
 
 

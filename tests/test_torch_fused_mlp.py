@@ -399,7 +399,7 @@ def test_cuda_kernels_match_plain(width):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("width", [64, 32])
+@pytest.mark.parametrize("width", [64, 32, 48, 96])
 def test_cuda_kernels_match_plain_at_narrow_widths(width):
     """As test_cuda_kernels_match_plain at the widths the overlay key
     netwidth reaches below 128."""

@@ -119,7 +119,7 @@ def test_plain_matches_jax_train_kernel_and_twin(mode, act, white):
     _check_train_against_jax(mode, act, white)
 
 
-@pytest.mark.parametrize("width", [32, 64])
+@pytest.mark.parametrize("width", [32, 64, 48, 96, 128])
 def test_plain_matches_jax_train_kernel_at_narrow_widths(width):
     """The widths the overlay key netwidth reaches below 128: sse, rgb and
     weights against JAX's Pallas kernel and its twin, the gradients against
@@ -302,7 +302,7 @@ def test_kernel_algorithm_and_layout_match_autograd(level, mode, act, white):
         torch.testing.assert_close(ge, ga, rtol=GRAD_RTOL, atol=GRAD_ATOL, msg=f"param {i}")
 
 
-@pytest.mark.parametrize("width", [32, 64])
+@pytest.mark.parametrize("width", [32, 64, 48, 96])
 def test_kernel_algorithm_and_layout_match_autograd_at_narrow_widths(width):
     """The kernel's algorithm and weight layout at widths 32 and 64."""
     tm = t_create(_narrow(t_lego(), width), device="cpu").init(torch.Generator().manual_seed(3))
@@ -376,7 +376,7 @@ def test_cuda_kernel_matches_plain(S, width):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("width", [64, 32])
+@pytest.mark.parametrize("width", [64, 32, 48, 96])
 def test_cuda_kernel_matches_plain_at_narrow_widths(width):
     """The widths the overlay key netwidth reaches below 128."""
     _check_cuda_kernel(64, width)

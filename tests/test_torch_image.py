@@ -102,8 +102,10 @@ def test_image_dataset_matches_jax():
         (dict(depth=3, width=64, skips=(1,), include_input=True), 300),
         (dict(), 130),
         (dict(depth=4, width=32, skips=(2,)), 200),
+        (dict(depth=3, width=96, skips=(1,)), 150),
+        (dict(depth=2, width=48), 150),
     ],
-    ids=["small", "image2d", "width32"],
+    ids=["small", "image2d", "width32", "width96", "width48"],
 )
 def test_image_ops_match_jax(kw, n):
     import jax
@@ -271,10 +273,10 @@ def test_cuda_image_kernels_match_plain(n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("width", [64, 32])
+@pytest.mark.parametrize("width", [64, 32, 96, 48])
 def test_cuda_image_kernels_match_plain_at_narrow_widths(width):
-    """As test_cuda_image_kernels_match_plain at widths 64 and 32, 4001
-    pixels."""
+    """As test_cuda_image_kernels_match_plain at widths 64, 32, 96 and 48
+    (builds of their own), 4001 pixels."""
     _check_cuda_image_kernels(4001, width)
 
 
