@@ -41,7 +41,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    the grid update's 262,144 points and lego_occ's coarse and fine points
    (forward; backward with every dW, db and dX against autograd).
 6. timing: each kernel per level with CUDA events, beside its bound and
-   its plain version's time; the frame time of the render; the host
+   its plain version's time (the train kernel's three launches also apart,
+   from the profiler's kernel table); the frame time of the render; the host
    seconds of a warm train step (25 steps ending in one synchronize),
    rays/s, peak memory, and the device's busy share of 5 steps from
    ``torch.profiler``; the fused MLP kernels per call at lego_occ's shapes;
@@ -141,6 +142,8 @@ OUT = ROOT / ".runs" / "chip_smoke"  # gitignored: checkpoint, frames, result.js
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOPS = 495e12
+# the three launches of csrc/fused_train.cu, timed apart by the profiler
+TRAIN_KERNELS = ("train_rays_kernel", "dw_gemm_kernel", "reduce_kernel")
 
 ATOL = 1e-4   # kernel vs plain: fp32 sums in another order (see PERF.md)
 RTOL = 1e-4
@@ -350,6 +353,48 @@ def mlp_params(mlp):
     return [p for _, lin in mlp.linears() for p in (lin.weight, lin.bias)]
 
 
+def device_times(prof) -> dict:
+    """{kernel name: (device us, count)} of a torch.profiler run: device-side
+    events only (kernels, copies), since an ATen op's entry repeats the
+    device time of the kernels it launched, and a user annotation on the
+    device timeline (the optimizer's) spans kernels counted already."""
+    import torch
+
+    agg = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if getattr(e, "is_user_annotation", False):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        t, n = agg.get(e.name, (0.0, 0))
+        agg[e.name] = (t + float(us), n + 1)
+    return agg
+
+
+def kernel_split_ms(fn, names, n: int) -> dict:
+    """Device ms per call of ``fn()`` of each kernel of ``names`` (matched
+    as a substring of the profiler's kernel name, PyTorch's own kernels
+    excluded), from torch.profiler over ``n`` calls after one warm call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {k: 0.0 for k in names}
+    for name, (us, _) in device_times(prof).items():
+        for k in names:
+            if k in name and "at::" not in name:
+                out[k] += us / 1e3 / n
+    return out
+
+
 def profile_device(fn, label: str):
     """Device time by kernel name over ``fn()`` (torch.profiler), and the
     device's busy share of its wall time under the profiler."""
@@ -362,20 +407,7 @@ def profile_device(fn, label: str):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only (kernels, copies): an ATen op's entry repeats
-    # the device time of the kernels it launched, and a user annotation on
-    # the device timeline (the optimizer's) spans kernels counted already
-    agg = {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        if getattr(e, "is_user_annotation", False):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        t, n = agg.get(e.name, (0.0, 0))
-        agg[e.name] = (t + float(us), n + 1)
+    agg = device_times(prof)
     rows = [(k, t, n) for k, (t, n) in agg.items() if t > 0]
     rows.sort(key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
@@ -1050,9 +1082,10 @@ def phase_occ_routes(ds, device):
 
 def phase_train_timing(ds, device):
     """The train kernel per level at 4096 rays (CUDA events) beside its
-    plain version's forward + backward and the bound; then warm train
-    steps (host clock, one synchronize at the end), peak memory, and the
-    device's busy share of a few steps under torch.profiler."""
+    plain version's forward + backward, its bounds (3xTF32, fp32, one TF32
+    pass) and its three launches apart (profiler); then warm train steps
+    (host clock, one synchronize at the end), peak memory, and the device's
+    busy share of a few steps under torch.profiler."""
     import torch
     from nerf_meets_mlx_torch.config import lego_hierarchical
     from nerf_meets_mlx_torch.engine import TrainState, make_nerf_train_step
@@ -1087,22 +1120,28 @@ def phase_train_timing(ds, device):
         k_ms = cuda_time_ms(kernel, reps)
         p_ms = cuda_time_ms(plain, reps)
         k_ms2 = cuda_time_ms(kernel, reps)
+        split = kernel_split_ms(kernel, TRAIN_KERNELS, reps)
         flops = 2.0 * train_macs(mlp.cfg, model.pos_enc.out_dim, model.dir_enc.out_dim) * R * S
         # each input read once (rays, z, deltas, noise, target, weights),
         # each output written once (rgb, weights, sse, dW)
         nbytes = 4 * (9 * R + 3 * R * S + 3 * R + n_dw + 3 * R + R * S + 1 + n_dw)
-        bound_ms = max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
-        by = "operations" if flops / FP32_FLOPS > nbytes / HBM_BYTES_PER_S else "bytes"
+        # the kernel's GEMMs run in 3xTF32: three TF32 tensor-core products
+        # for each fp32 one
+        bound_ms = max(3 * flops / TF32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+        by = "operations" if 3 * flops / TF32_FLOPS > nbytes / HBM_BYTES_PER_S else "bytes"
+        fp32_ms = max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
         ms = (k_ms + k_ms2) / 2
         per_level[name] = dict(
             rays=R, samples=S, ms=ms, ms_runs=[k_ms, k_ms2], plain_ms=p_ms, bound_ms=bound_ms,
-            bound_by=by, tf32_bound_ms=flops / TF32_FLOPS * 1e3, tflop=flops / 1e12,
-            achieved_tflops_s=flops / (ms * 1e-3) / 1e12,
+            bound_by=by, fp32_bound_ms=fp32_ms, tf32_bound_ms=flops / TF32_FLOPS * 1e3,
+            tflop=flops / 1e12, achieved_tflops_s=flops / (ms * 1e-3) / 1e12, split_ms=split,
         )
         log(f"[time] fused_train {name:6s} R={R} S={S}: kernel {k_ms:.3f} / {k_ms2:.3f} ms, "
-            f"plain fwd+bwd {p_ms:.3f} ms, fp32 bound {bound_ms:.3f} ms ({by}), TF32 bound "
-            f"{flops / TF32_FLOPS * 1e3:.3f} ms, {flops / 1e12:.4f} TFLOP -> "
-            f"{per_level[name]['achieved_tflops_s']:.2f} TFLOP/s")
+            f"plain fwd+bwd {p_ms:.3f} ms, 3xTF32 bound {bound_ms:.3f} ms ({by}), fp32 bound "
+            f"{fp32_ms:.3f} ms, TF32 bound {flops / TF32_FLOPS * 1e3:.3f} ms, "
+            f"{flops / 1e12:.4f} TFLOP -> {per_level[name]['achieved_tflops_s']:.2f} TFLOP/s")
+        log(f"[time] fused_train {name:6s} launches by kernel (torch.profiler, per call): "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
     ft.LAUNCHES["train"] = 0
 
     images = torch.as_tensor(ds.images[ds.i_train], device=device)

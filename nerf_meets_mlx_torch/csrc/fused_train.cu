@@ -14,52 +14,106 @@
 //                              ([fan_in][fan_out] pieces, see
 //                              fused_train.pack_train_weights).
 //
-// What bounds it: arithmetic. At the lego_hierarchical shapes a point costs
-// 593,280 MACs forward, as many for dW, and ~558,000 for the cotangents of
-// the hidden layers (dX of every layer but the first, without the skip's
-// and the view head's encoding rows): ~3.49 MFLOP a point, 0.92 TFLOP for
-// the coarse level (4096 x 64 points) and 2.74 TFLOP for the fine one
-// (4096 x 192), i.e. 13.7 ms and 41.0 ms at the 67 TFLOP/s fp32 peak.
+// Precision: every GEMM of the MLP (the dense layers forward, their
+// cotangents, dW = X^T dZ) runs on the tensor cores in 3xTF32. Each fp32
+// operand x is split into hi = rna_tf32(x) and lo = rna_tf32(x - hi), and
+// the products lo*hi + hi*lo, then hi*hi are summed (CUTLASS's 3xTF32;
+// lo*lo is dropped). mma reads a .tf32 operand by truncating its low 13
+// bits, so both halves are rounded to nearest (ties away) first, in integer
+// ops. The tensor cores add with truncation: a sum kept in their
+// accumulator over a whole layer (96 truncating adds at width 256) lands
+// ~100 ulp from the fp32 plain version's, and flips relu decisions near
+// zero that the plain version does not. So each k-step's three products
+// (dense tiles) or each 32-point slice's (dW) start from zero and are
+// added to the sum in fp32, rounded to nearest. The kernel is then as far
+// from a float64 reference as the fp32 plain version is, and is held to it
+// at atol 1e-4 + rtol 1e-4 (values) and 1e-3 of the largest plain
+// gradient (dW); one TF32 pass (10 mantissa bits) misses both.
+//
+// What bounds it. At the lego_hierarchical shapes a point costs 593,280
+// MACs forward, as many for dW, and ~558,000 for the cotangents of the
+// hidden layers: ~3.49 MFLOP a point, 0.915 TFLOP for the coarse level
+// (4096 x 64 points) and 2.745 TFLOP for the fine one (4096 x 192). In
+// 3xTF32 that is three times as many tensor-core operations: 3 x 0.915 /
+// 495 TFLOP/s = 5.6 ms and 16.6 ms (8.5 / 25.6 ms at the ~320 TFLOP/s
+// that mma.sync m16n8k8 TF32 reaches on an H100,
+// tools/train_kernel_probe.py). The activations stored for the backward
+// and dW (~20 KB a point, written once, read 2-3 times) take ~5 ms and
+// ~16 ms of the card's 3.35 TB/s. (The fp32 CUDA-core bound of the same
+// work is 13.7 / 41.0 ms.) What holds it back today is neither: the
+// instructions around the mmas (fragment loads from shared memory, the
+// hi/lo splits, the fp32 adds of each k-step's sum) take as long as the
+// mmas themselves, and with one 8-warp block an SM (its tiles fill shared
+// memory) the two do not overlap (PERF.md).
 //
 // Design: three launches per call, all hand-written here.
 //
 // 1. train_rays_kernel: a block owns `rays_block` rays and walks their
-//    points in tiles of TILE = 64, exactly as fused_eval.cu does (encode in
-//    registers, each dense layer a register-tiled fp32 GEMM over [feature]
-//    [point] shared-memory tiles, weights staged in 16-row slices). A
-//    point's activations (~2,500 floats) do not fit in shared memory for a
-//    whole block, so every layer's input is also written to device memory,
-//    point-major. After the last tile each ray is composited by one thread
-//    (exclusive transmittance scan), its squared error and its closed-form
-//    cotangents formed (g = 2*resid; dweight; the reverse suffix sum
-//    dq_t = dw_t*T_t*alpha'_t - sum_{s>t} dw_s*w_s), then each tile is
-//    backpropagated through the heads and the trunk (W^T GEMMs with the
-//    relu masks read back from device memory), and every layer's
-//    pre-activation cotangent dZ is written out, point-major.
+//    points in tiles of TILE = 64, as fused_eval.cu does (encode in
+//    registers, activations in [feature][point] shared-memory tiles of row
+//    stride LD = 72, weights staged in 16-row slices through registers,
+//    the next slice's loads in flight while the current one is
+//    multiplied). Each dense layer is a warp-level mma.sync m16n8k8 TF32
+//    GEMM: the 8 warps split the 64 points in two and the N/8 column tiles
+//    in four (ragged where N/8 is not a multiple of 4, as the 24-column
+//    W/2 head at width 48); fragments are loaded by hand from shared
+//    memory and split there, and the strides (LD = 72, weight rows N + 8
+//    where N is a multiple of 16) make every fragment load conflict-free.
+//    The epilogues (bias, relu, the relu mask read back, point-major
+//    stores) work on the accumulator fragments. Every layer's input is
+//    also written to device memory, point-major, since a point's ~2,500
+//    activations do not fit on chip for a whole block. After the last tile
+//    each ray is composited by one thread (exclusive transmittance scan),
+//    its squared error and its closed-form cotangents formed (g =
+//    2*resid; dweight; the reverse suffix sum dq_t = dw_t*T_t*alpha'_t -
+//    sum_{s>t} dw_s*w_s), then each tile is backpropagated through the
+//    heads and the trunk (W^T GEMMs with the relu masks read back), and
+//    every layer's pre-activation cotangent dZ is written out,
+//    point-major. The alpha (W -> 1) and rgb (W/2 -> 3) heads stay on the
+//    CUDA cores.
 // 2. dw_gemm_kernel: dW_l = X_l^T dZ_l (and db_l = colsum dZ_l) for every
-//    layer at once, as a split-K GEMM: a block computes one 128 x 128 tile
-//    of one layer over one split of the points (16 points per staged
-//    slice, loaded as float4 where rows allow, 8 x 8 outputs per thread)
-//    into a partial buffer.
+//    layer at once, as a split-K GEMM over the points: a block computes one
+//    128 x 128 tile of one layer over one split of the points into a
+//    partial buffer. Slices of 32 points of X and dZ are staged
+//    [point][feature] (row stride 136) by cp.async in three stages, so that
+//    two slices are in flight while one is multiplied; each warp owns a
+//    64 x 32 block of the tile (4 x 4 m16n8k8 tiles), one block an SM.
+//    The narrow jobs (the alpha head's N = 1 and the rgb head's N = 3)
+//    stay on the CUDA cores: a thread per row of X.
 // 3. reduce_kernel: sums the splits in a fixed order (deterministic, no
-//    atomics), and the per-block SSE partials.
+//    atomics), and the per-block SSE partials: two launches on the same
+//    inputs give bit-identical results.
 //
-// Storing the activations costs ~20 KB a point (15.6 GB at the fine level),
-// written once and read ~2-4 times: ~10 ms of the card's 3.35 TB/s at the
-// fine level against the 41 ms arithmetic bound. The TPU kernel's U/E
-// selector GEMMs, [S,S] scan matrix and 128-lane band packing are not
-// carried over. Plain fp32 FMAs only; tensor cores are later work.
-// Numerics as fused_eval.cu: sinf without fast math, phases rounded twice.
+// Tried and measured slower on the card (PERF.md): splitting each
+// operand once into (hi, lo) pairs in shared memory (64-bit fragment loads
+// and one more barrier cost more than the splits they save), staging the
+// weights by cp.async in two buffers, 512 threads a block (spills).
+// Left for later: wgmma (it takes TF32 operands K-major only, and both dW
+// operands are stored point-major, i.e. M/N-major; the forward tiles' A is
+// M-major too), TMA loads, warp specialisation so that the splits of one
+// warp group overlap the mmas of another, and a persistent schedule over
+// the dW tiles. The TPU kernel's U/E selector GEMMs, [S,S] scan matrix and
+// 128-lane band packing are not carried over. Numerics of the encode as
+// fused_eval.cu: sinf without fast math, phases rounded twice.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr int TILE = 64;          // points per MLP tile
-constexpr int LD = TILE + 4;      // row stride of the [feature][point] tiles
-constexpr int KB = 16;            // rows per staged slice
-constexpr int NTHREADS = 256;
+constexpr int LD = TILE + 8;      // row stride of the [feature][point] tiles (8 mod 32)
+constexpr int KB = 16;            // rows per staged weight slice
+constexpr int NTHREADS = 256;     // threads of a dW block: 8 warps
+constexpr int RT = 256;           // threads of a train_rays_kernel block
+constexpr int WN = RT / 64;       // warps along a dense tile's columns (two along its points)
 constexpr int GT = 128;           // dW tile edge (fan_in rows x fan_out cols)
+constexpr int KP = 32;            // points per staged dW slice
+constexpr int GS = GT + 8;        // row stride of a staged dW slice (8 mod 32)
+constexpr int DW_STAGES = 3;      // cp.async stages of the dW slices
+constexpr int DW_SMEM = DW_STAGES * 2 * KP * GS * (int)sizeof(float);  // X and dZ a stage
+constexpr int NARROW = 4;         // dW jobs of at most this many columns run on CUDA cores
 constexpr int MAX_OFFS = 64;      // 3*depth + 11 weight-buffer offsets
 constexpr int MAX_JOBS = 48;
 constexpr float HALF_PI = 1.57079632679489662f;
@@ -68,6 +122,10 @@ constexpr int MAX_SMEM = 232448;  // bytes a block may use on sm_90
 enum { EPI_NONE = 0, EPI_RELU = 1, EPI_MASK = 2 };
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Row stride of a staged N-column weight slice: 8 or 24 mod 32, so that the
+// 4 rows x 8 columns of a B fragment fall in 32 distinct banks.
+__host__ __device__ constexpr int wstride(int n) { return n % 16 == 0 ? n + 8 : n; }
 
 struct Args {
   const float* rays_o;    // [R, 3]
@@ -106,52 +164,107 @@ __device__ __forceinline__ float pick(int a, float x0, float x1, float x2) {
   return a == 0 ? x0 : (a == 1 ? x1 : x2);
 }
 
-// CW neighbouring floats at p (16-byte aligned for CW = 4, 8-byte for 2)
-template <int CW>
-__device__ __forceinline__ void ld_cols(const float* p, float (&v)[CW]) {
-  if constexpr (CW == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else if constexpr (CW == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x; v[1] = t.y;
-  } else {
-    v[0] = *p;
-  }
+// ---------------------------------------------------------------------------
+// 3xTF32 on the tensor cores, asynchronous copies
+// ---------------------------------------------------------------------------
+
+// x = hi + lo, both halves TF32 rounded to nearest, ties away from zero:
+// cvt.rna.tf32.f32's rounding done in integer ops (add half of the 13
+// dropped bits' range to the magnitude, then clear them), since
+// conversions issue at a quarter of the rate of integer ops. lo's low bits
+// are left for the mma, which reads a .tf32 operand by dropping them.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
 }
 
-template <int CW>
-__device__ __forceinline__ void ldg_cols(const float* p, float (&v)[CW]) {
-  if constexpr (CW == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else if constexpr (CW == 2) {
-    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
-    v[0] = t.x; v[1] = t.y;
-  } else {
-    v[0] = __ldg(p);
-  }
+// c += a * b on one m16n8k8 tile: TF32 operands, fp32 accumulator
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <int CW>
-__device__ __forceinline__ void st_cols(float* p, const float (&v)[CW]) {
-  if constexpr (CW == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else if constexpr (CW == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  } else {
-    *p = v[0];
-  }
+// c += a * b in 3xTF32 on the tensor cores: the small cross terms first,
+// then hi * hi
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
+// c += a * b in 3xTF32, summed on the tensor cores from zero (their adds
+// truncate, but over 24 products only), then added to c in fp32, rounded
+// to nearest
+__device__ __forceinline__ void mma_3xtf32_add(float (&c)[4], const uint32_t (&ah)[4],
+                                               const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                               const uint32_t (&bl)[2]) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_3xtf32(t, ah, al, bh, bl);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += t[i];
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros where !valid
+// (src must still be a valid address)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most `N` of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// The A fragment (16 x 8) of an m16n8k8 tile whose element (m, k) is at
+// p[k * ld + m], split into hi and lo. Lane (g = lane / 4, t = lane % 4)
+// holds (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4).
+__device__ __forceinline__ void load_a(const float* p, int ld, int g, int t, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  const float* q = p + t * ld + g;
+  split_tf32(q[0], hi[0], lo[0]);
+  split_tf32(q[8], hi[1], lo[1]);
+  split_tf32(q[4 * ld], hi[2], lo[2]);
+  split_tf32(q[4 * ld + 8], hi[3], lo[3]);
+}
+
+// The B fragment (8 x 8) whose element (k, n) is at p[k * ld + n]: lane
+// (g, t) holds (t, g) and (t + 4, g).
+__device__ __forceinline__ void load_b(const float* p, int ld, int g, int t, uint32_t (&hi)[2],
+                                       uint32_t (&lo)[2]) {
+  const float* q = p + t * ld + g;
+  split_tf32(q[0], hi[0], lo[0]);
+  split_tf32(q[4 * ld], hi[1], lo[1]);
 }
 
 // out[col][p] = epi(b[col] + sum_k in[k][p] * Wg[k][col]) for the TILE
-// points of a tile, as fused_eval.cu's dense, plus:
+// points of a tile (in: kA rows of inA, then kB rows of inB), plus:
 //  * EPI_MASK: the value is kept where mask[p][col] > 0 and zeroed
 //    elsewhere (the relu derivative; mask is point-major, N per row);
 //  * gout (if set): the result is also written point-major (N per row)
 //    for the tile's first `nvalid` points.
 // bg may be null (no bias). Input segments are padded to KB rows; rows
-// past kA / kB read zero weights.
+// past kA / kB read zero weights. Warp w computes points 32 * (w % 2) .. +32
+// (two m16 tiles) and the column tiles w / 2 + WN j of the N / 8; output
+// rows from N up to the KB padding are zeroed (the 24-column W/2 head of
+// width 48). The weights come in KB-row slices, loaded into registers while
+// the previous slice is multiplied and stored to wtile; both operands are
+// split as their fragments are loaded. Each
+// k-step's three products go into a fresh accumulator, added to the tile's
+// sum in fp32: the tensor cores add with truncation, so a sum kept in their
+// accumulator over a whole layer drifts from the fp32 plain version's by
+// ~100 ulp, and relu decisions near zero with it.
 template <int N>
 __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
                                       const float* __restrict__ inB, int kB,
@@ -160,28 +273,27 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
                                       int epi, const float* __restrict__ mask,
                                       float* __restrict__ gout, int nvalid,
                                       float* __restrict__ wtile) {
-  // a thread holds CW neighbouring columns of each of NG groups, column
-  // 16*CW*n + CW*tx + j, of the N columns rounded up to NP, a multiple of
-  // 16: CW is 4 where NP/16 allows it (every power of two from 64 on), else
-  // 2 or 1. A group at or past N (the W/2 head of a width such as 48 has 24
-  // columns) reads zero weights, computes zeros and stores nothing to
-  // device memory.
-  constexpr int NP = (N + 15) / 16 * 16;
-  constexpr int CW = (NP / 16) % 4 == 0 ? 4 : ((NP / 16) % 2 == 0 ? 2 : 1);
-  constexpr int NG = NP / (16 * CW);
   static_assert(N % 8 == 0 && N >= 8 && N <= 256, "dense takes 8..256 columns, a multiple of 8");
+  constexpr int NT = N / 8;                // column tiles
+  constexpr int NTW = (NT + WN - 1) / WN;  // column tiles a warp owns (at most)
+  constexpr int NS = wstride(N);
   constexpr int N4 = N / 4;
   constexpr int SLICE4 = KB * N4;
-  constexpr int LOADS = (SLICE4 + NTHREADS - 1) / NTHREADS;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  constexpr int LOADS = (SLICE4 + RT - 1) / RT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int pm = 32 * (warp & 1), wn = warp >> 1;
   const int nA = round_up(kA, KB) / KB;
   const int nT = nA + round_up(kB, KB) / KB;
+  auto owns = [&](int j) { return NT % WN == 0 || wn + WN * j < NT; };
 
-  float acc[4][CW * NG];
+  float acc[2][NTW][4];
 #pragma unroll
-  for (int m = 0; m < 4; ++m)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int c = 0; c < CW * NG; ++c) acc[m][c] = 0.f;
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
 
   float4 stage[LOADS];
   auto fetch = [&](int t) {
@@ -191,7 +303,7 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
     const int row0 = (first ? 0 : kA) + k0;
 #pragma unroll
     for (int l = 0; l < LOADS; ++l) {
-      const int idx = tid + l * NTHREADS;
+      const int idx = tid + l * RT;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (idx < SLICE4) {
         const int kk = idx / N4, c4 = idx - kk * N4;
@@ -207,68 +319,66 @@ __device__ __forceinline__ void dense(const float* __restrict__ inA, int kA,
     __syncthreads();
 #pragma unroll
     for (int l = 0; l < LOADS; ++l) {
-      const int idx = tid + l * NTHREADS;
-      if (idx < SLICE4) reinterpret_cast<float4*>(wtile)[idx] = stage[l];
+      const int idx = tid + l * RT;
+      if (idx < SLICE4) {
+        const int kk = idx / N4, c4 = idx - kk * N4;
+        *reinterpret_cast<float4*>(wtile + kk * NS + 4 * c4) = stage[l];
+      }
     }
     __syncthreads();
     if (t + 1 < nT) fetch(t + 1);
     const float* in = t < nA ? inA + t * KB * LD : inB + (t - nA) * KB * LD;
 #pragma unroll
-    for (int kk = 0; kk < KB; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(in + kk * LD + 4 * ty);
+    for (int k8 = 0; k8 < KB; k8 += 8) {
+      uint32_t bh[NTW][2], bl[NTW][2];
 #pragma unroll
-      for (int n = 0; n < NG; ++n) {
-        float wv[CW] = {};
-        if (N % 16 == 0 || 16 * CW * n + CW * tx < N)
-          ld_cols<CW>(wtile + kk * N + 16 * CW * n + CW * tx, wv);
+      for (int j = 0; j < NTW; ++j)
+        if (owns(j)) load_b(wtile + k8 * NS + 8 * (wn + WN * j), NS, g, t4, bh[j], bl[j]);
 #pragma unroll
-        for (int j = 0; j < CW; ++j) {
-          acc[0][CW * n + j] = fmaf(a.x, wv[j], acc[0][CW * n + j]);
-          acc[1][CW * n + j] = fmaf(a.y, wv[j], acc[1][CW * n + j]);
-          acc[2][CW * n + j] = fmaf(a.z, wv[j], acc[2][CW * n + j]);
-          acc[3][CW * n + j] = fmaf(a.w, wv[j], acc[3][CW * n + j]);
-        }
+      for (int i = 0; i < 2; ++i) {
+        uint32_t ah[4], al[4];
+        load_a(in + k8 * LD + pm + 16 * i, LD, g, t4, ah, al);
+#pragma unroll
+        for (int j = 0; j < NTW; ++j)
+          if (owns(j)) mma_3xtf32_add(acc[i][j], ah, al, bh[j], bl[j]);
       }
     }
   }
 
-  const int p0 = 4 * ty;
+  // accumulator (i, j): rows pm + 16 i + g (+ 8), columns 8 (wn + WN j) + 2 t4 (+ 1)
 #pragma unroll
-  for (int n = 0; n < NG; ++n) {
-    const int c0 = 16 * CW * n + CW * tx;
-    const bool live = N % 16 == 0 || c0 < N;
-    float b[CW];
+  for (int j = 0; j < NTW; ++j) {
+    if (!owns(j)) continue;
+    const int col = 8 * (wn + WN * j) + 2 * t4;
+    const float b0 = bg ? __ldg(bg + col) : 0.f;
+    const float b1 = bg ? __ldg(bg + col + 1) : 0.f;
 #pragma unroll
-    for (int j = 0; j < CW; ++j) b[j] = bg && live ? __ldg(bg + c0 + j) : 0.f;
-    float v[4][CW];
+    for (int i = 0; i < 2; ++i) {
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      float mk[CW];
-#pragma unroll
-      for (int j = 0; j < CW; ++j) mk[j] = 1.f;
-      if (epi == EPI_MASK) {
-#pragma unroll
-        for (int j = 0; j < CW; ++j) mk[j] = 0.f;
-        if (live && p0 + m < nvalid) ldg_cols<CW>(mask + (size_t)(p0 + m) * N + c0, mk);
-      }
-#pragma unroll
-      for (int j = 0; j < CW; ++j) {
-        float x = acc[m][CW * n + j] + b[j];
-        if (epi == EPI_RELU) x = fmaxf(x, 0.f);
-        if (epi == EPI_MASK) x = mk[j] > 0.f ? x : 0.f;
-        v[m][j] = x;
+      for (int h = 0; h < 2; ++h) {
+        const int p = pm + 16 * i + g + 8 * h;
+        float v0 = acc[i][j][2 * h] + b0;
+        float v1 = acc[i][j][2 * h + 1] + b1;
+        if (epi == EPI_RELU) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        if (epi == EPI_MASK) {
+          float2 mk = make_float2(0.f, 0.f);
+          if (p < nvalid) mk = __ldg(reinterpret_cast<const float2*>(mask + (size_t)p * N + col));
+          v0 = mk.x > 0.f ? v0 : 0.f;
+          v1 = mk.y > 0.f ? v1 : 0.f;
+        }
+        out[col * LD + p] = v0;
+        out[(col + 1) * LD + p] = v1;
+        if (gout && p < nvalid)
+          *reinterpret_cast<float2*>(gout + (size_t)p * N + col) = make_float2(v0, v1);
       }
     }
-#pragma unroll
-    for (int j = 0; j < CW; ++j)
-      *reinterpret_cast<float4*>(out + (c0 + j) * LD + p0) =
-          make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
-    if (gout) {
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-        if (live && p0 + m < nvalid)
-          st_cols<CW>(gout + (size_t)(p0 + m) * N + c0, v[m]);
-    }
+  }
+  if constexpr (N % KB != 0) {
+    for (int idx = tid; idx < (KB - N % KB) * TILE; idx += RT)
+      out[(N + idx / TILE) * LD + idx % TILE] = 0.f;
   }
   __syncthreads();
 }
@@ -290,7 +400,7 @@ __device__ __forceinline__ float encode_feature(int f, int F, int inc, const flo
 }
 
 template <int W>
-__global__ void __launch_bounds__(NTHREADS, 1) train_rays_kernel(const __grid_constant__ Args A) {
+__global__ void __launch_bounds__(RT, 1) train_rays_kernel(const __grid_constant__ Args A) {
   extern __shared__ __align__(16) float smem[];
   constexpr int WH = W / 2;
   constexpr int WHP = round_up(WH, KB);
@@ -303,8 +413,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) train_rays_kernel(const __grid_co
   float* bufB = bufA + W * LD;          // [W][LD]
   float* encP = bufB + W * LD;          // [pos_pad][LD]; the sigma row in backward
   float* encD = encP + pos_pad * LD;    // [dir_pad][LD]
-  float* wtile = encD + dir_pad * LD;   // [KB][W]
-  float* pc = wtile + KB * W;           // [RB*S][3] raw rgb -> colour -> d(raw rgb)
+  float* wtile = encD + dir_pad * LD;   // [KB][wstride(W)]
+  float* pc = wtile + KB * wstride(W);  // [RB*S][3] raw rgb -> colour -> d(raw rgb)
   float* pq = pc + RB * S * 3;          // raw sigma -> q -> d(raw sigma)
   float* pa = pq + RB * S;              // alpha -> weight
   float* pda = pa + RB * S;             // d(alpha)/dq -> T * d(alpha)/dq
@@ -342,12 +452,12 @@ __global__ void __launch_bounds__(NTHREADS, 1) train_rays_kernel(const __grid_co
         x2 = __fadd_rn(o[2], __fmul_rn(zz, d[2]));
         v0 = vd[0]; v1 = vd[1]; v2 = vd[2];
       }
-      for (int f = part; f < pos_pad; f += NTHREADS / TILE) {
+      for (int f = part; f < pos_pad; f += RT / TILE) {
         const float e = encode_feature(f, A.pos_freqs, A.pos_inc, pos_bands, x0, x1, x2);
         encP[f * LD + p] = e;
         if (p < nv) A.encP[(g0 + p) * pos_pad + f] = e;
       }
-      for (int f = part; f < dir_pad; f += NTHREADS / TILE) {
+      for (int f = part; f < dir_pad; f += RT / TILE) {
         const float e = encode_feature(f, A.dir_freqs, A.dir_inc, dir_bands, v0, v1, v2);
         encD[f * LD + p] = e;
         if (p < nv) A.encD[(g0 + p) * dir_pad + f] = e;
@@ -394,7 +504,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) train_rays_kernel(const __grid_co
   }
 
   // ---------------- per-point compositing terms (_alpha_terms) ----------------
-  for (int i = tid; i < npts; i += NTHREADS) {
+  for (int i = tid; i < npts; i += RT) {
     const float delta = A.deltas[gbase + i];
     const float raw = pq[i] + A.noise[gbase + i];
     float q, alpha, da, dqd;
@@ -431,7 +541,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) train_rays_kernel(const __grid_co
   __syncthreads();
 
   // ---------------- per ray: scan, composite, loss, closed-form backward ----------------
-  for (int rr = tid; rr < nr; rr += NTHREADS) {
+  for (int rr = tid; rr < nr; rr += RT) {
     const int ray = r0 + rr;
     const int b = rr * S;
     float* wout = A.weights + (size_t)ray * S;
@@ -497,7 +607,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) train_rays_kernel(const __grid_co
     const size_t g0 = gbase + t0;
     // rgb head: d(hd) = (d(raw rgb) @ Wr^T) * (hd > 0) -> bufA rows [0, W/2)
     // (rows up to W/2 rounded up to KB: the next layers read whole slices)
-    for (int idx = tid; idx < TILE * WHP; idx += NTHREADS) {
+    for (int idx = tid; idx < TILE * WHP; idx += RT) {
       const int p = idx / WHP, c = idx - p * WHP;
       float v = 0.f;
       if (p < nv && c < WH) {
@@ -511,7 +621,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) train_rays_kernel(const __grid_co
       bufA[c * LD + p] = v;
     }
     // the alpha head's cotangent as one input row (rows 1..KB-1 zero)
-    for (int idx = tid; idx < KB * TILE; idx += NTHREADS) {
+    for (int idx = tid; idx < KB * TILE; idx += RT) {
       const int r = idx / TILE, p = idx - r * TILE;
       encP[r * LD + p] = (r == 0 && p < nv) ? pq[t0 + p] : 0.f;
     }
@@ -564,120 +674,157 @@ struct GemmArgs {
   float* part;            // [n_splits][part_stride]
 };
 
+// One 128 x 128 tile of C over the points [pb, pe) on the tensor cores,
+// into out; with BIAS also db[n] = sum_p b[p][n] (fp32, CUDA cores, fixed
+// order). Warp w owns rows 64 * (w % 2) .. +64 and columns 32 * (w / 2) ..
+// +32 of the tile. The tensor cores add with truncation, so a slice's
+// products are summed in a fresh accumulator and the slices' sums in fp32
+// (round to nearest): the sum over thousands of points stays as close to
+// the fp32 plain version's as an fp32 FMA chain.
 template <bool BIAS>
 __device__ __forceinline__ void dw_tile(const Job& J, int k0, int n0, long long pb, long long pe,
-                                        float* __restrict__ out, float* __restrict__ As,
-                                        float* __restrict__ Bs) {
-  constexpr int PER = KB * GT / NTHREADS;  // staged values per thread and operand
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  float acc[8][8];
+                                        float* __restrict__ out, float* __restrict__ smem) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = 64 * (warp & 1), wn = 32 * (warp >> 1);
+  float tot[4][4][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  float bsum[8];
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-  for (int j = 0; j < 8; ++j) bsum[j] = 0.f;
+      for (int c = 0; c < 4; ++c) tot[i][j][c] = 0.f;
+  float bsum = 0.f;
 
-  // a slice is KB points x GT columns of an operand, staged in registers
-  // while the previous slice is multiplied; rows whose length is a
-  // multiple of 4 load as float4 (all but dalpha's and drgb's)
-  float sa[PER], sb[PER];
-  const bool va = (J.lda & 3) == 0, vb = (J.ldb & 3) == 0;
-  auto load_slice = [&](float* dst, const float* src, long long ld, int c0, int lim, bool vec,
-                        long long p0) {
-    if (vec) {
+  // stage s: X slice [KP][GS] then dZ slice [KP][GS]; a 16-byte chunk of a
+  // row is copied whole or not at all (lda, ldb are multiples of 4), rows
+  // past pe and columns past the row length read zeros
+  auto load = [&](int s, long long p0) {
+    float* As = smem + s * 2 * KP * GS;
+    float* Bs = As + KP * GS;
 #pragma unroll
-      for (int l = 0; l < PER / 4; ++l) {
-        const int idx = tid + l * NTHREADS;
-        const int pp = idx / (GT / 4), c = 4 * (idx - pp * (GT / 4));
-        const long long p = p0 + pp;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (p < pe) {
-          if (c0 + c + 3 < lim) {
-            v = __ldg(reinterpret_cast<const float4*>(src + p * ld + c0 + c));
-          } else {
-            if (c0 + c + 0 < lim) v.x = __ldg(src + p * ld + c0 + c + 0);
-            if (c0 + c + 1 < lim) v.y = __ldg(src + p * ld + c0 + c + 1);
-            if (c0 + c + 2 < lim) v.z = __ldg(src + p * ld + c0 + c + 2);
-          }
-        }
-        dst[4 * l + 0] = v.x; dst[4 * l + 1] = v.y; dst[4 * l + 2] = v.z; dst[4 * l + 3] = v.w;
-      }
-    } else {
-#pragma unroll
-      for (int l = 0; l < PER; ++l) {
-        const int idx = tid + l * NTHREADS;
-        const int pp = idx / GT, col = idx - pp * GT;
-        const long long p = p0 + pp;
-        dst[l] = (p < pe && c0 + col < lim) ? __ldg(src + p * ld + c0 + col) : 0.f;
-      }
-    }
-  };
-  auto fetch = [&](long long p0) {
-    load_slice(sa, J.a, J.lda, k0, J.K, va, p0);
-    load_slice(sb, J.b, J.ldb, n0, J.N, vb, p0);
-  };
-  auto stash = [&](float* dst, const float* src, bool vec) {
-    if (vec) {
-#pragma unroll
-      for (int l = 0; l < PER / 4; ++l)
-        reinterpret_cast<float4*>(dst)[tid + l * NTHREADS] =
-            make_float4(src[4 * l], src[4 * l + 1], src[4 * l + 2], src[4 * l + 3]);
-    } else {
-#pragma unroll
-      for (int l = 0; l < PER; ++l) dst[tid + l * NTHREADS] = src[l];
+    for (int l = 0; l < KP * GT / 4 / NTHREADS; ++l) {
+      const int idx = tid + l * NTHREADS;
+      const int pp = idx / (GT / 4), c = 4 * (idx % (GT / 4));
+      const long long p = p0 + pp;
+      const bool va = p < pe && k0 + c < J.lda;
+      const bool vb = p < pe && n0 + c < J.ldb;
+      cp_async16(As + pp * GS + c, va ? J.a + p * J.lda + k0 + c : J.a, va);
+      cp_async16(Bs + pp * GS + c, vb ? J.b + p * J.ldb + n0 + c : J.b, vb);
     }
   };
 
-  fetch(pb);
-  for (long long p0 = pb; p0 < pe; p0 += KB) {
-    __syncthreads();
-    stash(As, sa, va);
-    stash(Bs, sb, vb);
-    __syncthreads();
-    if (p0 + KB < pe) fetch(p0 + KB);
+  const int n_sl = (int)((pe - pb + KP - 1) / KP);
 #pragma unroll
-    for (int kk = 0; kk < KB; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(As + kk * GT + 4 * ty);
-      const float4 a1 = *reinterpret_cast<const float4*>(As + kk * GT + 64 + 4 * ty);
-      const float4 b0 = *reinterpret_cast<const float4*>(Bs + kk * GT + 4 * tx);
-      const float4 b1 = *reinterpret_cast<const float4*>(Bs + kk * GT + 64 + 4 * tx);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  for (int s = 0; s < DW_STAGES - 1; ++s) {
+    if (s < n_sl) load(s, pb + (long long)s * KP);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_sl; ++t) {
+    cp_async_wait<DW_STAGES - 2>();  // slice t has landed (this thread's copies)
+    __syncthreads();  // ... and every thread's; slice t - 1's stage is free
+    const int nx = t + DW_STAGES - 1;
+    if (nx < n_sl) load(nx % DW_STAGES, pb + (long long)nx * KP);
+    cp_async_commit();
+    const float* As = smem + (t % DW_STAGES) * 2 * KP * GS;
+    const float* Bs = As + KP * GS;
+    if (BIAS) {  // column tid % GT over half the slice's points
+      const int c = tid & (GT - 1), h = tid / GT;
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int pp = 0; pp < KP / 2; ++pp) bsum += Bs[(h * (KP / 2) + pp) * GS + c];
+    }
+    float acc[4][4][4];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      if (BIAS) {
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) bsum[j] += bv[j];
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+#pragma unroll
+    for (int k8 = 0; k8 < KP; k8 += 8) {
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) load_b(Bs + k8 * GS + wn + 8 * j, GS, g, t4, bh[j], bl[j]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint32_t ah[4], al[4];
+        load_a(As + k8 * GS + wm + 16 * i, GS, g, t4, ah, al);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_3xtf32(acc[i][j], ah, al, bh[j], bl[j]);
       }
     }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) tot[i][j][c] += acc[i][j][c];
   }
 
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int k = k0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
-    if (k >= J.K) continue;
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
-      if (n < J.N) out[J.c_off + (size_t)k * J.ldc + n] = acc[i][j];
-    }
-  }
-  if (BIAS && ty == 0) {
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
-      if (n < J.N) out[J.bias_off + n] = bsum[j];
-    }
+      for (int h = 0; h < 2; ++h) {
+        const int k = k0 + wm + 16 * i + g + 8 * h;
+        const int n = n0 + wn + 8 * j + 2 * t4;  // even, and N is even
+        if (k < J.K && n < J.N)
+          *reinterpret_cast<float2*>(out + J.c_off + (size_t)k * J.ldc + n) =
+              make_float2(tot[i][j][2 * h], tot[i][j][2 * h + 1]);
+      }
+  if (BIAS) {
+    __syncthreads();  // every warp is done with the stages (only empty copy groups remain)
+    smem[tid] = bsum;
+    __syncthreads();
+    if (tid < GT && n0 + tid < J.N) out[J.bias_off + n0 + tid] = smem[tid] + smem[tid + GT];
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS) dw_gemm_kernel(const __grid_constant__ GemmArgs G) {
-  __shared__ __align__(16) float As[KB * GT];
-  __shared__ __align__(16) float Bs[KB * GT];
+// A job of at most NARROW columns (the alpha head's dW, N = 1; the rgb
+// head's, N = 3) on the CUDA cores: thread t owns row k0 + t % GT over
+// every other point of [pb, pe); a point's N cotangents are the same
+// address for every thread of a half (a broadcast).
+__device__ __forceinline__ void dw_narrow(const Job& J, int k0, long long pb, long long pe,
+                                          float* __restrict__ out, float* __restrict__ smem) {
+  const int tid = threadIdx.x, r = tid & (GT - 1), h = tid / GT;
+  const int k = k0 + r;
+  const bool live = k < J.K;
+  float acc[NARROW], bsum[NARROW];
+#pragma unroll
+  for (int n = 0; n < NARROW; ++n) acc[n] = bsum[n] = 0.f;
+#pragma unroll 4
+  for (long long p = pb + h; p < pe; p += 2) {
+    const float x = live ? __ldg(J.a + p * J.lda + k) : 0.f;
+#pragma unroll
+    for (int n = 0; n < NARROW; ++n) {
+      if (n < J.N) {
+        const float d = __ldg(J.b + p * J.ldb + n);
+        acc[n] = fmaf(x, d, acc[n]);
+        bsum[n] += d;
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NARROW; ++n) smem[(h * GT + r) * NARROW + n] = acc[n];
+  if (r == 0) {
+#pragma unroll
+    for (int n = 0; n < NARROW; ++n) smem[2 * GT * NARROW + h * NARROW + n] = bsum[n];
+  }
+  __syncthreads();
+  if (h == 0 && live) {
+    for (int n = 0; n < J.N; ++n)
+      out[J.c_off + (size_t)k * J.ldc + n] =
+          smem[r * NARROW + n] + smem[(GT + r) * NARROW + n];
+  }
+  if (tid == 0 && J.bias_off >= 0 && k0 == 0) {
+    for (int n = 0; n < J.N; ++n)
+      out[J.bias_off + n] = smem[2 * GT * NARROW + n] + smem[2 * GT * NARROW + NARROW + n];
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1) dw_gemm_kernel(const __grid_constant__ GemmArgs G) {
+  extern __shared__ __align__(16) float smem[];
   const int t = blockIdx.x;
   int j = 0;
   while (j + 1 < G.n_jobs && G.jobs[j + 1].tile0 <= t) ++j;
@@ -687,10 +834,12 @@ __global__ void __launch_bounds__(NTHREADS) dw_gemm_kernel(const __grid_constant
   const long long pb = (long long)blockIdx.y * G.pts_per_split;
   const long long pe = min(G.P, pb + (long long)G.pts_per_split);
   float* out = G.part + (size_t)blockIdx.y * G.part_stride;
-  if (J.bias_off >= 0 && k0 == 0)
-    dw_tile<true>(J, k0, n0, pb, pe, out, As, Bs);
+  if (J.N <= NARROW)
+    dw_narrow(J, k0, pb, pe, out, smem);
+  else if (J.bias_off >= 0 && k0 == 0)
+    dw_tile<true>(J, k0, n0, pb, pe, out, smem);
   else
-    dw_tile<false>(J, k0, n0, pb, pe, out, As, Bs);
+    dw_tile<false>(J, k0, n0, pb, pe, out, smem);
 }
 
 // dw[i] = sum over splits of part[split][i], in split order; sse = sum of
@@ -728,7 +877,8 @@ bool width_ok(int w) { return w == 32 || w == 64 || w == 128 || w == 256; }
 
 size_t smem_bytes(int W, int S, int rays_block, int pos_dim, int dir_dim) {
   return sizeof(float) * ((size_t)(2 * W + round_up(pos_dim, KB) + round_up(dir_dim, KB)) * LD +
-                          (size_t)KB * W + (size_t)rays_block * S * 7 + (size_t)rays_block);
+                          (size_t)KB * wstride(W) + (size_t)rays_block * S * 7 +
+                          (size_t)rays_block);
 }
 
 struct Layout {
@@ -826,7 +976,7 @@ extern "C" int fused_train_launch(const float* rays_o, const float* rays_d, cons
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<L.n_blocks, NTHREADS, smem, st>>>(a);
+  kernel<<<L.n_blocks, RT, smem, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -837,6 +987,7 @@ extern "C" int fused_train_launch(const float* rays_o, const float* rays_d, cons
   const int D = depth, WH = W / 2;
   const int pos_pad = round_up(pos_dim, KB), dir_pad = round_up(dir_dim, KB);
   int nj = 0, tiles = 0;
+  bool shapes_ok = true;
   auto add = [&](const float* A_, int lda, const float* B_, int ldb, int K, int N, int c_off,
                  int ldc, int bias_off) {
     Job& J = G.jobs[nj++];
@@ -845,6 +996,9 @@ extern "C" int fused_train_launch(const float* rays_o, const float* rays_d, cons
     J.tile0 = tiles;
     J.tiles_n = (N + GT - 1) / GT;
     tiles += ((K + GT - 1) / GT) * J.tiles_n;
+    // the tensor-core tile copies 16-byte chunks and stores float2 pairs
+    if (N > NARROW)
+      shapes_ok &= lda % 4 == 0 && ldb % 4 == 0 && N % 2 == 0 && ldc % 2 == 0 && c_off % 2 == 0;
   };
   if (D + 6 + __builtin_popcount(skip_mask) > MAX_JOBS) return (int)cudaErrorInvalidValue;
   add(a.encP, pos_pad, a.dzs, W, pos_dim, W, offs[0], W, offs[1]);
@@ -864,12 +1018,15 @@ extern "C" int fused_train_launch(const float* rays_o, const float* rays_d, cons
   add(a.feat, W, a.ddir, WH, W, WH, offs[2 * D + 4], WH, offs[2 * D + 5]);
   add(a.encD, dir_pad, a.ddir, WH, dir_dim, WH, offs[2 * D + 4] + W * WH, WH, -1);
   add(a.hd, WH, a.drgb, 3, WH, 3, offs[2 * D + 6], 3, offs[2 * D + 7]);
+  if (!shapes_ok) return (int)cudaErrorInvalidValue;
   G.n_jobs = nj;
   G.P = (long long)P;
   G.pts_per_split = pts_per_split;
   G.part_stride = L.part_stride;
   G.part = workspace + L.part;
-  dw_gemm_kernel<<<dim3((unsigned)tiles, (unsigned)L.n_splits), NTHREADS, 0, st>>>(G);
+  err = cudaFuncSetAttribute(dw_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DW_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dw_gemm_kernel<<<dim3((unsigned)tiles, (unsigned)L.n_splits), NTHREADS, DW_SMEM, st>>>(G);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

@@ -87,22 +87,24 @@ def eval_block(n_samples: int) -> int:
 def max_fused_samples() -> int:
     """Largest per-ray sample count routed to the fused kernels. A block
     needs 20·S (eval) or 28·S (train) bytes per ray of shared memory beside
-    its 181,760 bytes of tiles; at one ray per block S = 1024 still fits the
-    232,448 bytes a block may use."""
+    its 181,760 (eval) or 192,000 (train) bytes of tiles; at one ray per
+    block S = 1024 still fits the 232,448 bytes a block may use (220,676
+    for the train kernel)."""
     return 1024
 
 
-# Train kernel: the same tiles as the eval kernel plus 28 bytes a point
+# Train kernel: the eval kernel's tiles with the tensor-core strides (rows
+# of 72 points, weight slices of 264 columns) plus 28 bytes a point
 # (colour, q, alpha, the two alpha derivatives) beside them, so a block
-# again holds about 512 points' worth of rays (196,128 bytes at S=64) and
+# again holds about 512 points' worth of rays (206,368 bytes at S=64) and
 # runs alone on its SM; 4096 rays make 512 blocks (S=64) or 2048 (S=192).
 TRAIN_TARGET_POINTS = 512
 # dW = X^T dZ is summed over the points in partials of about this many
 # points: at lego width a partial is 42 blocks of 128 x 128 outputs, one
-# block per SM, so the coarse level's 262,144 points give 32 partials
+# block an SM, so the coarse level's 262,144 points give 32 partials
 # (1,344 blocks, 10.2 waves on 132 SMs) and the fine level's 786,432 give
-# 98 (31 waves), so the last wave's idle SMs cost little; the partial
-# buffer (2.4 MB each) stays small beside the stored activations.
+# 98 (4,116 blocks, 31.2 waves); the partial buffer (2.4 MB each) stays
+# small beside the stored activations.
 DW_SPLIT_POINTS = 8192
 
 

@@ -9,10 +9,15 @@
   (``pack_train_weights``) and into the dW layout it writes: the closed-form
   compositing backward, the transposed backward matrices and the per-job
   dW blocks, against autograd through the plain version.
+* The kernel's precision: the same algorithm with its tensor-core products
+  in emulated 3xTF32 holds the card's tolerances at lego_hierarchical's
+  width; one TF32 pass lands further off.
 * The wrapper's routing: CPU tensors run the plain version and launch
   nothing; other devices raise.
-* ``gpu``-marked: the CUDA kernel against the plain version at S = 64 and
-  192, widths 256 and 128, on the card (skipped where no card is present).
+* ``gpu``-marked: the CUDA kernel against the plain version at S = 64, 192
+  and 1024 (one ray a block), widths 256 and 128, and at the narrow widths;
+  two launches on the same inputs give bit-identical results (skipped
+  where no card is present).
 """
 
 import dataclasses
@@ -172,10 +177,14 @@ def _check_train_against_jax(mode, act, white, width=None, grads_of_kernel=True)
             )
 
 
-def _emulate_kernel(mlp, pos_enc, dir_enc, tspec, ro, rd, vd, z, dl, nz, tg):
+def _emulate_kernel(mlp, pos_enc, dir_enc, tspec, ro, rd, vd, z, dl, nz, tg, mm=torch.matmul):
     """csrc/fused_train.cu's algorithm in torch, reading the weights from
     the buffer the kernel reads and writing dW into the layout it writes;
-    returns (sse, rgb, weights, grads) as ``_train_launch`` does."""
+    returns (sse, rgb, weights, grads) as ``_train_launch`` does. ``mm``
+    takes the products the kernel runs on the tensor cores (the dense
+    layers, their cotangents, dW of every job wider than 4 columns); the
+    alpha and rgb heads and their dW stay fp32 products, as on the CUDA
+    cores."""
     cfg = mlp.cfg
     D, W = cfg.net_depth, cfg.net_width
     WH = W // 2
@@ -194,16 +203,16 @@ def _emulate_kernel(mlp, pos_enc, dir_enc, tspec, ro, rd, vd, z, dl, nz, tg):
     xp = sinusoidal_encode(pts, vec(2 * D + 8, pos_enc.n_freqs), pos_enc.include_input)
     xd = sinusoidal_encode(dirs, vec(2 * D + 9, dir_enc.n_freqs), dir_enc.include_input)
     Pd, Dd = xp.shape[1], xd.shape[1]
-    hs = [torch.relu(xp @ mat(0, Pd, W) + vec(1, W))]
+    hs = [torch.relu(mm(xp, mat(0, Pd, W)) + vec(1, W))]
     for j in range(1, D):
         if (j - 1) in cfg.skips:
             x = torch.cat([xp, hs[-1]], -1)
-            hs.append(torch.relu(x @ mat(2 * j, Pd + W, W) + vec(2 * j + 1, W)))
+            hs.append(torch.relu(mm(x, mat(2 * j, Pd + W, W)) + vec(2 * j + 1, W)))
         else:
-            hs.append(torch.relu(hs[-1] @ mat(2 * j, W, W) + vec(2 * j + 1, W)))
+            hs.append(torch.relu(mm(hs[-1], mat(2 * j, W, W)) + vec(2 * j + 1, W)))
     raw_a = (hs[-1] @ mat(2 * D, W, 1) + vec(2 * D + 1, 1)).reshape(R, S)
-    feat = hs[-1] @ mat(2 * D + 2, W, W) + vec(2 * D + 3, W)
-    hd = torch.relu(torch.cat([feat, xd], -1) @ mat(2 * D + 4, W + Dd, WH) + vec(2 * D + 5, WH))
+    feat = mm(hs[-1], mat(2 * D + 2, W, W)) + vec(2 * D + 3, W)
+    hd = torch.relu(mm(torch.cat([feat, xd], -1), mat(2 * D + 4, W + Dd, WH)) + vec(2 * D + 5, WH))
     raw_rgb = (hd @ mat(2 * D + 6, WH, 3) + vec(2 * D + 7, 3)).reshape(R, S, 3)
 
     # per point: q, alpha, d(alpha)/dq, dq/d(raw sigma)
@@ -245,17 +254,17 @@ def _emulate_kernel(mlp, pos_enc, dir_enc, tspec, ro, rd, vd, z, dl, nz, tg):
 
     # backprop with the transposed matrices of the buffer
     ddir = (drgb @ mat(2 * D + 6, WH, 3).t()) * (hd > 0)
-    dfeat = ddir @ mat(3 * D + 10, WH, W)
+    dfeat = mm(ddir, mat(3 * D + 10, WH, W))
     dzs = [None] * D
-    dzs[D - 1] = (torch.cat([dfeat, dsigma], -1) @ mat(3 * D + 9, W + 1, W)) * (hs[-1] > 0)
+    dzs[D - 1] = mm(torch.cat([dfeat, dsigma], -1), mat(3 * D + 9, W + 1, W)) * (hs[-1] > 0)
     for j in range(D - 1, 0, -1):
-        dzs[j - 1] = (dzs[j] @ mat(2 * D + 10 + j - 1, W, W)) * (hs[j - 1] > 0)
+        dzs[j - 1] = mm(dzs[j], mat(2 * D + 10 + j - 1, W, W)) * (hs[j - 1] > 0)
 
     # dW = X^T dZ per job, into the forward layout
     dwbuf = torch.zeros(offs[2 * D + 8])
 
     def job(X, dZ, c_off, bias_off=None):
-        blk = X.t() @ dZ
+        blk = X.t() @ dZ if dZ.shape[1] <= 4 else mm(X.t(), dZ)
         dwbuf[c_off : c_off + blk.numel()] = blk.reshape(-1)
         if bias_off is not None:
             dwbuf[bias_off : bias_off + dZ.shape[1]] = dZ.sum(0)
@@ -320,6 +329,77 @@ def test_kernel_algorithm_and_layout_match_autograd_at_narrow_widths(width):
         torch.testing.assert_close(ge, ga, rtol=GRAD_RTOL, atol=GRAD_ATOL, msg=f"param {i}")
 
 
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: add half of the dropped 13 bits'
+    range to the magnitude, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """The kernel's 3xTF32 product: a = ah + al, b = bh + bl, each half
+    TF32, and al·bh + ah·bl + ah·bh summed in one fp32 accumulator (one
+    product over the three terms stacked along k)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return torch.cat([al, ah, ah], -1) @ torch.cat([bh, bl, bh], 0)
+
+
+def _mm_1xtf32(a, b):
+    """One TF32 pass: both operands rounded to TF32, fp32 accumulator."""
+    return _tf32(a) @ _tf32(b)
+
+
+def test_tf32_rounding_is_round_to_nearest_away():
+    one_ulp = 2.0**-10  # TF32's spacing at 1
+    x = torch.tensor([1.0, 1.0 + one_ulp / 2, 1.0 + one_ulp / 2 - 2.0**-23, -1.0 - one_ulp / 2,
+                      3.0 + 2.0**-12], dtype=torch.float32)
+    want = torch.tensor([1.0, 1.0 + one_ulp, 1.0, -1.0 - one_ulp, 3.0], dtype=torch.float32)
+    assert torch.equal(_tf32(x), want)
+    y = torch.from_numpy(np.random.default_rng(0).normal(size=4096).astype(np.float32))
+    hi = _tf32(y)
+    assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all())
+    assert float(((y - hi).abs() / y.abs()).max()) <= 2.0**-11  # half a TF32 ulp
+
+
+@pytest.mark.parametrize("mode,act,white", [MODES[0], MODES[2]])
+@pytest.mark.parametrize("level,S", [("coarse", 64), ("fine", 192)])
+def test_3xtf32_holds_the_card_tolerances(level, S, mode, act, white):
+    """The kernel's algorithm with its tensor-core products in 3xTF32,
+    against the fp32 plain version (autograd) under the tolerances the card
+    holds the kernel to (chip_smoke.py and the gpu tests below: values atol
+    1e-4 + rtol 1e-4, every dW and db within 1e-3 of the largest plain
+    value), at lego_hierarchical's 8 x 256 with the skip and both levels'
+    sample counts; one TF32 pass lands further from the plain version,
+    which is why the kernel takes three."""
+    tm = t_create(t_lego(), device="cpu").init(torch.Generator().manual_seed(3))
+    mlp = getattr(tm, level)
+    R = 8
+    arrays = [torch.from_numpy(a) for a in _inputs(R, S, noise=0.5, seed=4)]
+    arrays[0] *= 0.3
+    tspec = _tspec(S, mode, act, white)
+    sse, rgb, w = tft.fused_train_reference(mlp, tm.pos_enc, tm.dir_enc, tspec, *arrays)
+    g = torch.autograd.grad(sse, _params(mlp))
+    worst = {}
+    for name, mm in (("3xtf32", _mm_3xtf32), ("1xtf32", _mm_1xtf32)):
+        with torch.no_grad():
+            sse_e, rgb_e, w_e, g_e = _emulate_kernel(
+                mlp, tm.pos_enc, tm.dir_enc, tspec, *arrays, mm=mm
+            )
+        vals = [(sse_e, sse.detach()), (rgb_e, rgb.detach()), (w_e, w.detach())]
+        # each value's error over its tolerance, each gradient's over its largest value
+        val_err = max(float(((a - b).abs() / (1e-4 + 1e-4 * b.abs())).max()) for a, b in vals)
+        ratios = [float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(g_e, g)]
+        worst[name] = (val_err, max(ratios))
+        if name == "3xtf32":
+            for a, b in vals:
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+            assert max(ratios) <= 1e-3, ratios
+    assert worst["1xtf32"][0] > worst["3xtf32"][0], worst
+    assert worst["1xtf32"][1] > worst["3xtf32"][1], worst
+
+
 def test_cpu_call_runs_plain_and_launches_nothing():
     _, _, tm = _models()
     R, S = 5, 16
@@ -346,11 +426,12 @@ def test_other_devices_raise():
 @pytest.mark.parametrize("S", [16, 64, 128, 192, 1024])
 def test_train_block_sizes_fit(S):
     """default_rays_block fills about 512 points and fits shared memory (the
-    kernel's own formula, csrc/fused_train.cu smem_bytes); default_group
-    makes dW partials of about 16384 points."""
+    kernel's own formula, csrc/fused_train.cu smem_bytes: tiles of row
+    stride 72, a 16-row weight slice of row stride 264); default_group
+    makes dW partials of about 8192 points."""
     rb = tft.default_rays_block(S)
     assert rb >= 1 and (rb == 1 or rb * S <= tft.TRAIN_TARGET_POINTS)
-    smem = 4 * ((2 * 256 + 64 + 32) * 68 + 16 * 256 + rb * S * 7 + rb)
+    smem = 4 * ((2 * 256 + 64 + 32) * 72 + 16 * 264 + rb * S * 7 + rb)
     assert smem <= 232448, (S, rb, smem)
     grp = tft.default_group(S, rb)
     assert grp >= 1 and (grp == 1 or grp * rb * S <= tft.DW_SPLIT_POINTS)
@@ -370,7 +451,7 @@ def _rel_close(got, want, rel):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("width", [256, 128])
-@pytest.mark.parametrize("S", [64, 192])
+@pytest.mark.parametrize("S", [64, 192, 1024])
 def test_cuda_kernel_matches_plain(S, width):
     _check_cuda_kernel(S, width)
 
@@ -419,3 +500,30 @@ def _check_cuda_kernel(S, width):
             for i, (a, b) in enumerate(zip(g, g_p)):
                 ok, err, scale = _rel_close(a, b, 1e-3)
                 assert ok, (level, mode, act, white, i, err, scale)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_is_deterministic():
+    """Two launches on the same inputs give bit-identical sse, rgb, weights
+    and dW: the dW partials are summed in a fixed order, with no atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    tm = t_create(t_lego(), device=dev).init(torch.Generator().manual_seed(0))
+    R, S = 1000, 192
+    arrays = [torch.from_numpy(a).to(dev) for a in _inputs(R, S, noise=0.1, seed=4)]
+    arrays[0] *= 0.3
+    rb = tft.default_rays_block(S)
+    tspec = tft.TrainSpec(
+        n_samples=S, rays_block=rb, mode="canonical", density_activation="softplus",
+        white_bkgd=True, group=tft.default_group(S, rb),
+    )
+    runs = []
+    for _ in range(2):
+        sse, rgb, w = tft.fused_train_apply(tm.fine, tm.pos_enc, tm.dir_enc, tspec, *arrays)
+        g = torch.autograd.grad(sse, _params(tm.fine))
+        runs.append((sse.detach(), rgb, w, *g))
+    torch.cuda.synchronize()
+    assert len(runs[0]) == 3 + 2 * len(tm.fine.linears())
+    for i, (a, b) in enumerate(zip(*runs)):
+        assert torch.equal(a, b), i
