@@ -41,7 +41,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    the grid update's 262,144 points and lego_occ's coarse and fine points
    (forward; backward with every dW, db and dX against autograd).
 6. timing: each kernel per level with CUDA events, beside its bound and
-   its plain version's time (the train kernel's three launches also apart,
+   its plain version's time (the eval kernel also beside its fp32 bound,
+   with the weight bytes it reads from L2 a launch and their rate, and the
+   per-launch weight packs; the train kernel's three launches also apart,
    from the profiler's kernel table); the frame time of the render; the host
    seconds of a warm train step (25 steps ending in one synchronize),
    rays/s, peak memory, and the device's busy share of 5 steps from
@@ -474,7 +476,8 @@ def wait_builds(futures, names):
         for defines, _ in futures[name]:
             variant = _build.variant_name(name, defines)
             for line in _build.BUILD_LOG.get(variant, "(cached build)").splitlines():
-                if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):
+                if any(k in line for k in ("registers", "spill", "smem", "Compiling entry",
+                                           "arning")):
                     log(f"[build] {variant}: {line.strip()}")
             _build.load_library(name, defines)
 
@@ -687,6 +690,14 @@ def phase_timing(fused, res, device):
     ro, rd, vd = ro[:c].contiguous(), rd[:c].contiguous(), vd[:c].contiguous()
     levels = level_inputs(fused, ro, rd, vd)
     wbytes = 4 * ft.pack_eval_weights(fused.coarse, fused.pos_enc, fused.dir_enc)[0].numel()
+    # the kernel streams every dense layer's TF32 hi and lo images (the
+    # wrapper packs them per launch) from L2 through shared memory once per
+    # 128-point tile
+    img_bytes = 4 * ft.pack_eval_wgmma(fused.coarse, fused.pos_enc, fused.dir_enc).numel()
+    with torch.no_grad():
+        pack_ms = cuda_time_ms(lambda: (
+            ft.pack_eval_weights(fused.coarse, fused.pos_enc, fused.dir_enc),
+            ft.pack_eval_wgmma(fused.coarse, fused.pos_enc, fused.dir_enc)), 10)
     per_level = {}
     for name, (z, dl), mlp, reps in (
         ("coarse", levels[0], fused.coarse, 10), ("fine", levels[1], fused.fine, 4)
@@ -700,17 +711,29 @@ def phase_timing(fused, res, device):
             k_ms2 = cuda_time_ms(lambda: ft.fused_eval_apply(*args), reps)
         flops = 2.0 * mlp_macs(mlp.cfg, fused.pos_enc.out_dim, fused.dir_enc.out_dim) * R * S
         nbytes = 4 * (9 * R + 2 * R * S + 3 * R + R * S) + wbytes
-        bound_ms = max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+        # the dense layers run in 3xTF32: three TF32 tensor-core products
+        # for each fp32 one (the heads' few MACs are counted with them)
+        ops_s, bytes_s = 3 * flops / TF32_FLOPS, nbytes / HBM_BYTES_PER_S
+        bound_ms = max(ops_s, bytes_s) * 1e3
+        ms = (k_ms + k_ms2) / 2
+        tiles = -(-R // tspec.rays_block) * -(-tspec.rays_block * S // 128)
+        l2_gb = img_bytes * tiles / 1e9
         per_level[name] = dict(
-            rays=R, samples=S, ms=(k_ms + k_ms2) / 2, ms_runs=[k_ms, k_ms2], plain_ms=p_ms,
-            bound_ms=bound_ms, bound_by="operations" if flops / FP32_FLOPS > nbytes / HBM_BYTES_PER_S else "bytes",
+            rays=R, samples=S, ms=ms, ms_runs=[k_ms, k_ms2], plain_ms=p_ms,
+            bound_ms=bound_ms, bound_by="operations" if ops_s > bytes_s else "bytes",
+            fp32_bound_ms=max(flops / FP32_FLOPS, bytes_s) * 1e3,
             tf32_bound_ms=flops / TF32_FLOPS * 1e3, tflops=flops / 1e12,
-            achieved_tflops_s=flops / (k_ms * 1e-3) / 1e12 if k_ms > 0 else None,
+            achieved_tflops_s=flops / (ms * 1e-3) / 1e12, l2_weight_gb=l2_gb,
+            l2_tb_s=l2_gb / ms, pack_ms=pack_ms,
         )
         log(f"[time] fused_eval {name:6s} R={R} S={S}: kernel {k_ms:.3f} / {k_ms2:.3f} ms, "
-            f"plain {p_ms:.3f} ms, fp32 bound {bound_ms:.3f} ms "
-            f"({per_level[name]['bound_by']}), TF32 bound {flops / TF32_FLOPS * 1e3:.3f} ms, "
-            f"{flops / 1e12:.3f} TFLOP -> {per_level[name]['achieved_tflops_s']:.2f} TFLOP/s")
+            f"plain {p_ms:.3f} ms, 3xTF32 bound {bound_ms:.3f} ms "
+            f"({per_level[name]['bound_by']}), fp32 bound "
+            f"{per_level[name]['fp32_bound_ms']:.3f} ms, TF32 bound "
+            f"{flops / TF32_FLOPS * 1e3:.3f} ms, {flops / 1e12:.3f} TFLOP -> "
+            f"{per_level[name]['achieved_tflops_s']:.2f} TFLOP/s; weights from L2 "
+            f"{l2_gb:.2f} GB a launch ({tiles} tiles x {img_bytes} B) -> "
+            f"{per_level[name]['l2_tb_s']:.3f} TB/s; weight packs {pack_ms:.3f} ms a launch")
 
     # frame time of the fused render at 400 x 400 (warm), host clock around
     # work that ends in a synchronize
@@ -1214,6 +1237,7 @@ def phase_mlp_timing(device):
                          bound_ms=max(t_ops, t_bytes) * 1e3,
                          bound_by="operations" if t_ops > t_bytes else "bytes",
                          tf32_bound_ms=flops / TF32_FLOPS * 1e3,
+                         tf32x3_bound_ms=max(3 * flops / TF32_FLOPS, t_bytes) * 1e3,
                          achieved_tflops_s=flops / (ms * 1e-3) / 1e12)
         log(f"[time] fused_mlp forward {name:6s} N={N}: kernel {k1:.3f} / {k2:.3f} ms, plain "
             f"{p_ms:.3f} ms, fp32 bound {fwd[name]['bound_ms']:.3f} ms ({fwd[name]['bound_by']}), "
@@ -1242,6 +1266,7 @@ def phase_mlp_timing(device):
                          bound_ms=max(t_ops, t_bytes) * 1e3,
                          bound_by="operations" if t_ops > t_bytes else "bytes",
                          tf32_bound_ms=flops / TF32_FLOPS * 1e3,
+                         tf32x3_bound_ms=max(3 * flops / TF32_FLOPS, t_bytes) * 1e3,
                          achieved_tflops_s=flops / (ms * 1e-3) / 1e12)
         log(f"[time] fused_mlp backward {name:6s} N={N}: kernel {k1:.3f} / {k2:.3f} ms, plain "
             f"fwd+bwd {p_ms:.3f} ms, fp32 bound {bwd[name]['bound_ms']:.3f} ms "
@@ -1635,9 +1660,12 @@ def phase_ingp_kernel_timing(device):
     def entry(ms_runs, plain_ms, nbytes, flops, **extra):
         t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
         ms = sum(ms_runs) / len(ms_runs)
+        # the fp32 bound, and the 3xTF32 one (three TF32 tensor-core
+        # operations for each fp32 one) that a tensor-core port would meet
         return dict(ms=ms, ms_runs=ms_runs, plain_ms=plain_ms,
                     bound_ms=max(t_ops, t_bytes) * 1e3,
-                    bound_by="operations" if t_ops > t_bytes else "bytes", **extra)
+                    bound_by="operations" if t_ops > t_bytes else "bytes",
+                    tf32x3_bound_ms=max(3 * flops / TF32_FLOPS, t_bytes) * 1e3, **extra)
 
     hfwd, hbwd, ev, tr = {}, {}, {}, {}
     for name, pts in ingp_point_sets(model, device):
@@ -2176,6 +2204,7 @@ def phase_feat_image_timing(device):
         return dict(ms=ms, ms_runs=ms_runs, plain_ms=plain_ms,
                     bound_ms=max(t_ops, t_bytes) * 1e3,
                     bound_by="operations" if t_ops > t_bytes else "bytes",
+                    tf32x3_bound_ms=max(3 * flops / TF32_FLOPS, t_bytes) * 1e3,
                     achieved_tflops_s=flops / (ms * 1e-3) / 1e12, **extra)
 
     feat = {}

@@ -100,6 +100,8 @@
 
 #include <cstdint>
 
+#include "tf32x3.cuh"
+
 namespace {
 
 constexpr int TILE = 64;          // points per MLP tile
@@ -162,69 +164,6 @@ struct Args {
 
 __device__ __forceinline__ float pick(int a, float x0, float x1, float x2) {
   return a == 0 ? x0 : (a == 1 ? x1 : x2);
-}
-
-// ---------------------------------------------------------------------------
-// 3xTF32 on the tensor cores, asynchronous copies
-// ---------------------------------------------------------------------------
-
-// x = hi + lo, both halves TF32 rounded to nearest, ties away from zero:
-// cvt.rna.tf32.f32's rounding done in integer ops (add half of the 13
-// dropped bits' range to the magnitude, then clear them), since
-// conversions issue at a quarter of the rate of integer ops. lo's low bits
-// are left for the mma, which reads a .tf32 operand by dropping them.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
-}
-
-// c += a * b on one m16n8k8 tile: TF32 operands, fp32 accumulator
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a * b in 3xTF32 on the tensor cores: the small cross terms first,
-// then hi * hi
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
-                                           const uint32_t (&bl)[2]) {
-  mma_tf32(c, al, bh);
-  mma_tf32(c, ah, bl);
-  mma_tf32(c, ah, bh);
-}
-
-// c += a * b in 3xTF32, summed on the tensor cores from zero (their adds
-// truncate, but over 24 products only), then added to c in fp32, rounded
-// to nearest
-__device__ __forceinline__ void mma_3xtf32_add(float (&c)[4], const uint32_t (&ah)[4],
-                                               const uint32_t (&al)[4], const uint32_t (&bh)[2],
-                                               const uint32_t (&bl)[2]) {
-  float t[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_3xtf32(t, ah, al, bh, bl);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) c[i] += t[i];
-}
-
-// 16 bytes from global to shared memory, asynchronously; zeros where !valid
-// (src must still be a valid address)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// wait until at most `N` of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // The A fragment (16 x 8) of an m16n8k8 tile whose element (m, k) is at

@@ -73,9 +73,10 @@ class TrainSpec:
 
 
 # Points per block: the kernel keeps (rgb, q, alpha) of every point of its
-# rays in shared memory (20 bytes a point) beside 181,760 bytes of activation
-# and weight tiles at W=256, so a block holds about 512 points' worth of rays
-# (192,000 bytes in all at S=64).
+# rays in shared memory (20 bytes a point) beside 204,864 bytes of weight
+# ring, 128-point activation tile and the tile's points at W=256, so a block
+# holds about 512 points' worth of rays, four tiles (215,104 bytes in all
+# at S=64).
 EVAL_TARGET_POINTS = 512
 
 
@@ -87,9 +88,9 @@ def eval_block(n_samples: int) -> int:
 def max_fused_samples() -> int:
     """Largest per-ray sample count routed to the fused kernels. A block
     needs 20·S (eval) or 28·S (train) bytes per ray of shared memory beside
-    its 181,760 (eval) or 192,000 (train) bytes of tiles; at one ray per
-    block S = 1024 still fits the 232,448 bytes a block may use (220,676
-    for the train kernel)."""
+    its 204,864 (eval) or 192,000 (train) bytes of tiles; at one ray per
+    block S = 1024 still fits the 232,448 bytes a block may use (225,344
+    for the eval kernel, 220,676 for the train kernel)."""
     return 1024
 
 
@@ -230,16 +231,80 @@ def pack_eval_weights(mlp, pos_enc, dir_enc) -> Tuple[torch.Tensor, torch.Tensor
     return wbuf, torch.tensor(offs, dtype=torch.int32, device=wbuf.device)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` and the kernels' ``split_tf32`` round."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+# K order inside a k-step of 8: the wgmma's K index 0..3 holds features 0,
+# 2, 4, 6 of the step and 4..7 features 1, 3, 5, 7, so that a lane loads its
+# two features of a row (2t, 2t + 1) as one 64-bit word
+WGMMA_K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def _wgmma_image(w: torch.Tensor, segments: Sequence[int]) -> torch.Tensor:
+    """The shared-memory images the eval kernel's wgmmas read as B for
+    one dense layer, ``w`` = ``nn.Linear.weight`` [N, K]: its input
+    ``segments`` (column counts, in order) each padded with zero columns to
+    a multiple of 8, then per k-step of 8 columns (in ``WGMMA_K_ORDER``)
+    the TF32 hi half, then the lo half (hi = tf32(w), lo = tf32(w - hi)),
+    each as core matrices [K half (2)][N / 8][8 rows of N][4 of K]: 16·N
+    floats a k-step, one stage of the kernel's ring."""
+    n = w.shape[0]
+    cols, a = [], 0
+    for width in segments:
+        cols.append(w[:, a : a + width])
+        if width % 8:
+            cols.append(w.new_zeros((n, 8 - width % 8)))
+        a += width
+    if a != w.shape[1]:
+        raise ValueError(f"segments {segments} do not cover {w.shape[1]} inputs")
+    wp = torch.cat(cols, 1).to(torch.float32)
+    steps = wp.shape[1] // 8
+    x = wp.reshape(n, steps, 8)[:, :, list(WGMMA_K_ORDER)]
+    x = x.reshape(n // 8, 8, steps, 2, 4).permute(2, 3, 0, 1, 4)  # [step, K half, N/8, 8, 4]
+    hi = _tf32(x)
+    return torch.stack([hi, _tf32(x - hi)], 1).reshape(-1)
+
+
+@torch.no_grad()
+def pack_eval_wgmma(mlp, pos_enc, dir_enc) -> torch.Tensor:
+    """One flat fp32 buffer of every dense layer's B images for the eval
+    kernel (``_wgmma_image``), k-step after k-step in the order the kernel
+    consumes them: the D trunk layers (a skip layer's input is [encoded
+    position, h]), the feature layer, then the view layer ([feature,
+    encoded direction]). The alpha and rgb heads, the biases and the bands
+    stay in ``pack_eval_weights``' buffer. Packed on the parameters' device,
+    once per launch."""
+    cfg = mlp.cfg
+    W, P = cfg.net_width, pos_enc.out_dim
+    pieces = []
+    for j, lin in enumerate(mlp.pos_linears):
+        segs = [P] if j == 0 else ([P, W] if (j - 1) in cfg.skips else [W])
+        pieces.append(_wgmma_image(lin.weight.detach(), segs))
+    pieces.append(_wgmma_image(mlp.feature_linear.weight.detach(), [W]))
+    pieces.append(_wgmma_image(mlp.dir_linear.weight.detach(), [W, dir_enc.out_dim]))
+    return torch.cat(pieces)
+
+
 def _kernel_lib(width: int):
     from nerf_meets_mlx_torch.kernels import _build
 
-    lib = _build.load_library("fused_eval", width_defines(width))
+    return type_eval_lib(_build.load_library("fused_eval", width_defines(width)))
+
+
+def type_eval_lib(lib):
+    """``lib``, a build of csrc/fused_eval.cu, with its C functions typed."""
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.fused_eval_launch.argtypes = [vp] * 9 + [ci] * 5 + [ctypes.c_uint] + [ci] * 7 + [vp]
+        lib.fused_eval_launch.argtypes = [vp] * 10 + [ci] * 5 + [ctypes.c_uint] + [ci] * 7 + [vp]
         lib.fused_eval_launch.restype = ci
-        lib.fused_eval_smem_bytes.argtypes = [ci] * 5
+        lib.fused_eval_smem_bytes.argtypes = [ci] * 3
         lib.fused_eval_smem_bytes.restype = ctypes.c_longlong
+        lib.fused_eval_image_floats.argtypes = [ci, ci, ctypes.c_uint, ci, ci]
+        lib.fused_eval_image_floats.restype = ctypes.c_longlong
         lib._typed = True
     return lib
 
@@ -316,22 +381,26 @@ def fused_eval_apply(
 
     cfg = mlp.cfg
     lib = _kernel_lib(cfg.net_width)
-    smem = lib.fused_eval_smem_bytes(
-        cfg.net_width, S, tspec.rays_block, pos_enc.out_dim, dir_enc.out_dim
-    )
+    smem = lib.fused_eval_smem_bytes(cfg.net_width, S, tspec.rays_block)
     if not 0 < smem <= 232448:
         raise ValueError(
             f"S={S} with rays_block={tspec.rays_block} needs {smem} bytes of "
             "shared memory per block (at most 232448)"
         )
+    skip_mask = sum(1 << (s + 1) for s in cfg.skips)
     wbuf, offs = pack_eval_weights(mlp, pos_enc, dir_enc)
+    wimg = pack_eval_wgmma(mlp, pos_enc, dir_enc)
+    want = lib.fused_eval_image_floats(
+        cfg.net_depth, cfg.net_width, skip_mask, pos_enc.out_dim, dir_enc.out_dim
+    )
+    if wimg.numel() != want:
+        raise RuntimeError(f"pack_eval_wgmma wrote {wimg.numel()} floats, the kernel reads {want}")
     rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)
     wts = torch.empty((R, S), dtype=torch.float32, device=dev)
-    skip_mask = sum(1 << (s + 1) for s in cfg.skips)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_eval_launch(
-            *(t.data_ptr() for t in args), wbuf.data_ptr(), offs.data_ptr(),
+            *(t.data_ptr() for t in args), wimg.data_ptr(), wbuf.data_ptr(), offs.data_ptr(),
             rgb.data_ptr(), wts.data_ptr(),
             R, S, tspec.rays_block, cfg.net_depth, cfg.net_width, skip_mask,
             pos_enc.n_freqs, int(pos_enc.include_input),

@@ -69,8 +69,11 @@ EMPTY_MMA = """__device__ __forceinline__ void mma_tf32(float (&c)[4], const uin
 
 
 def variant_sources() -> dict:
-    """{name: source text} of the kernel and its timing variants."""
-    src = (ROOT / "nerf_meets_mlx_torch" / "csrc" / "fused_train.cu").read_text()
+    """{name: source text} of the kernel and its timing variants, each with
+    csrc/tf32x3.cuh (its mma helpers) written in place of its include."""
+    csrc = ROOT / "nerf_meets_mlx_torch" / "csrc"
+    src = (csrc / "fused_train.cu").read_text().replace(
+        '#include "tf32x3.cuh"', (csrc / "tf32x3.cuh").read_text())
     start = src.index("__device__ __forceinline__ void mma_tf32(")
     mma = src[start:src.index("}\n", start) + 2]
     cross = "  mma_tf32(c, al, bh);\n  mma_tf32(c, ah, bl);\n"
@@ -133,9 +136,10 @@ def rate(lib_path: Path):
               f"{flop / ms / 1e9:.1f} TFLOP/s", flush=True)
 
 
-def lego_levels(dev, seed=2):
-    """lego_hierarchical's train-step shapes: 4096 rays of a 400 x 400 view,
-    64 and 192 sorted depths in [2, 6], unit density noise."""
+def lego_levels(dev, seed=2, n_rays=4096):
+    """lego_hierarchical's train-step shapes: 4096 rays of a 400 x 400 view
+    (or ``n_rays``), 64 and 192 sorted depths in [2, 6], unit density
+    noise."""
     import numpy as np
     import torch
 
@@ -148,16 +152,16 @@ def lego_levels(dev, seed=2):
     focal = 0.5 * res / np.tan(0.5 * CAMERA_ANGLE_X)
     K = np.array([[focal, 0, res / 2], [0, focal, res / 2], [0, 0, 1]], np.float32)
     ro, rd = get_rays(res, res, K, orbit_poses(160)[0][:3, :4], device=dev)
-    pick = torch.randperm(res * res, generator=g, device=dev)[:4096]
+    pick = torch.randperm(res * res, generator=g, device=dev)[:n_rays]
     ro, rd = ro.reshape(-1, 3)[pick], rd.reshape(-1, 3)[pick]
     vd = rd / torch.linalg.vector_norm(rd, dim=-1, keepdim=True)
-    target = torch.rand((4096, 3), generator=g, device=dev)
+    target = torch.rand((n_rays, 3), generator=g, device=dev)
     levels = []
     for S in (64, 192):
-        z = torch.sort(torch.rand((4096, S), generator=g, device=dev) * 4.0 + 2.0, -1).values
+        z = torch.sort(torch.rand((n_rays, S), generator=g, device=dev) * 4.0 + 2.0, -1).values
         dl = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e10)], -1)
         dl = dl * torch.linalg.vector_norm(rd, dim=-1, keepdim=True)
-        levels.append((z, dl, torch.randn((4096, S), generator=g, device=dev)))
+        levels.append((z, dl, torch.randn((n_rays, S), generator=g, device=dev)))
     return (ro, rd, vd), target, levels
 
 

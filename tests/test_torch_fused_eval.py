@@ -5,11 +5,20 @@
   ``interop``) and inputs: rtol 1e-5 / atol 1e-6, the JAX kernel-vs-twin
   bound.
 * The packed weight buffer the CUDA kernel reads, replayed in torch by the
-  kernel's own offsets, against the plain version.
+  kernel's own offsets, against the plain version; and the wgmma B images
+  (``pack_eval_wgmma``) unpacked from the layout the kernel's descriptors
+  read: every weight in its place, hi + lo within 2^-22 of it, the
+  padding zero.
+* The kernel's algorithm: 3xTF32 products from those images with every
+  wgmma's add truncated toward zero and one accumulator a layer holds the
+  card's value tolerance at lego_hierarchical's 8 x 256, both levels; one
+  TF32 pass lands further off.
 * The wrapper's routing: CPU tensors run the plain version and launch
   nothing; other devices raise.
-* ``gpu``-marked: the CUDA kernel against the plain version at S = 64 and
-  192 on the card (skipped where no card is present).
+* ``gpu``-marked: the CUDA kernel against the plain version at S = 64, 192
+  and 1024 (one ray a block), widths 256, 128 and the narrow ones, white
+  background off; two launches give bit-identical results (skipped where
+  no card is present).
 """
 
 import dataclasses
@@ -213,58 +222,244 @@ def test_other_devices_raise():
 
 
 def test_eval_block_fits_shared_memory():
+    """csrc/fused_eval.cu's smem_bytes at W = 256: four weight stages of 8
+    rows x 256 columns x (hi, lo), the 128-point activation tile of row
+    stride 264, the ring's 8 mbarriers, the tile's points (8 floats a
+    row), and 20 bytes a point."""
     for S in (16, 64, 192, tft.max_fused_samples()):
         rb = tft.eval_block(S)
         assert rb >= 1
-        smem = 4 * ((2 * 256 + 64 + 32) * 68 + 16 * 256 + rb * S * 5)
+        smem = 4 * 16 * 256 * 4 + 4 * 128 * 264 + 8 * 8 + 4 * 128 * 8 + 4 * rb * S * 5
         assert smem <= 232448, (S, rb, smem)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("S", [64, 192])
-def test_cuda_kernel_matches_plain(S):
+def _trunc32(x64):
+    """float64 values to float32, rounded toward zero, as the tensor cores
+    round their adds: the nearest float32, one step back toward zero where
+    it lies past the value (a step of its magnitude bits, either sign)."""
+    y = x64.to(torch.float32)
+    over = (y.double().abs() > x64.abs()).to(torch.int32)
+    return (y.view(torch.int32) - over).view(torch.float32)
+
+
+def _unpack_image(img, n, k_pad):
+    """(hi, lo) as [k_pad, n] in feature order from one layer's B images,
+    read as the kernel's descriptors read them: per k-step of 8 rows, the
+    hi then the lo image, each core matrices [K half][n / 8][8 rows][4],
+    K index i of the step holding feature WGMMA_K_ORDER[i]."""
+    steps = k_pad // 8
+    x = img.reshape(steps, 2, 2, n // 8, 8, 4).permute(1, 0, 2, 5, 3, 4)
+    x = x.reshape(2, steps, 8, n)  # [hi/lo, step, K index, column]
+    out = torch.empty_like(x)
+    out[:, :, list(tft.WGMMA_K_ORDER)] = x
+    hi, lo = out.reshape(2, k_pad, n)
+    return hi, lo
+
+
+def _layers(mlp, pos_dim, dir_dim):
+    """(name, nn.Linear, input segment widths) of every wgmma layer, in
+    the kernel's order."""
+    cfg = mlp.cfg
+    W = cfg.net_width
+    out = []
+    for j, lin in enumerate(mlp.pos_linears):
+        segs = [pos_dim] if j == 0 else ([pos_dim, W] if (j - 1) in cfg.skips else [W])
+        out.append((f"pos_linears.{j}", lin, segs))
+    out.append(("feature_linear", mlp.feature_linear, [W]))
+    out.append(("dir_linear", mlp.dir_linear, [W, dir_dim]))
+    return out
+
+
+def _split_image(mlp, pos_enc, dir_enc):
+    """{layer name: (hi, lo, padded W^T)} from pack_eval_wgmma's buffer."""
+    img = tft.pack_eval_wgmma(mlp, pos_enc, dir_enc)
+    out, at = {}, 0
+    for name, lin, segs in _layers(mlp, pos_enc.out_dim, dir_enc.out_dim):
+        n = lin.out_features
+        k_pad = sum(-(-w // 8) * 8 for w in segs)
+        hi, lo = _unpack_image(img[at : at + 2 * k_pad * n], n, k_pad)
+        at += 2 * k_pad * n
+        wt = lin.weight.detach().t()
+        cols, a = [], 0
+        for w in segs:
+            cols += [wt[a : a + w], wt.new_zeros((-w % 8, n))]
+            a += w
+        out[name] = (hi, lo, torch.cat(cols))
+    assert at == img.numel()
+    return out
+
+
+@pytest.mark.parametrize("width", [256, 48])
+def test_wgmma_image_puts_every_weight_in_its_place(width):
+    """pack_eval_wgmma read back through the descriptor layout: each (k, n)
+    of each layer is where the kernel reads it, hi and lo are TF32 (low 13
+    bits clear), |hi + lo - w| <= 2^-22 |w|, and the padding of the odd
+    segments (63 position features, 27 direction features) is zero."""
+    tm = t_create(_narrow(t_lego(), width), device="cpu").init(torch.Generator().manual_seed(5))
+    for mlp in (tm.coarse, tm.fine):
+        layers = _split_image(mlp, tm.pos_enc, tm.dir_enc)
+        assert len(layers) == mlp.cfg.net_depth + 2
+        for name, (hi, lo, w) in layers.items():
+            for half in (hi, lo):
+                assert bool(((half.view(torch.int32) & 0x1FFF) == 0).all()), name
+            assert bool(((hi + lo - w).abs() <= 2.0**-22 * w.abs()).all()), name
+            assert bool((hi[w == 0] == 0).all() and (lo[w == 0] == 0).all()), name
+            assert float((hi - w).abs().max()) > 0  # the lo half carries bits
+        k0 = layers["pos_linears.0"][2]
+        assert k0.shape[0] == 64 and bool((k0[63] == 0).all())
+        kd = layers["dir_linear"][2]
+        assert kd.shape[0] == width + 32 and bool((kd[width + 27 :] == 0).all())
+
+
+def _emulate_kernel(mlp, pos_enc, dir_enc, tspec, ro, rd, vd, z, dl, passes=3):
+    """csrc/fused_eval.cu's algorithm in torch: every wgmma layer's B from
+    pack_eval_wgmma, its A split into TF32 halves as split_tf32 splits it,
+    and per k-step the products lo*hi, hi*lo, hi*hi (or hi*hi alone with
+    passes=1) each summed exactly over the step's 8 rows and added to the
+    layer's one accumulator with truncation toward zero; the heads and the
+    compositing in fp32."""
+    cfg = mlp.cfg
+    R, S = z.shape
+    pts = (ro[:, None] + z[..., None] * rd[:, None]).reshape(-1, 3)
+    xp = pos_enc.apply(pts)
+    xd = dir_enc.apply(vd[:, None].expand(R, S, 3).reshape(-1, 3))
+    images = _split_image(mlp, pos_enc, dir_enc)
+
+    def dense(name, segs):
+        hi, lo, _ = images[name]
+        a = torch.cat([torch.nn.functional.pad(x, (0, -x.shape[1] % 8)) for x in segs], 1)
+        ah = tft._tf32(a)
+        al = tft._tf32(a - ah)
+        pairs = ((al, hi), (ah, lo), (ah, hi)) if passes == 3 else ((ah, hi),)
+        steps = a.shape[1] // 8
+        # every k-step's exact sums at once ([step, point, column], float64),
+        # then the accumulator's truncating adds in the kernel's order
+        sums = [torch.einsum("psk,skn->spn", x.double().reshape(-1, steps, 8),
+                             y.double().reshape(steps, 8, -1)) for x, y in pairs]
+        acc = torch.zeros(sums[0].shape[1:], dtype=torch.float64)
+        for s in range(steps):
+            for part in sums:
+                acc = _trunc32(acc + part[s]).double()
+        return acc.float() + dict(mlp.linears())[name].bias
+
+    h = torch.relu(dense("pos_linears.0", [xp]))
+    for j in range(1, cfg.net_depth):
+        segs = [xp, h] if (j - 1) in cfg.skips else [h]
+        h = torch.relu(dense(f"pos_linears.{j}", segs))
+    alpha = h @ mlp.alpha_linear.weight.t() + mlp.alpha_linear.bias
+    feat = dense("feature_linear", [h])
+    hd = torch.relu(dense("dir_linear", [feat, xd]))
+    rgb = hd @ mlp.rgb_linear.weight.t() + mlp.rgb_linear.bias
+    raw = torch.cat([rgb, alpha], -1).reshape(R, S, 4)
+    q, a = tft._alpha_terms(tspec, raw[..., 3], dl)
+    w = a * torch.exp(-tft.exclusive_cumsum(q))
+    c = torch.sigmoid(raw[..., :3]) if tspec.mode == "canonical" else raw[..., :3]
+    out = (w[..., None] * c).sum(1)
+    if tspec.white_bkgd:
+        out = out + (1.0 - w.sum(1, keepdim=True))
+    return out, w
+
+
+@pytest.mark.parametrize("mode", ["canonical", "reference"])
+@pytest.mark.parametrize("level,S", [("coarse", 64), ("fine", 192)])
+def test_3xtf32_holds_the_card_tolerance(level, S, mode):
+    """The kernel's algorithm (``_emulate_kernel``) against the fp32 plain
+    version under the card's value tolerance (atol 1e-4 + rtol 1e-4:
+    chip_smoke.py and the gpu tests below) at lego_hierarchical's 8 x 256
+    with the skip, both levels' sample counts; one TF32 pass lands further
+    off, which is why the kernel takes three."""
+    tm = t_create(t_lego(), device="cpu").init(torch.Generator().manual_seed(3))
+    mlp = getattr(tm, level)
+    R = 8
+    arrays = [torch.from_numpy(a) for a in _inputs(R, S, seed=4)]
+    arrays[0] *= 0.3  # origins near the scene, so the densities vary
+    tspec = _tspec(S, R, mode, "softplus", True)
+    threads = torch.get_num_threads()
+    # one thread: the emulation's many small ops would otherwise contend
+    # with the other test workers' threads for the cores
+    torch.set_num_threads(1)
+    try:
+        with torch.no_grad():
+            want = tft.fused_eval_reference(mlp, tm.pos_enc, tm.dir_enc, tspec, *arrays)
+            got = {p: _emulate_kernel(mlp, tm.pos_enc, tm.dir_enc, tspec, *arrays, passes=p)
+                   for p in (3, 1)}
+    finally:
+        torch.set_num_threads(threads)
+    for g, w in zip(got[3], want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    # each pass's worst error over the tolerance
+    worst = {p: max(float(((g - w).abs() / (1e-4 + 1e-4 * w.abs())).max())
+                    for g, w in zip(got[p], want)) for p in got}
+    assert worst[1] > worst[3], worst
+
+
+def _cuda_case(width, S, R, cases, seed=4):
+    """The CUDA kernel against the plain version on the card for each
+    (mode, density activation, white background) in ``cases``: one launch
+    each, values within atol 1e-4 + rtol 1e-4 (fp32 sums in another order
+    than cuBLAS's, chip_smoke.py's bound)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    tm = t_create(t_lego(), device=dev).init(torch.Generator().manual_seed(0))
-    R = 1000  # not a multiple of eval_block(S)
-    arrays = [torch.from_numpy(a).to(dev) for a in _inputs(R, S, seed=4)]
+    tm = t_create(_narrow(t_lego(), width), device=dev).init(torch.Generator().manual_seed(0))
+    arrays = [torch.from_numpy(a).to(dev) for a in _inputs(R, S, seed=seed)]
     arrays[0] *= 0.3  # origins near the scene, so the densities vary
-    for mode in ("canonical", "reference"):
+    for mode, act, white in cases:
         tspec = tft.TrainSpec(
             n_samples=S, rays_block=tft.eval_block(S), mode=mode,
-            density_activation="softplus", white_bkgd=True,
+            density_activation=act, white_bkgd=white,
         )
         n0 = tft.LAUNCHES["eval"]
         got = tft.fused_eval_apply(tm.fine, tm.pos_enc, tm.dir_enc, tspec, *arrays)
         torch.cuda.synchronize()
         assert tft.LAUNCHES["eval"] == n0 + 1
         want = tft.fused_eval_reference(tm.fine, tm.pos_enc, tm.dir_enc, tspec, *arrays)
-        # fp32 sums in another order than cuBLAS's (chip_smoke.py's bound)
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    return tm, arrays
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [64, 192])
+def test_cuda_kernel_matches_plain(S):
+    # R = 1000: not a multiple of eval_block(S)
+    _cuda_case(None, S, 1000, [("canonical", "softplus", True), ("reference", "softplus", True)])
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("width", [32, 64, 48, 96])
 def test_cuda_kernel_matches_plain_at_narrow_widths(width):
-    """The eval kernel at widths 32 and 64 (lego_hierarchical's depth and
-    skip), as test_cuda_kernel_matches_plain."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
-    tm = t_create(_narrow(t_lego(), width), device=dev).init(torch.Generator().manual_seed(0))
-    S, R = 64, 1000
-    arrays = [torch.from_numpy(a).to(dev) for a in _inputs(R, S, seed=4)]
-    arrays[0] *= 0.3
-    tspec = tft.TrainSpec(n_samples=S, rays_block=tft.eval_block(S), mode="canonical",
+    """The eval kernel at the narrow widths (lego_hierarchical's depth and
+    skip; the view layer of width 48 has 24 columns, n16 + n8), as
+    test_cuda_kernel_matches_plain."""
+    _cuda_case(width, 64, 1000, [("canonical", "softplus", True)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [128, 256])
+def test_cuda_kernel_matches_plain_at_1024_samples(width):
+    """S = 1024, the routing bound (max_fused_samples): one ray a block,
+    eight tiles, the largest shared-memory footprint."""
+    assert tft.eval_block(1024) == 1
+    _cuda_case(width, 1024, 300, [("canonical", "softplus", True), ("reference", "softplus", True)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [64, 192])
+def test_cuda_kernel_matches_plain_without_white_background(S):
+    _cuda_case(None, S, 1000, [("reference", "softplus", False), ("canonical", "relu", False)])
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_is_deterministic():
+    """No atomics: two launches on the same inputs give bit-identical rgb
+    and weights."""
+    tm, arrays = _cuda_case(None, 192, 1000, [("canonical", "softplus", True)])
+    tspec = tft.TrainSpec(n_samples=192, rays_block=tft.eval_block(192), mode="canonical",
                           density_activation="softplus", white_bkgd=True)
-    n0 = tft.LAUNCHES["eval"]
-    got = tft.fused_eval_apply(tm.fine, tm.pos_enc, tm.dir_enc, tspec, *arrays)
+    a = tft.fused_eval_apply(tm.fine, tm.pos_enc, tm.dir_enc, tspec, *arrays)
+    b = tft.fused_eval_apply(tm.fine, tm.pos_enc, tm.dir_enc, tspec, *arrays)
     torch.cuda.synchronize()
-    assert tft.LAUNCHES["eval"] == n0 + 1
-    want = tft.fused_eval_reference(tm.fine, tm.pos_enc, tm.dir_enc, tspec, *arrays)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
