@@ -58,7 +58,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    grid update's and a step's points, its dG; the eval and train kernels at
    4096 rays, S = 48 and 96, both MLPs, both modes, white background on and
    off: values to atol 1e-4 + rtol 1e-4, the hash dG kernel to 1e-4 and the
-   train kernel's dW and dG to 1e-3 of max |plain|); ``train_nerf(preset="lego_ingp", ...)`` as in phase 5 with
+   train kernel's dW and dG to 1e-3 of max |plain|, sse and dW bit for bit
+   over two launches); ``train_nerf(preset="lego_ingp", ...)`` as in phase 5 with
    every count at 0: 200 INGP train launches, 50 INGP eval launches, no hash
    launches, a falling loss, ``render_only`` serving it; the same for
    ``lego_ingp_occ`` (200 train and 7 hash-forward launches, a non-empty
@@ -660,8 +661,9 @@ def phase_main_path(device):
     ro, rd, vd = frame_rays(res_px, res_px, device)
     c = cfg.render.ray_chunk
     ro, rd, vd = ro[:c], rd[:c], vd[:c]
-    out_f = fused.render_rays(ro, rd, train=False, viewdirs=vd)
-    out_p = plain.render_rays(ro, rd, train=False, viewdirs=vd)
+    with torch.no_grad():  # the standard route's eval keeps gradients otherwise
+        out_f = fused.render_rays(ro, rd, train=False, viewdirs=vd)
+        out_p = plain.render_rays(ro, rd, train=False, viewdirs=vd)
     for k in sorted(out_p):
         if not bool(torch.isfinite(out_f[k]).all()):
             raise AssertionError(f"fused route: non-finite {k}")
@@ -1472,7 +1474,9 @@ def phase_compare_ingp(device):
     MLPs, both compositing modes, the white background on and off (train),
     density noise on; values to atol 1e-4 + rtol 1e-4, the hash dG kernel to
     DG_REL and the train kernel's dW and dG to DW_REL of the array's largest
-    plain value."""
+    plain value (whether its dG is within DG_REL is logged); both levels on
+    csrc/ingp_train_tc.cu (train_build), whose sse and dW two launches give
+    bit for bit."""
     import torch
     from nerf_meets_mlx_torch.kernels import fused_ingp_train as fi
     from nerf_meets_mlx_torch.kernels import hash_encode as he
@@ -1481,6 +1485,12 @@ def phase_compare_ingp(device):
     enc = model.pos_enc
     out = {"hash_fwd": 0.0, "hash_dg": 0.0, "hash_dg_ratio": 0.0, "eval": 0.0, "train_val": 0.0,
            "train_dw_ratio": 0.0, "train_dg_ratio": 0.0}
+    rcfg = model.cfg.render
+    for S in (rcfg.n_samples, rcfg.n_samples + rcfg.n_importance):
+        build = fi.train_build(model.cfg.mlp.net_width, model.cfg.mlp.net_depth, enc.n_levels,
+                               enc.features_per_level, model.dir_enc.out_dim, S)
+        if build[0] != fi.TC_SOURCE:
+            raise AssertionError(f"lego_ingp's S={S} trains in {build}, not {fi.TC_SOURCE}")
     gen = torch.Generator(device=device).manual_seed(SEED + 12)
     for name, pts in ingp_point_sets(model, device):
         with torch.no_grad():
@@ -1555,7 +1565,8 @@ def phase_compare_ingp(device):
                     f"sse={errs['sse']:.3e} rgb={errs['rgb']:.3e} weights={errs['weights']:.3e}; "
                     f"max|dW-plain|/max|plain| per array: "
                     + " ".join(f"{r:.1e}" for r in ratios[:-1])
-                    + f"; dG {ratios[-1]:.1e}; entries beyond 1e-5 of max (W0, dG): {n_off} "
+                    + f"; dG {ratios[-1]:.1e} (within {DG_REL:.0e}: {ratios[-1] <= DG_REL}); "
+                    f"entries beyond 1e-5 of max (W0, dG): {n_off} "
                     + ("ok" if ok else "FAIL"))
                 if not ok:
                     raise AssertionError(
@@ -1563,6 +1574,17 @@ def phase_compare_ingp(device):
                 out["train_val"] = max(out["train_val"], errs["rgb"], errs["weights"])
                 out["train_dw_ratio"] = max(out["train_dw_ratio"], max(ratios[:-1]))
                 out["train_dg_ratio"] = max(out["train_dg_ratio"], ratios[-1])
+        # two launches give bit-identical sse and dW (fixed-order sums)
+        args = (mlp, enc, sh, ingp_tspec(model, S), ro, rd, z, dl, nz, target)
+        runs = []
+        for _ in range(2):
+            sse_k = fi.fused_ingp_train_apply(*args)[0]
+            runs.append([sse_k.detach()] + list(torch.autograd.grad(sse_k, params[:-1])))
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        log(f"[compare] ingp_train S={S} {level:6s} two launches: sse and dW bit-identical: "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"ingp_train is not deterministic in sse and dW: S={S}")
     reset_launches()
     return out
 
@@ -1736,15 +1758,18 @@ def phase_ingp_kernel_timing(device):
             torch.autograd.grad(sse, params)
 
         k1, p_ms, k2 = cuda_time_ms(kernel, reps), cuda_time_ms(plain, reps), cuda_time_ms(kernel, reps)
+        split = kernel_split_ms(kernel, ("ingp_tc_kernel", "ingp_tc_reduce_kernel"), reps)
         n_dw = wbytes // 4
         # in: rays, sh, z, deltas, noise, target, weights, tables; out: rgb,
         # weights, sse, dW, dG
         nbytes = (4 * (6 * R + DD * R + 3 * R * S + 3 * R + 3 * R + R * S + 1 + n_dw) + wbytes
                   + 2 * table_bytes)
         flops = (2 * (2 * fwd_macs + train_dx) + 2 * hash_flops) * R * S
-        tr[name] = entry([k1, k2], p_ms, nbytes, flops, rays=R, samples=S)
-        log(f"[time] ingp_train {name:6s} R={R} S={S}: kernel {k1:.3f} / {k2:.3f} ms, plain "
-            f"fwd+bwd {p_ms:.3f} ms, bound {tr[name]['bound_ms']:.3f} ms ({tr[name]['bound_by']})")
+        tr[name] = entry([k1, k2], p_ms, nbytes, flops, rays=R, samples=S, split_ms=split)
+        log(f"[time] ingp_train {name:6s} R={R} S={S}: kernel {k1:.3f} / {k2:.3f} ms ("
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f" ms), plain fwd+bwd {p_ms:.3f} ms, bound {tr[name]['bound_ms']:.3f} ms "
+            f"({tr[name]['bound_by']}), 3xTF32 {tr[name]['tf32x3_bound_ms']:.3f} ms")
     reset_launches()
     return hfwd, hbwd, ev, tr
 
@@ -2419,10 +2444,12 @@ def phase_image_timing(device):
 # the shapes the overlay keys reach, and the CP path (lego_cp)
 # ---------------------------------------------------------------------------
 
-# (width, levels, features) of the INGP builds: lego_ingp's (64, 8 x 2),
-# netwidth = 32's coarse MLP, 16 levels of 2 or 8 of 4 features; (128, 8 x
-# 2) stands for the runtime-shape build that the overlays past the register
-# builds take (fused_ingp_train.kernel_defines)
+# (width, levels, features) of the INGP eval builds: lego_ingp's (64, 8 x
+# 2), netwidth = 32's coarse MLP, 16 levels of 2 or 8 of 4 features; (128, 8
+# x 2) stands for the runtime-shape build that the overlays past the register
+# builds take in eval and in train (fused_ingp_train.kernel_defines,
+# train_build); the shapes of the register builds train in
+# csrc/ingp_train_tc.cu, one build for all of them
 INGP_SHAPES = ((64, 8, 2), (32, 8, 2), (64, 16, 2), (128, 8, 2))
 # (width, P) of the feat builds: lego_ingp's 8 x 2 (long rays), the paper
 # tables' 16 x 2, and (128, 32) for its runtime-shape build
@@ -2495,7 +2522,7 @@ def build_variants(tests: bool = False):
     feat = FEAT_SHAPES + (TEST_FEAT_SHAPES if tests else ())
     kw = KW_BUILDS + (TEST_KW_BUILDS if tests else ())
     out = [(s, None) for s in ("fused_eval", "fused_train", "fused_mlp", "hash_encode",
-                               "fused_image", "cp_encode")]
+                               "fused_image", "cp_encode", fi.TC_SOURCE)]
     out += [("fused_ingp", fi.kernel_defines(w, L, F)) for w, L, F in ingp]
     out += [("fused_feat", ff.kernel_defines(w, p)) for w, p in feat]
     out += [(s, ft.width_defines(w)) for s, w in kw]
@@ -3182,7 +3209,7 @@ def main() -> int:
     wait_builds(builds, ["fused_image"])
     image_err = phase_compare_image(device)
     image_launches, image_run = phase_image_path(device)
-    wait_builds(builds, ["hash_encode", "fused_ingp"])
+    wait_builds(builds, ["hash_encode", "fused_ingp", "ingp_train_tc"])
     ingp_err = phase_compare_ingp(device)
     ingp_launches, ingp_run = phase_train_main_path(device, preset="lego_ingp")
     ingp_occ_launches, ingp_occ_run = phase_train_main_path(device, preset="lego_ingp_occ")
@@ -3258,7 +3285,7 @@ def main() -> int:
         entry("ingp_eval", "nerf_meets_mlx_torch/csrc/fused_ingp.cu",
               "nerf_meets_mlx_tpu/kernels/fused_ingp_train.py:306", ingp_launches["ingp_eval"],
               ingp_err["eval"], ingp_eval_t),
-        entry("ingp_train", "nerf_meets_mlx_torch/csrc/fused_ingp.cu",
+        entry("ingp_train", "nerf_meets_mlx_torch/csrc/ingp_train_tc.cu",
               "nerf_meets_mlx_tpu/kernels/fused_ingp_train.py:93", ingp_launches["ingp_train"],
               ingp_err["train_val"], ingp_train_t),
         entry("feat_train", "nerf_meets_mlx_torch/csrc/fused_feat.cu",

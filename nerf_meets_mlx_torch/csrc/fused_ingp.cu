@@ -1,10 +1,11 @@
 // Fused Instant-NGP render and train kernels for Hopper (sm_90a).
 //
 // Replaces nerf_meets_mlx_tpu/kernels/fused_ingp_train.py::_ingp_eval_kernel
-// (eval) and ::_ingp_train_kernel (train). Per level of the hierarchical
-// render, one call takes rays (origin, direction), their spherical
-// harmonics sh [R,DD] (computed per ray outside), sample depths z [R,S] and
-// deltas [R,S] (already scaled by |d|, terminal bin 1e10*|d|), and runs
+// (eval) and, for the shapes that csrc/ingp_train_tc.cu does not take,
+// ::_ingp_train_kernel (train). Per level of the hierarchical render, one
+// call takes rays (origin, direction), their spherical harmonics sh [R,DD]
+// (computed per ray outside), sample depths z [R,S] and deltas [R,S]
+// (already scaled by |d|, terminal bin 1e10*|d|), and runs
 //
 //   points o + z*d -> hash encode (L levels x 8 corners of the [L,T,F]
 //   tables) -> the NeRF MLP over [features | sh] (depth D, width W, view
@@ -24,12 +25,16 @@
 // wrapper pads them: fused_ingp_train.pack_weights(rows0=PP)), so layer 0
 // is a branch-free PP x W product. The
 // wrapper builds each pair it meets as its own library (kernels/_build.py),
-// so the pairs compile as separate translation units, in parallel.
+// so the pairs compile as separate translation units, in parallel. These
+// register builds hold the eval kernel only: their shapes train in
+// csrc/ingp_train_tc.cu, or, where a tile of that kernel does not fit on
+// chip (fused_ingp_train.train_build), in the runtime-shape build.
 //
 // Every other shape -- a width that is a multiple of 16 from 32 to 256,
 // 1..32 levels of 1, 2, 4 or 8 features, at most 128 feature channels --
 // runs in one more build, INGP_W = INGP_PP = 0, whose kernels take the
-// width and the channels as runtime values. Past width 64 a thread-per-point
+// width and the channels as runtime values, in eval and in train. Past
+// width 64 a thread-per-point
 // MLP no longer fits in registers (one 256-wide layer is 256 KB of fp32
 // weights, more than a block's 227 KB of shared memory), so this form keeps
 // a point's activations in local memory (L1/L2) and computes each layer 16
@@ -38,8 +43,7 @@
 // lego_ingp's depth) and through L1/L2 from device memory otherwise; all
 // threads of a warp read the same weight, so each load is a broadcast. The
 // same form takes F = 8 and more than 16 levels, which the register bodies
-// would need another instance for. Simple first: a tile-per-block GEMM
-// (csrc/fused_train.cu's dense tile, or wgmma) is later work.
+// would need another instance for.
 //
 // bf16 hash compute (hash_compute_dtype = "bfloat16") rounds where the
 // Pallas kernel rounds (fused_ingp_train.py:165-175 forward, :246-262 table
@@ -50,17 +54,15 @@
 // What bounds it on this card, at lego_ingp's shapes (L = 8, W = 64, D = 2,
 // 12,452 parameters, 4096 rays, 48 + 48 samples): neither the bytes of its
 // inputs and outputs (~40 bytes a point) nor its arithmetic (12,452 MACs a
-// point forward, ~25,000 more for the backward and dW: 9.8 GFLOP forward at
-// the fine level's 393,216 points, 0.15 ms at the 67 TFLOP/s fp32 peak), but
-// the 64 hashed table lookups a point (L2 hits: the tables are 1 MB) and
-// the latency of a thread-per-point MLP that reads its weights from shared
-// memory. The train call also writes every layer's input and cotangent
-// (~2 KB a point, 0.8 GB at the fine level) for its dW GEMM, and adds the
-// table gradient with atomics, which contend on the coarse levels' few
-// thousand rows (see kernels/hash_encode.py).
+// point forward, 0.15 ms at the 67 TFLOP/s fp32 peak at the fine level's
+// 393,216 points), but the 64 hashed table lookups a point (L2 hits: the
+// tables are 1 MB) and the latency of a thread-per-point MLP that reads its
+// weights from shared memory. The runtime-shape build's train call also
+// writes every layer's input and cotangent (~2 KB a point) for its dW GEMM,
+// and adds the table gradient with atomics, which contend on the coarse
+// levels' few thousand rows (see kernels/hash_encode.py).
 //
-// Design (simple first; tensor cores, TMA and table staging are later
-// work):
+// Design (simple first; csrc/ingp_train_tc.cu is the tensor-core form):
 //
 // 1. ingp_eval_kernel / ingp_rays_kernel: a block of NT = 128 threads owns
 //    `rays_block` rays (~512 points) and first copies the MLP's weights
@@ -75,10 +77,10 @@
 //    fused_eval.cu / fused_train.cu, and for training the squared error and
 //    the closed-form compositing backward (the reverse suffix sum
 //    dq_t = dw_t*T_t*alpha'_t - sum_{s>t} dw_s*w_s). Phase C (train), a
-//    thread per point: the MLP backward in registers (relu masks read back
-//    from phase A's stores), every layer's pre-activation cotangent written
-//    out, and d(features) scattered into dG by atomicAdd over the 8 corners
-//    of each level (the corners are recomputed, the tables not read).
+//    thread per point: the MLP backward (relu masks read back from phase
+//    A's stores), every layer's pre-activation cotangent written out, and
+//    d(features) scattered into dG by atomicAdd over the 8 corners of each
+//    level (the corners are recomputed, the tables not read).
 // 2. dw_gemm_kernel: dW = X^T dZ (and db = colsum dZ) of every layer as a
 //    split-K GEMM of 64 x 64 tiles into per-split partials.
 // 3. reduce_kernel: sums the splits, and the per-block SSE partials, in a
@@ -102,10 +104,12 @@ constexpr int RT_FEATS = 128;     // its most feature channels (L*F)
 constexpr int RT_DD = 64;         // its most sh channels
 constexpr int MAX_DEPTH = 8;
 constexpr int N_OFFS = 2 * (MAX_DEPTH + 4);
+#if INGP_W == 0  // the train call's dW GEMM (runtime-shape build)
 constexpr int GT = 64;            // dW tile edge
 constexpr int KB = 16;            // points per staged dW slice
 constexpr int GEMM_THREADS = 256;
 constexpr int MAX_JOBS = MAX_DEPTH + 6;
+#endif
 constexpr int MAX_SMEM = 232448;  // bytes a block may use on sm_90
 
 #ifndef INGP_W
@@ -288,55 +292,6 @@ __device__ __forceinline__ void hash_features(const Args& A, const float (&x)[3]
     if (A.F == 1) features_of<1, PP>(A, x, e);
 }
 
-// dG[l][h_c][f] += w_c * d(features)[l*F + f] over the 8 corners of each
-// level (BF16: bf16(w_c) * bf16(d))
-template <int F, int PP, bool BF16>
-__device__ __forceinline__ void level_scatter(const Args& A, const float (&x)[3],
-                                              const float (&de)[PP]) {
-#pragma unroll
-  for (int l = 0; l < levels_of<F, PP>(); ++l) {
-    if (l < A.L) {
-      float d[F];
-      bool any = false;
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        d[f] = rb(de[l * F + f], BF16);
-        any |= d[f] != 0.f;
-      }
-      if (any) {
-        const Corners C = corners_of(A, x, l);
-        float* gl = A.dG + (size_t)l * A.T * F;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const float w = rb(C.w[c], BF16);
-#pragma unroll
-          for (int f = 0; f < F; ++f) atomicAdd(gl + (size_t)C.h[c] * F + f, __fmul_rn(w, d[f]));
-        }
-      }
-    }
-  }
-}
-
-template <int F, int PP>
-__device__ __forceinline__ void scatter_of(const Args& A, const float (&x)[3],
-                                           const float (&de)[PP]) {
-  if (A.bf16)
-    level_scatter<F, PP, true>(A, x, de);
-  else
-    level_scatter<F, PP, false>(A, x, de);
-}
-
-template <int PP>
-__device__ __forceinline__ void hash_scatter(const Args& A, const float (&x)[3],
-                                             const float (&de)[PP]) {
-  if constexpr (4 * MAX_LEVELS >= PP)
-    if (A.F == 4) scatter_of<4, PP>(A, x, de);
-  if constexpr (2 * MAX_LEVELS >= PP)
-    if (A.F == 2) scatter_of<2, PP>(A, x, de);
-  if constexpr (MAX_LEVELS >= PP)
-    if (A.F == 1) scatter_of<1, PP>(A, x, de);
-}
-
 // acc[j] = b[j] (N a multiple of 4; b on 16 bytes)
 template <int N>
 __device__ __forceinline__ void load_bias(float (&acc)[N], const float* b) {
@@ -364,71 +319,29 @@ __device__ __forceinline__ void gemv(float (&acc)[N], const float (&in)[K], cons
   }
 }
 
-// out[k] = sum_j Wm[k][j] * d[j] for k < K: the cotangent of a layer's input
-template <int K, int N>
-__device__ __forceinline__ void gemv_t(float (&out)[K], const float (&d)[N], const float* Wm) {
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < N; j += 4) {
-      const float4 w = *reinterpret_cast<const float4*>(Wm + k * N + j);
-      s = fmaf(w.x, d[j], s);
-      s = fmaf(w.y, d[j + 1], s);
-      s = fmaf(w.z, d[j + 2], s);
-      s = fmaf(w.w, d[j + 3], s);
-    }
-    out[k] = s;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_row(float* dst, const float (&v)[N]) {
-#pragma unroll
-  for (int j = 0; j < N; j += 4)
-    *reinterpret_cast<float4*>(dst + j) = make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
-}
-
-// out[j] = d[j] where the stored relu output hrow[j] > 0, else 0
-template <int N>
-__device__ __forceinline__ void relu_mask(float (&out)[N], const float (&d)[N], const float* hrow) {
-#pragma unroll
-  for (int j = 0; j < N; j += 4) {
-    const float4 h = *reinterpret_cast<const float4*>(hrow + j);
-    out[j] = h.x > 0.f ? d[j] : 0.f;
-    out[j + 1] = h.y > 0.f ? d[j + 1] : 0.f;
-    out[j + 2] = h.z > 0.f ? d[j + 2] : 0.f;
-    out[j + 3] = h.w > 0.f ? d[j + 3] : 0.f;
-  }
-}
-
-// Phase A for one point: raw rgb (3) and raw sigma of the MLP on the point's
-// hash features and its ray's sh. With STASH, every layer's input goes to
-// the train workspace at row gi.
-template <int W, int PP, bool STASH>
+// The eval kernel's phase A for one point of the register builds: raw rgb
+// (3) and raw sigma of the MLP on the point's hash features and its ray's
+// sh.
+template <int W, int PP>
 __device__ __forceinline__ void point_forward(const Args& A, const float* sw, long long gi,
                                               float (&rgb)[3], float& sigma) {
   constexpr int WH = W / 2;
   const int D = A.depth;
-  const size_t P = (size_t)A.P;
   float x[3];
   point_of(A, gi, x);
   float e[PP];
   hash_features<PP>(A, x, e);
-  if (STASH) store_row<PP>(A.enc + (size_t)gi * PP, e);
 
   float h[W], acc[W];
   load_bias<W>(acc, sw + A.offs[1]);
   gemv<PP, W>(acc, e, sw + A.offs[0]);
 #pragma unroll
   for (int j = 0; j < W; ++j) h[j] = fmaxf(acc[j], 0.f);
-  if (STASH) store_row<W>(A.hs + (size_t)gi * W, h);
   for (int l = 1; l < D; ++l) {
     load_bias<W>(acc, sw + A.offs[2 * l + 1]);
     gemv<W, W>(acc, h, sw + A.offs[2 * l]);
 #pragma unroll
     for (int j = 0; j < W; ++j) h[j] = fmaxf(acc[j], 0.f);
-    if (STASH) store_row<W>(A.hs + (size_t)l * P * W + (size_t)gi * W, h);
   }
   // alpha head (W -> 1)
   {
@@ -442,17 +355,14 @@ __device__ __forceinline__ void point_forward(const Args& A, const float* sw, lo
   float f[W];
   load_bias<W>(f, sw + A.offs[2 * D + 3]);
   gemv<W, W>(f, h, sw + A.offs[2 * D + 2]);
-  if (STASH) store_row<W>(A.feat + (size_t)gi * W, f);
   // view layer on [feature, sh] (W + DD -> W/2, relu)
   float hd[WH];
   const float* wd = sw + A.offs[2 * D + 4];
   load_bias<WH>(hd, sw + A.offs[2 * D + 5]);
   gemv<W, WH>(hd, f, wd);
   const float* shr = A.sh + (gi / A.S) * A.dd;
-  float* shp = STASH ? A.shp + (size_t)gi * A.shp_ld : nullptr;
   for (int k = 0; k < A.dd; ++k) {
     const float s = __ldg(shr + k);
-    if (STASH) shp[k] = s;
     const float* wrow = wd + (W + k) * WH;
 #pragma unroll
     for (int j = 0; j < WH; j += 4) {
@@ -463,11 +373,8 @@ __device__ __forceinline__ void point_forward(const Args& A, const float* sw, lo
       hd[j + 3] = fmaf(s, w.w, hd[j + 3]);
     }
   }
-  if (STASH)
-    for (int k = A.dd; k < A.shp_ld; ++k) shp[k] = 0.f;
 #pragma unroll
   for (int j = 0; j < WH; ++j) hd[j] = fmaxf(hd[j], 0.f);
-  if (STASH) store_row<WH>(A.hd + (size_t)gi * WH, hd);
   // rgb head (W/2 -> 3)
   const float* wr = sw + A.offs[2 * D + 6];
   const float* br = sw + A.offs[2 * D + 7];
@@ -615,6 +522,7 @@ __device__ __forceinline__ void point_forward_rt(const Args& A, const float* sw,
   }
 }
 
+#if INGP_W == 0
 // phase C for one point in the runtime-shape build: the MLP backward from
 // d(raw rgb) and d(raw sigma), every layer's cotangent stored, d(features)
 // scattered into dG
@@ -667,54 +575,7 @@ __device__ __forceinline__ void point_backward_rt(const Args& A, const float* sw
     rt_scatter_of<false>(A, x, de);
 }
 
-// phase C for one point of the register builds: the MLP backward from
-// d(raw rgb) and d(raw sigma), every layer's cotangent stored, d(features)
-// scattered into dG
-template <int W, int PP>
-__device__ __forceinline__ void point_backward(const Args& A, const float* sw, long long gi,
-                                               const float (&dr)[3], float dsig) {
-  constexpr int WH = W / 2;
-  const int D = A.depth;
-  const size_t P = (size_t)A.P;
-  // rgb head: d(hd) = (Wr d(raw rgb)) * (hd > 0)
-  float dhd[WH];
-  {
-    float s[WH];
-    const float* wr = sw + A.offs[2 * D + 6];
-#pragma unroll
-    for (int k = 0; k < WH; ++k)
-      s[k] = fmaf(dr[2], wr[k * 3 + 2], fmaf(dr[1], wr[k * 3 + 1], dr[0] * wr[k * 3]));
-    relu_mask<WH>(dhd, s, A.hd + (size_t)gi * WH);
-    store_row<WH>(A.ddir + (size_t)gi * WH, dhd);
-  }
-  // feature output: d(feat) = Wd[:W] d(hd) (no activation)
-  float df[W];
-  gemv_t<W, WH>(df, dhd, sw + A.offs[2 * D + 4]);
-  store_row<W>(A.dfeat + (size_t)gi * W, df);
-  // last trunk layer: dZ = (Wf d(feat) + wa d(alpha)) * (h > 0)
-  float dz[W], dh[W];
-  gemv_t<W, W>(dh, df, sw + A.offs[2 * D + 2]);
-  {
-    const float* wa = sw + A.offs[2 * D];
-#pragma unroll
-    for (int k = 0; k < W; ++k) dh[k] = fmaf(wa[k], dsig, dh[k]);
-    const size_t o = (size_t)(D - 1) * P * W + (size_t)gi * W;
-    relu_mask<W>(dz, dh, A.hs + o);
-    store_row<W>(A.dzs + o, dz);
-  }
-  for (int l = D - 1; l >= 1; --l) {
-    gemv_t<W, W>(dh, dz, sw + A.offs[2 * l]);
-    const size_t o = (size_t)(l - 1) * P * W + (size_t)gi * W;
-    relu_mask<W>(dz, dh, A.hs + o);
-    store_row<W>(A.dzs + o, dz);
-  }
-  // d(features) = W0 dZ_0, scattered into the tables' rows
-  float de[PP];  // zero past L*F: the padding rows of W0 are zero
-  gemv_t<PP, W>(de, dz, sw + A.offs[0]);
-  float x[3];
-  point_of(A, gi, x);
-  hash_scatter<PP>(A, x, de);
-}
+#endif  // INGP_W == 0
 
 // per-point compositing terms of fused_train.cu (_alpha_terms): q, alpha,
 // d(alpha)/dq and dq/d(raw sigma)
@@ -773,7 +634,7 @@ __global__ void __launch_bounds__(NT, 2) ingp_eval_kernel(const __grid_constant_
     if constexpr (W == 0)
       point_forward_rt<false>(A, wts, gbase + i, rgb, sigma);
     else
-      point_forward<W, PP, false>(A, wts, gbase + i, rgb, sigma);
+      point_forward<W, PP>(A, wts, gbase + i, rgb, sigma);
     float q, alpha, da, dqd;
     alpha_terms(A, sigma, __ldg(A.deltas + gbase + i), q, alpha, da, dqd);
     pq[i] = q;
@@ -808,7 +669,8 @@ __global__ void __launch_bounds__(NT, 2) ingp_eval_kernel(const __grid_constant_
   }
 }
 
-template <int W, int PP>
+#if INGP_W == 0
+// the train call's ray kernel (the runtime-shape build only)
 __global__ void __launch_bounds__(NT, 2) ingp_rays_kernel(const __grid_constant__ Args A) {
   extern __shared__ __align__(16) float smem[];
   const int S = A.S, RB = A.rays_block;
@@ -825,18 +687,14 @@ __global__ void __launch_bounds__(NT, 2) ingp_rays_kernel(const __grid_constant_
   const int npts = nr * S;
   const long long gbase = (long long)r0 * S;
   load_weights(A, sw);
-  // the runtime-shape build reads its weights from device memory where
-  // they do not fit in shared memory
-  const float* wts = W == 0 && A.n_ws == 0 ? A.wbuf : sw;
+  // weights from device memory where they do not fit in shared memory
+  const float* wts = A.n_ws == 0 ? A.wbuf : sw;
 
   // ---------------- phase A: forward, a thread per point ----------------
   for (int i = threadIdx.x; i < npts; i += NT) {
     const long long gi = gbase + i;
     float rgb[3], sigma;
-    if constexpr (W == 0)
-      point_forward_rt<true>(A, wts, gi, rgb, sigma);
-    else
-      point_forward<W, PP, true>(A, wts, gi, rgb, sigma);
+    point_forward_rt<true>(A, wts, gi, rgb, sigma);
     float q, alpha, da, dqd;
     alpha_terms(A, sigma + __ldg(A.noise + gi), __ldg(A.deltas + gi), q, alpha, da, dqd);
     pq[i] = q;
@@ -914,10 +772,7 @@ __global__ void __launch_bounds__(NT, 2) ingp_rays_kernel(const __grid_constant_
     A.dalpha[gi] = dsig;
 #pragma unroll
     for (int c = 0; c < 3; ++c) A.drgb[gi * 3 + c] = dr[c];
-    if constexpr (W == 0)
-      point_backward_rt(A, wts, gi, dr, dsig);
-    else
-      point_backward<W, PP>(A, wts, gi, dr, dsig);
+    point_backward_rt(A, wts, gi, dr, dsig);
   }
 }
 
@@ -1072,6 +927,8 @@ __global__ void reduce_kernel(const float* __restrict__ part, long long stride, 
   }
 }
 
+#endif  // INGP_W == 0
+
 size_t smem_bytes(int n_ws, int S, int rays_block, bool train) {
   const size_t pts = (size_t)rays_block * S;
   return sizeof(float) * ((size_t)n_ws + pts * (train ? 7 : 5) + (train ? (size_t)rays_block : 0));
@@ -1085,6 +942,7 @@ int staged_weights(int n_w, int S, int rays_block, bool train) {
   return 0;
 }
 
+#if INGP_W == 0
 struct Layout {
   size_t enc, hs, feat, shp, hd, dzs, dalpha, dfeat, ddir, drgb, sse_part, part, total;
   long long part_stride;
@@ -1119,6 +977,8 @@ Layout layout(int R, int S, int rays_block, int depth, int W, int E, int shp_ld,
   Lo.total = o;
   return Lo;
 }
+
+#endif  // INGP_W == 0
 
 // this build's (width, layer-0 columns) pair, or the runtime-shape build's
 // bounds
@@ -1175,7 +1035,8 @@ extern "C" long long fused_ingp_smem_bytes(int width, int levels, int features, 
                                train != 0);
 }
 
-// Floats of device scratch the train launch needs.
+#if INGP_W == 0
+// Floats of device scratch the train launch needs (runtime-shape build).
 extern "C" long long fused_ingp_workspace_floats(int R, int S, int rays_block, int depth,
                                                  int width, int n_features, int dd,
                                                  int pts_per_split, int n_dw) {
@@ -1184,6 +1045,7 @@ extern "C" long long fused_ingp_workspace_floats(int R, int S, int rays_block, i
                            pts_per_split, n_dw)
       .total;
 }
+#endif  // INGP_W == 0
 
 // rgb [R,3] and weights [R,S] of one level. offs: the 2*(depth+4) float
 // offsets of pack_weights (host array); n_w: floats of wbuf (a multiple of
@@ -1217,9 +1079,11 @@ extern "C" int fused_ingp_eval_launch(const float* rays_o, const float* rays_d, 
   return (int)cudaGetLastError();
 }
 
-// The train call of one level: rgb, weights, sse [1], dw [n_dw] (the
-// weights' layout) and dG [L,T,F] (zeroed by the caller); workspace:
-// fused_ingp_workspace_floats floats. Returns the first cudaError_t.
+#if INGP_W == 0
+// The train call of one level (runtime-shape build): rgb, weights, sse [1],
+// dw [n_dw] (the weights' layout) and dG [L,T,F] (zeroed by the caller);
+// workspace: fused_ingp_workspace_floats floats. Returns the first
+// cudaError_t.
 extern "C" int fused_ingp_train_launch(const float* rays_o, const float* rays_d, const float* sh,
                                        const float* z, const float* deltas, const float* noise,
                                        const float* target, const float* tables,
@@ -1255,7 +1119,7 @@ extern "C" int fused_ingp_train_launch(const float* rays_o, const float* rays_d,
   a.dalpha = workspace + Lo.dalpha; a.dfeat = workspace + Lo.dfeat;
   a.ddir = workspace + Lo.ddir; a.drgb = workspace + Lo.drgb;
 
-  void (*kernel)(Args) = ingp_rays_kernel<INGP_W, INGP_PP>;
+  void (*kernel)(Args) = ingp_rays_kernel;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1301,3 +1165,4 @@ extern "C" int fused_ingp_train_launch(const float* rays_o, const float* rays_d,
                                                     workspace + Lo.sse_part, Lo.n_blocks, sse);
   return (int)cudaGetLastError();
 }
+#endif  // INGP_W == 0

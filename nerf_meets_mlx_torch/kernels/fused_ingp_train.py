@@ -3,10 +3,13 @@ compositing (eval), and the same plus the MSE loss and its whole backward,
 the hash tables' gradient included (train).
 
 Counterpart of ``nerf_meets_mlx_tpu/kernels/fused_ingp_train.py``. The
-kernels are ``csrc/fused_ingp.cu``: ``ingp_eval_kernel`` (the Pallas
-``_ingp_eval_kernel``) and ``ingp_rays_kernel`` with its dW GEMM (the Pallas
-``_ingp_train_kernel``). This module holds their wrappers and plain PyTorch
-versions.
+kernels: ``csrc/fused_ingp.cu``'s ``ingp_eval_kernel`` (the Pallas
+``_ingp_eval_kernel``); for the Pallas ``_ingp_train_kernel``,
+``csrc/ingp_train_tc.cu`` (the MLP on the tensor cores in 3xTF32, a tile's
+activations and dW on chip) for the shapes it takes, and
+``csrc/fused_ingp.cu``'s runtime-shape build (``ingp_rays_kernel`` with its
+dW GEMM) for the others. This module holds their wrappers and plain
+PyTorch versions.
 
 * ``fused_ingp_eval_apply`` / ``fused_ingp_train_apply`` launch their kernel
   for CUDA tensors (or raise) and run ``fused_ingp_eval_reference`` /
@@ -20,12 +23,16 @@ versions.
   train version is differentiable by autograd with respect to the MLP and
   the tables.
 * Shapes: a width that is a multiple of 16 from 32 to 256, 1..32 levels of
-  1, 2, 4 or 8 features, at most 128 feature channels. Width 32 or 64 with
-  1..16 levels of 1, 2 or 4 features runs in a register build, one for each
-  (width, PP) pair, PP the smallest of 16, 32, 64 that holds the L·F
-  features; every other shape runs in the runtime-shape build
-  (``kernel_defines``), where the MLP's activations live in local memory.
-  Past these bounds the wrapper raises, naming them.
+  1, 2, 4 or 8 features, at most 128 feature channels. Eval: width 32 or
+  64 with 1..16 levels of 1, 2 or 4 features runs in a register build, one
+  for each (width, PP) pair, PP the smallest of 16, 32, 64 that holds the
+  L·F features, every other shape in the runtime-shape build
+  (``kernel_defines``). Train: ``train_build`` routes by the shape alone,
+  before the launch: width 32 or 64, depth 1..8, 1..16 levels of 1, 2 or 4
+  features (L·F <= 64), at most 64 SH channels and a tile of whole rays
+  that fits the shared memory (``tc_rays_per_tile``: at most 96 points)
+  train in ``csrc/ingp_train_tc.cu``; every other shape in the
+  runtime-shape build. Past these bounds the wrapper raises, naming them.
 * The spherical harmonics come in per ray, [R, DD], as the JAX op takes
   them. The weights are taken as the ``nn.Linear`` modules hold them and the
   tables as [L, T, F]; the JAX package's packed layouts are a TPU's.
@@ -36,6 +43,7 @@ versions.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Tuple
 
 import torch
@@ -67,6 +75,19 @@ MIN_WIDTH, MAX_WIDTH = 32, 256
 RT_LEVELS = 32
 RT_FEATURES = (1, 2, 4, 8)
 MAX_CHANNELS = 128
+RT_DEFINES = {"INGP_W": 0, "INGP_PP": 0}
+# csrc/ingp_train_tc.cu, the train kernel on the tensor cores: its widths,
+# a tile of whole rays of at most TC_MAX_POINTS points (a 16-row MMA tile
+# for each of its 6 warp pairs) and TC_MAX_RAYS rays, at most TC_MAX_FEATURES
+# hash feature channels, the block's shared memory
+TC_SOURCE = "ingp_train_tc"
+TC_WIDTHS = (32, 64)
+TC_MAX_POINTS = 96
+TC_MAX_RAYS = 16
+TC_MAX_FEATURES = 64
+TC_MAX_DEPTH = 8
+TC_MAX_SH = 64
+SMEM_LIMIT = 232448
 
 
 def ingp_rays_block(n_samples: int) -> int:
@@ -77,6 +98,56 @@ def ingp_rays_block(n_samples: int) -> int:
 def ingp_group(n_samples: int, rays_block: int) -> int:
     """Blocks of rays whose points one partial of the dW reduction sums."""
     return max(1, INGP_SPLIT_POINTS // (rays_block * n_samples))
+
+
+def _ru(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def tc_smem_bytes(width: int, depth: int, n_features: int, n_channels: int, n_samples: int,
+                  rays: int) -> int:
+    """Shared-memory bytes of one block of ``csrc/ingp_train_tc.cu``
+    (``smem_layout`` there, piece by piece): the swizzled weights, heads and
+    biases, the view weight's SH rows; per point of the tile its hash
+    features, every layer's output and the compositing terms; per ray its
+    SH and the view layer's SH term; the dW partial."""
+    W, WH, D, E = width, width // 2, depth, n_features
+    sww, swh, tp = W + 8, WH + 8, _ru(rays * n_samples, 16)
+    shapes = [(E, W)] + [(W, W)] * (D - 1) + [(W, 1), (W, W), (W + n_channels, WH), (WH, 3)]
+    pieces = (
+        _ru(E, 8) * sww, (D - 1) * W * sww, W * sww, W * swh, W, 3 * WH, D * W, W, 1, 3,
+        tp * (_ru(E, 16) + 8), D * tp * sww, tp * sww, tp * swh, 3 * tp, tp, tp, tp, tp, 3 * tp,
+        rays * WH, rays, _dw_layout(tuple(shapes))[1], n_channels * WH, rays * n_channels,
+    )
+    return 4 * sum(_ru(n, 4) for n in pieces)
+
+
+def tc_rays_per_tile(width: int, depth: int, n_levels: int, features: int, n_channels: int,
+                     n_samples: int) -> int:
+    """Rays a tile of ``csrc/ingp_train_tc.cu`` at this shape: the most
+    whole rays, up to TC_MAX_RAYS, that fill at most TC_MAX_POINTS points
+    and fit the block's shared memory; 0 where that kernel does not take
+    the shape (it then trains in the runtime-shape build)."""
+    E = n_levels * features
+    if (width not in TC_WIDTHS or not 1 <= depth <= TC_MAX_DEPTH
+            or not 1 <= n_levels <= MAX_LEVELS or features not in (1, 2, 4)
+            or E > TC_MAX_FEATURES or not 0 <= n_channels <= TC_MAX_SH
+            or not 1 <= n_samples <= TC_MAX_POINTS):
+        return 0
+    rays = min(TC_MAX_RAYS, TC_MAX_POINTS // n_samples)
+    while rays >= 1 and tc_smem_bytes(width, depth, E, n_channels, n_samples, rays) > SMEM_LIMIT:
+        rays -= 1
+    return rays
+
+
+def train_build(width: int, depth: int, n_levels: int, features: int, n_channels: int,
+                n_samples: int):
+    """(source, defines) of the build that trains this shape, decided from
+    the shape alone: ``csrc/ingp_train_tc.cu`` where ``tc_rays_per_tile``
+    takes it, else ``csrc/fused_ingp.cu``'s runtime-shape build."""
+    if tc_rays_per_tile(width, depth, n_levels, features, n_channels, n_samples):
+        return TC_SOURCE, {}
+    return "fused_ingp", dict(RT_DEFINES)
 
 
 # ---------------------------------------------------------------------------
@@ -150,10 +221,10 @@ def pack_weights(mlp, rows0: int = 0) -> Tuple[torch.Tensor, List[int]]:
 
 
 def kernel_defines(net_width: int, n_levels: int, features_per_level: int):
-    """The build of ``csrc/fused_ingp.cu`` that takes this shape: the
+    """The build of ``csrc/fused_ingp.cu`` that evaluates this shape: the
     width and the smallest layer-0 register width PP that holds the L·F
     hash features, or the runtime-shape build (``INGP_W = INGP_PP = 0``)
-    past the register builds."""
+    past the register builds. Training routes by ``train_build``."""
     n_features = n_levels * features_per_level
     if (net_width not in WIDTHS or n_levels > MAX_LEVELS or features_per_level not in (1, 2, 4)
             or n_features > PP_SIZES[-1]):
@@ -170,24 +241,47 @@ def _layer0_rows(mlp, pos_enc) -> int:
     return _defines(mlp, pos_enc)["INGP_PP"]
 
 
-def _ingp_lib(mlp, pos_enc):
+def _ingp_lib(mlp, pos_enc, defines=None):
+    """The loaded ``csrc/fused_ingp.cu`` build of ``defines`` (default: the
+    one that evaluates this shape); the train entry points exist only in
+    the runtime-shape build."""
     from nerf_meets_mlx_torch.kernels import _build
 
-    lib = _build.load_library("fused_ingp", _defines(mlp, pos_enc))
+    lib = _build.load_library("fused_ingp", defines or _defines(mlp, pos_enc))
     if not getattr(lib, "_typed", False):
         vp, ci, cf, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.fused_ingp_eval_launch.argtypes = (
             [vp] * 8 + [ci] * 2 + [vp] * 2 + [ci] * 10 + [vp, cf, cf] + [ci] * 3 + [vp]
         )
         lib.fused_ingp_eval_launch.restype = ci
-        lib.fused_ingp_train_launch.argtypes = (
-            [vp] * 10 + [ci] * 2 + [vp] * 6 + [ci] * 10 + [vp, cf, cf] + [ci] * 4 + [vp]
-        )
-        lib.fused_ingp_train_launch.restype = ci
         lib.fused_ingp_smem_bytes.argtypes = [ci] * 7
         lib.fused_ingp_smem_bytes.restype = cll
-        lib.fused_ingp_workspace_floats.argtypes = [ci] * 9
-        lib.fused_ingp_workspace_floats.restype = cll
+        if hasattr(lib, "fused_ingp_train_launch"):
+            lib.fused_ingp_train_launch.argtypes = (
+                [vp] * 10 + [ci] * 2 + [vp] * 6 + [ci] * 10 + [vp, cf, cf] + [ci] * 4 + [vp]
+            )
+            lib.fused_ingp_train_launch.restype = ci
+            lib.fused_ingp_workspace_floats.argtypes = [ci] * 9
+            lib.fused_ingp_workspace_floats.restype = cll
+        lib._typed = True
+    return lib
+
+
+def _tc_lib():
+    """The loaded ``csrc/ingp_train_tc.cu``."""
+    from nerf_meets_mlx_torch.kernels import _build
+
+    return type_tc_lib(_build.load_library(TC_SOURCE))
+
+
+def type_tc_lib(lib):
+    """``lib``, a build of csrc/ingp_train_tc.cu, with its C functions typed."""
+    if not getattr(lib, "_typed", False):
+        vp, ci, cf, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        lib.ingp_tc_train_launch.argtypes = [vp] * 12 + [cf, cf, vp]
+        lib.ingp_tc_train_launch.restype = ci
+        lib.ingp_tc_smem_bytes.argtypes = [ci] * 7
+        lib.ingp_tc_smem_bytes.restype = cll
         lib._typed = True
     return lib
 
@@ -287,14 +381,93 @@ def fused_ingp_eval_apply(
 
 
 def _train_launch(mlp, pos_enc, tspec: TrainSpec, args):
-    """One call of the train kernel: (sse, rgb, weights, grads) with grads =
-    d(sse)/d(weight, bias) of every ``mlp.linears()`` entry, then
-    d(sse)/d(tables) [L, T, F]."""
+    """One call of the train kernel that takes this shape: (sse, rgb,
+    weights, grads) with grads = d(sse)/d(weight, bias) of every
+    ``mlp.linears()`` entry, then d(sse)/d(tables) [L, T, F]."""
+    cfg = mlp.cfg
+    S = args[3].shape[1]
+    rays = tc_rays_per_tile(cfg.net_width, cfg.net_depth, pos_enc.n_levels,
+                            pos_enc.features_per_level, mlp.in_dim_views, S)
+    if rays:
+        return _tc_launch(mlp, pos_enc, tspec, args, rays)
+    return _rt_launch(mlp, pos_enc, tspec, args)
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_layout(shapes: Tuple[Tuple[int, int], ...]):
+    """(offsets, floats) of the tensor-core kernel's gradient buffer: for
+    each (fan_in, fan_out) linear its weight as [fan_out, fan_in] (the
+    parameter's layout) and its bias, each piece on 16 bytes."""
+    offs, n = [], 0
+    for fi, fo in shapes:
+        offs.append(n)
+        n += _ru(fi * fo, 4)
+        offs.append(n)
+        n += _ru(fo, 4)
+    return tuple(offs), n
+
+
+def _tc_launch(mlp, pos_enc, tspec: TrainSpec, args, rays: int, lib=None):
+    """``csrc/ingp_train_tc.cu``: a persistent grid of one block an SM over
+    tiles of ``rays`` rays, reading the parameters where they are; the
+    gradients come back as views of one buffer. ``lib`` is another typed
+    build of the source (``type_tc_lib``), for tools/ingp_kernel_probe.py's
+    variants; every caller in the package leaves it at the library's own."""
+    from nerf_meets_mlx_torch.kernels.hash_encode import _geometry
+
     dev = args[0].device
     R, S = args[3].shape
     cfg = mlp.cfg
-    lib = _ingp_lib(mlp, pos_enc)
-    wbuf, offs = pack_weights(mlp, _layer0_rows(mlp, pos_enc))
+    lins = [lin for _, lin in mlp.linears()]
+    params = [p for lin in lins for p in (lin.weight, lin.bias)] + [pos_enc.tables]
+    if any(p.dtype != torch.float32 or not p.is_contiguous() for p in params):
+        raise ValueError("the INGP train kernel takes contiguous fp32 parameters and tables")
+    offs, n_dw = _dw_layout(tuple((lin.in_features, lin.out_features) for lin in lins))
+    lib = _tc_lib() if lib is None else lib
+    blocks = min(-(-R // rays), torch.cuda.get_device_properties(dev).multi_processor_count)
+    part = torch.empty(blocks * (n_dw + 1), dtype=torch.float32, device=dev)
+    rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)
+    wts = torch.empty((R, S), dtype=torch.float32, device=dev)
+    sse = torch.empty((1,), dtype=torch.float32, device=dev)
+    dw = torch.empty((n_dw,), dtype=torch.float32, device=dev)
+    dG = torch.zeros(pos_enc.tables.shape, dtype=torch.float32, device=dev)
+    L, F, log2_t, c_res, bmin, brange, bf16 = _geometry(pos_enc)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    shape = (ci * 15)(
+        R, S, cfg.net_width, cfg.net_depth, L, F, mlp.in_dim_views, log2_t, bf16,
+        0 if tspec.mode == "canonical" else 1, int(tspec.density_activation == "relu"),
+        int(tspec.white_bkgd), rays, blocks, n_dw,
+    )
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ingp_tc_train_launch(
+            (vp * 8)(*(t.data_ptr() for t in args), pos_enc.tables.data_ptr()),
+            (vp * len(lins))(*(lin.weight.data_ptr() for lin in lins)),
+            (vp * len(lins))(*(lin.bias.data_ptr() for lin in lins)),
+            (ci * len(offs))(*offs), rgb.data_ptr(), wts.data_ptr(), sse.data_ptr(),
+            dw.data_ptr(), dG.data_ptr(), part.data_ptr(), shape, c_res, bmin, brange, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ingp_train_tc launch failed with cudaError {err}")
+    LAUNCHES["ingp_train"] += 1
+    grads = []
+    for i, lin in enumerate(lins):
+        fi, fo = lin.in_features, lin.out_features
+        grads.append(dw[offs[2 * i] : offs[2 * i] + fi * fo].view(fo, fi))
+        grads.append(dw[offs[2 * i + 1] : offs[2 * i + 1] + fo])
+    grads.append(dG)
+    return sse[0], rgb, wts, grads
+
+
+def _rt_launch(mlp, pos_enc, tspec: TrainSpec, args):
+    """``csrc/fused_ingp.cu``'s runtime-shape build: the ray kernel over
+    blocks of ``tspec.rays_block`` rays, its dW GEMM in splits of
+    ``tspec.group`` blocks, the fixed-order reduce."""
+    dev = args[0].device
+    R, S = args[3].shape
+    cfg = mlp.cfg
+    lib = _ingp_lib(mlp, pos_enc, RT_DEFINES)
+    wbuf, offs = pack_weights(mlp)
     n_w = wbuf.numel()
     _check_smem(lib, mlp, pos_enc, n_w, tspec, S, train=True)
     pts_per_split = tspec.group * tspec.rays_block * S
@@ -359,8 +532,11 @@ def fused_ingp_train_apply(
     differentiable output, with respect to the MLP's parameters and
     ``pos_enc.tables``; rgb_map and weights come back detached. CPU tensors
     run the plain version (autograd gives the gradient); CUDA tensors launch
-    ``csrc/fused_ingp.cu``, which computes the gradient in the same call, or
-    raise."""
+    the train kernel of the shape (``train_build``), which computes the
+    gradient in the same call, or raise. ``tspec.rays_block`` and
+    ``tspec.group`` shape the runtime-shape build's blocks; the
+    tensor-core kernel sizes its tiles from the shape
+    (``tc_rays_per_tile``)."""
     dev = rays_o.device
     if dev.type == "cpu":
         sse, rgb, wts = fused_ingp_train_reference(

@@ -244,17 +244,21 @@ class NeRFModel(nn.Module):
         finest), the coarse z_vals and weights.
 
         Eval (``train=False``) runs under ``no_grad`` on the fused route
-        when it is configured. Training runs the standard route with
+        when it is configured, whose eval op has no backward (as JAX's
+        fused eval op stops gradients); on the standard route it keeps
+        them, as JAX's does. Training runs the standard route with
         autograd: jittered coarse samples, density noise (when
         ``raw_noise_std > 0``) and random importance queries, each from
         ``draws`` ("t", "noise_c", "u", "noise_f") or ``generator``.
         ``occ_grid`` tightens each ray's interval when ``render.occupancy``
         is on (``_coarse_z``)."""
         occ = (occ_grid, occ_active)
-        if not train:
+        if train:
+            return self._render_rays(rays_o, rays_d, True, viewdirs, draws, generator, occ)
+        if self._fused_train_mode in ("sinusoidal", "ingp"):
             with torch.no_grad():
                 return self._render_rays(rays_o, rays_d, False, viewdirs, None, None, occ)
-        return self._render_rays(rays_o, rays_d, True, viewdirs, draws, generator, occ)
+        return self._render_rays(rays_o, rays_d, False, viewdirs, None, None, occ)
 
     def _render_rays(self, rays_o, rays_d, train, viewdirs, draws, generator, occ):
         rcfg = self.cfg.render

@@ -45,7 +45,8 @@ def _ms(fn, n=20):
 def _build_all():
     """Every build the turn times, all started together (where the
     checkout's ``_build`` takes per-shape defines: lego_ingp's and the
-    paper tables' shapes)."""
+    paper tables' shapes; and the INGP train kernel's source where the
+    checkout has one)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from nerf_meets_mlx_torch.kernels import _build
@@ -63,6 +64,8 @@ def _build_all():
         n_args = len(inspect.signature(ingp).parameters)
         jobs += [("fused_ingp", ingp(64, 8, 2) if n_args == 3 else ingp(64, 16)),
                  ("fused_feat", fused_feat_train.kernel_defines(64, 32))]
+        if hasattr(fused_ingp_train, "TC_SOURCE"):  # the INGP train kernel's own source
+            jobs.append((fused_ingp_train.TC_SOURCE, None))
         call = _build.build
     else:
         jobs += [("fused_ingp", None), ("fused_feat", None)]

@@ -37,6 +37,7 @@ from nerf_meets_mlx_torch.models import create_nerf as t_create
 from nerf_meets_mlx_tpu.config import lego_cp as j_cp
 from nerf_meets_mlx_tpu.encoding.cp_grid import CPGridEncoding as JCP
 from nerf_meets_mlx_tpu.models import create_nerf as j_create
+from torch_threads import one_torch_thread_per_worker  # noqa: F401  (autouse fixture)
 
 SMALL = dict(n_levels=3, min_res=8, max_res=40, n_components=16)
 

@@ -31,6 +31,7 @@ from nerf_meets_mlx_torch import interop
 from nerf_meets_mlx_torch.config import lego_hierarchical as t_lego
 from nerf_meets_mlx_torch.kernels import fused_train as tft
 from nerf_meets_mlx_torch.models import create_nerf as t_create
+from torch_threads import one_torch_thread_per_worker  # noqa: F401  (autouse fixture)
 
 RTOL, ATOL = 1e-5, 1e-6
 

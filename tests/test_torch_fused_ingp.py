@@ -29,6 +29,7 @@ from nerf_meets_mlx_torch.kernels import fused_ingp_train as tfi
 from nerf_meets_mlx_torch.kernels.fused_train import LAUNCHES, TrainSpec
 from nerf_meets_mlx_torch.models import NeRFMLP
 from nerf_meets_mlx_torch.models import create_nerf as t_create
+from torch_threads import one_torch_thread_per_worker  # noqa: F401  (autouse fixture)
 
 # JAX is imported by the tests that compare with it, not at module level:
 # the gpu-marked tests run on the card's machine, which has no JAX
@@ -420,7 +421,10 @@ def test_ingp_shape_bounds_raise():
             tfi._check_ingp_config(tm, deep, torch.zeros((1, 25)), "eval")
 
 
-def _cuda_shape_model(width, enc, dtype, dev):
+def _cuda_shape_model(width, enc, dtype, dev, generator=None):
+    """A lego_ingp model at ``width`` and hash ``enc`` on ``dev``, seeded
+    init, tables + N(0, 0.1) drawn from ``generator`` (the device's global
+    generator where None)."""
     from nerf_meets_mlx_torch.config import EncodingConfig
 
     pcfg = dataclasses.replace(EncodingConfig(kind="hash_grid", in_dim=3), **enc,
@@ -430,7 +434,8 @@ def _cuda_shape_model(width, enc, dtype, dev):
     cfg = cfg.replace(pos_encoding=pcfg, mlp=mlp, mlp_fine=mlp)
     tm = t_create(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
     with torch.no_grad():
-        tm.pos_enc.tables.add_(torch.randn(tm.pos_enc.tables.shape, device=dev) * 0.1)
+        tm.pos_enc.tables.add_(
+            torch.randn(tm.pos_enc.tables.shape, generator=generator, device=dev) * 0.1)
     return tm
 
 
@@ -494,3 +499,319 @@ def test_cuda_ingp_kernels_match_plain_at_new_shapes(width, enc, dtype):
     for i, (a, b) in enumerate(zip(grads, grads_p)):
         err, scale = float((a - b).abs().max()), float(b.abs().max())
         assert bool(torch.isfinite(a).all()) and err <= 1e-3 * scale + floor, (i, err, scale)
+
+
+# ---------------------------------------------------------------------------
+# The train kernel on the tensor cores (csrc/ingp_train_tc.cu)
+# ---------------------------------------------------------------------------
+
+
+def _tc_case(S, R, dtype="float32", seed=5):
+    """lego_ingp's fine MLP and tables (N(0, 0.1) added from seed 1, as
+    _cuda_model's; ``dtype`` the hash compute type) and R rays of S samples
+    on the card from ``seed``."""
+    dev = torch.device("cuda")
+    tm = _cuda_shape_model(64, dict(hash_n_levels=8, hash_features_per_level=2), dtype, dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ro = torch.randn((R, 3), generator=g, device=dev) * 0.2 + torch.tensor([0.0, 0.0, 3.0], device=dev)
+    rd = torch.randn((R, 3), generator=g, device=dev) * 0.2 + torch.tensor([0.0, 0.0, -1.0], device=dev)
+    sh = sh_encode(rd / rd.norm(dim=-1, keepdim=True), 4)
+    z = torch.sort(torch.rand((R, S), generator=g, device=dev) * 4.0 + 1.0, dim=-1).values
+    dl = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e10)], -1) * rd.norm(
+        dim=-1, keepdim=True)
+    noise = torch.randn((R, S), generator=g, device=dev)
+    target = torch.rand((R, 3), generator=g, device=dev)
+    return tm, (sh, ro, rd, z, dl, noise, target)
+
+
+def _tc_spec(S, mode, white):
+    rb = tfi.ingp_rays_block(S)
+    return TrainSpec(n_samples=S, rays_block=rb, mode=mode, density_activation="softplus",
+                     white_bkgd=white, group=tfi.ingp_group(S, rb))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,dtype", [(96, "float32"), (48, "float32"), (32, "float32"),
+                                     (48, "bfloat16")])
+def test_cuda_tc_train_kernel_matches_plain(S, dtype):
+    """csrc/ingp_train_tc.cu at lego_ingp's shape (the route takes it) and
+    S = 96, 48, 32, fp32 and bf16 hash compute, 1,001 rays (the last tile
+    ragged at 2 and 4 rays a tile), both compositing modes, the white
+    background on and off, unit density noise: sse, rgb and weights within
+    atol 1e-4 + rtol 1e-4; every dW within 1e-3 of its array's largest
+    plain value, up to 1e-6 of the largest plain gradient entry of all the
+    arrays, and dG within 1e-3 of its largest plain value, as
+    test_cuda_ingp_kernels_match_plain holds them. Whether dG is within 1e-4
+    is printed: a relu input within rounding of zero flips one point's
+    cotangent in one fp32 order and not in the other, which moves the dG
+    rows of that point's corners by their whole value (PERF.md, the
+    probe's [draws])."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    R = 1001
+    tm, (sh, ro, rd, z, dl, noise, target) = _tc_case(S, R, dtype)
+    assert tfi.train_build(64, 2, 8, 2, 16, S) == (tfi.TC_SOURCE, {})
+    params = _params(tm.fine) + [tm.pos_enc.tables]
+    for mode in ("canonical", "reference"):
+        for white in (True, False):
+            args = (tm.fine, tm.pos_enc, sh, _tc_spec(S, mode, white), ro, rd, z, dl, noise, target)
+            n0 = LAUNCHES["ingp_train"]
+            sse, rgb, w = tfi.fused_ingp_train_apply(*args)
+            grads = torch.autograd.grad(sse, params)
+            torch.cuda.synchronize()
+            assert LAUNCHES["ingp_train"] == n0 + 1
+            sse_p, rgb_p, w_p = tfi.fused_ingp_train_reference(*args)
+            grads_p = torch.autograd.grad(sse_p, params)
+            floor = 1e-6 * max(float(b.abs().max()) for b in grads_p)
+            torch.testing.assert_close(sse, sse_p.detach(), rtol=1e-4, atol=1e-4)
+            torch.testing.assert_close(rgb, rgb_p.detach(), rtol=1e-4, atol=1e-4)
+            torch.testing.assert_close(w, w_p.detach(), rtol=1e-4, atol=1e-4)
+            for i, (a, b) in enumerate(zip(grads, grads_p)):
+                err, scale = float((a - b).abs().max()), float(b.abs().max())
+                if i == len(grads) - 1:
+                    print(f"[tc] S={S} {dtype} {mode} white={int(white)}: dG {err / scale:.1e} "
+                          f"of max (within 1e-4: {err <= 1e-4 * scale})")
+                    bound = 1e-3 * scale
+                else:
+                    bound = 1e-3 * scale + floor
+                assert bool(torch.isfinite(a).all()) and err <= bound, (mode, white, i, err, scale)
+
+
+@pytest.mark.gpu
+def test_cuda_tc_train_kernel_is_deterministic():
+    """Two launches on the same inputs give bit-identical sse and dW (the
+    per-block partials are summed in block order); dG may differ in its
+    last bits (atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    tm, (sh, ro, rd, z, dl, noise, target) = _tc_case(48, 4096)
+    args = (tm.fine, tm.pos_enc, sh, _tc_spec(48, "canonical", True), ro, rd, z, dl, noise, target)
+    params = _params(tm.fine)
+    runs = []
+    for _ in range(2):
+        sse, _, _ = tfi.fused_ingp_train_apply(*args)
+        runs.append([sse.detach()] + list(torch.autograd.grad(sse, params)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_tc_smem_matches_its_python_twin():
+    """The kernel's own shared-memory count equals tc_smem_bytes, which the
+    routing reads, at the shapes it takes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    lib = tfi._tc_lib()
+    for width, depth, L, F, DD, S in ((64, 2, 8, 2, 16, 48), (64, 2, 8, 2, 16, 96),
+                                      (32, 3, 16, 4, 25, 32), (64, 3, 16, 1, 64, 32)):
+        rays = tfi.tc_rays_per_tile(width, depth, L, F, DD, S)
+        assert rays >= 1
+        assert lib.ingp_tc_smem_bytes(width, depth, L, F, DD, S, rays) == tfi.tc_smem_bytes(
+            width, depth, L * F, DD, S, rays)
+
+
+@pytest.mark.parametrize("width,depth,levels,features,dd,S,rays", [
+    (64, 2, 8, 2, 16, 48, 2),    # lego_ingp, coarse
+    (64, 2, 8, 2, 16, 96, 1),    # lego_ingp, fine
+    (64, 2, 8, 2, 16, 32, 3),    # lego_ingp_occ, both levels
+    (32, 2, 8, 2, 16, 48, 2),    # netwidth = 32
+    (64, 2, 16, 2, 16, 96, 1),   # 16 levels
+    (64, 2, 8, 4, 16, 48, 2),    # 4 features a level
+    (64, 2, 16, 4, 16, 48, 1),   # 64 feature channels
+    (64, 2, 16, 4, 16, 96, 0),   # 64 channels and a ray of 96: one ray's tile does not fit
+    (48, 2, 8, 2, 16, 48, 0),    # the runtime-shape build's widths
+    (128, 2, 8, 2, 16, 48, 0),
+    (64, 2, 32, 2, 16, 96, 0),   # 32 levels
+    (64, 2, 12, 8, 16, 96, 0),   # 8 features a level
+    (64, 8, 8, 2, 16, 48, 0),    # depth 8 at width 64: one ray's tile does not fit
+    (64, 2, 8, 2, 16, 256, 0),   # a ray longer than a tile
+])
+def test_train_routes_by_shape(width, depth, levels, features, dd, S, rays):
+    """The train call's build is decided from the shape alone: the
+    tensor-core kernel (with that many rays a tile) for lego_ingp's and
+    lego_ingp_occ's shapes and the register builds' range where a tile fits
+    the shared memory; the runtime-shape build for widths other than 32 and
+    64, more than 16 levels, 8 features, a deep trunk or long rays."""
+    assert tfi.tc_rays_per_tile(width, depth, levels, features, dd, S) == rays
+    want = (tfi.TC_SOURCE, {}) if rays else ("fused_ingp", {"INGP_W": 0, "INGP_PP": 0})
+    assert tfi.train_build(width, depth, levels, features, dd, S) == want
+    if rays:
+        tp = -(-rays * S // 16) * 16
+        assert tp <= tfi.TC_MAX_POINTS
+        assert tfi.tc_smem_bytes(width, depth, levels * features, dd, S, rays) <= tfi.SMEM_LIMIT
+        assert tfi.tc_smem_bytes(width, depth, levels * features, dd, S, rays + 1) > tfi.SMEM_LIMIT \
+            or rays == tfi.TC_MAX_RAYS or -(-(rays + 1) * S // 16) * 16 > tfi.TC_MAX_POINTS
+
+
+def test_presets_train_on_the_tensor_cores():
+    """lego_ingp (48 + 48 samples) and lego_ingp_occ (32 + 32) route both
+    levels to the tensor-core kernel, whose block takes 215,632 / 215,440
+    bytes of shared memory at lego_ingp's coarse / fine level and 215,824
+    at lego_ingp_occ's (the budget in csrc/ingp_train_tc.cu)."""
+    from nerf_meets_mlx_torch.config import lego_ingp_occ as t_ingp_occ
+
+    for cfg in (t_ingp(), t_ingp_occ()):
+        enc = cfg.pos_encoding
+        for S in (cfg.render.n_samples, cfg.render.n_samples + cfg.render.n_importance):
+            for mlp in (cfg.mlp, cfg.mlp_fine):
+                assert tfi.train_build(mlp.net_width, mlp.net_depth, enc.hash_n_levels,
+                                       enc.hash_features_per_level, 16, S)[0] == tfi.TC_SOURCE
+    assert tfi.tc_smem_bytes(64, 2, 16, 16, 48, 2) == 215_632
+    assert tfi.tc_smem_bytes(64, 2, 16, 16, 96, 1) == 215_440
+    assert tfi.tc_smem_bytes(64, 2, 16, 16, 32, 3) == 215_824
+
+
+def _trunc_sum(parts):
+    """float64 sums added one after another into a float32 accumulator that
+    rounds toward zero, as the tensor cores add."""
+    from test_torch_fused_eval import _trunc32
+
+    acc = torch.zeros_like(parts[0][0])
+    for step in zip(*parts):
+        for x in step:
+            acc = _trunc32(acc + x).double()
+    return acc.float()
+
+
+def _tc(a, b, per_step=False):
+    """a [P, K] @ b [K, N] as csrc/ingp_train_tc.cu's mma.sync products:
+    both operands split into TF32 halves (split_tf32), K in steps of 8,
+    each step's lo*hi, hi*lo and hi*hi summed exactly and added with
+    truncation to one accumulator (dW: a tile's points), or with
+    ``per_step`` (the forward and cotangent products) to one that starts
+    from zero each k-step and is then added to the sum in fp32."""
+    from nerf_meets_mlx_torch.kernels.fused_train import _tf32
+
+    K = a.shape[1]
+    a = torch.nn.functional.pad(a, (0, -K % 8))
+    b = torch.nn.functional.pad(b, (0, 0, 0, -K % 8))
+    steps = a.shape[1] // 8
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    parts = [torch.einsum("psk,skn->spn", x.double().reshape(-1, steps, 8),
+                          y.double().reshape(steps, 8, -1))
+             for x, y in ((al, bh), (ah, bl), (ah, bh))]
+    if not per_step:
+        return _trunc_sum(parts)
+    out = torch.zeros(parts[0].shape[1:], dtype=torch.float32)
+    for step in zip(*parts):
+        out = out + _trunc_sum([[x] for x in step])
+    return out
+
+
+def _emulate_tc_kernel(mlp, enc, sh, tspec, ro, rd, z, dl, noise, target, rays):
+    """csrc/ingp_train_tc.cu's arithmetic in torch: the N >= 16 products of
+    the forward and the cotangents through ``_tc`` per k-step, the heads,
+    the view layer's SH term per ray, the biases and the compositing in
+    fp32; each tile's dW = X^T dZ through ``_tc`` with the tile's points in
+    the accumulator (K zero-padded to a multiple of 16) and the tiles' sums
+    added in fp32 in tile order; dG from d(features) by the fp32 scatter.
+    Returns (sse, rgb, weights, grads in the order of the plain version's
+    parameters, the tables' last)."""
+    from nerf_meets_mlx_torch.kernels.hash_encode import hash_encode_reference
+
+    R, S = z.shape
+    D, W = mlp.cfg.net_depth, mlp.cfg.net_width
+    trunk = list(mlp.pos_linears)
+    la, lf, lv, lr = mlp.alpha_linear, mlp.feature_linear, mlp.dir_linear, mlp.rgb_linear
+    pts = (ro[:, None] + z[..., None] * rd[:, None]).reshape(-1, 3)
+    feats = hash_encode_reference(enc, pts).detach()
+    with torch.no_grad():
+        xs, h = [], feats
+        for lin in trunk:
+            xs.append(h)
+            h = torch.relu(_tc(h, lin.weight.t(), True) + lin.bias)
+        hs = xs[1:] + [h]
+        sigma = h @ la.weight.t() + la.bias
+        feat = _tc(h, lf.weight.t(), True) + lf.bias
+        vsh = (lv.bias + sh @ lv.weight[:, W:].t()).repeat_interleave(S, 0)
+        hd = torch.relu(_tc(feat, lv.weight[:, :W].t(), True) + vsh)
+        raw = torch.cat([hd @ lr.weight.t() + lr.bias, sigma], -1).reshape(R, S, 4)
+    raw.requires_grad_(True)
+    rgb, w = tfi._composite(tspec, raw, dl, noise)
+    sse = torch.sum((rgb - target) ** 2)
+    (draw,) = torch.autograd.grad(sse, raw)
+    draw = draw.reshape(-1, 4)
+    with torch.no_grad():
+        drgb, dsig = draw[:, :3], draw[:, 3:]
+        dhd = (drgb @ lr.weight) * (hd > 0)
+        dfeat = _tc(dhd, lv.weight[:, :W], True)
+        dz = (_tc(dfeat, lf.weight, True) + dsig * la.weight) * (h > 0)
+        dzs = [None] * D
+        for l in range(D - 1, -1, -1):
+            dzs[l] = dz
+            if l > 0:
+                dz = _tc(dz, trunk[l].weight, True) * (xs[l] > 0)
+        denc = _tc(dz, trunk[0].weight, True)
+        tp = -(-rays * S // 16) * 16
+
+        def dw(x, d):
+            out = None
+            for r0 in range(0, R, rays):
+                rows = slice(r0 * S, min(R, r0 + rays) * S)
+                xt = torch.nn.functional.pad(x[rows], (0, 0, 0, tp - x[rows].shape[0]))
+                dt = torch.nn.functional.pad(d[rows], (0, 0, 0, tp - d[rows].shape[0]))
+                part = _tc(xt.t(), dt)
+                out = part if out is None else out + part
+            return out.t()
+
+        grads = []
+        for l in range(D):
+            grads += [dw(xs[l], dzs[l]), dzs[l].sum(0)]
+        grads += [dsig.t() @ h, dsig.sum(0)]
+        grads += [dw(h, dfeat), dfeat.sum(0)]
+        dsum = dhd.reshape(R, S, -1).sum(1)
+        grads += [torch.cat([dw(feat, dhd), dsum.t() @ sh], 1), dhd.sum(0)]
+        grads += [drgb.t() @ hd, drgb.sum(0)]
+    (dG,) = torch.autograd.grad(hash_encode_reference(enc, pts), enc.tables, denc)
+    return (sse.detach(), rgb.detach(), w.detach(), *grads, dG)
+
+
+@pytest.mark.parametrize("S", [48, 96, 32])
+@pytest.mark.parametrize("mode", ["canonical", "reference"])
+def test_tc_arithmetic_holds_the_card_tolerances(S, mode):
+    """The tensor-core kernel's arithmetic (``_emulate_tc_kernel``: 3xTF32
+    splits, the truncating accumulator within a k-step of the forward and
+    cotangent products and within a tile of dW, fp32 sums across k-steps
+    and tiles) at lego_ingp's widths on 5 rays (a ragged last
+    tile at 2 and 4 rays a tile), density noise on, against the fp32 plain
+    version under PERF.md's card tolerances: sse, rgb and weights within
+    atol 1e-4 + rtol 1e-4, every dW within 1e-3 of its array's largest plain
+    value and dG within 1e-4 of its largest."""
+    tm = t_create(t_ingp(), device="cpu").init(torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        tm.pos_enc.tables.add_(torch.randn(tm.pos_enc.tables.shape,
+                                           generator=torch.Generator().manual_seed(7)) * 0.1)
+    rng = np.random.default_rng(8)
+    R = 5
+    ro = torch.from_numpy((rng.normal(size=(R, 3)) * 0.2 + [0.0, 0.0, 3.0]).astype(np.float32))
+    rd = torch.from_numpy((rng.normal(size=(R, 3)) * 0.2 + [0.0, 0.0, -1.0]).astype(np.float32))
+    z = torch.from_numpy(np.sort(rng.uniform(1.0, 5.0, (R, S)), -1).astype(np.float32))
+    dl = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e10)], -1) * rd.norm(
+        dim=-1, keepdim=True)
+    noise = torch.from_numpy(rng.normal(size=(R, S)).astype(np.float32))
+    target = torch.from_numpy(rng.uniform(size=(R, 3)).astype(np.float32))
+    sh = sh_encode(rd / rd.norm(dim=-1, keepdim=True), 4)
+    rays = tfi.tc_rays_per_tile(64, 2, 8, 2, 16, S)
+    tspec = _tc_spec(S, mode, True)
+    mlp = tm.fine
+    args = (mlp, tm.pos_enc, sh, tspec, ro, rd, z, dl, noise, target)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got = _emulate_tc_kernel(*args, rays=rays)
+        sse, rgb, w = tfi.fused_ingp_train_reference(*args)
+        want = torch.autograd.grad(sse, _params(mlp) + [tm.pos_enc.tables])
+    finally:
+        torch.set_num_threads(threads)
+    for a, b in zip(got[:3], (sse, rgb, w)):
+        torch.testing.assert_close(a, b.detach(), rtol=1e-4, atol=1e-4)
+    grads = got[3:]
+    assert len(grads) == len(want) == 13
+    for i, (a, b) in enumerate(zip(grads, want)):
+        assert a.shape == b.shape, (i, a.shape, b.shape)
+        rel = 1e-4 if i == len(want) - 1 else 1e-3
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        assert err <= rel * scale, (i, err, scale)

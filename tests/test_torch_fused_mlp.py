@@ -31,6 +31,7 @@ from nerf_meets_mlx_torch.encoding.sinusoidal import sinusoidal_encode
 from nerf_meets_mlx_torch.kernels import fused_mlp as tfm
 from nerf_meets_mlx_torch.kernels.fused_train import LAUNCHES
 from nerf_meets_mlx_torch.models import create_nerf as t_create
+from torch_threads import one_torch_thread_per_worker  # noqa: F401  (autouse fixture)
 
 # JAX is imported by the tests that compare with it, not at module level:
 # the gpu-marked tests run on the card's machine, which has no JAX

@@ -32,6 +32,7 @@ from nerf_meets_mlx_torch.encoding.sinusoidal import sinusoidal_encode
 from nerf_meets_mlx_torch.kernels import fused_train as tft
 from nerf_meets_mlx_torch.models import create_nerf as t_create
 from nerf_meets_mlx_torch.rendering.volume import exclusive_cumsum
+from torch_threads import one_torch_thread_per_worker  # noqa: F401  (autouse fixture)
 
 VAL_RTOL, VAL_ATOL = 1e-5, 1e-6
 GRAD_RTOL, GRAD_ATOL = 2e-4, 5e-6

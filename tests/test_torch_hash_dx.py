@@ -33,6 +33,7 @@ import torch
 from nerf_meets_mlx_torch.encoding.hash_grid import HashGridEncoding
 from nerf_meets_mlx_torch.kernels import hash_encode as the
 from nerf_meets_mlx_torch.kernels.fused_train import LAUNCHES
+from torch_threads import one_torch_thread_per_worker  # noqa: F401  (autouse fixture)
 
 # JAX is imported by the tests that compare with it, not at module level:
 # the gpu-marked tests run on the card's machine, which has no JAX

@@ -28,6 +28,7 @@ from nerf_meets_mlx_torch.config import PRESETS as T_PRESETS
 from nerf_meets_mlx_torch.config import lego_occ as t_lego_occ
 from nerf_meets_mlx_torch.kernels.fused_train import LAUNCHES
 from nerf_meets_mlx_torch.models import create_nerf as t_create
+from torch_threads import one_torch_thread_per_worker  # noqa: F401  (autouse fixture)
 
 # JAX is imported by the tests that compare with it, not at module level
 # (the gpu-marked test runs on the card's machine, which has no JAX).

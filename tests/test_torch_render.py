@@ -32,6 +32,7 @@ from nerf_meets_mlx_tpu.datasets import synthetic as jsyn
 from nerf_meets_mlx_tpu.models import create_nerf as j_create
 from nerf_meets_mlx_tpu.ops import psnr as j_psnr
 from nerf_meets_mlx_tpu.rendering import render_image as j_render_image
+from torch_threads import one_torch_thread_per_worker  # noqa: F401  (autouse fixture)
 
 RTOL, ATOL = 2e-4, 2e-5
 
@@ -81,6 +82,45 @@ def test_render_rays_eval_matches_jax(fused, n_importance):
     assert set(out_t) == set(out_j)
     for k in out_j:
         _close(out_t[k], out_j[k], k)
+
+
+def test_eval_render_gradients_match_jax_on_the_standard_route():
+    """d(sum of rgb_map)/d(every MLP parameter) through
+    ``render_rays(train=False)`` on the standard route (both levels, 16 + 16
+    samples), against ``jax.grad`` of the JAX model's eval render on the
+    same weights: JAX's standard eval route keeps its gradients (only its
+    fused eval op stops them). The fine MLP's gradients at this file's
+    bound for rendered maps, rtol 2e-4 and atol 2e-5 scaled by the largest
+    JAX gradient entry (sums over the rays of the maps' cotangents: the
+    density path's arrays cancel to 1e-4 of the largest entry and keep
+    the rounding of their terms); the coarse MLP's zero on both sides (the
+    fine depths are sampled without gradient)."""
+    tm, jm, params = _pair(False, n_samples=16, n_importance=16)
+    ro, rd = _rays()
+    out = tm.render_rays(torch.from_numpy(ro), torch.from_numpy(rd), train=False)
+    names = [n for n, _ in tm.named_parameters()]
+    grads = torch.autograd.grad(out["rgb_map"].sum(), list(tm.parameters()), allow_unused=True)
+
+    def loss(p):
+        return jnp.sum(jm.render_rays(p, jnp.asarray(ro), jnp.asarray(rd), train=False)["rgb_map"])
+
+    jg = jax.grad(loss)(params)
+    want = t_create(_cfgs(n_samples=16, n_importance=16)[0], device="cpu")
+    interop.params_from_numpy(jax.tree_util.tree_map(np.asarray, jg), want)
+    want = dict(want.named_parameters())
+    assert len(grads) == len(want) > 0
+    scale = max(float(w.abs().max()) for w in want.values())
+    n_fine = 0
+    for name, g in zip(names, grads):
+        w = want[name].detach()
+        if name.startswith("coarse."):
+            assert g is None and not bool(w.any()), name
+            continue
+        n_fine += 1
+        assert bool(w.any()), name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=RTOL, atol=ATOL * scale,
+                                   err_msg=name)
+    assert n_fine == 2 * len(tm.fine.linears())
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused_route", "standard_route"])

@@ -40,6 +40,7 @@ from nerf_meets_mlx_tpu.engine import train_state as jts
 from nerf_meets_mlx_tpu.engine import trainer as jtr
 from nerf_meets_mlx_tpu.models import create_nerf as j_create
 from nerf_meets_mlx_tpu.ops.metrics import ssim as j_ssim
+from torch_threads import one_torch_thread_per_worker  # noqa: F401  (autouse fixture)
 
 H = W = 16
 FOCAL = 15.0
