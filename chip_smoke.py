@@ -78,11 +78,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    each kernel per launch and the warm step on both routes.
 
 9. the "feats" route: the feat train kernel against its plain version at
-   4096 rays x 48 / 96 samples with 16 and 32 feature channels, 1024 x 384
-   and 64 x 2048, both modes, white on and off, noise on (gradients also
-   against the plain version in float64); ``train_nerf(preset="lego_ingp")``
-   with the overlay of the Instant-NGP paper's tables (16 levels of 2^19,
-   resolutions to 512): 200 feat-train launches and no other, a falling
+   4096 rays x 48 / 96 samples with 16 and 32 feature channels (the
+   tensor-core kernel of ``csrc/ingp_train_tc.cu``), 1024 x 384 and 64 x
+   2048 (``csrc/fused_feat.cu``), both modes, white on and off, noise on
+   (gradients also against the plain version in float64), each with the
+   build the router picked; two launches at the paper tables' levels
+   bit-identical; ``train_nerf(preset="lego_ingp")`` with the overlay of
+   the Instant-NGP paper's tables (16 levels of 2^19, resolutions to 512),
+   both levels routed to the tensor-core kernel: 200 feat-train launches
+   and no other, a falling
    loss, a test PSNR, the tables and their Adam moments in the checkpoint;
    3 lego_ingp steps at 128 + 256 samples on the fused-train route (hash
    forward, feat train, hash dG) and on the plain route must agree; then
@@ -864,8 +868,18 @@ def phase_train_main_path(device, preset="lego_hierarchical", extra="", tag=None
     if extra:
         # the "feats" route: the feat train kernel per level, the encode by
         # the plain gather (tables past the hash kernels' budget), the
-        # renders on the standard route
+        # renders on the standard route; both levels' shapes route to the
+        # tensor-core kernel
+        from nerf_meets_mlx_torch.kernels import fused_feat_train as ff
+
         want = counts(feat_train=2 * TRAIN_STEPS)
+        p_dim = cfg.pos_encoding.hash_n_levels * cfg.pos_encoding.hash_features_per_level
+        builds = [ff.train_build(m.net_width, m.net_depth, p_dim, cfg.dir_encoding.out_dim, S)[0]
+                  for m, S in ((cfg.mlp, rcfg.n_samples),
+                               (cfg.mlp_fine, rcfg.n_samples + rcfg.n_importance))]
+        log(f"[train] {tag}: the feat train call's build per level: {builds}")
+        if builds != [ff.TC_SOURCE] * 2:
+            raise AssertionError(f"{tag} does not route both levels to {ff.TC_SOURCE}")
     elif cfg.pos_encoding.kind == "cp_grid":
         # lego_cp trains and serves on the standard route, as in JAX: the
         # plain encode and MLP, no kernel
@@ -1656,8 +1670,10 @@ def phase_ingp_kernel_timing(device):
     of a 400 x 400 frame (the serving path); the train kernel per level at
     4096 rays (plain: forward + autograd backward). The bound is the larger
     of the bytes it must move over 3.35 TB/s and its fp32 operations over
-    67 TFLOP/s; hashed lookups and atomics have no peak rate in the table
-    and are not counted as operations."""
+    67 TFLOP/s; the train kernel's, which runs its products on the tensor
+    cores in 3xTF32, counts three TF32 operations for each fp32 one over
+    495 TFLOP/s (its fp32 bound logged beside). Hashed lookups and atomics
+    have no peak rate in the table and are not counted as operations."""
     import torch
     from nerf_meets_mlx_torch.kernels import fused_ingp_train as fi
     from nerf_meets_mlx_torch.kernels import hash_encode as he
@@ -1674,19 +1690,25 @@ def phase_ingp_kernel_timing(device):
     W = mlp_cfg.net_width
     # the train call: forward, dW (as many MACs), every layer's input
     # cotangent (the hidden layers, the feature, the view head, and the
-    # hash features' through layer 0)
+    # hash features' through layer 0); the view layer's SH rows once a ray
+    # in the forward and in dW (the kernel forms the SH term once a ray and
+    # its dW from the ray's summed cotangent), not once a point
     train_dx = (mlp_cfg.net_depth - 1) * W * W + W * W + W + W * (W // 2) + (W // 2) * 3 + E * W
+    sh_macs = DD * (W // 2)
     wbytes = 4 * fi.pack_weights(model.fine)[0].numel()
     gen = torch.Generator(device=device).manual_seed(SEED + 13)
 
-    def entry(ms_runs, plain_ms, nbytes, flops, **extra):
-        t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    def entry(ms_runs, plain_ms, nbytes, flops, tensor_cores=False, **extra):
+        t_fp32, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+        t_ops = 3 * flops / TF32_FLOPS if tensor_cores else t_fp32
         ms = sum(ms_runs) / len(ms_runs)
-        # the fp32 bound, and the 3xTF32 one (three TF32 tensor-core
-        # operations for each fp32 one) that a tensor-core port would meet
+        # the bound of the units the kernel runs on, the fp32 one, and the
+        # 3xTF32 one (three TF32 tensor-core operations for each fp32 one)
+        # that a tensor-core port would meet
         return dict(ms=ms, ms_runs=ms_runs, plain_ms=plain_ms,
                     bound_ms=max(t_ops, t_bytes) * 1e3,
                     bound_by="operations" if t_ops > t_bytes else "bytes",
+                    fp32_bound_ms=max(t_fp32, t_bytes) * 1e3,
                     tf32x3_bound_ms=max(3 * flops / TF32_FLOPS, t_bytes) * 1e3, **extra)
 
     hfwd, hbwd, ev, tr = {}, {}, {}, {}
@@ -1764,12 +1786,16 @@ def phase_ingp_kernel_timing(device):
         # weights, sse, dW, dG
         nbytes = (4 * (6 * R + DD * R + 3 * R * S + 3 * R + 3 * R + R * S + 1 + n_dw) + wbytes
                   + 2 * table_bytes)
-        flops = (2 * (2 * fwd_macs + train_dx) + 2 * hash_flops) * R * S
-        tr[name] = entry([k1, k2], p_ms, nbytes, flops, rays=R, samples=S, split_ms=split)
-        log(f"[time] ingp_train {name:6s} R={R} S={S}: kernel {k1:.3f} / {k2:.3f} ms ("
+        flops = (2 * (2 * (fwd_macs - sh_macs) + train_dx) + 2 * hash_flops) * R * S \
+            + 2 * 2 * sh_macs * R
+        build = fi.train_build(W, mlp_cfg.net_depth, L, F, DD, S)[0]
+        tr[name] = entry([k1, k2], p_ms, nbytes, flops, tensor_cores=build == fi.TC_SOURCE,
+                         rays=R, samples=S, split_ms=split, build=build)
+        log(f"[time] ingp_train {name:6s} R={R} S={S} ({build}): kernel {k1:.3f} / {k2:.3f} ms ("
             + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
             + f" ms), plain fwd+bwd {p_ms:.3f} ms, bound {tr[name]['bound_ms']:.3f} ms "
-            f"({tr[name]['bound_by']}), 3xTF32 {tr[name]['tf32x3_bound_ms']:.3f} ms")
+            f"({tr[name]['bound_by']}; 3xTF32 {tr[name]['tf32x3_bound_ms']:.3f}, fp32 "
+            f"{tr[name]['fp32_bound_ms']:.3f} ms)")
     reset_launches()
     return hfwd, hbwd, ev, tr
 
@@ -1967,6 +1993,7 @@ def feat_case(name, model, mlp, mlp64, feats, sh, dl, nz, target, mode, white):
     R, S, P = feats.shape
     params, params64 = mlp_params(mlp), mlp_params(mlp64)
     tspec = feat_tspec(model, S, mode=mode, white=white)
+    build = ff.train_build(mlp.cfg.net_width, mlp.cfg.net_depth, P, sh.shape[-1], S)[0]
     f = feats.clone().requires_grad_(True)
     x = ff.pack_feat_inputs(f, sh, dl, nz)
     sse_k, rgb_k, w_k = ff.fused_feat_train_apply(mlp, tspec, x, target)
@@ -2007,7 +2034,7 @@ def feat_case(name, model, mlp, mlp64, feats, sh, dl, nz, target, mode, white):
         else:
             by.append("no")
     ok &= "no" not in by
-    log(f"[compare] feat_train {name:12s} R={R} S={S} P={P} {mode:9s} white="
+    log(f"[compare] feat_train {name:12s} R={R} S={S} P={P} ({build}) {mode:9s} white="
         f"{int(white)} max_abs sse={errs['sse']:.3e} rgb={errs['rgb']:.3e} "
         f"weights={errs['weights']:.3e} (weights > 1e-4: {live:.3f}); "
         f"max|dW-plain|/max|plain| per array: "
@@ -2022,12 +2049,36 @@ def feat_case(name, model, mlp, mlp64, feats, sh, dl, nz, target, mode, white):
     return max(errs["rgb"], errs["weights"]), ratios, by.count("ii")
 
 
+def feat_repeats(name, model, mlp, feats, sh, dl, nz, target):
+    """Two launches of the feat train kernel on the same inputs: sse, every
+    dW and db and d(feats) bit-identical (per-block partials summed in
+    block order, dfeats by plain stores: no atomics). Raises if not."""
+    import torch
+    from nerf_meets_mlx_torch.kernels import fused_feat_train as ff
+
+    tspec = feat_tspec(model, feats.shape[1])
+    runs = []
+    for _ in range(2):
+        f = feats.clone().requires_grad_(True)
+        sse, _, _ = ff.fused_feat_train_apply(mlp, tspec, ff.pack_feat_inputs(f, sh, dl, nz),
+                                              target)
+        runs.append([sse.detach()] + list(torch.autograd.grad(sse, mlp_params(mlp) + [f])))
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    log(f"[compare] feat_train {name}: two launches bit-identical (sse, dW, dfeats): {same}")
+    if not same:
+        raise AssertionError(f"feat_train is not deterministic at {name}")
+
+
 def phase_compare_feat(device):
     """The feat train kernel against its plain version at ``feat_sets``'
     shapes, both compositing modes, the white background on and off,
-    density noise on (``feat_case``). Returns (max abs error of the values,
-    worst gradient ratio against the fp32 plain version)."""
+    density noise on (``feat_case``, which logs the build that ran each
+    shape); the paper tables' levels run on the tensor-core kernel and
+    repeat bit for bit (``feat_repeats``). Returns (max abs error of the
+    values, worst gradient ratio against the fp32 plain version)."""
     import copy
+
+    from nerf_meets_mlx_torch.kernels import fused_feat_train as ff
 
     worst_val, worst_ratio, n_by_ii = 0.0, 0.0, 0
     for name, model, mlp, feats, sh, dl, nz, target in feat_sets(device):
@@ -2039,6 +2090,12 @@ def phase_compare_feat(device):
                 worst_val = max(worst_val, val)
                 worst_ratio = max(worst_ratio, max(ratios))
                 n_by_ii += n_ii
+        if name.startswith("paper") and "S=" not in name:
+            build = ff.train_build(mlp.cfg.net_width, mlp.cfg.net_depth, feats.shape[-1],
+                                   sh.shape[-1], feats.shape[1])[0]
+            if build != ff.TC_SOURCE:
+                raise AssertionError(f"{name} routes to {build}, not {ff.TC_SOURCE}")
+            feat_repeats(name, model, mlp, feats, sh, dl, nz, target)
     log(f"[compare] feat_train: {n_by_ii} arrays held by criterion (ii)")
     reset_launches()
     return worst_val, worst_ratio
@@ -2188,13 +2245,16 @@ def phase_image_path(device):
                       "peak_gb": peak_gb}
 
 
-def feat_train_macs(P, DD, W=64, D=2):
-    """(forward, train) multiply-adds per point of the feat MLP: the train
-    call is the forward, dW (as many) and the cotangents of every layer's
-    input, the features' included (the sh columns' not)."""
-    fwd = P * W + (D - 1) * W * W + W + W * W + (W + DD) * (W // 2) + (W // 2) * 3
+def feat_train_macs(P, DD, S, W=64, D=2):
+    """Multiply-adds per ray of one feat train call at S samples a ray: per
+    point the forward, dW (as many) and the cotangents of every layer's
+    input, the features' included; per ray the view layer's SH rows, once
+    in the forward and once in dW (a ray's rows carry one SH, so the tile
+    kernel forms the SH term once a ray and its dW from the ray's summed
+    cotangent), not their cotangent."""
+    fwd = P * W + (D - 1) * W * W + W + W * W + W * (W // 2) + (W // 2) * 3
     dx = (D - 1) * W * W + W * W + W + W * (W // 2) + (W // 2) * 3 + P * W
-    return fwd, 2 * fwd + dx
+    return S * (2 * fwd + dx) + 2 * DD * (W // 2)
 
 
 def image_macs(mlp_cfg, enc_dim):
@@ -2216,19 +2276,25 @@ def phase_feat_image_timing(device):
     backward); the image train kernel at 4096 pixels (plain: forward +
     autograd backward) and the forward kernel on a 400 x 400 frame. The
     bound is the larger of the bytes each launch must move over 3.35 TB/s
-    and its fp32 operations over 67 TFLOP/s."""
+    and its operations over the rate of the units that run them: three
+    TF32 operations for each fp32 one over 495 TFLOP/s where the build runs
+    its products on the tensor cores in 3xTF32 (the feat call's
+    ``csrc/ingp_train_tc.cu``), fp32 over 67 TFLOP/s elsewhere; both are
+    logged."""
     import torch
     from nerf_meets_mlx_torch.datasets.image import make_test_image, pixel_dataset
     from nerf_meets_mlx_torch.kernels import fused_feat_train as ff
     from nerf_meets_mlx_torch.kernels import fused_image as fim
     from nerf_meets_mlx_torch.kernels import fused_ingp_train as fi
 
-    def entry(ms_runs, plain_ms, nbytes, flops, **extra):
-        t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    def entry(ms_runs, plain_ms, nbytes, flops, tensor_cores=False, **extra):
+        t_fp32, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+        t_ops = 3 * flops / TF32_FLOPS if tensor_cores else t_fp32
         ms = sum(ms_runs) / len(ms_runs)
         return dict(ms=ms, ms_runs=ms_runs, plain_ms=plain_ms,
                     bound_ms=max(t_ops, t_bytes) * 1e3,
                     bound_by="operations" if t_ops > t_bytes else "bytes",
+                    fp32_bound_ms=max(t_fp32, t_bytes) * 1e3,
                     tf32x3_bound_ms=max(3 * flops / TF32_FLOPS, t_bytes) * 1e3,
                     achieved_tflops_s=flops / (ms * 1e-3) / 1e12, **extra)
 
@@ -2254,16 +2320,18 @@ def phase_feat_image_timing(device):
 
         k1, p_ms, k2 = cuda_time_ms(kernel, reps), cuda_time_ms(plain, reps), cuda_time_ms(kernel, reps)
         DD = sh.shape[-1]
-        _, train = feat_train_macs(P, DD)
         n_w = fi.pack_weights(mlp)[0].numel()
         # in: x, target, weights; out: rgb, weights, sse, dW, dfeats
         nbytes = 4 * (R * S * (P + DD + 2) + 3 * R + n_w + 3 * R + R * S + 1 + n_w + R * S * P)
         key = name.split()[1]
-        feat[key] = entry([k1, k2], p_ms, nbytes, 2.0 * train * R * S, rays=R, samples=S,
-                          p_dim=P)
-        log(f"[time] feat_train {name} R={R} S={S} P={P}: kernel {k1:.3f} / {k2:.3f} ms, plain "
-            f"fwd+bwd {p_ms:.3f} ms, bound {feat[key]['bound_ms']:.3f} ms "
-            f"({feat[key]['bound_by']}), {feat[key]['achieved_tflops_s']:.2f} TFLOP/s")
+        build = ff.train_build(mlp.cfg.net_width, mlp.cfg.net_depth, P, DD, S)[0]
+        feat[key] = entry([k1, k2], p_ms, nbytes, 2.0 * feat_train_macs(P, DD, S) * R,
+                          tensor_cores=build == ff.TC_SOURCE, rays=R, samples=S, p_dim=P,
+                          build=build)
+        log(f"[time] feat_train {name} R={R} S={S} P={P} ({build}): kernel {k1:.3f} / {k2:.3f} "
+            f"ms, plain fwd+bwd {p_ms:.3f} ms, bound {feat[key]['bound_ms']:.3f} ms "
+            f"({feat[key]['bound_by']}; 3xTF32 {feat[key]['tf32x3_bound_ms']:.3f}, fp32 "
+            f"{feat[key]['fp32_bound_ms']:.3f} ms), {feat[key]['achieved_tflops_s']:.2f} TFLOP/s")
 
     model = image_model(device)
     mlp, enc = model.coarse, model.pos_enc
@@ -2502,11 +2570,11 @@ CP_TIMED_STEPS = 25
 
 
 # the further shapes that the gpu-marked tests hold against their plain
-# versions: 16 levels of 4 features; widths 32 and 64 with 16, 24 or 64
-# feature channels; the widths 48 and 96 of the sinusoidal and image
-# kernels
+# versions: 16 levels of 4 features; widths 32 and 64 with 16, 24, 48 or
+# 64 feature channels (every register build of csrc/fused_feat.cu); the
+# widths 48 and 96 of the sinusoidal and image kernels
 TEST_INGP_SHAPES = ((64, 16, 4),)
-TEST_FEAT_SHAPES = ((32, 16), (64, 64), (32, 24))
+TEST_FEAT_SHAPES = ((32, 16), (64, 64), (32, 24), (32, 48))
 TEST_KW_BUILDS = tuple((s, w) for s in ("fused_eval", "fused_train", "fused_mlp", "fused_image")
                        for w in (48, 96))
 
@@ -3288,7 +3356,7 @@ def main() -> int:
         entry("ingp_train", "nerf_meets_mlx_torch/csrc/ingp_train_tc.cu",
               "nerf_meets_mlx_tpu/kernels/fused_ingp_train.py:93", ingp_launches["ingp_train"],
               ingp_err["train_val"], ingp_train_t),
-        entry("feat_train", "nerf_meets_mlx_torch/csrc/fused_feat.cu",
+        entry("feat_train", "nerf_meets_mlx_torch/csrc/ingp_train_tc.cu",
               "nerf_meets_mlx_tpu/kernels/fused_feat_train.py:308", feat_launches["feat_train"],
               feat_err[0], feat_t),
         entry("image_train", "nerf_meets_mlx_torch/csrc/fused_image.cu",

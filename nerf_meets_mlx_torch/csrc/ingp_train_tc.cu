@@ -1,6 +1,7 @@
-// Fused Instant-NGP train kernel for Hopper (sm_90a): the MLP on the
-// tensor cores in 3xTF32, each tile's activations and cotangents kept on
-// chip.
+// Fused Instant-NGP and feat train kernels for Hopper (sm_90a): the MLP on
+// the tensor cores in 3xTF32, each tile's activations and cotangents kept
+// on chip. One tile walk (tc_tiles) serves both; they differ only before
+// and after the MLP (the feat kernel is described at the end of this note).
 //
 // Replaces nerf_meets_mlx_tpu/kernels/fused_ingp_train.py::_ingp_train_kernel
 // (pallas_call at :589) for the shapes listed below; every other shape runs
@@ -103,9 +104,10 @@
 // Shared memory (floats): weights K0*(W+8) + (D-1)*W*(W+8) + W*(W+8) +
 // W*(W/2+8) + heads and biases; per point of a tile (E16+8) + (D+1)*(W+8) +
 // (W/2+8) + 10 (stored layer outputs, the compositing terms, the point);
-// per ray W/2 + 1; the dW partial (every weight and bias). lego_ingp's
-// coarse level: 13,288 + 96 x 290 + 68 + 12,168 floats = 213,456 bytes (2
-// rays a tile); its fine level 213,328 (1 ray); lego_ingp_occ 213,584 (3
+// per ray W/2 + 1 + DD; the view weight's SH rows DD*W/2; the dW partial
+// (every weight and bias). lego_ingp's coarse level (DD = 25, degree-4
+// SH): 13,288 + 800 + 96 x 290 + 120 + 12,456 floats = 218,016 bytes (2
+// rays a tile); its fine level 217,792 (1 ray); lego_ingp_occ 218,240 (3
 // rays of 32).
 //
 // bf16 hash compute (hash_compute_dtype = "bfloat16") rounds where the
@@ -113,10 +115,41 @@
 // (3xTF32). The TPU kernel's one-hot-GEMM lookups, selector GEMMs and
 // 768-point sub-blocks are not carried over.
 //
+// The feat kernel (feat_tc_kernel) replaces
+// nerf_meets_mlx_tpu/kernels/fused_feat_train.py::_feat_train_kernel
+// (pallas_call at :454) for the shapes it takes; every other shape runs
+// csrc/fused_feat.cu (kernels/fused_feat_train.py routes by shape). It
+// takes the JAX op's packed input x [R*S, C] = [feats (P) | sh (DD) |
+// delta | noise] and the target colours, and writes rgb, weights, sse,
+// every dW and dfeats [R*S, P] = d(sse)/d(feats). Its front end reads the
+// tile's rows of x, one contiguous chunk, into layer 0's input area (the
+// P feature columns), the deltas and noise per point, and each ray's SH
+// from its first row (a ray's rows repeat its SH), and prefetches the next
+// tile's rows into L2 for the next pass: the load took 13% of a tile from
+// device memory with two integer divisions an element, 7% from L2 without
+// them (tools/ingp_kernel_probe.py --feat, PERF.md); its back end stores
+// layer 0's cotangent product dZ_0 W_0 (the INGP kernel's d(features)) as
+// dfeats with coalesced stores. It keeps no points: without them the
+// paper tables' shape (W 64, depth 2, P = 32, DD = 25) fits 2 rays of 48 a
+// tile (231,712 bytes) and 1 of 96 (231,488); the INGP layout would need
+// 232,864 / 232,640. Shapes: widths 32 and 64, depth 1..8, P <= 64, DD <=
+// 64, tiles of whole rays of at most 96 points that fit. No atomics:
+// sse, dW and dfeats are bit-identical from run to run. What bounds it at
+// the paper tables' fine level (393,216 points): the 3xTF32 work, 3 x 2 x
+// 38,944 MACs a point (forward, dW and the cotangents, dfeats included),
+// 0.19 ms at 495 TFLOP/s; the bytes (x's 59 floats and dfeats' 32 a
+// point), 0.04 ms. The alpha head's dW is summed in plain fp32 like every
+// other partial: in canonical mode its terms cancel, and csrc/fused_feat.cu
+// compensated them (Kahan), but this kernel's short sums (a tile, then a
+// block's tiles, then the blocks) land no further from float64 than the
+// fp32 plain version does (tests/test_torch_feat_train.py emulates them;
+// chip_smoke.py holds them on the card).
+//
 // Variants for tools/ingp_kernel_probe.py: INGP_TC_NO_ATOMICS (dG not
 // written), INGP_TC_NO_MMA (products skipped), INGP_TC_NO_HASH (features
 // zero, no lookups) time parts of the launch and compute wrong results;
-// INGP_TC_CLOCKS writes block 0's cycles per phase over rgb.
+// INGP_TC_CLOCKS writes block 0's cycles per phase over rgb. NO_MMA and
+// CLOCKS apply to the feat kernel too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -173,6 +206,9 @@ struct Args {
   float* dG;              // [L, T, F]
   float* part;            // [grid][n_dw] the blocks' dW partials, each weight [in][out]
   float* sse_part;        // [grid]
+  const float* x;         // feat: [R*S, C] = [feats (E) | sh (DD) | delta | noise]
+  float* dfeats;          // feat: [R*S, E]
+  int C;                  // feat: x's row length, E + DD + 2
   long long T;
   unsigned mask;          // T - 1
   int R, S, L, F, E, D, DD;
@@ -223,8 +259,10 @@ __host__ __device__ inline int dw_floats(int W, int D, int E, int DD) {
          dw_piece(W + DD, W / 2) + dw_piece(W / 2, 3);
 }
 
-// every piece is a multiple of 4 floats (16 bytes)
-__host__ __device__ inline Smem smem_layout(int W, int D, int E, int DD, int tp, int rpt) {
+// every piece is a multiple of 4 floats (16 bytes); the feat kernel keeps
+// no points (points = false)
+__host__ __device__ inline Smem smem_layout(int W, int D, int E, int DD, int tp, int rpt,
+                                            bool points = true) {
   Smem M{};
   int o = 0;
   const int SWW = W + 8, WH = W / 2, SWH = WH + 8;
@@ -249,7 +287,7 @@ __host__ __device__ inline Smem smem_layout(int W, int D, int E, int DD, int tp,
   M.pa = take(o, tp);
   M.pda = take(o, tp);
   M.pdq = take(o, tp);
-  M.pts = take(o, tp * 3);
+  M.pts = take(o, points ? tp * 3 : 0);
   M.vsh = take(o, rpt * WH);
   M.rsse = take(o, rpt);
   M.shs = take(o, rpt * DD);
@@ -660,6 +698,85 @@ __device__ __forceinline__ void tile_scatter(const Args& A, const Smem& M, const
   }
 }
 
+// The feat kernel's front end: the tile's rows of x [R*S][C] = [feats (E)
+// | sh (DD) | delta | noise], one contiguous chunk read in order, 8 loads
+// in flight a thread, a thread's (point, column) advanced by NTHREADS
+// without a division: the features into enc, each point's delta and
+// noise; then each ray's SH from its first row (a ray's rows repeat its
+// SH; those lines are in L1 by then), and zero features for the padding
+// points and past E.
+__device__ __forceinline__ void tile_rows(const Args& A, const Smem& M, float* sm, long long g0,
+                                          int nr, int nvalid) {
+  constexpr int U = 8;
+  const int C = A.C, E = A.E, S = A.S, SE = ru(E, 16) + 8, n = nvalid * C;
+  const int dp = NTHREADS / C, dc = NTHREADS - dp * C;
+  const float* xt = A.x + g0 * C;
+  float* enc = sm + M.enc;
+  int p = threadIdx.x / C, c = threadIdx.x - p * C;
+  for (int base = threadIdx.x; base < n; base += U * NTHREADS) {
+    float v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int idx = base + u * NTHREADS;
+      v[u] = idx < n ? __ldg(xt + idx) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (base + u * NTHREADS >= n) break;
+      if (c < E)
+        enc[p * SE + c] = v[u];
+      else if (c == C - 2)
+        sm[M.pdq + p] = v[u];
+      else if (c == C - 1)
+        sm[M.pda + p] = v[u];
+      p += dp;
+      c += dc;
+      if (c >= C) {
+        c -= C;
+        ++p;
+      }
+    }
+  }
+  for (int idx = threadIdx.x; idx < nr * A.DD; idx += NTHREADS) {
+    const int r = idx / A.DD;
+    sm[M.shs + idx] = __ldg(xt + (long long)r * S * C + E + idx - r * A.DD);
+  }
+  const int E16 = ru(E, 16), pad = E16 - E;
+  for (int idx = threadIdx.x; idx < A.tp * pad; idx += NTHREADS) {
+    const int q = idx / pad;
+    enc[q * SE + E + idx - q * pad] = 0.f;
+  }
+  for (int idx = threadIdx.x; idx < (A.tp - nvalid) * E; idx += NTHREADS) {
+    const int q = idx / E;
+    enc[(nvalid + q) * SE + idx - q * E] = 0.f;
+  }
+}
+
+// The next tile's rows of x into L2 (a line a thread), while this tile
+// runs: its front end then reads them from L2 rather than device memory.
+__device__ __forceinline__ void prefetch_rows(const Args& A, int tile) {
+  const int r0 = tile * A.rpt, nr = min(A.rpt, A.R - r0);
+  const char* src = reinterpret_cast<const char*>(A.x + (long long)r0 * A.S * A.C);
+  const long long bytes = 4ll * nr * A.S * A.C;
+  for (long long o = 128ll * threadIdx.x; o < bytes + 127; o += 128ll * NTHREADS) {
+    const char* line = src + (o < bytes ? o : bytes - 1);
+    asm volatile("prefetch.L2 [%0];" ::"l"(line));
+  }
+}
+
+// The feat kernel's back end: d(features), which the layer-0 cotangent
+// product left in enc, to dfeats [R*S][E], in order (coalesced stores).
+__device__ __forceinline__ void tile_dfeats(const Args& A, const Smem& M, const float* sm,
+                                            long long g0, int nvalid) {
+  const int E = A.E, SE = ru(E, 16) + 8, n = nvalid * E;
+  const float* enc = sm + M.enc;
+  float* dst = A.dfeats + g0 * E;
+  for (int idx = threadIdx.x; idx < n; idx += NTHREADS) {
+    const int p = idx / E;
+    dst[idx] = enc[p * SE + idx - p * E];
+  }
+}
+
 // The tile's dW = X^T dZ of one layer (X: [TP][ldx] with K_in columns, dZ:
 // [TP][ldz] with N columns) on the tensor cores, K = the tile's points in
 // the accumulator, added to the block's partial at woff ([K_in][N]) in
@@ -721,11 +838,14 @@ __device__ __forceinline__ void tile_db(const float* dZ, int ldz, int N, int tp,
   part[j] += s;
 }
 
-template <int W>
-__global__ void __launch_bounds__(NTHREADS, 1) ingp_tc_kernel(const __grid_constant__ Args A) {
+// One block's walk over its tiles: the INGP kernel (FEAT false: points,
+// hash features, dG) or the feat kernel (FEAT true: x's rows, dfeats); the
+// MLP, the compositing and dW between them are the same code.
+template <int W, bool FEAT>
+__device__ __forceinline__ void tc_tiles(const Args& A) {
   extern __shared__ __align__(16) float sm[];
   constexpr int NT = W / 8, WH = W / 2, NTH = WH / 8, SWW = W + 8, SWH = WH + 8;
-  const Smem M = smem_layout(W, A.D, A.E, A.DD, A.tp, A.rpt);
+  const Smem M = smem_layout(W, A.D, A.E, A.DD, A.tp, A.rpt, !FEAT);
   constexpr int NH = NT / 2, NHV = NTH / 2;  // n-tiles of a warp's half of a W / W/2 layer
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
   const int D = A.D, S = A.S, E = A.E, K0 = ru(E, 8), SE = ru(E, 16) + 8;
@@ -777,34 +897,42 @@ __global__ void __launch_bounds__(NTHREADS, 1) ingp_tc_kernel(const __grid_const
     const int nvalid = nr * S;
     const long long g0 = (long long)r0 * S;  // the tile's first sample
 
-    // ---------------- the points, their noise and deltas; the rays' SH ----------------
-    for (int p = tid; p < A.tp; p += NTHREADS) {
-      float* x = sm + M.pts + 3 * p;
-      if (p < nvalid) {
-        const int ray = r0 + p / S;
-        const float zz = __ldg(A.z + g0 + p);
+    if constexpr (FEAT) {
+      // ---------------- x's rows: features, deltas, noise; the rays' SH ----------------
+      tile_rows(A, M, sm, g0, nr, nvalid);
+      if (tile + (int)gridDim.x < A.n_tiles) prefetch_rows(A, tile + gridDim.x);
+      __syncthreads();
+      PHASE_CLOCK(0);
+    } else {
+      // ---------------- the points, their noise and deltas; the rays' SH ----------------
+      for (int p = tid; p < A.tp; p += NTHREADS) {
+        float* x = sm + M.pts + 3 * p;
+        if (p < nvalid) {
+          const int ray = r0 + p / S;
+          const float zz = __ldg(A.z + g0 + p);
 #pragma unroll
-        for (int a = 0; a < 3; ++a)
-          x[a] = __fadd_rn(__ldg(A.rays_o + ray * 3 + a),
-                           __fmul_rn(zz, __ldg(A.rays_d + ray * 3 + a)));
-        sm[M.pda + p] = __ldg(A.noise + g0 + p);
-        sm[M.pdq + p] = __ldg(A.deltas + g0 + p);
-      } else {
-        x[0] = x[1] = x[2] = 0.f;
+          for (int a = 0; a < 3; ++a)
+            x[a] = __fadd_rn(__ldg(A.rays_o + ray * 3 + a),
+                             __fmul_rn(zz, __ldg(A.rays_d + ray * 3 + a)));
+          sm[M.pda + p] = __ldg(A.noise + g0 + p);
+          sm[M.pdq + p] = __ldg(A.deltas + g0 + p);
+        } else {
+          x[0] = x[1] = x[2] = 0.f;
+        }
       }
-    }
-    for (int idx = tid; idx < nr * A.DD; idx += NTHREADS)
-      sm[M.shs + idx] = __ldg(A.sh + (size_t)r0 * A.DD + idx);
-    __syncthreads();
-    PHASE_CLOCK(0);
+      for (int idx = tid; idx < nr * A.DD; idx += NTHREADS)
+        sm[M.shs + idx] = __ldg(A.sh + (size_t)r0 * A.DD + idx);
+      __syncthreads();
+      PHASE_CLOCK(0);
 
-    // ---------------- hash features; the view layer's SH term per ray ----------------
-    if (A.F == 4)
-      tile_features<4>(A, M, sm, nvalid);
-    else if (A.F == 2)
-      tile_features<2>(A, M, sm, nvalid);
-    else
-      tile_features<1>(A, M, sm, nvalid);
+      // ---------------- hash features; the view layer's SH term per ray ----------------
+      if (A.F == 4)
+        tile_features<4>(A, M, sm, nvalid);
+      else if (A.F == 2)
+        tile_features<2>(A, M, sm, nvalid);
+      else
+        tile_features<1>(A, M, sm, nvalid);
+    }
     for (int idx = tid; idx < nr * WH; idx += NTHREADS) {
       const int r = idx / WH, j = idx - r * WH;
       const float* shr = sm + M.shs + r * A.DD;
@@ -1130,13 +1258,17 @@ __global__ void __launch_bounds__(NTHREADS, 1) ingp_tc_kernel(const __grid_const
       PHASE_CLOCK(11);
     }
 
-    // ---------------- the table gradient ----------------
-    if (A.F == 4)
-      tile_scatter<4>(A, M, sm, nvalid);
-    else if (A.F == 2)
-      tile_scatter<2>(A, M, sm, nvalid);
-    else
-      tile_scatter<1>(A, M, sm, nvalid);
+    // ---------------- the table gradient, or dfeats ----------------
+    if constexpr (FEAT) {
+      tile_dfeats(A, M, sm, g0, nvalid);
+    } else {
+      if (A.F == 4)
+        tile_scatter<4>(A, M, sm, nvalid);
+      else if (A.F == 2)
+        tile_scatter<2>(A, M, sm, nvalid);
+      else
+        tile_scatter<1>(A, M, sm, nvalid);
+    }
     __syncthreads();
     PHASE_CLOCK(12);
   }
@@ -1150,6 +1282,16 @@ __global__ void __launch_bounds__(NTHREADS, 1) ingp_tc_kernel(const __grid_const
   if (blockIdx.x == 0 && tid == 0)
     for (int k = 0; k < N_PHASES; ++k) A.rgb[k] = (float)clk[k];
 #endif
+}
+
+template <int W>
+__global__ void __launch_bounds__(NTHREADS, 1) ingp_tc_kernel(const __grid_constant__ Args A) {
+  tc_tiles<W, false>(A);
+}
+
+template <int W>
+__global__ void __launch_bounds__(NTHREADS, 1) feat_tc_kernel(const __grid_constant__ Args A) {
+  tc_tiles<W, true>(A);
 }
 
 struct ReduceArgs {
@@ -1188,10 +1330,73 @@ __global__ void ingp_tc_reduce_kernel(const __grid_constant__ ReduceArgs R) {
   R.dw[i] = s;
 }
 
+bool tile_ok(int W, int D, int DD, int S, int rpt) {
+  return (W == 32 || W == 64) && D >= 1 && D <= MAX_DEPTH && DD >= 0 && DD <= MAX_DD && S >= 1 &&
+         rpt >= 1 && rpt <= MAX_RPT && ru(rpt * S, 16) <= MAX_TP;
+}
+
 bool shape_ok(int W, int D, int L, int F, int DD, int S, int rpt) {
-  return (W == 32 || W == 64) && D >= 1 && D <= MAX_DEPTH && L >= 1 && L <= MAX_LEVELS &&
-         (F == 1 || F == 2 || F == 4) && L * F <= MAX_FEATS && DD >= 0 && DD <= MAX_DD &&
-         S >= 1 && rpt >= 1 && rpt <= MAX_RPT && ru(rpt * S, 16) <= MAX_TP;
+  return tile_ok(W, D, DD, S, rpt) && L >= 1 && L <= MAX_LEVELS && (F == 1 || F == 2 || F == 4) &&
+         L * F <= MAX_FEATS;
+}
+
+bool feat_shape_ok(int W, int D, int P, int DD, int S, int rpt) {
+  return tile_ok(W, D, DD, S, rpt) && P >= 1 && P <= MAX_FEATS;
+}
+
+// a's linears: weight and bias pointers and offsets into the dW buffer
+void set_linears(Args& a, int n_lin, const float* const* weights, const float* const* biases,
+                 const int* dw_offs) {
+  for (int l = 0; l < n_lin; ++l) {
+    a.w[l] = weights[l];
+    a.b[l] = biases[l];
+    a.woff[l] = dw_offs[2 * l];
+    a.boff[l] = dw_offs[2 * l + 1];
+  }
+}
+
+// The tile kernel on a persistent grid of at most `blocks` blocks over a's
+// tiles, then the reduce of the blocks' partials into dw and sse. a holds
+// everything but the tiling, which this sets from a.R, a.S and a.rpt.
+int launch_tiles(Args& a, void (*kernel)(Args), int W, bool points, int blocks, float* dw,
+                 float* sse, void* stream) {
+  a.tp = ru(a.rpt * a.S, 16);
+  a.n_tiles = (a.R + a.rpt - 1) / a.rpt;
+  a.sse_part = a.part + (size_t)blocks * a.n_dw;
+  const size_t smem = 4 * (size_t)smem_layout(W, a.D, a.E, a.DD, a.tp, a.rpt, points).total;
+  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int grid = blocks < a.n_tiles ? blocks : a.n_tiles;
+  kernel<<<(unsigned)grid, NTHREADS, smem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  ReduceArgs r{};
+  r.part = a.part;
+  r.sse_part = a.sse_part;
+  r.dw = dw;
+  r.sse = sse;
+  r.n_blocks = grid;
+  r.n_dw = a.n_dw;
+  const int D = a.D, WH = W / 2, n_lin = D + 4;
+  r.n_lin = n_lin;
+  for (int l = 0; l < n_lin; ++l) {
+    r.woff[l] = a.woff[l];
+    r.boff[l] = a.boff[l];
+  }
+  for (int l = 0; l < D; ++l) {
+    r.fin[l] = l == 0 ? a.E : W;
+    r.fout[l] = W;
+  }
+  r.fin[D] = W;      r.fout[D] = 1;       // alpha
+  r.fin[D + 1] = W;  r.fout[D + 1] = W;   // feature
+  r.fin[D + 2] = W + a.DD; r.fout[D + 2] = WH;  // view
+  r.fin[D + 3] = WH; r.fout[D + 3] = 3;   // rgb
+  ingp_tc_reduce_kernel<<<(a.n_dw + 255) / 256, 256, 0, st>>>(r);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1226,58 +1431,51 @@ extern "C" int ingp_tc_train_launch(const float* const* tensors, const float* co
   Args a{};
   a.rays_o = tensors[0]; a.rays_d = tensors[1]; a.sh = tensors[2]; a.z = tensors[3];
   a.deltas = tensors[4]; a.noise = tensors[5]; a.target = tensors[6]; a.tables = tensors[7];
-  const int n_lin = D + 4;
-  for (int l = 0; l < n_lin; ++l) {
-    a.w[l] = weights[l];
-    a.b[l] = biases[l];
-    a.woff[l] = dw_offs[2 * l];
-    a.boff[l] = dw_offs[2 * l + 1];
-  }
+  set_linears(a, D + 4, weights, biases, dw_offs);
   a.rgb = rgb; a.weights = wts; a.dG = dG; a.part = part;
-  a.sse_part = part + (size_t)blocks * n_dw;
   a.T = 1ll << log2_T;
   a.mask = (unsigned)(a.T - 1);
   a.R = R; a.S = S; a.L = L; a.F = F; a.E = L * F; a.D = D; a.DD = DD;
   a.bf16 = shape[8]; a.mode = shape[9]; a.relu_density = shape[10]; a.white_bkgd = shape[11];
   a.rpt = rpt;
-  a.tp = ru(rpt * S, 16);
-  a.n_tiles = (R + rpt - 1) / rpt;
   a.n_dw = n_dw;
   a.bmin = bmin; a.brange = brange;
   for (int l = 0; l < L; ++l) a.res[l] = res[l];
-  const size_t smem = 4 * (size_t)smem_layout(W, D, a.E, DD, a.tp, rpt).total;
-  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  void (*kernel)(Args) = W == 64 ? ingp_tc_kernel<64> : ingp_tc_kernel<32>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int grid = blocks < a.n_tiles ? blocks : a.n_tiles;
-  kernel<<<(unsigned)grid, NTHREADS, smem, st>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  return launch_tiles(a, W == 64 ? ingp_tc_kernel<64> : ingp_tc_kernel<32>, W, true, blocks, dw,
+                      sse, stream);
+}
 
-  ReduceArgs r{};
-  r.part = part;
-  r.sse_part = a.sse_part;
-  r.dw = dw;
-  r.sse = sse;
-  r.n_blocks = grid;
-  r.n_dw = n_dw;
-  r.n_lin = n_lin;
-  const int WH = W / 2;
-  for (int l = 0; l < n_lin; ++l) {
-    r.woff[l] = a.woff[l];
-    r.boff[l] = a.boff[l];
-  }
-  for (int l = 0; l < D; ++l) {
-    r.fin[l] = l == 0 ? L * F : W;
-    r.fout[l] = W;
-  }
-  r.fin[D] = W;      r.fout[D] = 1;       // alpha
-  r.fin[D + 1] = W;  r.fout[D + 1] = W;   // feature
-  r.fin[D + 2] = W + DD; r.fout[D + 2] = WH;  // view
-  r.fin[D + 3] = WH; r.fout[D + 3] = 3;   // rgb
-  ingp_tc_reduce_kernel<<<(n_dw + 255) / 256, 256, 0, st>>>(r);
-  return (int)cudaGetLastError();
+// Shared-memory bytes of one feat block for this shape (p feature
+// channels) and tile of `rays` rays (0 if the kernel does not take it).
+extern "C" long long feat_tc_smem_bytes(int width, int depth, int p, int dd, int S, int rays) {
+  if (!feat_shape_ok(width, depth, p, dd, S, rays)) return 0;
+  return 4ll * smem_layout(width, depth, p, dd, ru(rays * S, 16), rays, false).total;
+}
+
+// The feat train call of one level: x [R*S, p + dd + 2] (each ray's rows
+// carry its SH), target [R, 3]; weights, biases, dw_offs as
+// ingp_tc_train_launch's; dfeats [R*S, p]; shape: R, S, width, depth, p,
+// dd, mode, relu_density, white_bkgd, rays a tile, blocks, n_dw. part:
+// blocks * (n_dw + 1) floats of scratch. Returns the first cudaError_t.
+extern "C" int feat_tc_train_launch(const float* x, const float* target,
+                                    const float* const* weights, const float* const* biases,
+                                    const int* dw_offs, float* rgb, float* wts, float* sse,
+                                    float* dw, float* dfeats, float* part, const int* shape,
+                                    void* stream) {
+  const int R = shape[0], S = shape[1], W = shape[2], D = shape[3], P = shape[4], DD = shape[5];
+  const int rpt = shape[9], blocks = shape[10], n_dw = shape[11];
+  if (!feat_shape_ok(W, D, P, DD, S, rpt) || R < 0 || blocks < 1 ||
+      n_dw != dw_floats(W, D, P, DD))
+    return (int)cudaErrorInvalidValue;
+  if (R == 0) return 0;
+  Args a{};
+  a.x = x; a.target = target; a.dfeats = dfeats; a.C = P + DD + 2;
+  set_linears(a, D + 4, weights, biases, dw_offs);
+  a.rgb = rgb; a.weights = wts; a.part = part;
+  a.R = R; a.S = S; a.E = P; a.D = D; a.DD = DD;
+  a.mode = shape[6]; a.relu_density = shape[7]; a.white_bkgd = shape[8];
+  a.rpt = rpt;
+  a.n_dw = n_dw;
+  return launch_tiles(a, W == 64 ? feat_tc_kernel<64> : feat_tc_kernel<32>, W, false, blocks, dw,
+                      sse, stream);
 }

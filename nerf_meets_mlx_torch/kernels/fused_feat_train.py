@@ -3,12 +3,18 @@ NeRF MLP on [feats | sh] → compositing → the MSE loss and its whole
 backward, with the gradient of the features.
 
 Counterpart of ``nerf_meets_mlx_tpu/kernels/fused_feat_train.py``. The
-kernel is ``csrc/fused_feat.cu`` (``feat_rays_kernel`` with its dW GEMM and
-reduction; the Pallas ``_feat_train_kernel``). This module holds its
-wrapper and its plain PyTorch version. The hash-grid configs past the fused
-INGP kernel's bounds (paper-size tables, or more than 256 samples a ray)
-train through it (``models/factory.py``, the "feats" route): the encoding
-runs outside the op, and d(sse)/d(feats) goes back to it through autograd.
+Pallas ``_feat_train_kernel`` has two ports, and ``train_build`` picks one
+from the shape alone, before the launch: ``csrc/ingp_train_tc.cu``'s
+``feat_tc_kernel`` (the INGP train kernel's tile: the MLP on the tensor
+cores in 3xTF32, a tile's activations and dW on chip; widths 32 and 64,
+depth 1..8, at most 64 feature and 64 SH channels, wherever a tile of
+whole rays of at most 96 points fits), and ``csrc/fused_feat.cu``
+(``feat_rays_kernel`` with its dW GEMM and reduction) for every other
+shape. This module holds their wrappers and the plain PyTorch version.
+The hash-grid configs past the fused INGP kernel's bounds (paper-size
+tables, or more than 256 samples a ray) train through it
+(``models/factory.py``, the "feats" route): the encoding runs outside the
+op, and d(sse)/d(feats) goes back to it through autograd.
 
 * ``fused_feat_train_apply`` launches the kernel for CUDA tensors (or
   raises) and runs ``fused_feat_train_reference`` for CPU tensors. There is
@@ -16,7 +22,9 @@ runs outside the op, and d(sse)/d(feats) goes back to it through autograd.
 * The input is the JAX op's packed tile, x [R·S, P + D + 2] = [feats | sh
   per point | delta | noise] (``pack_feat_inputs``); the weights are taken
   as the ``nn.Linear`` modules hold them, as ``fused_ingp_train`` takes
-  them.
+  them. The rows of a ray must carry the ray's SH, as ``pack_feat_inputs``
+  makes them: the tensor-core kernel reads each ray's SH from its first
+  row (``fused_feat_train_apply`` states the precondition).
 * ``LAUNCHES["feat_train"]`` (the dict shared with ``fused_train``) counts
   kernel launches, one per CUDA call.
 """
@@ -28,6 +36,7 @@ from typing import Tuple
 
 import torch
 
+from nerf_meets_mlx_torch.kernels import fused_ingp_train as fi
 from nerf_meets_mlx_torch.kernels.fused_ingp_train import _composite, pack_weights
 from nerf_meets_mlx_torch.kernels.fused_train import LAUNCHES, TrainSpec, _checked_inputs
 
@@ -47,6 +56,39 @@ WIDTHS = (32, 64)
 PP_SIZES = (16, 32, 64)
 MIN_WIDTH, MAX_WIDTH = 32, 256
 MAX_CHANNELS = 128
+# the tensor-core kernel (csrc/ingp_train_tc.cu's feat_tc_kernel): the INGP
+# train kernel's widths, depth, SH channels and tiles, up to TC_MAX_CHANNELS
+# feature channels
+TC_SOURCE = fi.TC_SOURCE
+TC_MAX_CHANNELS = fi.TC_MAX_FEATURES
+
+
+def tc_smem_bytes(width: int, depth: int, p_dim: int, n_channels: int, n_samples: int,
+                  rays: int) -> int:
+    """Shared-memory bytes of one block of the tensor-core feat kernel
+    (``feat_tc_smem_bytes`` in csrc/ingp_train_tc.cu): the INGP kernel's
+    budget with the ``p_dim`` feature columns as layer 0's input and no
+    points."""
+    return fi.tc_smem_bytes(width, depth, p_dim, n_channels, n_samples, rays, points=False)
+
+
+def tc_rays_per_tile(width: int, depth: int, p_dim: int, n_channels: int, n_samples: int) -> int:
+    """Rays a tile of the tensor-core feat kernel at this shape: the most
+    whole rays, up to 16, that fill at most 96 points and fit the block's
+    shared memory; 0 where that kernel does not take the shape."""
+    if (width not in fi.TC_WIDTHS or not 1 <= depth <= fi.TC_MAX_DEPTH
+            or not 1 <= p_dim <= TC_MAX_CHANNELS or not 0 <= n_channels <= fi.TC_MAX_SH):
+        return 0
+    return fi.tc_tile_rays(width, depth, p_dim, n_channels, n_samples, points=False)
+
+
+def train_build(width: int, depth: int, p_dim: int, n_channels: int, n_samples: int):
+    """(source, defines) of the build that trains this shape, decided from
+    the shape alone: ``csrc/ingp_train_tc.cu`` where ``tc_rays_per_tile``
+    takes it, else the ``csrc/fused_feat.cu`` build of ``kernel_defines``."""
+    if tc_rays_per_tile(width, depth, p_dim, n_channels, n_samples):
+        return TC_SOURCE, {}
+    return "fused_feat", kernel_defines(width, p_dim)
 
 
 def kernel_defines(net_width: int, p_dim: int):
@@ -159,9 +201,57 @@ def _check_feat_config(mlp) -> None:
 
 
 def _train_launch(mlp, tspec: TrainSpec, x: torch.Tensor, target: torch.Tensor):
-    """One call of the kernel: (sse, rgb, weights, grads, dfeats) with grads =
-    d(sse)/d(weight, bias) of every ``mlp.linears()`` entry and dfeats =
-    d(sse)/d(feats) [R·S, P]."""
+    """One call of the kernel that takes this shape (``train_build``):
+    (sse, rgb, weights, grads, dfeats) with grads = d(sse)/d(weight, bias)
+    of every ``mlp.linears()`` entry and dfeats = d(sse)/d(feats) [R·S, P]."""
+    cfg = mlp.cfg
+    rays = tc_rays_per_tile(cfg.net_width, cfg.net_depth, mlp.in_dim, mlp.in_dim_views,
+                            tspec.n_samples)
+    if rays:
+        return _tc_launch(mlp, tspec, x, target, rays)
+    return _simt_launch(mlp, tspec, x, target)
+
+
+def _tc_launch(mlp, tspec: TrainSpec, x: torch.Tensor, target: torch.Tensor, rays: int,
+               lib=None):
+    """``csrc/ingp_train_tc.cu``'s feat kernel: a persistent grid of one
+    block an SM over tiles of ``rays`` rays, reading the parameters where
+    they are; the gradients come back as views of one buffer. ``lib`` is
+    another typed build of the source (``fused_ingp_train.type_tc_lib``),
+    for tools/ingp_kernel_probe.py's variants; every caller in the package
+    leaves it at the library's own."""
+    dev = x.device
+    R, S, P = target.shape[0], tspec.n_samples, mlp.in_dim
+    cfg = mlp.cfg
+    lins = [lin for _, lin in mlp.linears()]
+    offs, n_dw, blocks, part, rgb, wts, sse, dw = fi._tc_buffers(lins, R, S, rays, dev)
+    lib = fi._tc_lib() if lib is None else lib
+    dfeats = torch.empty((R * S, P), dtype=torch.float32, device=dev)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    shape = (ci * 12)(
+        R, S, cfg.net_width, cfg.net_depth, P, mlp.in_dim_views,
+        0 if tspec.mode == "canonical" else 1, int(tspec.density_activation == "relu"),
+        int(tspec.white_bkgd), rays, blocks, n_dw,
+    )
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.feat_tc_train_launch(
+            x.data_ptr(), target.data_ptr(),
+            (vp * len(lins))(*(lin.weight.data_ptr() for lin in lins)),
+            (vp * len(lins))(*(lin.bias.data_ptr() for lin in lins)),
+            (ci * len(offs))(*offs), rgb.data_ptr(), wts.data_ptr(), sse.data_ptr(),
+            dw.data_ptr(), dfeats.data_ptr(), part.data_ptr(), shape, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"feat_tc_train launch failed with cudaError {err}")
+    LAUNCHES["feat_train"] += 1
+    return sse[0], rgb, wts, fi._tc_grads(lins, offs, dw), dfeats
+
+
+def _simt_launch(mlp, tspec: TrainSpec, x: torch.Tensor, target: torch.Tensor):
+    """``csrc/fused_feat.cu``: the ray kernel over blocks of
+    ``tspec.rays_block`` rays, its dW GEMM in splits of ``tspec.group``
+    blocks, the fixed-order reduce."""
     dev = x.device
     R, S = target.shape[0], tspec.n_samples
     cfg = mlp.cfg
@@ -240,8 +330,20 @@ def fused_feat_train_apply(
     only differentiable output, with respect to the MLP's parameters and
     x's feature columns (chain them to the encoding); rgb_map and weights
     come back detached. CPU tensors run the plain version (autograd gives
-    the gradient); CUDA tensors launch ``csrc/fused_feat.cu``, which
-    computes the gradient in the same call, or raise."""
+    the gradient); CUDA tensors launch the kernel of the shape
+    (``train_build``), which computes the gradient in the same call, or
+    raise. ``tspec.rays_block`` and ``tspec.group`` shape
+    ``csrc/fused_feat.cu``'s blocks; the tensor-core kernel sizes its tiles
+    from the shape (``tc_rays_per_tile``).
+
+    Precondition: the S rows of a ray carry the same SH (x's D columns are
+    the ray's view direction encoded once, repeated per point, as
+    ``pack_feat_inputs`` makes them). The tensor-core kernel reads each
+    ray's SH from its first row only and forms the view layer's SH term
+    once a ray; where a ray's rows differ there, a CUDA call of a shape it
+    takes computes with the first row's SH for the whole ray, while the
+    plain version and ``csrc/fused_feat.cu`` read the SH of every row. The
+    call does not check it: that would read the SH columns once more."""
     dev = x.device
     if dev.type == "cpu":
         sse, rgb, wts = fused_feat_train_reference(mlp, tspec, x, target)
@@ -265,7 +367,7 @@ def fused_feat_train_apply(
     if mlp.pos_linears[0].weight.device != dev:
         raise ValueError("the MLP's parameters must be on the rays' device")
     xk = x.detach().contiguous()
-    if xk.data_ptr() % 16:  # the kernel's dW GEMM reads x's rows as float4
+    if xk.data_ptr() % 16:  # csrc/fused_feat.cu's dW GEMM reads x's rows as float4
         xk = xk.clone()
     params = [p for _, lin in mlp.linears() for p in (lin.weight, lin.bias)]
     return _FusedFeatTrain.apply(lambda: _train_launch(mlp, tspec, xk, target), x, *params)

@@ -105,39 +105,51 @@ def _ru(x: int, m: int) -> int:
 
 
 def tc_smem_bytes(width: int, depth: int, n_features: int, n_channels: int, n_samples: int,
-                  rays: int) -> int:
+                  rays: int, points: bool = True) -> int:
     """Shared-memory bytes of one block of ``csrc/ingp_train_tc.cu``
     (``smem_layout`` there, piece by piece): the swizzled weights, heads and
-    biases, the view weight's SH rows; per point of the tile its hash
-    features, every layer's output and the compositing terms; per ray its
-    SH and the view layer's SH term; the dW partial."""
+    biases, the view weight's SH rows; per point of the tile its layer-0
+    inputs (``n_features``: the hash features, or the feat kernel's feature
+    columns), every layer's output, the compositing terms and, unless
+    ``points`` is false (the feat kernel), the point; per ray its SH and
+    the view layer's SH term; the dW partial."""
     W, WH, D, E = width, width // 2, depth, n_features
     sww, swh, tp = W + 8, WH + 8, _ru(rays * n_samples, 16)
     shapes = [(E, W)] + [(W, W)] * (D - 1) + [(W, 1), (W, W), (W + n_channels, WH), (WH, 3)]
     pieces = (
         _ru(E, 8) * sww, (D - 1) * W * sww, W * sww, W * swh, W, 3 * WH, D * W, W, 1, 3,
-        tp * (_ru(E, 16) + 8), D * tp * sww, tp * sww, tp * swh, 3 * tp, tp, tp, tp, tp, 3 * tp,
-        rays * WH, rays, _dw_layout(tuple(shapes))[1], n_channels * WH, rays * n_channels,
+        tp * (_ru(E, 16) + 8), D * tp * sww, tp * sww, tp * swh, 3 * tp, tp, tp, tp, tp,
+        3 * tp if points else 0, rays * WH, rays, _dw_layout(tuple(shapes))[1],
+        n_channels * WH, rays * n_channels,
     )
     return 4 * sum(_ru(n, 4) for n in pieces)
 
 
+def tc_tile_rays(width: int, depth: int, n_features: int, n_channels: int, n_samples: int,
+                 points: bool = True) -> int:
+    """The most whole rays, up to TC_MAX_RAYS, whose tile holds at most
+    TC_MAX_POINTS points and fits the block's shared memory
+    (``tc_smem_bytes``); 0 where not even one ray's does."""
+    if not 1 <= n_samples <= TC_MAX_POINTS:
+        return 0
+    rays = min(TC_MAX_RAYS, TC_MAX_POINTS // n_samples)
+    while rays >= 1 and tc_smem_bytes(width, depth, n_features, n_channels, n_samples, rays,
+                                      points) > SMEM_LIMIT:
+        rays -= 1
+    return rays
+
+
 def tc_rays_per_tile(width: int, depth: int, n_levels: int, features: int, n_channels: int,
                      n_samples: int) -> int:
-    """Rays a tile of ``csrc/ingp_train_tc.cu`` at this shape: the most
-    whole rays, up to TC_MAX_RAYS, that fill at most TC_MAX_POINTS points
-    and fit the block's shared memory; 0 where that kernel does not take
-    the shape (it then trains in the runtime-shape build)."""
+    """Rays a tile of ``csrc/ingp_train_tc.cu`` at this shape
+    (``tc_tile_rays``); 0 where that kernel does not take the shape (it
+    then trains in the runtime-shape build)."""
     E = n_levels * features
     if (width not in TC_WIDTHS or not 1 <= depth <= TC_MAX_DEPTH
             or not 1 <= n_levels <= MAX_LEVELS or features not in (1, 2, 4)
-            or E > TC_MAX_FEATURES or not 0 <= n_channels <= TC_MAX_SH
-            or not 1 <= n_samples <= TC_MAX_POINTS):
+            or E > TC_MAX_FEATURES or not 0 <= n_channels <= TC_MAX_SH):
         return 0
-    rays = min(TC_MAX_RAYS, TC_MAX_POINTS // n_samples)
-    while rays >= 1 and tc_smem_bytes(width, depth, E, n_channels, n_samples, rays) > SMEM_LIMIT:
-        rays -= 1
-    return rays
+    return tc_tile_rays(width, depth, E, n_channels, n_samples)
 
 
 def train_build(width: int, depth: int, n_levels: int, features: int, n_channels: int,
@@ -275,13 +287,18 @@ def _tc_lib():
 
 
 def type_tc_lib(lib):
-    """``lib``, a build of csrc/ingp_train_tc.cu, with its C functions typed."""
+    """``lib``, a build of csrc/ingp_train_tc.cu, with its C functions (the
+    INGP and the feat kernel's) typed."""
     if not getattr(lib, "_typed", False):
         vp, ci, cf, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.ingp_tc_train_launch.argtypes = [vp] * 12 + [cf, cf, vp]
         lib.ingp_tc_train_launch.restype = ci
         lib.ingp_tc_smem_bytes.argtypes = [ci] * 7
         lib.ingp_tc_smem_bytes.restype = cll
+        lib.feat_tc_train_launch.argtypes = [vp] * 13
+        lib.feat_tc_train_launch.restype = ci
+        lib.feat_tc_smem_bytes.argtypes = [ci] * 6
+        lib.feat_tc_smem_bytes.restype = cll
         lib._typed = True
     return lib
 
@@ -407,6 +424,35 @@ def _dw_layout(shapes: Tuple[Tuple[int, int], ...]):
     return tuple(offs), n
 
 
+def _tc_buffers(lins, R: int, S: int, rays: int, dev):
+    """What a call of csrc/ingp_train_tc.cu (either kernel) writes besides
+    its own outputs: (offsets and floats of the gradient buffer, blocks of
+    the persistent grid, each block's dW partial and sse, rgb, weights,
+    sse, the gradient buffer). The linears' parameters must be contiguous
+    fp32, read where they are."""
+    params = [p for lin in lins for p in (lin.weight, lin.bias)]
+    if any(p.dtype != torch.float32 or not p.is_contiguous() for p in params):
+        raise ValueError("the tensor-core train kernels take contiguous fp32 parameters")
+    offs, n_dw = _dw_layout(tuple((lin.in_features, lin.out_features) for lin in lins))
+    blocks = min(-(-R // rays), torch.cuda.get_device_properties(dev).multi_processor_count)
+    part = torch.empty(blocks * (n_dw + 1), dtype=torch.float32, device=dev)
+    rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)
+    wts = torch.empty((R, S), dtype=torch.float32, device=dev)
+    sse = torch.empty((1,), dtype=torch.float32, device=dev)
+    dw = torch.empty((n_dw,), dtype=torch.float32, device=dev)
+    return offs, n_dw, blocks, part, rgb, wts, sse, dw
+
+
+def _tc_grads(lins, offs, dw) -> List[torch.Tensor]:
+    """Each linear's weight [out, in] and bias gradient, as views of dw."""
+    grads = []
+    for i, lin in enumerate(lins):
+        fi, fo = lin.in_features, lin.out_features
+        grads.append(dw[offs[2 * i] : offs[2 * i] + fi * fo].view(fo, fi))
+        grads.append(dw[offs[2 * i + 1] : offs[2 * i + 1] + fo])
+    return grads
+
+
 def _tc_launch(mlp, pos_enc, tspec: TrainSpec, args, rays: int, lib=None):
     """``csrc/ingp_train_tc.cu``: a persistent grid of one block an SM over
     tiles of ``rays`` rays, reading the parameters where they are; the
@@ -419,17 +465,10 @@ def _tc_launch(mlp, pos_enc, tspec: TrainSpec, args, rays: int, lib=None):
     R, S = args[3].shape
     cfg = mlp.cfg
     lins = [lin for _, lin in mlp.linears()]
-    params = [p for lin in lins for p in (lin.weight, lin.bias)] + [pos_enc.tables]
-    if any(p.dtype != torch.float32 or not p.is_contiguous() for p in params):
-        raise ValueError("the INGP train kernel takes contiguous fp32 parameters and tables")
-    offs, n_dw = _dw_layout(tuple((lin.in_features, lin.out_features) for lin in lins))
+    if pos_enc.tables.dtype != torch.float32 or not pos_enc.tables.is_contiguous():
+        raise ValueError("the INGP train kernel takes contiguous fp32 tables")
+    offs, n_dw, blocks, part, rgb, wts, sse, dw = _tc_buffers(lins, R, S, rays, dev)
     lib = _tc_lib() if lib is None else lib
-    blocks = min(-(-R // rays), torch.cuda.get_device_properties(dev).multi_processor_count)
-    part = torch.empty(blocks * (n_dw + 1), dtype=torch.float32, device=dev)
-    rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)
-    wts = torch.empty((R, S), dtype=torch.float32, device=dev)
-    sse = torch.empty((1,), dtype=torch.float32, device=dev)
-    dw = torch.empty((n_dw,), dtype=torch.float32, device=dev)
     dG = torch.zeros(pos_enc.tables.shape, dtype=torch.float32, device=dev)
     L, F, log2_t, c_res, bmin, brange, bf16 = _geometry(pos_enc)
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -450,13 +489,7 @@ def _tc_launch(mlp, pos_enc, tspec: TrainSpec, args, rays: int, lib=None):
     if err != 0:
         raise RuntimeError(f"ingp_train_tc launch failed with cudaError {err}")
     LAUNCHES["ingp_train"] += 1
-    grads = []
-    for i, lin in enumerate(lins):
-        fi, fo = lin.in_features, lin.out_features
-        grads.append(dw[offs[2 * i] : offs[2 * i] + fi * fo].view(fo, fi))
-        grads.append(dw[offs[2 * i + 1] : offs[2 * i + 1] + fo])
-    grads.append(dG)
-    return sse[0], rgb, wts, grads
+    return sse[0], rgb, wts, _tc_grads(lins, offs, dw) + [dG]
 
 
 def _rt_launch(mlp, pos_enc, tspec: TrainSpec, args):

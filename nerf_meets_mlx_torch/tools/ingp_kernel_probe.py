@@ -1,6 +1,7 @@
 """Where the INGP train launch's time goes, on one card.
 
     python nerf_meets_mlx_torch/tools/ingp_kernel_probe.py [--base <parent checkout>] [--no-head]
+    python nerf_meets_mlx_torch/tools/ingp_kernel_probe.py --feat [--base <parent checkout>] [--no-head]
 
 Each part runs in a process of its own, with its checkout first on
 ``PYTHONPATH``, at lego_ingp's train-step shapes (2 x 64 MLP over 8 levels x
@@ -65,6 +66,31 @@ and for csrc/fused_ingp.cu's runtime-shape build (the parent's
 thread-per-point design), and the largest dG and alpha-head dW errors of
 each and of the fp32 plain version against float64.
 
+With ``--feat`` it probes the feat train launch instead
+(``fused_feat_train_apply``), at the "feats" route's shapes on the
+Instant-NGP paper's tables (lego_ingp with 16 levels x 2^19 x 2: P = 32
+feature channels from the plain encode of each level's points, 25 SH
+channels, canonical compositing, white background; the same rays, levels
+and noise): ``[parent]`` splits the other checkout's launch into
+``feat_rays_kernel``, ``dw_gemm_kernel``, ``reduce_kernel``, the wrapper's
+torch ops and its host time a call; ``[time]`` gives this checkout's
+launch (``feat_tc_kernel`` in ``csrc/ingp_train_tc.cu`` where the router
+sends the shape) and its ``no_mma`` variant, ``[phases]`` its phase clocks
+(the x load in place of the points, the view layer's SH term in place of
+the features, the dfeats store in place of the scatter), ``[ptxas]`` the
+build's report. No ``[rate]``, ``[forms]``, ``[acc]`` or ``[f64]``.
+
+With ``--long-rays`` it prints only ``[long]``: the shapes the tile does
+not take, on ``csrc/fused_feat.cu``'s register build that the router
+names and on its runtime-shape build (``FEAT_W = FEAT_PP = 0``), in turns
+register, runtime, runtime, register in one process: the feat train call
+at the long-ray overlay's levels (lego_ingp's 16 channels, 25 SH
+channels, 4096 rays of 128 and 384 samples; CUDA events, and its kernels'
+device ms), and the overlay's warm train step (lego_ingp with 128 + 256
+samples on the fused route, the 400 x 400 procedural scene, 20 steps
+ending in one synchronize, as ``chip_smoke.py`` times it). Each turn also
+prints its sse beside the register build's first.
+
 The last line is one JSON object with every number printed.
 """
 
@@ -93,11 +119,25 @@ CLOCKS = {"clocks": {"INGP_TC_CLOCKS": 1},
           "clocks_no_mma": {"INGP_TC_CLOCKS": 1, "INGP_TC_NO_MMA": 1}}
 PHASES = ("setup", "features", "forward", "composite", "heads dW", "d(hd)", "view dW",
           "d(feature)", "feature dW", "last dZ", "trunk dW", "trunk dZ", "scatter")
+# --feat: the feat train launch, its kernels and variants, and the names of
+# the phases where they differ from the INGP kernel's
+FEAT_PARENT_KERNELS = ("feat_rays_kernel", "dw_gemm_kernel", "reduce_kernel")
+FEAT_HEAD_KERNELS = ("feat_tc_kernel", "ingp_tc_reduce_kernel")
+FEAT_VARIANTS = {"kernel": {}, "no_mma": {"INGP_TC_NO_MMA": 1}}
+FEAT_PHASES = ("x load", "SH term") + PHASES[2:-1] + ("dfeats store",)
+PAPER = dict(hash_n_levels=16, hash_log2_table_size=19, hash_max_res=512)
+# --long-rays: the overlay's levels (n_samples 128, n_importance 256) and
+# csrc/fused_feat.cu's runtime-shape build
+LONG_LEVELS = (("coarse", 128), ("fine", 384))
+FEAT_RT = {"FEAT_W": 0, "FEAT_PP": 0}
 
 
-def _inputs(dev):
-    """lego_ingp (seeded init, tables + N(0, 0.1)) and the rays, sh and
-    per-level (z, deltas, noise) of one train step."""
+def _inputs(dev, paper=False, level_samples=LEVELS):
+    """lego_ingp (seeded init, tables + N(0, 0.1); with ``paper`` the
+    Instant-NGP paper's tables) and the rays, sh and per-level (z, deltas,
+    noise) of one train step, at ``level_samples``' (name, samples)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -108,7 +148,10 @@ def _inputs(dev):
     from nerf_meets_mlx_torch.models import create_nerf
 
     g = torch.Generator(device=dev).manual_seed(2)
-    m = create_nerf(lego_ingp().replace(use_fused_kernel=True), device=dev)
+    cfg = lego_ingp().replace(use_fused_kernel=True)
+    if paper:
+        cfg = cfg.replace(pos_encoding=dataclasses.replace(cfg.pos_encoding, **PAPER))
+    m = create_nerf(cfg, device=dev)
     m.init(torch.Generator(device=dev).manual_seed(0))
     with torch.no_grad():
         m.pos_enc.tables.add_(torch.randn(m.pos_enc.tables.shape, generator=g, device=dev) * 0.1)
@@ -122,7 +165,7 @@ def _inputs(dev):
     sh = m.dir_enc.apply(rd / dnorm)
     target = torch.rand((N_RAYS, 3), generator=g, device=dev)
     levels = {}
-    for name, S in LEVELS:
+    for name, S in level_samples:
         z = torch.sort(torch.rand((N_RAYS, S), generator=g, device=dev) * 4.0 + 2.0, -1).values
         dl = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e10)], -1) * dnorm
         levels[name] = (z, dl, torch.randn((N_RAYS, S), generator=g, device=dev))
@@ -216,9 +259,211 @@ def _variant_call(m, rays, level, lib):
                 return fi.fused_ingp_train_apply(m.fine, m.pos_enc, sh, _spec(S), ro, rd, z, dl,
                                                  nz, target)
         return call
-    rpt = fi.tc_rays_per_tile(64, 2, 8, 2, 16, S)  # lego_ingp's shape
+    rpt = fi.tc_rays_per_tile(64, 2, 8, 2, m.fine.in_dim_views, S)  # lego_ingp's shape
     args = (ro, rd, sh, z, dl, nz, target)
     return lambda: fi._tc_launch(m.fine, m.pos_enc, _spec(S), args, rpt, lib)
+
+
+def _feat_levels(m, rays, levels):
+    """Per level the feat op's packed input x (the plain encode's features
+    of the level's points, the rays' SH, the deltas and the noise)."""
+    import torch
+
+    from nerf_meets_mlx_torch.kernels import fused_feat_train as ff
+
+    ro, rd, sh, _ = rays
+    out = {}
+    for name, (z, dl, nz) in levels.items():
+        with torch.no_grad():
+            feats = m.pos_enc.apply(ro[:, None, :] + z[..., None] * rd[:, None, :])
+        out[name] = ff.pack_feat_inputs(feats, sh, dl, nz).contiguous()
+    return out
+
+
+def _feat_spec(S):
+    from nerf_meets_mlx_torch.kernels import fused_feat_train as ff
+    from nerf_meets_mlx_torch.kernels.fused_train import TrainSpec
+
+    rb = ff.feat_rays_block(S)
+    return TrainSpec(n_samples=S, rays_block=rb, mode="canonical", density_activation="softplus",
+                     white_bkgd=True, group=ff.feat_group(S, rb))
+
+
+def _feat_call(m, target, x, S, lib):
+    """A function that makes one feat train launch of the fine MLP on
+    ``x``: through ``fused_feat_train_apply`` where ``lib`` is None, else
+    through ``_tc_launch`` with that build of csrc/ingp_train_tc.cu (rgb,
+    the second of its results, then holds the clocks variants' cycles)."""
+    import torch
+
+    from nerf_meets_mlx_torch.kernels import fused_feat_train as ff
+
+    if lib is None:
+        def call():
+            with torch.no_grad():
+                return ff.fused_feat_train_apply(m.fine, _feat_spec(S), x, target)
+        return call
+    mlp = m.fine
+    rpt = ff.tc_rays_per_tile(mlp.cfg.net_width, mlp.cfg.net_depth, mlp.in_dim, mlp.in_dim_views,
+                              S)
+    return lambda: ff._tc_launch(mlp, _feat_spec(S), x, target, rpt, lib)
+
+
+def feat_worker(role: str) -> None:
+    """--feat: the parent's split, or this checkout's launch, variants and
+    phase clocks, at the paper tables' levels."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from nerf_meets_mlx_torch.kernels import _build
+    from nerf_meets_mlx_torch.kernels import fused_feat_train as ff
+    from nerf_meets_mlx_torch.kernels import fused_ingp_train as fi
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    libs = {}
+    if role == "parent":
+        variants, names = {"parent": None}, FEAT_PARENT_KERNELS
+        _build.build("fused_feat", ff.kernel_defines(64, 32))
+    else:
+        variants, names = FEAT_VARIANTS, FEAT_HEAD_KERNELS
+        builds = dict(FEAT_VARIANTS, **CLOCKS)
+        with ThreadPoolExecutor(len(builds)) as ex:
+            for f in [ex.submit(_build.build, fi.TC_SOURCE, d or None) for d in builds.values()]:
+                f.result()
+        libs.update({k: _variant_lib(d or None) for k, d in builds.items() if d})
+        for line in _build.BUILD_LOG.get(_build.variant_name(fi.TC_SOURCE), "").splitlines():
+            if any(k in line for k in ("registers", "spill", "smem", "Compiling")):
+                print(f"[ptxas] {line.strip()}", flush=True)
+    m, rays, levels = _inputs(dev, paper=True)
+    target = rays[3]
+    xs = _feat_levels(m, rays, levels)
+    out = {}
+    for variant in variants:
+        for name, S in LEVELS:
+            if role == "head" and variant == "kernel":
+                mlp = m.fine
+                print(f"[route] {name} S={S} P={mlp.in_dim} DD={mlp.in_dim_views}: "
+                      f"{ff.train_build(64, 2, mlp.in_dim, mlp.in_dim_views, S)[0]}, "
+                      f"{ff.tc_rays_per_tile(64, 2, mlp.in_dim, mlp.in_dim_views, S)} rays a tile",
+                      flush=True)
+            call = _feat_call(m, target, xs[name], S, libs.get(variant))
+            ms = _event_ms(call)
+            split = _split_ms(call, names, 10)
+            host = _host_ms(call)
+            out[f"{variant}_{name}"] = dict(ms=ms, host_ms=host, **split)
+            tag = "[parent]" if role == "parent" else "[time]"
+            print(f"{tag} feat {variant:8s} {name:6s} {N_RAYS} x {S}: {ms:.4f} ms a launch; "
+                  "device " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                  + f" ms; host {host:.4f} ms a call", flush=True)
+    if role == "head":
+        phases = {}
+        for variant, (name, S) in ((v, lv) for v in CLOCKS for lv in LEVELS):
+            rgb = _feat_call(m, target, xs[name], S, libs[variant])()[1]
+            clk = rgb.flatten()[: len(FEAT_PHASES)].tolist()
+            rpt = ff.tc_rays_per_tile(64, 2, m.fine.in_dim, m.fine.in_dim_views, S)
+            n_tiles = -(-N_RAYS // rpt)
+            grid = min(n_tiles, torch.cuda.get_device_properties(0).multi_processor_count)
+            tiles = len(range(0, n_tiles, grid))
+            total = sum(clk)
+            phases[f"{variant}_{name}"] = {k: c / tiles for k, c in zip(FEAT_PHASES, clk)}
+            print(f"[phases] feat {variant:13s} {name:6s} {tiles} tiles in block 0, "
+                  f"{total / tiles:.0f} cycles a tile: "
+                  + ", ".join(f"{k} {c / tiles:.0f} ({c / total:.1%})"
+                              for k, c in zip(FEAT_PHASES, clk)), flush=True)
+        out["phases"] = phases
+    print(json.dumps(out), flush=True)
+
+
+def _long_step(dev):
+    """A function that runs one train step of lego_ingp with the long-ray
+    overlay (128 + 256 samples: the feats route over the hash kernels) on
+    the 400 x 400 procedural scene."""
+    import dataclasses
+
+    import torch
+
+    from nerf_meets_mlx_torch.config import lego_ingp
+    from nerf_meets_mlx_torch.datasets.synthetic import make_synthetic_scene
+    from nerf_meets_mlx_torch.engine import TrainState, make_nerf_train_step
+    from nerf_meets_mlx_torch.models import create_nerf
+
+    ds = make_synthetic_scene(2, 1, 1, 400, device=dev)
+    cfg = lego_ingp()
+    cfg = cfg.replace(use_fused_kernel=True, render=dataclasses.replace(
+        cfg.render, n_samples=LONG_LEVELS[0][1],
+        n_importance=LONG_LEVELS[1][1] - LONG_LEVELS[0][1]))
+    model = create_nerf(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    images = torch.as_tensor(ds.images[ds.i_train], device=dev)
+    poses = torch.as_tensor(ds.poses[ds.i_train, :3, :4], device=dev)
+    state = TrainState(model, cfg.train)
+    step = make_nerf_train_step(model, ds.H, ds.W, ds.focal)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    return lambda: step(state, images, poses, gen)
+
+
+def long_worker() -> dict:
+    """--long-rays: the overlay's feat call and step on the register build
+    the router names and on the runtime-shape build, in turns."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from nerf_meets_mlx_torch.kernels import _build
+    from nerf_meets_mlx_torch.kernels import fused_feat_train as ff
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    m, rays, levels = _inputs(dev, level_samples=LONG_LEVELS)
+    mlp = m.fine
+    register = ff.kernel_defines(mlp.cfg.net_width, mlp.in_dim)
+    with ThreadPoolExecutor(2) as ex:
+        for f in [ex.submit(_build.build, "fused_feat", d) for d in (register, FEAT_RT)]:
+            f.result()
+    for name, S in LONG_LEVELS:
+        build = ff.train_build(mlp.cfg.net_width, mlp.cfg.net_depth, mlp.in_dim,
+                               mlp.in_dim_views, S)
+        print(f"[long] {name} S={S} P={mlp.in_dim} DD={mlp.in_dim_views}: routed to {build}",
+              flush=True)
+    target = rays[3]
+    xs = _feat_levels(m, rays, levels)
+    step = _long_step(dev)
+    routed = ff.kernel_defines
+    out, sse0 = {}, {}
+    for turn, defines in enumerate((register, FEAT_RT, FEAT_RT, register)):
+        build = "register" if defines == register else "runtime"
+        # the wrapper loads the build kernel_defines names: route every
+        # shape to this turn's
+        ff.kernel_defines = lambda _w, _p, d=defines: dict(d)
+        try:
+            res = {}
+            for name, S in LONG_LEVELS:
+                call = _feat_call(m, target, xs[name], S, None)
+                sse = float(call()[0])
+                sse0.setdefault(name, sse)
+                ms = _event_ms(call)
+                split = _split_ms(call, FEAT_PARENT_KERNELS, 10)
+                res[name] = dict(ms=ms, sse=sse, **split)
+                print(f"[long] turn {turn} {build:8s} feat {name:6s} {N_RAYS} x {S}: "
+                      f"{ms:.4f} ms a call; device "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                      + f" ms; sse {sse:.6f} (register build's first {sse0[name]:.6f})",
+                      flush=True)
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                step()
+            torch.cuda.synchronize()
+            res["step_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+            print(f"[long] turn {turn} {build:8s} step {res['step_ms']:.3f} ms", flush=True)
+        finally:
+            ff.kernel_defines = routed
+        out[f"{turn}_{build}"] = res
+    return out
 
 
 def worker(role: str) -> None:
@@ -279,7 +524,7 @@ def _phases(m, rays, levels, libs):
     for variant, (name, S) in ((v, lv) for v in CLOCKS for lv in LEVELS):
         rgb = _variant_call(m, rays, levels[name], libs[variant])()[1]
         clk = rgb.flatten()[: len(PHASES)].tolist()
-        rpt = fi.tc_rays_per_tile(64, 2, 8, 2, 16, S)  # lego_ingp's shape
+        rpt = fi.tc_rays_per_tile(64, 2, 8, 2, m.fine.in_dim_views, S)  # lego_ingp's shape
         n_tiles = -(-N_RAYS // rpt)
         grid = min(n_tiles, torch.cuda.get_device_properties(0).multi_processor_count)
         tiles = len(range(0, n_tiles, grid))
@@ -824,10 +1069,10 @@ def _draws(n: int) -> dict:
     return out
 
 
-def _run(role: str, root: Path) -> dict:
+def _run(role: str, root: Path, feat: bool = False) -> dict:
     env = dict(os.environ, PYTHONPATH=str(root.resolve()))
-    proc = subprocess.run([sys.executable, __file__, "--worker", role], cwd=root, env=env,
-                          capture_output=True, text=True)
+    cmd = [sys.executable, __file__, "--worker", role] + (["--feat"] if feat else [])
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True)
     lines = proc.stdout.strip().splitlines()
     for line in lines[:-1]:
         print(line, flush=True)
@@ -843,10 +1088,14 @@ def main() -> int:
     p.add_argument("--no-head", action="store_true", help="time the parent only")
     p.add_argument("--draws", type=int, default=0,
                    help="only the gpu test's gradient check over this many table draws")
+    p.add_argument("--feat", action="store_true",
+                   help="probe the feat train launch at the paper tables' levels")
+    p.add_argument("--long-rays", action="store_true",
+                   help="only the long-ray overlay on the register and runtime-shape builds")
     p.add_argument("--worker", choices=("parent", "head"), help=argparse.SUPPRESS)
     a = p.parse_args()
     if a.worker:
-        worker(a.worker)
+        (feat_worker if a.feat else worker)(a.worker)
         return 0
     import torch
 
@@ -859,11 +1108,17 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"[card] {torch.cuda.get_device_name(0)} | {smi}", flush=True)
-    out = {"card": smi, "acc": _acc_errors(), "rate": _rate(), "forms": _forms()}
+    out = {"card": smi}
+    if a.long_rays:
+        out["long"] = long_worker()
+        print(json.dumps(out), flush=True)
+        return 0
+    if not a.feat:
+        out.update(acc=_acc_errors(), rate=_rate(), forms=_forms())
     if a.base:
-        out["parent"] = _run("parent", Path(a.base))
+        out["parent"] = _run("parent", Path(a.base), a.feat)
     if not a.no_head:
-        out["head"] = _run("head", HEAD)
+        out["head"] = _run("head", HEAD, a.feat)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -12,8 +12,16 @@ and 96 samples), the hash forward and dG (lego_ingp's 196,608 / 393,216
 points), the sinusoidal eval and train kernels (lego_hierarchical, 8 x 256),
 the MLP forward and backward (lego_occ's fine points), the feat train kernel
 (the paper tables' 32 channels) and the image kernels (image2d); and a
-400 x 400 frame of lego_ingp and of lego_hierarchical. It prints one JSON
-line per turn and, last, each measurement's four times.
+400 x 400 frame of lego_ingp and of lego_hierarchical; the INGP and feat
+train calls' device time (every kernel they launch, from torch.profiler:
+the host-bound coarse calls read their kernels here, not in their event
+time); and the paper tables' warm train step (the feats route, 32 steps,
+as chip_smoke.py times it). It prints one JSON line per turn and each
+measurement's four times; then, where both checkouts have
+``csrc/ingp_train_tc.cu``, each kernel of it in both: ptxas's registers and
+spills, and its SASS instruction by instruction (the kernel parameters'
+constant-bank offsets masked), as lines starting with ``[ptxas]`` and
+``[sass]``.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -40,6 +49,62 @@ def _ms(fn, n=20):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / n
+
+
+def _device_ms(fn, n=10):
+    """Device ms a call of everything ``fn`` launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            t = getattr(e, "self_device_time_total", None)
+            us += float(getattr(e, "self_cuda_time_total", 0.0) if t is None else t)
+    return us / 1e3 / n
+
+
+def _paper_step_ms(n=32):
+    """Host ms a warm train step of lego_ingp with the paper's tables (the
+    feats route) on the 400 x 400 procedural scene, over ``n`` steps
+    ending in one synchronize."""
+    import dataclasses
+    import time
+
+    import torch
+
+    from nerf_meets_mlx_torch.config import lego_ingp
+    from nerf_meets_mlx_torch.datasets.synthetic import make_synthetic_scene
+    from nerf_meets_mlx_torch.engine import TrainState, make_nerf_train_step
+    from nerf_meets_mlx_torch.models import create_nerf
+
+    dev = torch.device("cuda", 0)
+    ds = make_synthetic_scene(2, 1, 1, 400, device=dev)
+    cfg = lego_ingp()
+    cfg = cfg.replace(use_fused_kernel=True, pos_encoding=dataclasses.replace(
+        cfg.pos_encoding, hash_n_levels=16, hash_log2_table_size=19, hash_max_res=512))
+    model = create_nerf(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    images = torch.as_tensor(ds.images[ds.i_train], device=dev)
+    poses = torch.as_tensor(ds.poses[ds.i_train, :3, :4], device=dev)
+    state = TrainState(model, cfg.train)
+    step = make_nerf_train_step(model, ds.H, ds.W, ds.focal)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    for _ in range(3):
+        step(state, images, poses, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(state, images, poses, gen)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
 
 
 def _build_all():
@@ -133,6 +198,9 @@ def worker():
             sse.backward()
 
         out[f"ingp_train_{name}"] = _ms(train)
+        with torch.no_grad():
+            out[f"ingp_train_device_{name}"] = _device_ms(lambda args=args: fi.fused_ingp_train_apply(
+                *args))
         pts = (ro[:n_rays, None] + z[..., None] * rd[:n_rays, None]).reshape(-1, 3)
         out[f"hash_fwd_{name}"] = _ms(lambda pts=pts: he.hash_encode_apply(m.pos_enc, pts))
         dout = torch.randn((pts.shape[0], m.pos_enc.out_dim), generator=g, device=dev)
@@ -191,6 +259,9 @@ def worker():
                      white_bkgd=True, group=ff.feat_group(S, rb))
         out[f"feat_train_{name}"] = _ms(
             lambda x=x, spec=spec: ff.fused_feat_train_apply(mlp, spec, x, target)[0].backward())
+        with torch.no_grad():
+            out[f"feat_train_device_{name}"] = _device_ms(
+                lambda x=x, spec=spec: ff.fused_feat_train_apply(mlp, spec, x, target))
     m = create_nerf(image2d(), device=dev)
     m.init(torch.Generator(device=dev).manual_seed(0))
     xy = torch.rand((4096, 2), generator=g, device=dev)
@@ -199,7 +270,55 @@ def worker():
     grid = torch.rand((160_000, 2), generator=g, device=dev)
     with torch.no_grad():
         out["image_fwd"] = _ms(lambda: fim.fused_image_apply(m.coarse, m.pos_enc, grid))
+    out["paper_step"] = _paper_step_ms()
     print(json.dumps(out), flush=True)
+
+
+def _tile_kernels(root: Path, tag: str):
+    """ptxas's report and the SASS of each kernel of ``root``'s
+    csrc/ingp_train_tc.cu (compiled to a cubin with the build's flags):
+    {kernel: [instructions, constant-bank offsets masked]}."""
+    from nerf_meets_mlx_torch.kernels import _build
+
+    csrc = root / "nerf_meets_mlx_torch" / "csrc"
+    out_dir = HEAD / ".runs" / "kernel_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cubin = out_dir / f"{tag}.cubin"
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    proc = subprocess.run([_build._nvcc(), *flags, "-cubin", "-I", str(csrc), "-o", str(cubin),
+                           str(csrc / "ingp_train_tc.cu")], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {tag}:\n{proc.stderr[-3000:]}")
+    names = r"(ingp_tc_kernel|feat_tc_kernel|ingp_tc_reduce_kernel)(ILi\d+)?"
+    lines = proc.stderr.splitlines()
+    for i, line in enumerate(lines):
+        found = re.search(names, line) if "Compiling entry" in line else None
+        if found:
+            report = [x.strip() for x in lines[i + 1:i + 4] if "registers" in x or "spill" in x]
+            print(f"[ptxas] {tag} {found.group(0)}: {' | '.join(report)}", flush=True)
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(cubin)], capture_output=True,
+                          text=True).stdout
+    kernels = {}
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        head, rest = body.split("\n", 1)
+        ins = [re.sub(r"c\[0x0\]\[[^\]]*\]", "c[0x0][P]", m.group(1))
+               for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s*(.*?);", rest)]
+        kernels[re.search(names, head).group(0)] = ins
+    return kernels
+
+
+def _compare_tile_kernels(base: Path, head: Path) -> None:
+    if not all((r / "nerf_meets_mlx_torch" / "csrc" / "ingp_train_tc.cu").exists()
+               for r in (base, head)):
+        return
+    a, b = _tile_kernels(base, "base"), _tile_kernels(head, "head")
+    for k in sorted(set(a) & set(b)):
+        x, y = a[k], b[k]
+        apart = [(u, v) for u, v in zip(x, y) if u != v]
+        print(f"[sass] {k}: base {len(x)} instructions, head {len(y)}; "
+              f"{len(apart) + abs(len(x) - len(y))} apart"
+              + "".join(f"; {u} | {v}" for u, v in apart[:3]), flush=True)
 
 
 def main() -> int:
@@ -225,6 +344,8 @@ def main() -> int:
     for key in turns[0][1]:
         row = " ".join(f"{t}={d[key]:.4f}" for t, d in turns)
         print(f"{key:18s} {row}", flush=True)
+    sys.path.insert(0, str(HEAD))
+    _compare_tile_kernels(Path(a.base).resolve(), Path(a.head).resolve())
     return 0
 
 

@@ -647,20 +647,23 @@ def test_train_routes_by_shape(width, depth, levels, features, dd, S, rays):
 
 def test_presets_train_on_the_tensor_cores():
     """lego_ingp (48 + 48 samples) and lego_ingp_occ (32 + 32) route both
-    levels to the tensor-core kernel, whose block takes 215,632 / 215,440
-    bytes of shared memory at lego_ingp's coarse / fine level and 215,824
-    at lego_ingp_occ's (the budget in csrc/ingp_train_tc.cu)."""
+    levels to the tensor-core kernel at their own SH channel count (degree
+    4: 25 channels, the MLP's ``in_dim_views``, which routing reads), whose
+    block takes 218,016 / 217,792 bytes of shared memory at lego_ingp's
+    coarse / fine level and 218,240 at lego_ingp_occ's (the budget in
+    csrc/ingp_train_tc.cu)."""
     from nerf_meets_mlx_torch.config import lego_ingp_occ as t_ingp_occ
 
     for cfg in (t_ingp(), t_ingp_occ()):
-        enc = cfg.pos_encoding
+        enc, dd = cfg.pos_encoding, cfg.dir_encoding.out_dim
+        assert dd == 25
         for S in (cfg.render.n_samples, cfg.render.n_samples + cfg.render.n_importance):
             for mlp in (cfg.mlp, cfg.mlp_fine):
                 assert tfi.train_build(mlp.net_width, mlp.net_depth, enc.hash_n_levels,
-                                       enc.hash_features_per_level, 16, S)[0] == tfi.TC_SOURCE
-    assert tfi.tc_smem_bytes(64, 2, 16, 16, 48, 2) == 215_632
-    assert tfi.tc_smem_bytes(64, 2, 16, 16, 96, 1) == 215_440
-    assert tfi.tc_smem_bytes(64, 2, 16, 16, 32, 3) == 215_824
+                                       enc.hash_features_per_level, dd, S)[0] == tfi.TC_SOURCE
+    assert tfi.tc_smem_bytes(64, 2, 16, 25, 48, 2) == 218_016
+    assert tfi.tc_smem_bytes(64, 2, 16, 25, 96, 1) == 217_792
+    assert tfi.tc_smem_bytes(64, 2, 16, 25, 32, 3) == 218_240
 
 
 def _trunc_sum(parts):
