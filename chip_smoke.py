@@ -71,11 +71,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    memory and busy share.
 
 8. the image path (``image2d``: 2-D sinusoidal encoding, 8 x 256 MLP):
-   the image train kernel against its plain version at 4096 and 4001
-   pixels (sse, every dW and db) and the forward kernel on a 400 x 400
-   frame; ``image_learning(size=400, max_iters=300, frame_every=100)`` with
-   every count at 0: 300 train and 4 forward launches, a rising PSNR; then
-   each kernel per launch and the warm step on both routes.
+   the image train kernels (``csrc/image_train_tc.cu``) against their plain
+   version at 4096 and 4001 pixels (sse, every dW and db) and the forward
+   kernel on a 400 x 400 frame; ``image_learning(size=400, max_iters=300,
+   frame_every=100)`` with every count at 0: 300 train launches, all on
+   that build, and 4 forward launches, a rising PSNR; then each kernel per
+   launch (the train call's device time by kernel too) and the warm step
+   on both routes.
 
 9. the "feats" route: the feat train kernel against its plain version at
    4096 rays x 48 / 96 samples with 16 and 32 feature channels (the
@@ -151,6 +153,8 @@ HBM_BYTES_PER_S = 3.35e12
 TF32_FLOPS = 495e12
 # the three launches of csrc/fused_train.cu, timed apart by the profiler
 TRAIN_KERNELS = ("train_rays_kernel", "dw_gemm_kernel", "reduce_kernel")
+# the three launches of csrc/image_train_tc.cu
+IMAGE_TRAIN_KERNELS = ("image_tc_kernel", "image_dw_kernel", "image_reduce_kernel")
 
 ATOL = 1e-4   # kernel vs plain: fp32 sums in another order (see PERF.md)
 RTOL = 1e-4
@@ -2216,6 +2220,7 @@ def phase_image_path(device):
     frame and one for the final prediction, a rising PSNR."""
     import torch
     from nerf_meets_mlx_torch.entrypoints import image_learning
+    from nerf_meets_mlx_torch.kernels import fused_image as fim
 
     log_dir = OUT / "image"
     shutil.rmtree(log_dir, ignore_errors=True)
@@ -2229,14 +2234,19 @@ def phase_image_path(device):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_frames = IMAGE_STEPS // IMAGE_FRAME_EVERY
     want = counts(image_train=IMAGE_STEPS, image_fwd=n_frames + 1)
+    # the train calls' build: every plan of the wrapper is the tensor-core source's
+    builds = {Path(p.lib._name).name for p in fim._PLANS.values()}
+    on_tc = bool(builds) and all(b.startswith("lib" + fim.TRAIN_SOURCE) for b in builds)
     recs = [json.loads(x) for x in (log_dir / "metrics.jsonl").read_text().splitlines()]
     psnrs = [(r["step"], r["psnr"]) for r in recs if "psnr" in r]
     frames = np.load(log_dir / "progress_frames.npy")
     log(f"[image] image_learning {RES}x{RES}, {IMAGE_STEPS} steps: {wall:.1f} s; launches "
-        f"{launches} (want {want}); batch PSNR at the logged steps {psnrs}; final PSNR "
+        f"{launches} (want {want}), the train calls on {sorted(builds)}; batch PSNR at the "
+        f"logged steps {psnrs}; final PSNR "
         f"{res['final_psnr']:.3f}; frames {frames.shape}; peak device memory {peak_gb:.2f} GB")
-    if launches != want:
-        raise AssertionError(f"image launches {launches}, want {want}")
+    if launches != want or not on_tc:
+        raise AssertionError(f"image launches {launches} on {builds}, want {want} on "
+                             f"{fim.TRAIN_SOURCE}")
     if (len(psnrs) < 2 or not psnrs[-1][1] > psnrs[0][1] or not np.isfinite(res["final_psnr"])
             or frames.shape != (n_frames, RES, RES, 3)):
         raise AssertionError("the image task's PSNR did not rise, or its frames are wrong")
@@ -2273,14 +2283,15 @@ def phase_feat_image_timing(device):
     """Each new kernel per launch (CUDA events) beside its plain version
     and its bound: the feat train kernel at the paper-size tables' coarse
     (4096 x 48) and fine (4096 x 96) level (plain: forward + autograd
-    backward); the image train kernel at 4096 pixels (plain: forward +
-    autograd backward) and the forward kernel on a 400 x 400 frame. The
-    bound is the larger of the bytes each launch must move over 3.35 TB/s
-    and its operations over the rate of the units that run them: three
-    TF32 operations for each fp32 one over 495 TFLOP/s where the build runs
-    its products on the tensor cores in 3xTF32 (the feat call's
-    ``csrc/ingp_train_tc.cu``), fp32 over 67 TFLOP/s elsewhere; both are
-    logged."""
+    backward); the image train call at 4096 pixels (plain: forward +
+    autograd backward), with its kernels' device time (torch.profiler),
+    and the forward kernel on a 400 x 400 frame. The bound is the larger
+    of the bytes each launch must move over 3.35 TB/s and its operations
+    over the rate of the units that run them: three TF32 operations for
+    each fp32 one over 495 TFLOP/s where the build runs its products on the
+    tensor cores in 3xTF32 (the feat call's ``csrc/ingp_train_tc.cu``, the
+    image train call's ``csrc/image_train_tc.cu``), fp32 over 67 TFLOP/s
+    elsewhere; both are logged."""
     import torch
     from nerf_meets_mlx_torch.datasets.image import make_test_image, pixel_dataset
     from nerf_meets_mlx_torch.kernels import fused_feat_train as ff
@@ -2353,12 +2364,17 @@ def phase_feat_image_timing(device):
         torch.autograd.grad(sse, params)
 
     k1, p_ms, k2 = cuda_time_ms(kernel, 20), cuda_time_ms(plain, 20), cuda_time_ms(kernel, 20)
+    split = kernel_split_ms(kernel, IMAGE_TRAIN_KERNELS, 20)
     N = x.shape[0]
     image_train = {"batch": entry([k1, k2], p_ms, 4 * (2 * N + 3 * N + 2 * n_w + 1),
-                                  2.0 * train_macs_ * N, pixels=N)}
-    log(f"[time] image_train N={N}: kernel {k1:.3f} / {k2:.3f} ms, plain fwd+bwd {p_ms:.3f} ms, "
-        f"bound {image_train['batch']['bound_ms']:.3f} ms ({image_train['batch']['bound_by']}), "
-        f"{image_train['batch']['achieved_tflops_s']:.2f} TFLOP/s")
+                                  2.0 * train_macs_ * N, tensor_cores=True, pixels=N,
+                                  split_ms=split, device_ms=sum(split.values()))}
+    b = image_train["batch"]
+    log(f"[time] image_train N={N}: a call {k1:.3f} / {k2:.3f} ms, device {b['device_ms']:.4f} ms ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+        + f"), plain fwd+bwd {p_ms:.3f} ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']}; 3xTF32 "
+        f"{b['tf32x3_bound_ms']:.3f}, fp32 {b['fp32_bound_ms']:.3f} ms), "
+        f"{b['achieved_tflops_s']:.2f} TFLOP/s")
     N = coords.shape[0]
     with torch.no_grad():
         k1 = cuda_time_ms(lambda: fim.fused_image_apply(mlp, enc, coords), 5)
@@ -2526,7 +2542,7 @@ FEAT_SHAPES = ((64, 16), (64, 32), (128, 32))
 # sources are built for, one build each (fused_train.width_defines): the
 # PART_A overlays' and the width-96 image model's
 KW_BUILDS = (("fused_eval", 96), ("fused_train", 96), ("fused_eval", 48), ("fused_train", 48),
-             ("fused_mlp", 48), ("fused_image", 96))
+             ("fused_mlp", 48), ("fused_image", 96), ("image_train_tc", 96))
 PART_A_STEPS = 10
 # the overlay commands that train in JAX and failed on the card before the
 # fused kernels took their shapes: (tag, preset, overlay, kernels its
@@ -2575,8 +2591,8 @@ CP_TIMED_STEPS = 25
 # widths 48 and 96 of the sinusoidal and image kernels
 TEST_INGP_SHAPES = ((64, 16, 4),)
 TEST_FEAT_SHAPES = ((32, 16), (64, 64), (32, 24), (32, 48))
-TEST_KW_BUILDS = tuple((s, w) for s in ("fused_eval", "fused_train", "fused_mlp", "fused_image")
-                       for w in (48, 96))
+TEST_KW_BUILDS = tuple((s, w) for s in ("fused_eval", "fused_train", "fused_mlp", "fused_image",
+                                        "image_train_tc") for w in (48, 96))
 
 
 def build_variants(tests: bool = False):
@@ -2590,7 +2606,7 @@ def build_variants(tests: bool = False):
     feat = FEAT_SHAPES + (TEST_FEAT_SHAPES if tests else ())
     kw = KW_BUILDS + (TEST_KW_BUILDS if tests else ())
     out = [(s, None) for s in ("fused_eval", "fused_train", "fused_mlp", "hash_encode",
-                               "fused_image", "cp_encode", fi.TC_SOURCE)]
+                               "fused_image", "image_train_tc", "cp_encode", fi.TC_SOURCE)]
     out += [("fused_ingp", fi.kernel_defines(w, L, F)) for w, L, F in ingp]
     out += [("fused_feat", ff.kernel_defines(w, p)) for w, p in feat]
     out += [(s, ft.width_defines(w)) for s, w in kw]
@@ -3274,7 +3290,7 @@ def main() -> int:
     ds = train_scene(device)
     routes = phase_train_routes(ds, device)
     occ_routes = phase_occ_routes(ds, device)
-    wait_builds(builds, ["fused_image"])
+    wait_builds(builds, ["fused_image", "image_train_tc"])
     image_err = phase_compare_image(device)
     image_launches, image_run = phase_image_path(device)
     wait_builds(builds, ["hash_encode", "fused_ingp", "ingp_train_tc"])
@@ -3316,7 +3332,7 @@ def main() -> int:
         def mean(key):
             return sum(d[key] for d in lv) / len(lv)
 
-        return {
+        row = {
             "name": name,
             "route": "cuda",
             "source": source,
@@ -3329,6 +3345,9 @@ def main() -> int:
             "bound_by": "operations" if all(d["bound_by"] == "operations" for d in lv) else "bytes",
             "library_ms": None,
         }
+        if all("device_ms" in d for d in lv):  # its kernels' device time (profiler)
+            row["device_ms"] = mean("device_ms")
+        return row
 
     kernels = [
         entry("fused_eval", "nerf_meets_mlx_torch/csrc/fused_eval.cu",
@@ -3359,7 +3378,7 @@ def main() -> int:
         entry("feat_train", "nerf_meets_mlx_torch/csrc/ingp_train_tc.cu",
               "nerf_meets_mlx_tpu/kernels/fused_feat_train.py:308", feat_launches["feat_train"],
               feat_err[0], feat_t),
-        entry("image_train", "nerf_meets_mlx_torch/csrc/fused_image.cu",
+        entry("image_train", "nerf_meets_mlx_torch/csrc/image_train_tc.cu",
               "nerf_meets_mlx_tpu/kernels/fused_image.py:262", image_launches["image_train"],
               image_err[0], image_train_t),
         entry("image_fwd", "nerf_meets_mlx_torch/csrc/fused_image.cu",

@@ -2,11 +2,12 @@
 the forward alone.
 
 Counterpart of ``nerf_meets_mlx_tpu/kernels/fused_image.py``. The kernels
-are ``csrc/fused_image.cu``: ``image_train_kernel`` with its split-K dW GEMM
-and reduction (the Pallas ``_train_kernel``) and ``image_fwd_kernel`` (the
-Pallas ``_fwd_kernel``). This module holds their wrappers and their plain
-PyTorch version. The function is the image task's model: sinusoidal encode
-of pixel coordinates, then the non-viewdir NeRF MLP (``NeRFMLP`` with its
+are ``csrc/image_train_tc.cu`` (the Pallas ``_train_kernel``: the tile
+kernel on the tensor cores, its split-K dW GEMM and the reduction) and
+``csrc/fused_image.cu``'s ``image_fwd_kernel`` (the Pallas
+``_fwd_kernel``). This module holds their wrappers and their plain PyTorch
+version. The function is the image task's model: sinusoidal encode of
+pixel coordinates, then the non-viewdir NeRF MLP (``NeRFMLP`` with its
 output head).
 
 * ``fused_image_train`` (sse = Σ (out − target)² over the rows and
@@ -14,9 +15,16 @@ output head).
   ``fused_image_apply`` (the output [N, out_channels]) launch their kernel
   for CUDA tensors (or raise) and run ``fused_image_reference`` for CPU
   tensors. There is no other fallback.
-* The weights are taken as the ``nn.Linear`` modules hold them; the JAX
-  package's band matrix, zero-extended skip rows and [N, 8] padded input
-  and output are a TPU layout and are not carried over.
+* The train kernel reads each ``nn.Linear`` weight and bias where the
+  module holds it and writes the gradients into one flat buffer in the
+  same layout (``grad_layout``), which the call returns as views; the
+  frequency bands and the workspace are built once per shape
+  (``_train_plan``). A call launches the three kernels of
+  ``csrc/image_train_tc.cu`` and nothing else; its backward scales the
+  gradients by the incoming cotangent.
+* The forward kernel takes the weights packed (``pack_image_weights``).
+  The JAX package's band matrix, zero-extended skip rows and [N, 8] padded
+  input and output are a TPU layout and are not carried over.
 * ``LAUNCHES["image_train"]`` / ``LAUNCHES["image_fwd"]`` (the dict shared
   with ``fused_train``) count kernel launches, one per CUDA call.
 """
@@ -24,7 +32,8 @@ output head).
 from __future__ import annotations
 
 import ctypes
-from typing import List, Tuple
+import math
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -40,12 +49,8 @@ from nerf_meets_mlx_torch.kernels.fused_train import (
 # Points per CUDA block of the forward kernel: 8 tiles of 64; a 400 x 400
 # frame makes 313 blocks (one block of ~170 KB shared memory per SM).
 IMAGE_FWD_BLOCK_POINTS = 512
-# Points per CUDA block of the train kernel: one tile, so that a step's 4096
-# pixels make 64 blocks.
-IMAGE_TRAIN_BLOCK_POINTS = 64
-# dW = X^T dZ is summed over the points in partials of this many points:
-# 4096 pixels give 8 partials of the 36 GEMM tiles at image2d's width.
-IMAGE_SPLIT_POINTS = 512
+# The train kernels' source (one build per width set, as fused_train's)
+TRAIN_SOURCE = "image_train_tc"
 
 
 # ---------------------------------------------------------------------------
@@ -65,31 +70,37 @@ def fused_image_reference(mlp, pos_enc, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _pieces(mlp, pos_enc, backward: bool) -> List[torch.Tensor]:
-    cfg = mlp.cfg
+def pack_image_weights(mlp, pos_enc) -> Tuple[torch.Tensor, List[int]]:
+    """The forward kernel's weights: one flat fp32 buffer, each piece on a
+    16-byte boundary, and the piece offsets: every weight as [fan_in,
+    fan_out] (``nn.Linear.weight`` transposed) and its bias, for the trunk
+    layers and the output head (the skip layers' rows are [encoded input,
+    h], input first), then the frequency bands (offset 2·D + 2)."""
     dev = mlp.pos_linears[0].weight.device
     pieces: List[torch.Tensor] = []
     for _, lin in mlp.linears():
         pieces += [lin.weight.t(), lin.bias]
     pieces.append(pos_enc.bands(dev))
-    if backward:
-        for j in range(1, cfg.net_depth):
-            w = mlp.pos_linears[j].weight
-            pieces.append(w[:, mlp.in_dim:] if (j - 1) in cfg.skips else w)
-    return pieces
+    return _pack_flat(pieces)
 
 
-def pack_image_weights(mlp, pos_enc, backward: bool = False) -> Tuple[torch.Tensor, List[int]]:
-    """One flat fp32 buffer, each piece on a 16-byte boundary, and the piece
-    offsets: every weight as [fan_in, fan_out] (``nn.Linear.weight``
-    transposed) and its bias, for the trunk layers and the output head (the
-    skip layers' rows are [encoded input, h], input first), then the
-    frequency bands (offset 2·D + 2); with ``backward`` also the hidden-input
-    part of every trunk layer j ≥ 1 as ``nn.Linear.weight`` holds it (the
-    transposed matrix the backward's GEMMs read; offset 2·D + 3 + j − 1).
-    The train kernel's dW buffer has the layout of the first 2·D + 2
-    pieces."""
-    return _pack_flat(_pieces(mlp, pos_enc, backward))
+def grad_layout(mlp) -> List[Tuple[int, Tuple[int, ...]]]:
+    """(offset, shape) of every parameter of ``mlp.linears()`` in the train
+    kernel's flat gradient buffer, in order: each weight [fan_out, fan_in]
+    as ``nn.Linear`` holds it, then its bias, packed back to back."""
+    out, o = [], 0
+    for _, lin in mlp.linears():
+        for p in (lin.weight, lin.bias):
+            out.append((o, tuple(p.shape)))
+            o += p.numel()
+    return out
+
+
+def train_build(width: int):
+    """(source, defines) of the build that trains an image MLP of this
+    width: ``csrc/image_train_tc.cu``, which takes every shape the plain
+    version's checks admit."""
+    return TRAIN_SOURCE, width_defines(width)
 
 
 def _image_lib(width: int):
@@ -102,14 +113,24 @@ def _image_lib(width: int):
             [vp] * 3 + [ci, vp, cll] + [ci] * 3 + [cu] + [ci] * 4 + [vp]
         )
         lib.fused_image_fwd_launch.restype = ci
-        lib.fused_image_train_launch.argtypes = (
-            [vp] * 4 + [ci] + [vp] * 3 + [cll] + [ci] * 3 + [cu] + [ci] * 6 + [vp]
-        )
-        lib.fused_image_train_launch.restype = ci
         lib.fused_image_smem_bytes.argtypes = [ci] * 2
         lib.fused_image_smem_bytes.restype = cll
-        lib.fused_image_workspace_floats.argtypes = [cll] + [ci] * 7
-        lib.fused_image_workspace_floats.restype = cll
+        lib._typed = True
+    return lib
+
+
+def _train_lib(width: int):
+    from nerf_meets_mlx_torch.kernels import _build
+
+    lib = _build.load_library(*train_build(width))
+    if not getattr(lib, "_typed", False):
+        vp, ci, cll, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
+        lib.image_train_tc_launch.argtypes = [vp] * 7 + [cll] + [ci] * 2 + [cu] + [ci] * 4 + [vp]
+        lib.image_train_tc_launch.restype = ci
+        lib.image_train_tc_workspace_floats.argtypes = [cll, ci, ci, cu] + [ci] * 4
+        lib.image_train_tc_workspace_floats.restype = cll
+        lib.image_train_tc_smem_bytes.argtypes = [ci] * 3
+        lib.image_train_tc_smem_bytes.restype = cll
         lib._typed = True
     return lib
 
@@ -141,6 +162,9 @@ def _check_config(mlp, pos_enc, x: torch.Tensor) -> None:
                          f"{tuple(x.shape)}")
     if mlp.pos_linears[0].weight.device != x.device:
         raise ValueError("the MLP's parameters must be on the coordinates' device")
+    if any(p.dtype != torch.float32 or not p.is_contiguous()
+           for _, lin in mlp.linears() for p in (lin.weight, lin.bias)):
+        raise ValueError("the image kernels read contiguous float32 parameters")
 
 
 def _common(mlp, pos_enc):
@@ -189,40 +213,65 @@ def fused_image_apply(mlp, pos_enc, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _train_launch(mlp, pos_enc, x: torch.Tensor, target: torch.Tensor):
-    """One call of ``image_train_kernel`` and its dW GEMM: (sse, grads) with
-    grads = d(sse)/d(weight, bias) of every ``mlp.linears()`` entry."""
+class _TrainPlan(NamedTuple):
+    lib: ctypes.CDLL
+    workspace: torch.Tensor  # the kernels' scratch, reused by every call of the shape
+    bands: torch.Tensor
+    layout: List[Tuple[int, Tuple[int, ...]]]
+    n_dw: int
+
+
+# (device, stream, N, shape) -> plan; a few shapes at most, the newest kept
+_PLANS: Dict[tuple, _TrainPlan] = {}
+_MAX_PLANS = 4
+
+
+def _train_plan(mlp, pos_enc, dev, stream: int, N: int) -> _TrainPlan:
+    """The library, workspace, bands and gradient layout of a shape, built
+    at its first call: a later call of the shape allocates and launches
+    nothing besides its kernels and its two outputs (``torch.empty``). The
+    workspace is the shape's on one stream, whose calls run in order."""
+    key = (dev, stream, N, _common(mlp, pos_enc), pos_enc)
+    plan = _PLANS.get(key)
+    if plan is None:
+        cfg = mlp.cfg
+        lib = _train_lib(cfg.net_width)
+        smem = lib.image_train_tc_smem_bytes(cfg.net_width, cfg.net_depth, pos_enc.out_dim)
+        if not 0 < smem <= 232448:
+            raise ValueError(f"the image train kernel needs {smem} bytes of shared memory a block")
+        n_ws = lib.image_train_tc_workspace_floats(N, *_common(mlp, pos_enc))
+        if n_ws <= 0:
+            raise ValueError(f"the image train kernel does not take this shape: {key[3]}")
+        layout = grad_layout(mlp)
+        n_dw = layout[-1][0] + math.prod(layout[-1][1])
+        plan = _TrainPlan(lib, torch.empty(n_ws, dtype=torch.float32, device=dev),
+                          pos_enc.bands(dev).contiguous(), layout, n_dw)
+        if len(_PLANS) >= _MAX_PLANS:
+            _PLANS.pop(next(iter(_PLANS)))
+        _PLANS[key] = plan
+    return plan
+
+
+def _train_launch(mlp, pos_enc, x: torch.Tensor, target: torch.Tensor, params):
+    """One call of ``csrc/image_train_tc.cu``'s three kernels: (sse, grads)
+    with grads = d(sse)/d(params), the weights and biases of
+    ``mlp.linears()`` in order, views of one fresh buffer."""
     dev = x.device
     N = x.shape[0]
-    cfg = mlp.cfg
-    lib = _image_lib(mlp.cfg.net_width)
-    _check_smem(lib, mlp, pos_enc)
-    wbuf, offs = pack_image_weights(mlp, pos_enc, backward=True)
-    n_dw = offs[2 * cfg.net_depth + 2]
-    n_ws = lib.fused_image_workspace_floats(
-        N, cfg.net_depth, cfg.net_width, pos_enc.out_dim, cfg.out_channels,
-        IMAGE_TRAIN_BLOCK_POINTS, IMAGE_SPLIT_POINTS, n_dw,
-    )
-    ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
-    sse = torch.empty((1,), dtype=torch.float32, device=dev)
-    dw = torch.empty((n_dw,), dtype=torch.float32, device=dev)
-    c_offs = (ctypes.c_int * len(offs))(*offs)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_image_train_launch(
-            x.data_ptr(), target.data_ptr(), wbuf.data_ptr(), c_offs, len(offs), sse.data_ptr(),
-            dw.data_ptr(), ws.data_ptr(), N, IMAGE_TRAIN_BLOCK_POINTS, *_common(mlp, pos_enc),
-            IMAGE_SPLIT_POINTS, n_dw, stream,
+        plan = _train_plan(mlp, pos_enc, dev, stream, N)
+        c_params = (ctypes.c_void_p * len(params))(*[p.data_ptr() for p in params])
+        sse = torch.empty((1,), dtype=torch.float32, device=dev)
+        dw = torch.empty((plan.n_dw,), dtype=torch.float32, device=dev)
+        err = plan.lib.image_train_tc_launch(
+            x.data_ptr(), target.data_ptr(), plan.bands.data_ptr(), c_params, sse.data_ptr(),
+            dw.data_ptr(), plan.workspace.data_ptr(), N, *_common(mlp, pos_enc), stream,
         )
     if err != 0:
-        raise RuntimeError(f"fused_image train launch failed with cudaError {err}")
+        raise RuntimeError(f"the image train launch failed with cudaError {err}")
     LAUNCHES["image_train"] += 1
-    grads = []
-    for i, (_, lin) in enumerate(mlp.linears()):
-        o_w, o_b = offs[2 * i], offs[2 * i + 1]
-        fi, fo = lin.in_features, lin.out_features
-        grads.append(dw[o_w : o_w + fi * fo].view(fi, fo).t().contiguous())
-        grads.append(dw[o_b : o_b + fo])
+    grads = [dw[o : o + math.prod(shape)].view(shape) for o, shape in plan.layout]
     return sse[0], grads
 
 
@@ -248,8 +297,9 @@ def fused_image_train(mlp, pos_enc, x: torch.Tensor, target: torch.Tensor) -> to
     (out − target)², out the MLP's output on the encoded coordinates x
     [N, in_dim]; target [N, out_channels]. Differentiable with respect to
     the MLP's parameters only. CPU tensors run the plain version (autograd
-    gives the gradient); CUDA tensors launch ``image_train_kernel``, which
-    computes the gradient in the same call, or raise."""
+    gives the gradient); CUDA tensors launch the train kernels, which
+    compute the gradient in the same call (``csrc/image_train_tc.cu``), or
+    raise."""
     dev = x.device
     if dev.type == "cpu":
         return torch.sum((fused_image_reference(mlp, pos_enc, x) - target) ** 2)
@@ -262,4 +312,4 @@ def fused_image_train(mlp, pos_enc, x: torch.Tensor, target: torch.Tensor) -> to
                          f"{tuple(target.shape)} on {target.device}")
     xk, tk = x.detach().contiguous(), target.detach().contiguous()
     params = [p for _, lin in mlp.linears() for p in (lin.weight, lin.bias)]
-    return _FusedImageTrain.apply(lambda: _train_launch(mlp, pos_enc, xk, tk), *params)
+    return _FusedImageTrain.apply(lambda: _train_launch(mlp, pos_enc, xk, tk, params), *params)

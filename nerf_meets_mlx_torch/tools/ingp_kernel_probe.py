@@ -64,7 +64,12 @@ rays, 1,001 of S = 96 and 48, both compositing modes, the white background
 on and off): max |dG - plain| / max |plain dG| for this checkout's kernel
 and for csrc/fused_ingp.cu's runtime-shape build (the parent's
 thread-per-point design), and the largest dG and alpha-head dW errors of
-each and of the fp32 plain version against float64.
+each and of the fp32 plain version against float64. With ``--draws N
+--draws-width W`` it prints ``[draws-rt]`` instead: the gradient check of
+``test_cuda_ingp_kernels_match_plain_at_new_shapes`` at width W (the
+runtime-shape build of ``csrc/fused_ingp.cu`` past width 64) over N table
+draws: per draw whether the test's criteria hold, and per gradient array
+the kernel's and the fp32 plain version's distance from float64.
 
 With ``--feat`` it probes the feat train launch instead
 (``fused_feat_train_apply``), at the "feats" route's shapes on the
@@ -1069,6 +1074,109 @@ def _draws(n: int) -> dict:
     return out
 
 
+def _draws_rt(n: int, width: int) -> dict:
+    """[draws-rt]: ``tests/test_torch_fused_ingp.py::
+    test_cuda_ingp_kernels_match_plain_at_new_shapes`` at ``width`` (8
+    levels of 2 features, fp32 hash compute; the test's 501 rays of 48
+    samples from seed 2) over ``n`` draws of the tables' N(0, 0.1) noise
+    (seeds 1 .. n): per draw whether the test's criteria hold, and for each
+    gradient array how far the kernel and the fp32 plain version are from
+    float64 (max |x - float64| / max |float64|)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from nerf_meets_mlx_torch.config import EncodingConfig, lego_ingp
+    from nerf_meets_mlx_torch.encoding.spherical_harmonics import sh_encode
+    from nerf_meets_mlx_torch.kernels import fused_ingp_train as fi
+    from nerf_meets_mlx_torch.kernels.fused_train import TrainSpec
+    from nerf_meets_mlx_torch.models import create_nerf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    pcfg = dataclasses.replace(EncodingConfig(kind="hash_grid", in_dim=3), hash_n_levels=8,
+                               hash_features_per_level=2, hash_compute_dtype="float32")
+    cfg = lego_ingp()
+    mlp_cfg = dataclasses.replace(cfg.mlp, net_width=width)
+    cfg = cfg.replace(pos_encoding=pcfg, mlp=mlp_cfg, mlp_fine=mlp_cfg)
+    g = torch.Generator(device=dev).manual_seed(2)
+    R, S = 501, 48
+    ro = torch.randn((R, 3), generator=g, device=dev) * 0.2 + torch.tensor([0.0, 0.0, 3.0],
+                                                                           device=dev)
+    rd = torch.randn((R, 3), generator=g, device=dev) * 0.2 + torch.tensor([0.0, 0.0, -1.0],
+                                                                           device=dev)
+    sh = sh_encode(rd / rd.norm(dim=-1, keepdim=True), 4)
+    z = torch.sort(torch.rand((R, S), generator=g, device=dev) * 4.0 + 1.0, dim=-1).values
+    dl = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e10)], -1) * rd.norm(
+        dim=-1, keepdim=True)
+    nz = torch.randn((R, S), generator=g, device=dev)
+    target = torch.rand((R, 3), generator=g, device=dev)
+    rb = fi.ingp_rays_block(S)
+    spec = TrainSpec(n_samples=S, rays_block=rb, mode="canonical", density_activation="softplus",
+                     white_bkgd=True, group=fi.ingp_group(S, rb))
+    build = fi.train_build(width, cfg.mlp.net_depth, 8, 2, sh.shape[-1], S)
+    print(f"[draws-rt] width {width}: {R} rays x {S} samples on {build}", flush=True)
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+    draws = []
+    for seed in range(1, n + 1):
+        m = create_nerf(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+        with torch.no_grad():
+            m.pos_enc.tables.add_(torch.randn(m.pos_enc.tables.shape, device=dev,
+                                              generator=torch.Generator(device=dev).manual_seed(
+                                                  seed)) * 0.1)
+        mlp, enc = m.fine, m.pos_enc
+        mlp64, enc64 = copy.deepcopy(mlp).double(), copy.deepcopy(enc).double()
+        params = [p for _, lin in mlp.linears() for p in (lin.weight, lin.bias)] + [enc.tables]
+        params64 = [p for _, lin in mlp64.linears() for p in (lin.weight, lin.bias)] + [
+            enc64.tables]
+        names = [f"{n_}.{w}" for n_, _ in mlp.linears() for w in ("w", "b")] + ["tables"]
+        args = (mlp, enc, sh, spec, ro, rd, z, dl, nz, target)
+        sse, rgb, _ = fi.fused_ingp_train_apply(*args)
+        gk = torch.autograd.grad(sse, params)
+        sse_p, rgb_p, _ = fi.fused_ingp_train_reference(*args)
+        gp = torch.autograd.grad(sse_p, params)
+        sse64 = fi.fused_ingp_train_reference(mlp64, enc64, sh.double(), spec, ro.double(),
+                                              rd.double(), z.double(), dl.double(), nz.double(),
+                                              target.double())[0]
+        g64 = torch.autograd.grad(sse64, params64)
+        floor = 1e-6 * max(float(b.abs().max()) for b in gp)
+        values_ok = bool(torch.allclose(sse, sse_p, rtol=1e-4, atol=1e-4)) and bool(
+            torch.allclose(rgb, rgb_p.detach(), rtol=1e-4, atol=1e-4))
+        arrays = {}
+        for name, a, b, c in zip(names, gk, gp, g64):
+            err, scale = float((a - b).abs().max()), float(b.abs().max())
+            arrays[name] = {"kernel_f64": rel(a, c), "plain_f64": rel(b, c),
+                            "kernel_plain": err / scale if scale else 0.0,
+                            "test_ok": bool(torch.isfinite(a).all()) and err <= 1e-3 * scale + floor}
+        failing = [k for k, r in arrays.items() if not r["test_ok"]]
+        further = [k for k, r in arrays.items() if r["kernel_f64"] > r["plain_f64"]]
+        worst = max(arrays, key=lambda k: arrays[k]["kernel_f64"] / max(arrays[k]["plain_f64"],
+                                                                        1e-30))
+        draws.append({"seed": seed, "values_ok": values_ok, "failing": failing,
+                      "arrays": arrays})
+        print(f"[draws-rt] seed {seed:2d}: test {'passes' if values_ok and not failing else 'FAILS'}"
+              f" (values {'ok' if values_ok else 'off'}; arrays past 1e-3 of plain: "
+              f"{failing or 'none'}); kernel further from float64 than plain on "
+              f"{len(further)}/{len(arrays)} arrays; worst ratio {worst}: kernel "
+              f"{arrays[worst]['kernel_f64']:.2e} vs plain {arrays[worst]['plain_f64']:.2e}",
+              flush=True)
+    for name in draws[0]["arrays"]:
+        rs = [d["arrays"][name] for d in draws]
+        print(f"[draws-rt] {name:18s} over {n} draws: vs float64 kernel max "
+              f"{max(r['kernel_f64'] for r in rs):.2e}, plain max "
+              f"{max(r['plain_f64'] for r in rs):.2e}; kernel further than plain in "
+              f"{sum(r['kernel_f64'] > r['plain_f64'] for r in rs)}, by at most "
+              f"{max(r['kernel_f64'] / max(r['plain_f64'], 1e-30) for r in rs):.2f}x; test "
+              f"criterion fails in {sum(not r['test_ok'] for r in rs)}", flush=True)
+    print(f"[draws-rt] the test fails on {sum(bool(d['failing']) or not d['values_ok'] for d in draws)}"
+          f" of {n} draws", flush=True)
+    return {"width": width, "build": str(build), "draws": draws}
+
+
 def _run(role: str, root: Path, feat: bool = False) -> dict:
     env = dict(os.environ, PYTHONPATH=str(root.resolve()))
     cmd = [sys.executable, __file__, "--worker", role] + (["--feat"] if feat else [])
@@ -1088,6 +1196,8 @@ def main() -> int:
     p.add_argument("--no-head", action="store_true", help="time the parent only")
     p.add_argument("--draws", type=int, default=0,
                    help="only the gpu test's gradient check over this many table draws")
+    p.add_argument("--draws-width", type=int, default=0,
+                   help="with --draws: the runtime-shape build's gpu test at this width instead")
     p.add_argument("--feat", action="store_true",
                    help="probe the feat train launch at the paper tables' levels")
     p.add_argument("--long-rays", action="store_true",
@@ -1103,7 +1213,8 @@ def main() -> int:
         raise RuntimeError("ingp_kernel_probe needs a CUDA device")
     sys.path.insert(0, str(HEAD))
     if a.draws:
-        print(json.dumps(_draws(a.draws)), flush=True)
+        out = _draws_rt(a.draws, a.draws_width) if a.draws_width else _draws(a.draws)
+        print(json.dumps(out), flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()

@@ -12,16 +12,20 @@ and 96 samples), the hash forward and dG (lego_ingp's 196,608 / 393,216
 points), the sinusoidal eval and train kernels (lego_hierarchical, 8 x 256),
 the MLP forward and backward (lego_occ's fine points), the feat train kernel
 (the paper tables' 32 channels) and the image kernels (image2d); and a
-400 x 400 frame of lego_ingp and of lego_hierarchical; the INGP and feat
-train calls' device time (every kernel they launch, from torch.profiler:
-the host-bound coarse calls read their kernels here, not in their event
-time); and the paper tables' warm train step (the feats route, 32 steps,
-as chip_smoke.py times it). It prints one JSON line per turn and each
-measurement's four times; then, where both checkouts have
-``csrc/ingp_train_tc.cu``, each kernel of it in both: ptxas's registers and
-spills, and its SASS instruction by instruction (the kernel parameters'
-constant-bank offsets masked), as lines starting with ``[ptxas]`` and
-``[sass]``.
+400 x 400 frame of lego_ingp and of lego_hierarchical; the INGP, feat and
+image train calls' device time (every kernel they launch, from
+torch.profiler: the host-bound calls read their kernels here, not in their
+event time); the image train call's host time (the host clock around the
+call, a synchronize before each); the paper tables' warm train step (the
+feats route, 32 steps, as chip_smoke.py times it) and the warm image step
+(50 steps of 4096 pixels, as chip_smoke.py's phase_image_timing). It prints
+one JSON line per turn and each measurement's four times; then ptxas's
+registers and spills of every kernel of ``csrc/fused_train.cu``,
+``csrc/fused_image.cu`` and ``csrc/image_train_tc.cu`` in each checkout
+that has the source, and, where both checkouts have
+``csrc/ingp_train_tc.cu``, each kernel of it in both: ptxas's report and
+its SASS instruction by instruction (the kernel parameters' constant-bank
+offsets masked), as lines starting with ``[ptxas]`` and ``[sass]``.
 """
 
 from __future__ import annotations
@@ -107,6 +111,52 @@ def _paper_step_ms(n=32):
     return (time.perf_counter() - t0) / n * 1e3
 
 
+def _host_ms(fn, n=20):
+    """Median host ms of a call of ``fn``, a synchronize before each."""
+    import time
+
+    import torch
+
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return sorted(times)[n // 2]
+
+
+def _image_step_ms(n=50):
+    """Host ms a warm image2d train step (4096 pixels of the 400 x 400 test
+    image, the fused route), over ``n`` steps ending in one synchronize."""
+    import time
+
+    import torch
+
+    from nerf_meets_mlx_torch.config import image2d
+    from nerf_meets_mlx_torch.datasets.image import make_test_image, pixel_dataset
+    from nerf_meets_mlx_torch.engine import TrainState, make_image_train_step
+    from nerf_meets_mlx_torch.models import create_nerf
+
+    dev = torch.device("cuda", 0)
+    coords, colors = (torch.as_tensor(a, device=dev) for a in pixel_dataset(make_test_image(400)))
+    model = create_nerf(image2d().replace(use_fused_kernel=True), device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    state = TrainState(model, model.cfg.train)
+    step = make_image_train_step(model)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    for _ in range(5):
+        step(state, coords, colors, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(state, coords, colors, gen)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
 def _build_all():
     """Every build the turn times, all started together (where the
     checkout's ``_build`` takes per-shape defines: lego_ingp's and the
@@ -117,7 +167,8 @@ def _build_all():
     from nerf_meets_mlx_torch.kernels import _build
 
     jobs = [(n, None) for n in ("fused_eval", "fused_train", "fused_mlp", "hash_encode",
-                                "fused_image")]
+                                "fused_image", "image_train_tc")
+            if (_build.CSRC / f"{n}.cu").exists()]
     if hasattr(_build, "variant_name"):
         import inspect
 
@@ -267,35 +318,60 @@ def worker():
     xy = torch.rand((4096, 2), generator=g, device=dev)
     out["image_train"] = _ms(lambda: fim.fused_image_train(m.coarse, m.pos_enc, xy,
                                                            target).backward())
+    with torch.no_grad():
+        out["image_train_device"] = _device_ms(
+            lambda: fim.fused_image_train(m.coarse, m.pos_enc, xy, target))
+        out["image_train_host"] = _host_ms(
+            lambda: fim.fused_image_train(m.coarse, m.pos_enc, xy, target))
     grid = torch.rand((160_000, 2), generator=g, device=dev)
     with torch.no_grad():
         out["image_fwd"] = _ms(lambda: fim.fused_image_apply(m.coarse, m.pos_enc, grid))
     out["paper_step"] = _paper_step_ms()
+    out["image_step"] = _image_step_ms()
     print(json.dumps(out), flush=True)
 
 
-def _tile_kernels(root: Path, tag: str):
-    """ptxas's report and the SASS of each kernel of ``root``'s
-    csrc/ingp_train_tc.cu (compiled to a cubin with the build's flags):
-    {kernel: [instructions, constant-bank offsets masked]}."""
+def _cubin(root: Path, tag: str, source: str):
+    """Compiles ``root``'s csrc/<source>.cu to a cubin with the build's
+    flags and prints ptxas's registers and spills of each of its kernels
+    (``[ptxas]``); returns the cubin's path."""
     from nerf_meets_mlx_torch.kernels import _build
 
     csrc = root / "nerf_meets_mlx_torch" / "csrc"
     out_dir = HEAD / ".runs" / "kernel_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    cubin = out_dir / f"{tag}.cubin"
+    cubin = out_dir / f"{tag}_{source}.cubin"
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     proc = subprocess.run([_build._nvcc(), *flags, "-cubin", "-I", str(csrc), "-o", str(cubin),
-                           str(csrc / "ingp_train_tc.cu")], capture_output=True, text=True)
+                           str(csrc / f"{source}.cu")], capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {tag}:\n{proc.stderr[-3000:]}")
-    names = r"(ingp_tc_kernel|feat_tc_kernel|ingp_tc_reduce_kernel)(ILi\d+)?"
+        raise RuntimeError(f"nvcc failed for {tag} {source}:\n{proc.stderr[-3000:]}")
     lines = proc.stderr.splitlines()
     for i, line in enumerate(lines):
-        found = re.search(names, line) if "Compiling entry" in line else None
+        found = re.search(r"Compiling entry function '(\S+)'", line)
         if found:
             report = [x.strip() for x in lines[i + 1:i + 4] if "registers" in x or "spill" in x]
-            print(f"[ptxas] {tag} {found.group(0)}: {' | '.join(report)}", flush=True)
+            print(f"[ptxas] {tag} {source} {found.group(1)}: {' | '.join(report)}", flush=True)
+    return cubin
+
+
+def _ptxas_reports(base: Path, head: Path) -> None:
+    """[ptxas] of the sinusoidal train and the image sources in both
+    checkouts (each that has the source)."""
+    for source in ("fused_train", "fused_image", "image_train_tc"):
+        for tag, root in (("base", base), ("head", head)):
+            if (root / "nerf_meets_mlx_torch" / "csrc" / f"{source}.cu").exists():
+                _cubin(root, tag, source)
+
+
+def _tile_kernels(root: Path, tag: str):
+    """ptxas's report and the SASS of each kernel of ``root``'s
+    csrc/ingp_train_tc.cu: {kernel: [instructions, constant-bank offsets
+    masked]}."""
+    from nerf_meets_mlx_torch.kernels import _build
+
+    names = r"(ingp_tc_kernel|feat_tc_kernel|ingp_tc_reduce_kernel)(ILi\d+)?"
+    cubin = _cubin(root, tag, "ingp_train_tc")
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(cubin)], capture_output=True,
                           text=True).stdout
@@ -345,6 +421,7 @@ def main() -> int:
         row = " ".join(f"{t}={d[key]:.4f}" for t, d in turns)
         print(f"{key:18s} {row}", flush=True)
     sys.path.insert(0, str(HEAD))
+    _ptxas_reports(Path(a.base).resolve(), Path(a.head).resolve())
     _compare_tile_kernels(Path(a.base).resolve(), Path(a.head).resolve())
     return 0
 

@@ -460,12 +460,17 @@ CUDA_SHAPES = [
 def test_cuda_ingp_kernels_match_plain_at_new_shapes(width, enc, dtype):
     """The new shapes and the bf16 hash compute on the card against the
     plain version (bf16: its rounding twin), 501 rays of 48 samples, at
-    the criteria of test_cuda_ingp_kernels_match_plain."""
+    the criteria of test_cuda_ingp_kernels_match_plain. The tables' noise
+    comes from a generator of the test's own (seed 1, as _tc_case's), not
+    the device's global one: at width 256 two of 20 draws fail these
+    criteria, each where the fp32 plain version, not the kernel, is the one
+    off float64 (tools/ingp_kernel_probe.py --draws 20 --draws-width 256)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    tm = _cuda_shape_model(width, enc, dtype, dev)
+    tm = _cuda_shape_model(width, enc, dtype, dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
     g = torch.Generator(device=dev).manual_seed(2)
     R, S = 501, 48
     ro = torch.randn((R, 3), generator=g, device=dev) * 0.2 + torch.tensor([0.0, 0.0, 3.0], device=dev)

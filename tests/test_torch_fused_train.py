@@ -32,6 +32,7 @@ from nerf_meets_mlx_torch.encoding.sinusoidal import sinusoidal_encode
 from nerf_meets_mlx_torch.kernels import fused_train as tft
 from nerf_meets_mlx_torch.models import create_nerf as t_create
 from nerf_meets_mlx_torch.rendering.volume import exclusive_cumsum
+from tf32_products import _mm_1xtf32, _mm_3xtf32, _tf32
 from torch_threads import one_torch_thread_per_worker  # noqa: F401  (autouse fixture)
 
 VAL_RTOL, VAL_ATOL = 1e-5, 1e-6
@@ -328,28 +329,6 @@ def test_kernel_algorithm_and_layout_match_autograd_at_narrow_widths(width):
     torch.testing.assert_close(w_e, w.detach(), rtol=VAL_RTOL, atol=VAL_ATOL)
     for i, (ge, ga) in enumerate(zip(g_e, g)):
         torch.testing.assert_close(ge, ga, rtol=GRAD_RTOL, atol=GRAD_ATOL, msg=f"param {i}")
-
-
-def _tf32(x):
-    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
-    zero, as ``cvt.rna.tf32.f32`` rounds: add half of the dropped 13 bits'
-    range to the magnitude, then clear them."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _mm_3xtf32(a, b):
-    """The kernel's 3xTF32 product: a = ah + al, b = bh + bl, each half
-    TF32, and al·bh + ah·bl + ah·bh summed in one fp32 accumulator (one
-    product over the three terms stacked along k)."""
-    ah, bh = _tf32(a), _tf32(b)
-    al, bl = _tf32(a - ah), _tf32(b - bh)
-    return torch.cat([al, ah, ah], -1) @ torch.cat([bh, bl, bh], 0)
-
-
-def _mm_1xtf32(a, b):
-    """One TF32 pass: both operands rounded to TF32, fp32 accumulator."""
-    return _tf32(a) @ _tf32(b)
 
 
 def test_tf32_rounding_is_round_to_nearest_away():

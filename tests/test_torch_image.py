@@ -1,6 +1,7 @@
 """The port's 2-D image task: ``datasets/image.py``,
-``kernels/fused_image.py`` (csrc/fused_image.cu), ``make_image_train_step``,
-``entrypoints/image_learning.py`` and the ``image`` command.
+``kernels/fused_image.py`` (csrc/image_train_tc.cu, csrc/fused_image.cu),
+``make_image_train_step``, ``entrypoints/image_learning.py`` and the
+``image`` command.
 
 * The procedural image and its pixel dataset equal the JAX package's.
 * The plain image ops against the JAX ``fused_image_train`` /
@@ -18,8 +19,11 @@
   gradients agree within 25% at every step, the rest within one Adam step
   each way per step.
 * ``image_learning(device="cpu")`` and the ``image`` command.
-* ``gpu``-marked: both CUDA kernels against the plain version on the card
-  (skipped where no card is present).
+* ``gpu``-marked: both CUDA kernels against the plain version on the card,
+  the train call in the build ``fused_image.train_build`` names
+  (csrc/image_train_tc.cu), at image2d's shape, at narrow widths, at depth
+  20 and with two skips and the raw input; two train launches give
+  bit-identical sse and gradients (skipped where no card is present).
 """
 
 import dataclasses
@@ -144,23 +148,23 @@ def test_image_ops_match_jax(kw, n):
 
 
 def test_pack_image_weights_layout():
-    """The forward pieces as [fan_in, fan_out] and their biases, the bands at
-    2·D + 2, and with ``backward`` the hidden-input part of each trunk
-    layer j ≥ 1 as ``nn.Linear.weight`` holds it."""
+    """The forward kernel's pieces: every weight as [fan_in, fan_out] and
+    its bias, then the bands at 2·D + 2 (the train kernel reads the
+    parameters where the modules hold them, and packs nothing)."""
     tm = t_create(t_image2d(), device="cpu").init(torch.Generator().manual_seed(0))
     mlp, enc = tm.coarse, tm.pos_enc
-    wbuf, offs = tfi.pack_image_weights(mlp, enc, backward=True)
+    wbuf, offs = tfi.pack_image_weights(mlp, enc)
     D = mlp.cfg.net_depth
-    assert len(offs) == 3 * D + 2 and all(o % 4 == 0 for o in offs)
+    assert len(offs) == 2 * D + 3 and all(o % 4 == 0 for o in offs)
     for i, (_, lin) in enumerate(mlp.linears()):
         fi, fo = lin.in_features, lin.out_features
         torch.testing.assert_close(wbuf[offs[2 * i] : offs[2 * i] + fi * fo].view(fi, fo),
                                    lin.weight.detach().t(), rtol=0, atol=0)
+        torch.testing.assert_close(wbuf[offs[2 * i + 1] : offs[2 * i + 1] + fo],
+                                   lin.bias.detach(), rtol=0, atol=0)
     torch.testing.assert_close(wbuf[offs[2 * D + 2] : offs[2 * D + 2] + enc.n_freqs],
                                enc.bands(), rtol=0, atol=0)
-    skip = mlp.pos_linears[5].weight.detach()  # the layer after the skip at 4
-    torch.testing.assert_close(wbuf[offs[2 * D + 7] : offs[2 * D + 7] + 256 * 256].view(256, 256),
-                               skip[:, enc.out_dim:], rtol=0, atol=0)
+    assert wbuf.numel() >= offs[2 * D + 2] + enc.n_freqs
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused_route", "standard_route"])
@@ -268,8 +272,9 @@ def test_cuda_image_kernels_match_plain(n):
     """Both kernels at image2d's width and depth on the card: the forward at
     rtol 1e-4 / atol 1e-4 (fp32 sums in another order than cuBLAS's), sse
     at rtol 1e-4, every dW and db within 1e-3 of its array's largest plain
-    value; a pixel count that is not a multiple of the kernels' 64-point
-    tile (4001), and a 400 x 400 frame (160,000)."""
+    value; a pixel count that is not a multiple of the train kernel's
+    32-point tile or the forward's 64 (4001), and a 400 x 400 frame
+    (160,000, the forward alone)."""
     _check_cuda_image_kernels(n, None)
 
 
@@ -281,14 +286,52 @@ def test_cuda_image_kernels_match_plain_at_narrow_widths(width):
     _check_cuda_image_kernels(4001, width)
 
 
-def _check_cuda_image_kernels(n, width):
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth,width,skips,include_input", [
+    (20, 64, (4,), False), (8, 256, (2, 5), True),
+], ids=["depth20", "two_skips_raw_input"])
+def test_cuda_image_kernels_match_plain_past_image2d(depth, width, skips, include_input):
+    """Shapes past image2d's: depth 20 (the kernels' deepest), and two
+    skips with the raw input in the encoding (42 features, which the train
+    kernel copies in 4-byte pieces), 4001 pixels."""
+    _check_cuda_image_kernels(4001, width, depth, skips, include_input)
+
+
+@pytest.mark.gpu
+def test_cuda_image_train_is_deterministic():
+    """Two train launches on the same inputs give bit-identical sse and
+    gradients: no atomics, every sum in a fixed order."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    tm = t_create(t_image2d(), device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.rand((4096, 2), generator=g, device=dev)
+    y = torch.rand((4096, 3), generator=g, device=dev)
+    params = [p for _, lin in tm.coarse.linears() for p in (lin.weight, lin.bias)]
+    runs = []
+    for _ in range(2):
+        sse = tfi.fused_image_train(tm.coarse, tm.pos_enc, x, y)
+        runs.append((sse.detach(), torch.autograd.grad(sse, params)))
+    torch.cuda.synchronize()
+    (sse_a, g_a), (sse_b, g_b) = runs
+    assert torch.equal(sse_a, sse_b)
+    assert all(torch.equal(a, b) for a, b in zip(g_a, g_b))
+
+
+def _check_cuda_image_kernels(n, width, depth=None, skips=None, include_input=False):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    from nerf_meets_mlx_torch.kernels import _build
+
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     cfg = t_image2d()
-    if width is not None:
-        cfg = cfg.replace(mlp=dataclasses.replace(cfg.mlp, net_width=width))
+    mlp = dataclasses.replace(cfg.mlp, net_width=width or cfg.mlp.net_width,
+                              net_depth=depth or cfg.mlp.net_depth,
+                              skips=cfg.mlp.skips if skips is None else skips)
+    cfg = cfg.replace(mlp=mlp, pos_encoding=dataclasses.replace(
+        cfg.pos_encoding, include_input=include_input))
     tm = t_create(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.rand((n, 2), generator=g, device=dev)
@@ -307,6 +350,10 @@ def _check_cuda_image_kernels(n, width):
     grads = torch.autograd.grad(sse, params)
     torch.cuda.synchronize()
     assert LAUNCHES["image_train"] == n0["image_train"] + 1
+    # the train call ran csrc/image_train_tc.cu's build of the width
+    source, defines = tfi.train_build(mlp.net_width)
+    assert source == "image_train_tc"
+    assert tfi._train_lib(mlp.net_width)._name == str(_build.library_path(source, defines))
     sse_p = torch.sum((tfi.fused_image_reference(tm.coarse, tm.pos_enc, x) - y) ** 2)
     grads_p = torch.autograd.grad(sse_p, params)
     torch.testing.assert_close(sse.detach(), sse_p.detach(), rtol=1e-4, atol=1e-4)

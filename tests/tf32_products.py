@@ -1,0 +1,55 @@
+"""The tensor-core products of the port's 3xTF32 kernels, emulated in
+torch on the CPU for the tests: TF32 rounding as ``split_tf32`` rounds
+(``nerf_meets_mlx_torch.kernels.fused_train._tf32``), a 3xTF32 product
+summed in one fp32 accumulator, the same with each k-step of 8 summed from
+zero and added in fp32 (the order csrc/fused_train.cu and
+csrc/image_train_tc.cu use), and one TF32 pass, the lower-precision
+control."""
+
+import torch
+
+from nerf_meets_mlx_torch.kernels.fused_train import _tf32
+
+__all__ = ["_tf32", "_mm_3xtf32", "_mm_1xtf32", "mm_ksteps"]
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm_3xtf32(a, b):
+    """The kernel's 3xTF32 product: a = ah + al, b = bh + bl, each half
+    TF32, and al·bh + ah·bl + ah·bh summed in one fp32 accumulator (one
+    product over the three terms stacked along k)."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return torch.cat([al, ah, ah], -1) @ torch.cat([bh, bl, bh], 0)
+
+
+def _mm_1xtf32(a, b):
+    """One TF32 pass: both operands rounded to TF32, fp32 accumulator."""
+    return _tf32(a) @ _tf32(b)
+
+
+def mm_ksteps(a, b, passes=3):
+    """a [M, K] @ b [K, N] as the kernels' forward and cotangent products
+    run on mma.sync m16n8k8: K in steps of 8 (zero-padded), each step's
+    products (3xTF32: lo·hi, hi·lo, then hi·hi; ``passes=1``: hi·hi alone)
+    summed from zero, then added to the sum in fp32, step after step."""
+    K = a.shape[1]
+    a = torch.nn.functional.pad(a, (0, -K % 8))
+    b = torch.nn.functional.pad(b, (0, 0, 0, -K % 8))
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for k in range(0, a.shape[1], 8):
+        s = slice(k, k + 8)
+        if passes == 3:
+            t = al[:, s] @ bh[s]
+            t = t + ah[:, s] @ bl[s]
+            t = t + ah[:, s] @ bh[s]
+        else:
+            t = ah[:, s] @ bh[s]
+        out = out + t
+    return out
