@@ -55,11 +55,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    spherical harmonics, 2 x 64 MLPs, 48 + 48 samples, lr 1e-2, encoding
    weight decay; ``lego_ingp_occ``: 32 + 32 samples and the 64³ grid): the
    four INGP kernels against their plain versions (the hash forward on the
-   grid update's and a step's points, its dG; the eval and train kernels at
-   4096 rays, S = 48 and 96, both MLPs, both modes, white background on and
-   off: values to atol 1e-4 + rtol 1e-4, the hash dG kernel to 1e-4 and the
-   train kernel's dW and dG to 1e-3 of max |plain|, sse and dW bit for bit
-   over two launches); ``train_nerf(preset="lego_ingp", ...)`` as in phase 5 with
+   grid update's and a step's points, its dG; the eval kernel
+   (``csrc/ingp_eval_tc.cu``, both levels routed to it) and the train kernel
+   at 4096 rays, S = 48 and 96, both MLPs, both modes, white background on
+   and off: values to atol 1e-4 + rtol 1e-4, the hash dG kernel to 1e-4 and
+   the train kernel's dW and dG to 1e-3 of max |plain|, sse and dW bit for
+   bit over two launches); ``train_nerf(preset="lego_ingp", ...)`` as in phase 5 with
    every count at 0: 200 INGP train launches, 50 INGP eval launches, no hash
    launches, a falling loss, ``render_only`` serving it; the same for
    ``lego_ingp_occ`` (200 train and 7 hash-forward launches, a non-empty
@@ -67,8 +68,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``use_fused_train=False`` (the hash forward and dG kernels) and on the
    plain route must agree, table entries no point touched equal to the
    decayed init; then, after phase 6, each INGP kernel per launch beside
-   its bound and plain version, and both presets' warm step, frame, peak
-   memory and busy share.
+   its bound and plain version (the eval call also by its kernel's device
+   time), and both presets' warm step, frame, peak memory and busy share.
 
 8. the image path (``image2d``: 2-D sinusoidal encoding, 8 x 256 MLP):
    the image train kernels (``csrc/image_train_tc.cu``) against their plain
@@ -116,7 +117,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    channels, the feats route), width 96 on lego_hierarchical and 48 on
    lego_occ): each through ``train_nerf`` for 10 steps with every count at
    0 (its kernels launched, finite metrics, a falling loss), then its
-   kernels at its shapes against their plain versions, timed per level;
+   kernels at its shapes against their plain versions (the INGP eval call
+   in both compositing modes, on the build ``eval_build`` names), timed per
+   level;
    and the image kernels of a width-96 image model (the Python API's
    ``image2d()``) against their plain version.
 
@@ -1390,6 +1393,26 @@ def phase_occ_timing(ds, device):
 DG_REL = 1e-4
 GRAD_FLOOR = 1e-6  # feat kernel: of the largest plain gradient entry of all arrays
 INGP_TABLE_NOISE = 0.1  # N(0, 0.1) added to the tables of the kernel comparisons
+# the INGP eval kernel's rgb and weights are also held to atol = rtol =
+# EVAL_TIGHT of plain: its 3xTF32 products meet it at lego_ingp's shapes,
+# one TF32 pass does not (tests/test_torch_ingp_eval.py builds that control
+# and sees it fail), so a kernel that lost its lo products fails here
+EVAL_TIGHT = 1e-6
+
+
+def ingp_eval_errors(got, want):
+    """The INGP eval kernel's (rgb, weights) against plain's: ({output: max
+    abs error}, whether both are finite and within atol 1e-4 + rtol 1e-4
+    and within EVAL_TIGHT)."""
+    import torch
+
+    errs, ok = {}, True
+    for what, k, p in zip(("rgb", "weights"), got, want):
+        d = (k - p).abs()
+        errs[what] = float(d.max())
+        ok &= bool(torch.isfinite(k).all()) and bool((d <= ATOL + RTOL * p.abs()).all())
+        ok &= bool((d <= EVAL_TIGHT * (1.0 + p.abs())).all())
+    return errs, ok
 
 
 def ingp_model(preset, device, noisy: bool = False):
@@ -1492,9 +1515,10 @@ def phase_compare_ingp(device):
     MLPs, both compositing modes, the white background on and off (train),
     density noise on; values to atol 1e-4 + rtol 1e-4, the hash dG kernel to
     DG_REL and the train kernel's dW and dG to DW_REL of the array's largest
-    plain value (whether its dG is within DG_REL is logged); both levels on
-    csrc/ingp_train_tc.cu (train_build), whose sse and dW two launches give
-    bit for bit."""
+    plain value (whether its dG is within DG_REL is logged), the eval
+    kernel's also to EVAL_TIGHT; both levels on
+    csrc/ingp_eval_tc.cu (eval_build) and csrc/ingp_train_tc.cu
+    (train_build), whose sse and dW two launches give bit for bit."""
     import torch
     from nerf_meets_mlx_torch.kernels import fused_ingp_train as fi
     from nerf_meets_mlx_torch.kernels import hash_encode as he
@@ -1509,6 +1533,10 @@ def phase_compare_ingp(device):
                                enc.features_per_level, model.dir_enc.out_dim, S)
         if build[0] != fi.TC_SOURCE:
             raise AssertionError(f"lego_ingp's S={S} trains in {build}, not {fi.TC_SOURCE}")
+    build = fi.eval_build(model.cfg.mlp.net_width, model.cfg.mlp.net_depth, enc.n_levels,
+                          enc.features_per_level, model.dir_enc.out_dim)
+    if build[0] != fi.EVAL_SOURCE:
+        raise AssertionError(f"lego_ingp evaluates in {build}, not {fi.EVAL_SOURCE}")
     gen = torch.Generator(device=device).manual_seed(SEED + 12)
     for name, pts in ingp_point_sets(model, device):
         with torch.no_grad():
@@ -1546,12 +1574,7 @@ def phase_compare_ingp(device):
                 torch.cuda.synchronize()
                 rgb_p, w_p = fi.fused_ingp_eval_reference(mlp, enc, sh, tspec, ro, rd, z, dl)
             live = float((w_p > 1e-4).float().mean())
-            errs = {}
-            ok = True
-            for what, k, p in (("rgb", rgb_k, rgb_p), ("weights", w_k, w_p)):
-                errs[what] = float((k - p).abs().max())
-                ok &= bool(torch.isfinite(k).all()) and bool(
-                    ((k - p).abs() <= ATOL + RTOL * p.abs()).all())
+            errs, ok = ingp_eval_errors((rgb_k, w_k), (rgb_p, w_p))
             log(f"[compare] ingp_eval S={S} {level:6s} {mode:9s} max_abs rgb={errs['rgb']:.3e} "
                 f"weights={errs['weights']:.3e} (weights > 1e-4: {live:.3f}) "
                 f"{'ok' if ok else 'FAIL'}")
@@ -1670,14 +1693,17 @@ def phase_ingp_kernel_timing(device):
     beside its plain version's time and its bound: the hash forward on the
     grid update's 262,144 points and the train step's coarse and fine
     points, its dG (kernel alone; plain: forward + autograd backward) at the
-    coarse and fine points; the eval kernel per level on a 32,768-ray chunk
-    of a 400 x 400 frame (the serving path); the train kernel per level at
-    4096 rays (plain: forward + autograd backward). The bound is the larger
-    of the bytes it must move over 3.35 TB/s and its fp32 operations over
-    67 TFLOP/s; the train kernel's, which runs its products on the tensor
-    cores in 3xTF32, counts three TF32 operations for each fp32 one over
-    495 TFLOP/s (its fp32 bound logged beside). Hashed lookups and atomics
-    have no peak rate in the table and are not counted as operations."""
+    coarse and fine points; the eval call per level on a 32,768-ray chunk
+    of a 400 x 400 frame (the serving path), also its kernel's device time
+    (profiler), and its output on that chunk against plain's (as
+    phase_compare_ingp holds it, raising if it disagrees); the train kernel per level at 4096 rays (plain: forward +
+    autograd backward). The bound is the larger of the bytes it must move
+    over 3.35 TB/s and its fp32 operations over 67 TFLOP/s; the eval and
+    train kernels', which run their products on the tensor cores in
+    3xTF32, count three TF32 operations for each fp32 one over 495 TFLOP/s
+    (their fp32 bound logged beside), the view layer's SH rows once a ray.
+    Hashed lookups and atomics have no peak rate in the table and are not
+    counted as operations."""
     import torch
     from nerf_meets_mlx_torch.kernels import fused_ingp_train as fi
     from nerf_meets_mlx_torch.kernels import hash_encode as he
@@ -1754,15 +1780,34 @@ def phase_ingp_kernel_timing(device):
         R, S = z.shape
         tspec = ingp_tspec(model, S)
         args = (mlp, enc, sh, tspec, ro, rd, z, dl)
+        build = fi.eval_build(W, mlp_cfg.net_depth, L, F, DD)[0]
+
+        def kernel():
+            with torch.no_grad():
+                fi.fused_ingp_eval_apply(*args)
+
         with torch.no_grad():
-            k1 = cuda_time_ms(lambda: fi.fused_ingp_eval_apply(*args), reps)
+            k1 = cuda_time_ms(kernel, reps)
             p_ms = cuda_time_ms(lambda: fi.fused_ingp_eval_reference(*args), max(2, reps // 2))
-            k2 = cuda_time_ms(lambda: fi.fused_ingp_eval_apply(*args), reps)
+            k2 = cuda_time_ms(kernel, reps)
+            # the launch that is timed, on the serving chunk, against plain
+            got = fi.fused_ingp_eval_apply(*args)
+            torch.cuda.synchronize()
+            errs, ok = ingp_eval_errors(got, fi.fused_ingp_eval_reference(*args))
+        log(f"[compare] ingp_eval {name:6s} R={R} S={S} (the timed chunk) max_abs "
+            f"rgb={errs['rgb']:.3e} weights={errs['weights']:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"ingp_eval disagrees with its plain version on the timed "
+                                 f"chunk: {name} R={R} S={S}")
+        device_ms = kernel_split_ms(kernel, ("ingp_eval_tc_kernel", "ingp_eval_kernel"), reps)
         nbytes = 4 * (6 * R + DD * R + 2 * R * S + 3 * R + R * S) + table_bytes + wbytes
-        ev[name] = entry([k1, k2], p_ms, nbytes, (2 * fwd_macs + hash_flops) * R * S,
-                         rays=R, samples=S)
-        log(f"[time] ingp_eval {name:6s} R={R} S={S}: kernel {k1:.3f} / {k2:.3f} ms, plain "
-            f"{p_ms:.3f} ms, bound {ev[name]['bound_ms']:.3f} ms ({ev[name]['bound_by']})")
+        flops = (2 * (fwd_macs - sh_macs) + hash_flops) * R * S + 2 * sh_macs * R
+        ev[name] = entry([k1, k2], p_ms, nbytes, flops, tensor_cores=build == fi.EVAL_SOURCE,
+                         rays=R, samples=S, build=build, device_ms=sum(device_ms.values()))
+        log(f"[time] ingp_eval {name:6s} R={R} S={S} ({build}): a call {k1:.4f} / {k2:.4f} ms, "
+            f"its kernel's device time {ev[name]['device_ms']:.4f} ms, plain {p_ms:.3f} ms, "
+            f"bound {ev[name]['bound_ms']:.4f} ms ({ev[name]['bound_by']}; 3xTF32 "
+            f"{ev[name]['tf32x3_bound_ms']:.4f}, fp32 {ev[name]['fp32_bound_ms']:.4f} ms)")
 
     # train: 4096 rays
     ro, rd, vd = picked_rays(device)
@@ -2528,13 +2573,6 @@ def phase_image_timing(device):
 # the shapes the overlay keys reach, and the CP path (lego_cp)
 # ---------------------------------------------------------------------------
 
-# (width, levels, features) of the INGP eval builds: lego_ingp's (64, 8 x
-# 2), netwidth = 32's coarse MLP, 16 levels of 2 or 8 of 4 features; (128, 8
-# x 2) stands for the runtime-shape build that the overlays past the register
-# builds take in eval and in train (fused_ingp_train.kernel_defines,
-# train_build); the shapes of the register builds train in
-# csrc/ingp_train_tc.cu, one build for all of them
-INGP_SHAPES = ((64, 8, 2), (32, 8, 2), (64, 16, 2), (128, 8, 2))
 # (width, P) of the feat builds: lego_ingp's 8 x 2 (long rays), the paper
 # tables' 16 x 2, and (128, 32) for its runtime-shape build
 FEAT_SHAPES = ((64, 16), (64, 32), (128, 32))
@@ -2586,13 +2624,15 @@ CP_TIMED_STEPS = 25
 
 
 # the further shapes that the gpu-marked tests hold against their plain
-# versions: 16 levels of 4 features; widths 32 and 64 with 16, 24, 48 or
-# 64 feature channels (every register build of csrc/fused_feat.cu); the
-# widths 48 and 96 of the sinusoidal and image kernels
-TEST_INGP_SHAPES = ((64, 16, 4),)
+# versions: widths 32 and 64 with 16, 24, 48 or 64 feature channels (every
+# register build of csrc/fused_feat.cu); the widths 48 and 96 of the
+# sinusoidal and image kernels
 TEST_FEAT_SHAPES = ((32, 16), (64, 64), (32, 24), (32, 48))
 TEST_KW_BUILDS = tuple((s, w) for s in ("fused_eval", "fused_train", "fused_mlp", "fused_image",
                                         "image_train_tc") for w in (48, 96))
+# the INGP eval kernel with one TF32 product in place of three: the control
+# that the gpu test of its 3xTF32 products sees fail EVAL_TIGHT
+TEST_EVAL_ONE_PASS = {"INGP_EVAL_ONE_PASS": 1}
 
 
 def build_variants(tests: bool = False):
@@ -2602,14 +2642,17 @@ def build_variants(tests: bool = False):
     from nerf_meets_mlx_torch.kernels import fused_ingp_train as fi
     from nerf_meets_mlx_torch.kernels import fused_train as ft
 
-    ingp = INGP_SHAPES + (TEST_INGP_SHAPES if tests else ())
     feat = FEAT_SHAPES + (TEST_FEAT_SHAPES if tests else ())
     kw = KW_BUILDS + (TEST_KW_BUILDS if tests else ())
+    # the INGP sources take every shape in one build each: the eval and the
+    # train kernel on the tensor cores, and csrc/fused_ingp.cu for the rest
     out = [(s, None) for s in ("fused_eval", "fused_train", "fused_mlp", "hash_encode",
-                               "fused_image", "image_train_tc", "cp_encode", fi.TC_SOURCE)]
-    out += [("fused_ingp", fi.kernel_defines(w, L, F)) for w, L, F in ingp]
+                               "fused_image", "image_train_tc", "cp_encode", fi.TC_SOURCE,
+                               fi.EVAL_SOURCE, fi.RT_SOURCE)]
     out += [("fused_feat", ff.kernel_defines(w, p)) for w, p in feat]
     out += [(s, ft.width_defines(w)) for s, w in kw]
+    if tests:
+        out.append((fi.EVAL_SOURCE, TEST_EVAL_ONE_PASS))
     seen, unique = set(), []
     for name, defines in out:
         key = (name, tuple(sorted((defines or {}).items())))
@@ -2686,8 +2729,9 @@ def check_grads(what, g_k, g_p, floor_rel=GRAD_FLOOR):
 
 def check_ingp_shape(cfg, device, tag):
     """The INGP kernels at this config's shapes (both MLPs, 4096 rays, both
-    levels, its hash compute type, tables with N(0, 0.1) added) against
-    their plain versions (bf16: the rounding twin), then each timed per
+    levels, its hash compute type, tables with N(0, 0.1) added; the eval
+    call in both compositing modes) against their plain versions (bf16: the
+    rounding twin), then each timed per
     level (CUDA events, 3 launches; the eval kernel on the same 4096 rays);
     returns the worst value error, the worst gradient ratio and the
     times."""
@@ -2704,13 +2748,19 @@ def check_ingp_shape(cfg, device, tag):
     sh, coarse, fine = ingp_level_inputs(model, ro, rd, vd, target, gen, NOISE_STD)
     val = ratio = 0.0
     times = {}
+    enc = model.pos_enc
+    build = fi.eval_build(model.cfg.mlp.net_width, model.cfg.mlp.net_depth, enc.n_levels,
+                          enc.features_per_level, model.dir_enc.out_dim)[0]
     for (z, dl, nz), mlp, level in ((coarse, model.coarse, "coarse"), (fine, model.fine, "fine")):
+        for mode in ("canonical", "reference"):
+            spec = ingp_tspec(model, z.shape[1], mode=mode)
+            with torch.no_grad():
+                k = fi.fused_ingp_eval_apply(mlp, enc, sh, spec, ro, rd, z, dl)
+                torch.cuda.synchronize()
+                p = fi.fused_ingp_eval_reference(mlp, enc, sh, spec, ro, rd, z, dl)
+            val = max(val, check_values(f"{tag} ingp_eval ({build}) {level} {mode}",
+                                        zip(("rgb", "w"), k, p)))
         tspec = ingp_tspec(model, z.shape[1])
-        with torch.no_grad():
-            k = fi.fused_ingp_eval_apply(mlp, model.pos_enc, sh, tspec, ro, rd, z, dl)
-            torch.cuda.synchronize()
-            p = fi.fused_ingp_eval_reference(mlp, model.pos_enc, sh, tspec, ro, rd, z, dl)
-        val = max(val, check_values(f"{tag} ingp_eval {level}", zip(("rgb", "w"), k, p)))
         params = mlp_params(mlp) + [model.pos_enc.tables]
         args = (mlp, model.pos_enc, sh, tspec, ro, rd, z, dl, nz, target)
         k = fi.fused_ingp_train_apply(*args)
@@ -2728,7 +2778,8 @@ def check_ingp_shape(cfg, device, tag):
                     mlp, model.pos_enc, sh, tspec, ro, rd, z, dl), 3)}
         log(f"[part-a] {tag} {level} width {mlp.cfg.net_width}, {model.pos_enc.n_levels} x "
             f"{model.pos_enc.features_per_level} features ({model.pos_enc.compute_dtype}): "
-            f"INGP kernels vs plain, worst value {val:.3e}, gradient ratio {ratio:.2e} ok; "
+            f"INGP kernels vs plain (eval on {build}), worst value {val:.3e}, gradient ratio "
+            f"{ratio:.2e} ok; "
             f"train {times[level]['train_ms']:.3f} ms, eval {times[level]['eval_ms']:.3f} ms "
             f"a launch")
     return val, ratio, times
@@ -3293,7 +3344,7 @@ def main() -> int:
     wait_builds(builds, ["fused_image", "image_train_tc"])
     image_err = phase_compare_image(device)
     image_launches, image_run = phase_image_path(device)
-    wait_builds(builds, ["hash_encode", "fused_ingp", "ingp_train_tc"])
+    wait_builds(builds, ["hash_encode", "ingp_eval_tc", "ingp_train_tc", "fused_ingp"])
     ingp_err = phase_compare_ingp(device)
     ingp_launches, ingp_run = phase_train_main_path(device, preset="lego_ingp")
     ingp_occ_launches, ingp_occ_run = phase_train_main_path(device, preset="lego_ingp_occ")
@@ -3369,7 +3420,7 @@ def main() -> int:
               "nerf_meets_mlx_tpu/kernels/hash_encode.py:376",
               ingp_routes["value_and_grad"]["launches"]["hash_bwd"], ingp_err["hash_dg"],
               hash_bwd_t),
-        entry("ingp_eval", "nerf_meets_mlx_torch/csrc/fused_ingp.cu",
+        entry("ingp_eval", "nerf_meets_mlx_torch/csrc/ingp_eval_tc.cu",
               "nerf_meets_mlx_tpu/kernels/fused_ingp_train.py:306", ingp_launches["ingp_eval"],
               ingp_err["eval"], ingp_eval_t),
         entry("ingp_train", "nerf_meets_mlx_torch/csrc/ingp_train_tc.cu",

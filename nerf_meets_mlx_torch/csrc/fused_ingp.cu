@@ -1,8 +1,8 @@
 // Fused Instant-NGP render and train kernels for Hopper (sm_90a).
 //
 // Replaces nerf_meets_mlx_tpu/kernels/fused_ingp_train.py::_ingp_eval_kernel
-// (eval) and, for the shapes that csrc/ingp_train_tc.cu does not take,
-// ::_ingp_train_kernel (train). Per level of the hierarchical render, one
+// (eval) and ::_ingp_train_kernel (train) for the shapes that the
+// tensor-core kernels do not take (below). Per level of the hierarchical render, one
 // call takes rays (origin, direction), their spherical harmonics sh [R,DD]
 // (computed per ray outside), sample depths z [R,S] and deltas [R,S]
 // (already scaled by |d|, terminal bin 1e10*|d|), and runs
@@ -17,33 +17,22 @@
 // weight and bias) laid out like the weights (fused_ingp_train.pack_weights)
 // and d(sse)/d(tables) [L,T,F].
 //
-// Shapes. A build instantiates one (W, PP) pair, chosen by the macros
-// INGP_W (32 or 64) and INGP_PP (16, 32 or 64): the MLP's width and the
-// register width of its layer-0 input. The levels L (1..16) and features
-// per level F (1, 2 or 4) are runtime values with L*F <= PP; layer 0's
-// input columns past L*F are zero, and so are its weight rows there (the
-// wrapper pads them: fused_ingp_train.pack_weights(rows0=PP)), so layer 0
-// is a branch-free PP x W product. The
-// wrapper builds each pair it meets as its own library (kernels/_build.py),
-// so the pairs compile as separate translation units, in parallel. These
-// register builds hold the eval kernel only: their shapes train in
-// csrc/ingp_train_tc.cu, or, where a tile of that kernel does not fit on
-// chip (fused_ingp_train.train_build), in the runtime-shape build.
-//
-// Every other shape -- a width that is a multiple of 16 from 32 to 256,
-// 1..32 levels of 1, 2, 4 or 8 features, at most 128 feature channels --
-// runs in one more build, INGP_W = INGP_PP = 0, whose kernels take the
-// width and the channels as runtime values, in eval and in train. Past
-// width 64 a thread-per-point
-// MLP no longer fits in registers (one 256-wide layer is 256 KB of fp32
-// weights, more than a block's 227 KB of shared memory), so this form keeps
-// a point's activations in local memory (L1/L2) and computes each layer 16
-// output columns at a time in registers (csrc/mlp_rt.cuh), reading the weights from shared
-// memory where they fit beside the compositing terms (to width ~128 at
-// lego_ingp's depth) and through L1/L2 from device memory otherwise; all
-// threads of a warp read the same weight, so each load is a broadcast. The
-// same form takes F = 8 and more than 16 levels, which the register bodies
-// would need another instance for.
+// Shapes: a width that is a multiple of 16 from 32 to 256, 1..32 levels of
+// 1, 2, 4 or 8 features, at most 128 feature channels, depth 1..8, at most
+// 64 SH channels, as runtime values. These are the shapes that the
+// tensor-core kernels do not take (csrc/ingp_eval_tc.cu in eval,
+// csrc/ingp_train_tc.cu in train; kernels/fused_ingp_train.py's eval_build
+// and train_build route by shape before the launch): widths past 64, more
+// than 16 levels, 8 features a level, more than 64 channels, and in train
+// the shapes whose tile of whole rays does not fit on chip. Past width 64 a
+// thread-per-point MLP no longer fits in registers (one 256-wide layer is
+// 256 KB of fp32 weights, more than a block's 227 KB of shared memory), so
+// a point's activations live in local memory (L1/L2) and each layer is
+// computed 16 output columns at a time in registers (csrc/mlp_rt.cuh),
+// reading the weights from shared memory where they fit beside the
+// compositing terms (to width ~128 at lego_ingp's depth) and through L1/L2
+// from device memory otherwise; all threads of a warp read the same
+// weight, so each load is a broadcast.
 //
 // bf16 hash compute (hash_compute_dtype = "bfloat16") rounds where the
 // Pallas kernel rounds (fused_ingp_train.py:165-175 forward, :246-262 table
@@ -57,21 +46,22 @@
 // point forward, 0.15 ms at the 67 TFLOP/s fp32 peak at the fine level's
 // 393,216 points), but the 64 hashed table lookups a point (L2 hits: the
 // tables are 1 MB) and the latency of a thread-per-point MLP that reads its
-// weights from shared memory. The runtime-shape build's train call also
+// weights from shared memory. The train call also
 // writes every layer's input and cotangent (~2 KB a point) for its dW GEMM,
 // and adds the table gradient with atomics, which contend on the coarse
 // levels' few thousand rows (see kernels/hash_encode.py).
 //
-// Design (simple first; csrc/ingp_train_tc.cu is the tensor-core form):
+// Design (simple first; csrc/ingp_eval_tc.cu and csrc/ingp_train_tc.cu are
+// the tensor-core forms):
 //
 // 1. ingp_eval_kernel / ingp_rays_kernel: a block of NT = 128 threads owns
 //    `rays_block` rays (~512 points) and first copies the MLP's weights
-//    (48.6 KB at lego_ingp: over the 48 KB static limit, so dynamic shared
-//    memory with cudaFuncAttributeMaxDynamicSharedMemorySize) into shared
-//    memory. Phase A, a thread per point: the point, its hash features
-//    (float2 lookups through the read-only cache), and the MLP in registers,
-//    layer by layer (fully unrolled over the width; every thread reads the
-//    same weight, a broadcast). Raw rgb and sigma go to shared memory; the
+//    into shared memory where they fit (dynamic shared memory with
+//    cudaFuncAttributeMaxDynamicSharedMemorySize). Phase A, a thread per
+//    point: the point, its hash features (vector lookups through the
+//    read-only cache), and the MLP layer by layer, 16 output columns at a
+//    time (every thread reads the same weight, a broadcast). Raw rgb and
+//    sigma go to shared memory; the
 //    train kernel also writes each layer's input, point-major, to device
 //    memory. Phase B, a thread per ray: the scan and composite as in
 //    fused_eval.cu / fused_train.cu, and for training the squared error and
@@ -97,30 +87,17 @@
 namespace {
 
 constexpr int NT = 128;           // threads per block of the ray kernels
-constexpr int MAX_LEVELS = 16;    // of the register (W, PP) builds
-constexpr int RT_LEVELS = 32;     // of the runtime-shape build
-constexpr int RT_WIDTH = 256;     // its widest MLP
-constexpr int RT_FEATS = 128;     // its most feature channels (L*F)
-constexpr int RT_DD = 64;         // its most sh channels
+constexpr int RT_LEVELS = 32;     // the most levels
+constexpr int RT_WIDTH = 256;     // the widest MLP
+constexpr int RT_FEATS = 128;     // the most feature channels (L*F)
+constexpr int RT_DD = 64;         // the most sh channels
 constexpr int MAX_DEPTH = 8;
 constexpr int N_OFFS = 2 * (MAX_DEPTH + 4);
-#if INGP_W == 0  // the train call's dW GEMM (runtime-shape build)
 constexpr int GT = 64;            // dW tile edge
 constexpr int KB = 16;            // points per staged dW slice
 constexpr int GEMM_THREADS = 256;
 constexpr int MAX_JOBS = MAX_DEPTH + 6;
-#endif
 constexpr int MAX_SMEM = 232448;  // bytes a block may use on sm_90
-
-#ifndef INGP_W
-#define INGP_W 64
-#endif
-#ifndef INGP_PP
-#define INGP_PP 16
-#endif
-static_assert(INGP_W == 0 || INGP_W == 32 || INGP_W == 64, "INGP_W is 0, 32 or 64");
-static_assert(INGP_W == 0 ? INGP_PP == 0 : (INGP_PP == 16 || INGP_PP == 32 || INGP_PP == 64),
-              "INGP_PP is 16, 32 or 64 (0 with INGP_W = 0: the runtime-shape build)");
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -139,7 +116,7 @@ struct Args {
   // train only
   float* sse_part;       // [n_blocks]
   float* dG;             // [L, T, F], zeroed by the caller
-  float* enc;            // [P][PP]    layer 0's input, zero-padded
+  float* enc;            // [P][enc_ld] layer 0's input, zero-padded
   float* hs;             // [D][P][W]  trunk outputs (post-relu)
   float* feat;           // [P][W]     feature layer output
   float* shp;            // [P][SHP]   sh per point, zero-padded
@@ -151,9 +128,9 @@ struct Args {
   float* drgb;           // [P][3]
   long long P;
   int R, S, rays_block, depth, dd, shp_ld, n_w;
-  int L, F;              // levels, features a level; L*F <= PP
-  int W;                 // the MLP's width (read by the runtime-shape build)
-  int enc_ld;            // row stride of `enc`: PP, or L*F rounded up to 4
+  int L, F;              // levels, features a level
+  int W;                 // the MLP's width
+  int enc_ld;            // row stride of `enc`: L*F rounded up to 4
   int n_ws;              // floats of weights staged in shared memory: n_w or 0
   int bf16;              // 1: hash compute rounds as the Pallas kernel's bf16
   unsigned mask;         // T - 1
@@ -232,168 +209,13 @@ __device__ __forceinline__ void load_row(const float* row, float (&g)[F]) {
   }
 }
 
-// levels that a PP-wide input can hold at F features a level
-template <int F, int PP>
-__host__ __device__ constexpr int levels_of() { return PP / F < MAX_LEVELS ? PP / F : MAX_LEVELS; }
-
-// Every level that a PP-wide input holds at F features a level is computed
-// without a branch, so that the compiler keeps several levels' lookups in
-// flight (the lookups' latency bounds the kernel); a level l >= L re-reads
-// level L - 1 and is zeroed. BF16 rounds as the Pallas kernel does.
-template <int F, int PP, bool BF16>
-__device__ __forceinline__ void level_features(const Args& A, const float (&x)[3],
-                                               float (&e)[PP]) {
-#pragma unroll
-  for (int l = 0; l < levels_of<F, PP>(); ++l) {
-    const int lc = min(l, A.L - 1);
-    const Corners C = corners_of(A, x, lc);
-    const float* tl = A.tables + (size_t)lc * A.T * F;
-    float acc[F];
-#pragma unroll
-    for (int f = 0; f < F; ++f) acc[f] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      float g[F];
-      load_row<F>(tl + (size_t)C.h[c] * F, g);
-      if constexpr (BF16) {
-        const float w = rb(C.w[c], 1);
-#pragma unroll
-        for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], rb(__fmul_rn(rb(g[f], 1), w), 1));
-      } else {
-#pragma unroll
-        for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], __fmul_rn(g[f], C.w[c]));
-      }
-    }
-#pragma unroll
-    for (int f = 0; f < F; ++f) e[l * F + f] = l < A.L ? acc[f] : 0.f;
-  }
-}
-
-template <int F, int PP>
-__device__ __forceinline__ void features_of(const Args& A, const float (&x)[3], float (&e)[PP]) {
-  if (A.bf16)
-    level_features<F, PP, true>(A, x, e);
-  else
-    level_features<F, PP, false>(A, x, e);
-}
-
-// e[l*F + f] = the point's hash features, zero past L*F. F selects a body
-// whose register indices are compile-time; only the F that can fill PP
-// columns with at most MAX_LEVELS levels are compiled.
-template <int PP>
-__device__ __forceinline__ void hash_features(const Args& A, const float (&x)[3], float (&e)[PP]) {
-#pragma unroll
-  for (int k = 0; k < PP; ++k) e[k] = 0.f;
-  if constexpr (4 * MAX_LEVELS >= PP)
-    if (A.F == 4) features_of<4, PP>(A, x, e);
-  if constexpr (2 * MAX_LEVELS >= PP)
-    if (A.F == 2) features_of<2, PP>(A, x, e);
-  if constexpr (MAX_LEVELS >= PP)
-    if (A.F == 1) features_of<1, PP>(A, x, e);
-}
-
-// acc[j] = b[j] (N a multiple of 4; b on 16 bytes)
-template <int N>
-__device__ __forceinline__ void load_bias(float (&acc)[N], const float* b) {
-#pragma unroll
-  for (int j = 0; j < N; j += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(b + j);
-    acc[j] = v.x; acc[j + 1] = v.y; acc[j + 2] = v.z; acc[j + 3] = v.w;
-  }
-}
-
-// acc[j] += sum_k in[k] * Wm[k][j], Wm row-major [K][N] in shared memory
-template <int K, int N>
-__device__ __forceinline__ void gemv(float (&acc)[N], const float (&in)[K], const float* Wm) {
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const float x = in[k];
-#pragma unroll
-    for (int j = 0; j < N; j += 4) {
-      const float4 w = *reinterpret_cast<const float4*>(Wm + k * N + j);
-      acc[j] = fmaf(x, w.x, acc[j]);
-      acc[j + 1] = fmaf(x, w.y, acc[j + 1]);
-      acc[j + 2] = fmaf(x, w.z, acc[j + 2]);
-      acc[j + 3] = fmaf(x, w.w, acc[j + 3]);
-    }
-  }
-}
-
-// The eval kernel's phase A for one point of the register builds: raw rgb
-// (3) and raw sigma of the MLP on the point's hash features and its ray's
-// sh.
-template <int W, int PP>
-__device__ __forceinline__ void point_forward(const Args& A, const float* sw, long long gi,
-                                              float (&rgb)[3], float& sigma) {
-  constexpr int WH = W / 2;
-  const int D = A.depth;
-  float x[3];
-  point_of(A, gi, x);
-  float e[PP];
-  hash_features<PP>(A, x, e);
-
-  float h[W], acc[W];
-  load_bias<W>(acc, sw + A.offs[1]);
-  gemv<PP, W>(acc, e, sw + A.offs[0]);
-#pragma unroll
-  for (int j = 0; j < W; ++j) h[j] = fmaxf(acc[j], 0.f);
-  for (int l = 1; l < D; ++l) {
-    load_bias<W>(acc, sw + A.offs[2 * l + 1]);
-    gemv<W, W>(acc, h, sw + A.offs[2 * l]);
-#pragma unroll
-    for (int j = 0; j < W; ++j) h[j] = fmaxf(acc[j], 0.f);
-  }
-  // alpha head (W -> 1)
-  {
-    const float* wa = sw + A.offs[2 * D];
-    float a = sw[A.offs[2 * D + 1]];
-#pragma unroll
-    for (int k = 0; k < W; ++k) a = fmaf(h[k], wa[k], a);
-    sigma = a;
-  }
-  // feature (W -> W, no activation)
-  float f[W];
-  load_bias<W>(f, sw + A.offs[2 * D + 3]);
-  gemv<W, W>(f, h, sw + A.offs[2 * D + 2]);
-  // view layer on [feature, sh] (W + DD -> W/2, relu)
-  float hd[WH];
-  const float* wd = sw + A.offs[2 * D + 4];
-  load_bias<WH>(hd, sw + A.offs[2 * D + 5]);
-  gemv<W, WH>(hd, f, wd);
-  const float* shr = A.sh + (gi / A.S) * A.dd;
-  for (int k = 0; k < A.dd; ++k) {
-    const float s = __ldg(shr + k);
-    const float* wrow = wd + (W + k) * WH;
-#pragma unroll
-    for (int j = 0; j < WH; j += 4) {
-      const float4 w = *reinterpret_cast<const float4*>(wrow + j);
-      hd[j] = fmaf(s, w.x, hd[j]);
-      hd[j + 1] = fmaf(s, w.y, hd[j + 1]);
-      hd[j + 2] = fmaf(s, w.z, hd[j + 2]);
-      hd[j + 3] = fmaf(s, w.w, hd[j + 3]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < WH; ++j) hd[j] = fmaxf(hd[j], 0.f);
-  // rgb head (W/2 -> 3)
-  const float* wr = sw + A.offs[2 * D + 6];
-  const float* br = sw + A.offs[2 * D + 7];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    float v = br[c];
-#pragma unroll
-    for (int k = 0; k < WH; ++k) v = fmaf(hd[k], wr[k * 3 + c], v);
-    rgb[c] = v;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The runtime-shape build (INGP_W = 0): width, levels and features at run
-// time; a point's vectors live in local memory, 16 output columns at a time
-// in registers
+// Width, levels and features at run time; a point's vectors live in local
+// memory, 16 output columns at a time in registers
 // ---------------------------------------------------------------------------
 
-// e[l*F + f] for every level l < L, as level_features
+// e[l*F + f] for every level l < L: a corner adds w * g in fp32, or in bf16
+// compute bf16(bf16(w) * bf16(g)), the corners summed in fp32
 template <int F, bool BF16>
 __device__ __forceinline__ void rt_levels(const Args& A, const float (&x)[3], float* e) {
   for (int l = 0; l < A.L; ++l) {
@@ -430,7 +252,7 @@ __device__ __forceinline__ void rt_features_of(const Args& A, const float (&x)[3
   }
 }
 
-// dG[l][h_c][f] += w_c * de[l*F + f], as level_scatter
+// dG[l][h_c][f] += w_c * de[l*F + f]
 template <int F, bool BF16>
 __device__ __forceinline__ void rt_scatter_levels(const Args& A, const float (&x)[3],
                                                   const float* de) {
@@ -465,8 +287,10 @@ __device__ __forceinline__ void rt_scatter_of(const Args& A, const float (&x)[3]
   }
 }
 
-// point_forward of the runtime-shape build; sw: the weights (shared or
-// device memory)
+// The eval kernel's and the ray kernel's phase A for one point: raw rgb (3)
+// and raw sigma of the MLP on the point's hash features and its ray's sh;
+// with STASH every layer's input goes to the workspace for the backward.
+// sw: the weights (shared or device memory).
 template <bool STASH>
 __device__ __forceinline__ void point_forward_rt(const Args& A, const float* sw, long long gi,
                                                  float (&rgb)[3], float& sigma) {
@@ -522,8 +346,7 @@ __device__ __forceinline__ void point_forward_rt(const Args& A, const float* sw,
   }
 }
 
-#if INGP_W == 0
-// phase C for one point in the runtime-shape build: the MLP backward from
+// phase C for one point: the MLP backward from
 // d(raw rgb) and d(raw sigma), every layer's cotangent stored, d(features)
 // scattered into dG
 __device__ __forceinline__ void point_backward_rt(const Args& A, const float* sw, long long gi,
@@ -575,8 +398,6 @@ __device__ __forceinline__ void point_backward_rt(const Args& A, const float* sw
     rt_scatter_of<false>(A, x, de);
 }
 
-#endif  // INGP_W == 0
-
 // per-point compositing terms of fused_train.cu (_alpha_terms): q, alpha,
 // d(alpha)/dq and dq/d(raw sigma)
 __device__ __forceinline__ void alpha_terms(const Args& A, float raw, float delta, float& q,
@@ -611,7 +432,6 @@ __device__ __forceinline__ void load_weights(const Args& A, float* sw) {
   __syncthreads();
 }
 
-template <int W, int PP>
 __global__ void __launch_bounds__(NT, 2) ingp_eval_kernel(const __grid_constant__ Args A) {
   extern __shared__ __align__(16) float smem[];
   const int S = A.S, RB = A.rays_block;
@@ -625,16 +445,12 @@ __global__ void __launch_bounds__(NT, 2) ingp_eval_kernel(const __grid_constant_
   const int npts = nr * S;
   const long long gbase = (long long)r0 * S;
   load_weights(A, sw);
-  // the runtime-shape build reads its weights from device memory where
-  // they do not fit in shared memory
-  const float* wts = W == 0 && A.n_ws == 0 ? A.wbuf : sw;
+  // weights from device memory where they do not fit in shared memory
+  const float* wts = A.n_ws == 0 ? A.wbuf : sw;
 
   for (int i = threadIdx.x; i < npts; i += NT) {
     float rgb[3], sigma;
-    if constexpr (W == 0)
-      point_forward_rt<false>(A, wts, gbase + i, rgb, sigma);
-    else
-      point_forward<W, PP>(A, wts, gbase + i, rgb, sigma);
+    point_forward_rt<false>(A, wts, gbase + i, rgb, sigma);
     float q, alpha, da, dqd;
     alpha_terms(A, sigma, __ldg(A.deltas + gbase + i), q, alpha, da, dqd);
     pq[i] = q;
@@ -669,8 +485,7 @@ __global__ void __launch_bounds__(NT, 2) ingp_eval_kernel(const __grid_constant_
   }
 }
 
-#if INGP_W == 0
-// the train call's ray kernel (the runtime-shape build only)
+// the train call's ray kernel
 __global__ void __launch_bounds__(NT, 2) ingp_rays_kernel(const __grid_constant__ Args A) {
   extern __shared__ __align__(16) float smem[];
   const int S = A.S, RB = A.rays_block;
@@ -927,22 +742,19 @@ __global__ void reduce_kernel(const float* __restrict__ part, long long stride, 
   }
 }
 
-#endif  // INGP_W == 0
-
 size_t smem_bytes(int n_ws, int S, int rays_block, bool train) {
   const size_t pts = (size_t)rays_block * S;
   return sizeof(float) * ((size_t)n_ws + pts * (train ? 7 : 5) + (train ? (size_t)rays_block : 0));
 }
 
-// floats of weights a block stages in shared memory: all of them in the
-// register builds; in the runtime-shape build, all where they fit beside
-// the compositing terms, else none (read from device memory)
+// floats of weights a block stages in shared memory: all of them where
+// they fit beside the compositing terms, else none (read from device
+// memory)
 int staged_weights(int n_w, int S, int rays_block, bool train) {
-  if (INGP_W != 0 || smem_bytes(n_w, S, rays_block, train) <= (size_t)MAX_SMEM) return n_w;
+  if (smem_bytes(n_w, S, rays_block, train) <= (size_t)MAX_SMEM) return n_w;
   return 0;
 }
 
-#if INGP_W == 0
 struct Layout {
   size_t enc, hs, feat, shp, hd, dzs, dalpha, dfeat, ddir, drgb, sse_part, part, total;
   long long part_stride;
@@ -978,20 +790,13 @@ Layout layout(int R, int S, int rays_block, int depth, int W, int E, int shp_ld,
   return Lo;
 }
 
-#endif  // INGP_W == 0
-
-// this build's (width, layer-0 columns) pair, or the runtime-shape build's
-// bounds
 bool shape_ok(int W, int L, int F) {
-  if (INGP_W == 0)
-    return W % 16 == 0 && W >= 32 && W <= RT_WIDTH && L >= 1 && L <= RT_LEVELS &&
-           (F == 1 || F == 2 || F == 4 || F == 8) && L * F <= RT_FEATS;
-  return W == INGP_W && L >= 1 && L <= MAX_LEVELS && (F == 1 || F == 2 || F == 4) &&
-         L * F <= INGP_PP;
+  return W % 16 == 0 && W >= 32 && W <= RT_WIDTH && L >= 1 && L <= RT_LEVELS &&
+         (F == 1 || F == 2 || F == 4 || F == 8) && L * F <= RT_FEATS;
 }
 
 // the row stride of layer 0's stored input
-int enc_ld_of(int E) { return INGP_W == 0 ? round_up(E, 4) : INGP_PP; }
+int enc_ld_of(int E) { return round_up(E, 4); }
 
 int shp_ld_of(int dd) { return round_up(dd, 4); }
 
@@ -1026,7 +831,7 @@ Args base_args(const float* rays_o, const float* rays_d, const float* sh, const 
 
 }  // namespace
 
-// Shared-memory bytes one block needs (0 if this build does not take the
+// Shared-memory bytes one block needs (0 if the kernels do not take the
 // (width, levels, features) shape).
 extern "C" long long fused_ingp_smem_bytes(int width, int levels, int features, int n_w, int S,
                                            int rays_block, int train) {
@@ -1035,8 +840,7 @@ extern "C" long long fused_ingp_smem_bytes(int width, int levels, int features, 
                                train != 0);
 }
 
-#if INGP_W == 0
-// Floats of device scratch the train launch needs (runtime-shape build).
+// Floats of device scratch the train launch needs.
 extern "C" long long fused_ingp_workspace_floats(int R, int S, int rays_block, int depth,
                                                  int width, int n_features, int dd,
                                                  int pts_per_split, int n_dw) {
@@ -1045,7 +849,6 @@ extern "C" long long fused_ingp_workspace_floats(int R, int S, int rays_block, i
                            pts_per_split, n_dw)
       .total;
 }
-#endif  // INGP_W == 0
 
 // rgb [R,3] and weights [R,S] of one level. offs: the 2*(depth+4) float
 // offsets of pack_weights (host array); n_w: floats of wbuf (a multiple of
@@ -1070,7 +873,7 @@ extern "C" int fused_ingp_eval_launch(const float* rays_o, const float* rays_d, 
                      bf16, bmin, brange, mode, relu_density, white_bkgd);
   a.W = width;
   a.n_ws = n_ws;
-  void (*kernel)(Args) = ingp_eval_kernel<INGP_W, INGP_PP>;
+  void (*kernel)(Args) = ingp_eval_kernel;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1079,8 +882,7 @@ extern "C" int fused_ingp_eval_launch(const float* rays_o, const float* rays_d, 
   return (int)cudaGetLastError();
 }
 
-#if INGP_W == 0
-// The train call of one level (runtime-shape build): rgb, weights, sse [1],
+// The train call of one level: rgb, weights, sse [1],
 // dw [n_dw] (the weights' layout) and dG [L,T,F] (zeroed by the caller);
 // workspace: fused_ingp_workspace_floats floats. Returns the first
 // cudaError_t.
@@ -1165,4 +967,3 @@ extern "C" int fused_ingp_train_launch(const float* rays_o, const float* rays_d,
                                                     workspace + Lo.sse_part, Lo.n_blocks, sse);
   return (int)cudaGetLastError();
 }
-#endif  // INGP_W == 0

@@ -3,13 +3,14 @@ compositing (eval), and the same plus the MSE loss and its whole backward,
 the hash tables' gradient included (train).
 
 Counterpart of ``nerf_meets_mlx_tpu/kernels/fused_ingp_train.py``. The
-kernels: ``csrc/fused_ingp.cu``'s ``ingp_eval_kernel`` (the Pallas
-``_ingp_eval_kernel``); for the Pallas ``_ingp_train_kernel``,
+kernels: for the Pallas ``_ingp_eval_kernel``, ``csrc/ingp_eval_tc.cu``
+(the MLP on ``wgmma`` in 3xTF32, the hash encode of the next tile beside
+it) for the shapes it takes; for the Pallas ``_ingp_train_kernel``,
 ``csrc/ingp_train_tc.cu`` (the MLP on the tensor cores in 3xTF32, a tile's
-activations and dW on chip) for the shapes it takes, and
-``csrc/fused_ingp.cu``'s runtime-shape build (``ingp_rays_kernel`` with its
-dW GEMM) for the others. This module holds their wrappers and plain
-PyTorch versions.
+activations and dW on chip) for the shapes it takes; ``csrc/fused_ingp.cu``
+(``ingp_eval_kernel``, ``ingp_rays_kernel`` with its dW GEMM: width,
+levels and features at run time) for the others. This module holds their
+wrappers and plain PyTorch versions.
 
 * ``fused_ingp_eval_apply`` / ``fused_ingp_train_apply`` launch their kernel
   for CUDA tensors (or raise) and run ``fused_ingp_eval_reference`` /
@@ -23,16 +24,14 @@ PyTorch versions.
   train version is differentiable by autograd with respect to the MLP and
   the tables.
 * Shapes: a width that is a multiple of 16 from 32 to 256, 1..32 levels of
-  1, 2, 4 or 8 features, at most 128 feature channels. Eval: width 32 or
-  64 with 1..16 levels of 1, 2 or 4 features runs in a register build, one
-  for each (width, PP) pair, PP the smallest of 16, 32, 64 that holds the
-  L·F features, every other shape in the runtime-shape build
-  (``kernel_defines``). Train: ``train_build`` routes by the shape alone,
-  before the launch: width 32 or 64, depth 1..8, 1..16 levels of 1, 2 or 4
-  features (L·F <= 64), at most 64 SH channels and a tile of whole rays
-  that fits the shared memory (``tc_rays_per_tile``: at most 96 points)
-  train in ``csrc/ingp_train_tc.cu``; every other shape in the
-  runtime-shape build. Past these bounds the wrapper raises, naming them.
+  1, 2, 4 or 8 features, at most 128 feature channels. ``eval_build`` and
+  ``train_build`` route by the shape alone, before the launch: width 32 or
+  64, depth 1..8, 1..16 levels of 1, 2 or 4 features (L·F <= 64) and at
+  most 64 SH channels evaluate in ``csrc/ingp_eval_tc.cu`` at any sample
+  count, and train in ``csrc/ingp_train_tc.cu`` where a tile of whole
+  rays fits its shared memory (``tc_rays_per_tile``: at most 96 points);
+  every other shape runs in ``csrc/fused_ingp.cu``. Past these bounds the
+  wrapper raises, naming them.
 * The spherical harmonics come in per ray, [R, DD], as the JAX op takes
   them. The weights are taken as the ``nn.Linear`` modules hold them and the
   tables as [L, T, F]; the JAX package's packed layouts are a TPU's.
@@ -57,36 +56,35 @@ from nerf_meets_mlx_torch.kernels.fused_train import (
 )
 from nerf_meets_mlx_torch.rendering.volume import exclusive_cumsum
 
-# Points per CUDA block: the block keeps the MLP's weights (48.6 KB at
-# lego_ingp) and 28 bytes a point of compositing terms in shared memory, so
-# ~512 points make ~63 KB and three blocks fit an SM; 4096 rays x 96 samples
-# make 820 blocks.
+# Points per CUDA block of csrc/fused_ingp.cu: the block keeps the MLP's
+# weights (48.6 KB at lego_ingp) and 28 bytes a point of compositing terms
+# in shared memory, so ~512 points make ~63 KB and three blocks fit an SM;
+# 4096 rays x 96 samples make 820 blocks.
 INGP_TARGET_POINTS = 512
 # dW = X^T dZ is summed over the points in splits of about this many points:
 # the fine level's 393,216 points give 96 splits x 7 tiles = 672 GEMM blocks.
 INGP_SPLIT_POINTS = 4096
-# the register builds of csrc/fused_ingp.cu: (width, layer-0 columns) pairs
-# of up to MAX_LEVELS levels of 1, 2 or 4 features
-WIDTHS = (32, 64)
-PP_SIZES = (16, 32, 64)
-MAX_LEVELS = 16
-# the bounds of its runtime-shape build (INGP_W = 0)
+# csrc/fused_ingp.cu, every shape the tensor-core kernels do not take: its
+# bounds
+RT_SOURCE = "fused_ingp"
 MIN_WIDTH, MAX_WIDTH = 32, 256
 RT_LEVELS = 32
 RT_FEATURES = (1, 2, 4, 8)
 MAX_CHANNELS = 128
-RT_DEFINES = {"INGP_W": 0, "INGP_PP": 0}
-# csrc/ingp_train_tc.cu, the train kernel on the tensor cores: its widths,
-# a tile of whole rays of at most TC_MAX_POINTS points (a 16-row MMA tile
-# for each of its 6 warp pairs) and TC_MAX_RAYS rays, at most TC_MAX_FEATURES
-# hash feature channels, the block's shared memory
+# the tensor-core kernels' shapes: csrc/ingp_eval_tc.cu (eval, any sample
+# count) and csrc/ingp_train_tc.cu (train, where a tile of whole rays of at
+# most TC_MAX_POINTS points, a 16-row MMA tile for each of its 6 warp pairs,
+# and at most TC_MAX_RAYS rays fits the block's shared memory)
+EVAL_SOURCE = "ingp_eval_tc"
 TC_SOURCE = "ingp_train_tc"
 TC_WIDTHS = (32, 64)
-TC_MAX_POINTS = 96
-TC_MAX_RAYS = 16
+MAX_LEVELS = 16
+TC_FEATURES = (1, 2, 4)
 TC_MAX_FEATURES = 64
 TC_MAX_DEPTH = 8
 TC_MAX_SH = 64
+TC_MAX_POINTS = 96
+TC_MAX_RAYS = 16
 SMEM_LIMIT = 232448
 
 
@@ -139,27 +137,44 @@ def tc_tile_rays(width: int, depth: int, n_features: int, n_channels: int, n_sam
     return rays
 
 
+def tc_shape(width: int, depth: int, n_levels: int, features: int, n_channels: int) -> bool:
+    """Whether the tensor-core kernels take this MLP and encoding: width 32
+    or 64, depth 1..8, 1..16 levels of 1, 2 or 4 features (L·F <= 64), at
+    most 64 SH channels."""
+    return (width in TC_WIDTHS and 1 <= depth <= TC_MAX_DEPTH and 1 <= n_levels <= MAX_LEVELS
+            and features in TC_FEATURES and n_levels * features <= TC_MAX_FEATURES
+            and 0 <= n_channels <= TC_MAX_SH)
+
+
 def tc_rays_per_tile(width: int, depth: int, n_levels: int, features: int, n_channels: int,
                      n_samples: int) -> int:
     """Rays a tile of ``csrc/ingp_train_tc.cu`` at this shape
     (``tc_tile_rays``); 0 where that kernel does not take the shape (it
-    then trains in the runtime-shape build)."""
-    E = n_levels * features
-    if (width not in TC_WIDTHS or not 1 <= depth <= TC_MAX_DEPTH
-            or not 1 <= n_levels <= MAX_LEVELS or features not in (1, 2, 4)
-            or E > TC_MAX_FEATURES or not 0 <= n_channels <= TC_MAX_SH):
+    then trains in ``csrc/fused_ingp.cu``)."""
+    if not tc_shape(width, depth, n_levels, features, n_channels):
         return 0
-    return tc_tile_rays(width, depth, E, n_channels, n_samples)
+    return tc_tile_rays(width, depth, n_levels * features, n_channels, n_samples)
 
 
 def train_build(width: int, depth: int, n_levels: int, features: int, n_channels: int,
                 n_samples: int):
     """(source, defines) of the build that trains this shape, decided from
     the shape alone: ``csrc/ingp_train_tc.cu`` where ``tc_rays_per_tile``
-    takes it, else ``csrc/fused_ingp.cu``'s runtime-shape build."""
+    takes it, else ``csrc/fused_ingp.cu``."""
     if tc_rays_per_tile(width, depth, n_levels, features, n_channels, n_samples):
         return TC_SOURCE, {}
-    return "fused_ingp", dict(RT_DEFINES)
+    return RT_SOURCE, {}
+
+
+def eval_build(width: int, depth: int, n_levels: int, features: int, n_channels: int):
+    """(source, defines) of the build that evaluates this shape, decided
+    from the shape alone: ``csrc/ingp_eval_tc.cu`` where ``tc_shape`` takes
+    it (at any sample count: a ray longer than its tile is walked in
+    segments, and the weight images that do not fit its shared memory are
+    streamed), else ``csrc/fused_ingp.cu``."""
+    if tc_shape(width, depth, n_levels, features, n_channels):
+        return EVAL_SOURCE, {}
+    return RT_SOURCE, {}
 
 
 # ---------------------------------------------------------------------------
@@ -214,52 +229,24 @@ def fused_ingp_train_reference(
 # ---------------------------------------------------------------------------
 
 
-def pack_weights(mlp, rows0: int = 0) -> Tuple[torch.Tensor, List[int]]:
+def pack_weights(mlp) -> Tuple[torch.Tensor, List[int]]:
     """One flat fp32 buffer with every weight as [fan_in, fan_out] (the JAX
     pytree's ``w``, i.e. ``nn.Linear.weight`` transposed) and its bias, in
     ``mlp.linears()`` order (trunk, alpha, feature, view, rgb), each piece
-    on a 16-byte boundary, and the piece offsets. With ``rows0`` the first
-    layer's weight is padded with zero rows to ``rows0`` (the INGP kernels'
-    layer-0 register width PP: they multiply all PP columns, the padding
-    ones zero). The train kernel's dW buffer has the same layout; its
-    padding rows are not read back."""
+    on a 16-byte boundary, and the piece offsets: the weights as
+    ``csrc/fused_ingp.cu`` reads them. Its train call's dW buffer has the
+    same layout."""
     pieces: List[torch.Tensor] = []
-    for i, (_, lin) in enumerate(mlp.linears()):
-        w = lin.weight.t()
-        if i == 0 and rows0 > w.shape[0]:
-            w = torch.cat([w, w.new_zeros((rows0 - w.shape[0], w.shape[1]))])
-        pieces += [w, lin.bias]
+    for _, lin in mlp.linears():
+        pieces += [lin.weight.t(), lin.bias]
     return _pack_flat(pieces)
 
 
-def kernel_defines(net_width: int, n_levels: int, features_per_level: int):
-    """The build of ``csrc/fused_ingp.cu`` that evaluates this shape: the
-    width and the smallest layer-0 register width PP that holds the L·F
-    hash features, or the runtime-shape build (``INGP_W = INGP_PP = 0``)
-    past the register builds. Training routes by ``train_build``."""
-    n_features = n_levels * features_per_level
-    if (net_width not in WIDTHS or n_levels > MAX_LEVELS or features_per_level not in (1, 2, 4)
-            or n_features > PP_SIZES[-1]):
-        return {"INGP_W": 0, "INGP_PP": 0}
-    pp = next(p for p in PP_SIZES if n_features <= p)
-    return {"INGP_W": net_width, "INGP_PP": pp}
-
-
-def _defines(mlp, pos_enc):
-    return kernel_defines(mlp.cfg.net_width, pos_enc.n_levels, pos_enc.features_per_level)
-
-
-def _layer0_rows(mlp, pos_enc) -> int:
-    return _defines(mlp, pos_enc)["INGP_PP"]
-
-
-def _ingp_lib(mlp, pos_enc, defines=None):
-    """The loaded ``csrc/fused_ingp.cu`` build of ``defines`` (default: the
-    one that evaluates this shape); the train entry points exist only in
-    the runtime-shape build."""
+def _rt_lib():
+    """The loaded ``csrc/fused_ingp.cu``."""
     from nerf_meets_mlx_torch.kernels import _build
 
-    lib = _build.load_library("fused_ingp", defines or _defines(mlp, pos_enc))
+    lib = _build.load_library(RT_SOURCE)
     if not getattr(lib, "_typed", False):
         vp, ci, cf, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.fused_ingp_eval_launch.argtypes = (
@@ -268,15 +255,40 @@ def _ingp_lib(mlp, pos_enc, defines=None):
         lib.fused_ingp_eval_launch.restype = ci
         lib.fused_ingp_smem_bytes.argtypes = [ci] * 7
         lib.fused_ingp_smem_bytes.restype = cll
-        if hasattr(lib, "fused_ingp_train_launch"):
-            lib.fused_ingp_train_launch.argtypes = (
-                [vp] * 10 + [ci] * 2 + [vp] * 6 + [ci] * 10 + [vp, cf, cf] + [ci] * 4 + [vp]
-            )
-            lib.fused_ingp_train_launch.restype = ci
-            lib.fused_ingp_workspace_floats.argtypes = [ci] * 9
-            lib.fused_ingp_workspace_floats.restype = cll
+        lib.fused_ingp_train_launch.argtypes = (
+            [vp] * 10 + [ci] * 2 + [vp] * 6 + [ci] * 10 + [vp, cf, cf] + [ci] * 4 + [vp]
+        )
+        lib.fused_ingp_train_launch.restype = ci
+        lib.fused_ingp_workspace_floats.argtypes = [ci] * 9
+        lib.fused_ingp_workspace_floats.restype = cll
         lib._typed = True
     return lib
+
+
+def type_eval_lib(lib):
+    """``lib``, a build of csrc/ingp_eval_tc.cu, with its C functions typed."""
+    if not getattr(lib, "_typed", False):
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.ingp_eval_tc_launch.argtypes = [vp] * 7 + [cf, cf, vp]
+        lib.ingp_eval_tc_launch.restype = ci
+        lib.ingp_eval_tc_smem_bytes.argtypes = [ci] * 5 + [ctypes.POINTER(ci)]
+        lib.ingp_eval_tc_smem_bytes.restype = ctypes.c_longlong
+        lib._typed = True
+    return lib
+
+
+def _eval_lib():
+    """The loaded ``csrc/ingp_eval_tc.cu``."""
+    from nerf_meets_mlx_torch.kernels import _build
+
+    return type_eval_lib(_build.load_library(EVAL_SOURCE))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``: the eval kernel's persistent grid,
+    one block an SM."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _tc_lib():
@@ -356,30 +368,53 @@ def _check_smem(lib, mlp, pos_enc, n_w: int, tspec: TrainSpec, S: int, train: bo
         )
 
 
-@torch.no_grad()
-def fused_ingp_eval_apply(
-    mlp, pos_enc, sh, tspec: TrainSpec, rays_o, rays_d, z_vals, deltas,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward-only INGP render op: (rgb_map [R, 3], weights [R, S]).
+def _eval_tc_launch(mlp, pos_enc, tspec: TrainSpec, args, lib=None):
+    """``csrc/ingp_eval_tc.cu``: a persistent grid of one block an SM over
+    the rays, reading the parameters where they are; its outputs are the
+    call's only allocations. ``lib`` is another typed build of the source
+    (``type_eval_lib``): tools/ingp_kernel_probe.py's timing variants and
+    the one-pass control of tests/test_torch_ingp_eval.py; the package's
+    route (``_eval_launch``) leaves it at the library's own."""
+    from nerf_meets_mlx_torch.kernels.hash_encode import _geometry
 
-    rays_o/rays_d [R, 3]; sh [R, DD] the rays' spherical harmonics; z_vals
-    and deltas [R, S] (deltas already scaled by ||rays_d||, terminal bin
-    1e10·||rays_d||). CPU tensors run the plain version; CUDA tensors launch
-    ``csrc/fused_ingp.cu`` or raise. Not differentiable (the kernel has no
-    backward), so it runs under ``no_grad``."""
-    dev = rays_o.device
-    if dev.type == "cpu":
-        return fused_ingp_eval_reference(mlp, pos_enc, sh, tspec, rays_o, rays_d, z_vals, deltas)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_ingp_eval_apply runs on cuda or cpu tensors, not {dev}")
-    _check_ingp_config(mlp, pos_enc, sh, "eval")
-    R, S = z_vals.shape
-    args = _checked_inputs(dev, tspec, R, S, (
-        ("rays_o", rays_o, (R, 3)), ("rays_d", rays_d, (R, 3)),
-        ("sh", sh, (R, sh.shape[-1])), ("z_vals", z_vals, (R, S)), ("deltas", deltas, (R, S)),
-    ))
-    lib = _ingp_lib(mlp, pos_enc)
-    wbuf, offs = pack_weights(mlp, _layer0_rows(mlp, pos_enc))
+    dev = args[0].device
+    R, S = args[3].shape
+    cfg = mlp.cfg
+    lins = [lin for _, lin in mlp.linears()]
+    if any(p.dtype != torch.float32 or not p.is_contiguous()
+           for lin in lins for p in (lin.weight, lin.bias)):
+        raise ValueError("the INGP eval kernel reads contiguous fp32 parameters")
+    lib = _eval_lib() if lib is None else lib
+    L, F, log2_t, c_res, bmin, brange, bf16 = _geometry(pos_enc)
+    rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)
+    wts = torch.empty((R, S), dtype=torch.float32, device=dev)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    shape = (ci * 13)(
+        R, S, cfg.net_width, cfg.net_depth, L, F, mlp.in_dim_views, log2_t, bf16,
+        0 if tspec.mode == "canonical" else 1, int(tspec.density_activation == "relu"),
+        int(tspec.white_bkgd), _sm_count(dev.index),
+    )
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ingp_eval_tc_launch(
+            (vp * 6)(*(t.data_ptr() for t in args), pos_enc.tables.data_ptr()),
+            (vp * len(lins))(*(lin.weight.data_ptr() for lin in lins)),
+            (vp * len(lins))(*(lin.bias.data_ptr() for lin in lins)),
+            rgb.data_ptr(), wts.data_ptr(), shape, c_res, bmin, brange, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ingp_eval_tc launch failed with cudaError {err}")
+    LAUNCHES["ingp_eval"] += 1
+    return rgb, wts
+
+
+def _rt_eval_launch(mlp, pos_enc, tspec: TrainSpec, args):
+    """``csrc/fused_ingp.cu``'s eval kernel over blocks of
+    ``tspec.rays_block`` rays, on the weights packed for it."""
+    dev = args[0].device
+    R, S = args[3].shape
+    lib = _rt_lib()
+    wbuf, offs = pack_weights(mlp)
     _check_smem(lib, mlp, pos_enc, wbuf.numel(), tspec, S, train=False)
     rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)
     wts = torch.empty((R, S), dtype=torch.float32, device=dev)
@@ -395,6 +430,44 @@ def fused_ingp_eval_apply(
         raise RuntimeError(f"fused_ingp eval launch failed with cudaError {err}")
     LAUNCHES["ingp_eval"] += 1
     return rgb, wts
+
+
+def _eval_launch(mlp, pos_enc, tspec: TrainSpec, args):
+    """One eval call of the build that takes this shape (``eval_build``):
+    (rgb, weights)."""
+    cfg = mlp.cfg
+    build = eval_build(cfg.net_width, cfg.net_depth, pos_enc.n_levels,
+                       pos_enc.features_per_level, mlp.in_dim_views)[0]
+    if build == EVAL_SOURCE:
+        return _eval_tc_launch(mlp, pos_enc, tspec, args)
+    return _rt_eval_launch(mlp, pos_enc, tspec, args)
+
+
+@torch.no_grad()
+def fused_ingp_eval_apply(
+    mlp, pos_enc, sh, tspec: TrainSpec, rays_o, rays_d, z_vals, deltas,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward-only INGP render op: (rgb_map [R, 3], weights [R, S]).
+
+    rays_o/rays_d [R, 3]; sh [R, DD] the rays' spherical harmonics; z_vals
+    and deltas [R, S] (deltas already scaled by ||rays_d||, terminal bin
+    1e10·||rays_d||). CPU tensors run the plain version; CUDA tensors launch
+    the kernel of the shape (``eval_build``) or raise: at the presets'
+    shapes ``csrc/ingp_eval_tc.cu``, which allocates nothing but the two
+    outputs and launches nothing else. Not differentiable (the kernel has
+    no backward), so it runs under ``no_grad``."""
+    dev = rays_o.device
+    if dev.type == "cpu":
+        return fused_ingp_eval_reference(mlp, pos_enc, sh, tspec, rays_o, rays_d, z_vals, deltas)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_ingp_eval_apply runs on cuda or cpu tensors, not {dev}")
+    _check_ingp_config(mlp, pos_enc, sh, "eval")
+    R, S = z_vals.shape
+    args = _checked_inputs(dev, tspec, R, S, (
+        ("rays_o", rays_o, (R, 3)), ("rays_d", rays_d, (R, 3)),
+        ("sh", sh, (R, sh.shape[-1])), ("z_vals", z_vals, (R, S)), ("deltas", deltas, (R, S)),
+    ))
+    return _eval_launch(mlp, pos_enc, tspec, args)
 
 
 def _train_launch(mlp, pos_enc, tspec: TrainSpec, args):
@@ -434,7 +507,7 @@ def _tc_buffers(lins, R: int, S: int, rays: int, dev):
     if any(p.dtype != torch.float32 or not p.is_contiguous() for p in params):
         raise ValueError("the tensor-core train kernels take contiguous fp32 parameters")
     offs, n_dw = _dw_layout(tuple((lin.in_features, lin.out_features) for lin in lins))
-    blocks = min(-(-R // rays), torch.cuda.get_device_properties(dev).multi_processor_count)
+    blocks = min(-(-R // rays), _sm_count(dev.index))
     part = torch.empty(blocks * (n_dw + 1), dtype=torch.float32, device=dev)
     rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)
     wts = torch.empty((R, S), dtype=torch.float32, device=dev)
@@ -493,13 +566,13 @@ def _tc_launch(mlp, pos_enc, tspec: TrainSpec, args, rays: int, lib=None):
 
 
 def _rt_launch(mlp, pos_enc, tspec: TrainSpec, args):
-    """``csrc/fused_ingp.cu``'s runtime-shape build: the ray kernel over
-    blocks of ``tspec.rays_block`` rays, its dW GEMM in splits of
-    ``tspec.group`` blocks, the fixed-order reduce."""
+    """``csrc/fused_ingp.cu``: the ray kernel over blocks of
+    ``tspec.rays_block`` rays, its dW GEMM in splits of ``tspec.group``
+    blocks, the fixed-order reduce."""
     dev = args[0].device
     R, S = args[3].shape
     cfg = mlp.cfg
-    lib = _ingp_lib(mlp, pos_enc, RT_DEFINES)
+    lib = _rt_lib()
     wbuf, offs = pack_weights(mlp)
     n_w = wbuf.numel()
     _check_smem(lib, mlp, pos_enc, n_w, tspec, S, train=True)
@@ -567,7 +640,7 @@ def fused_ingp_train_apply(
     run the plain version (autograd gives the gradient); CUDA tensors launch
     the train kernel of the shape (``train_build``), which computes the
     gradient in the same call, or raise. ``tspec.rays_block`` and
-    ``tspec.group`` shape the runtime-shape build's blocks; the
+    ``tspec.group`` shape ``csrc/fused_ingp.cu``'s blocks; the
     tensor-core kernel sizes its tiles from the shape
     (``tc_rays_per_tile``)."""
     dev = rays_o.device

@@ -1,7 +1,8 @@
-"""Where the INGP train launch's time goes, on one card.
+"""Where the INGP train launch's (or the eval call's) time goes, on one card.
 
     python nerf_meets_mlx_torch/tools/ingp_kernel_probe.py [--base <parent checkout>] [--no-head]
     python nerf_meets_mlx_torch/tools/ingp_kernel_probe.py --feat [--base <parent checkout>] [--no-head]
+    python nerf_meets_mlx_torch/tools/ingp_kernel_probe.py --eval [--base <parent checkout>] [--no-head]
 
 Each part runs in a process of its own, with its checkout first on
 ``PYTHONPATH``, at lego_ingp's train-step shapes (2 x 64 MLP over 8 levels x
@@ -95,6 +96,25 @@ device ms), and the overlay's warm train step (lego_ingp with 128 + 256
 samples on the fused route, the 400 x 400 procedural scene, 20 steps
 ending in one synchronize, as ``chip_smoke.py`` times it). Each turn also
 prints its sse beside the register build's first.
+
+With ``--eval`` it probes the INGP eval call instead
+(``fused_ingp_eval_apply``), at the serving path's shapes: the first
+32,768 rays of a 400 x 400 orbit frame, lego_ingp (48 + 48 samples) and
+lego_ingp_occ (32 + 32), the coarse depths of an eval render and the fine
+ones importance-sampled from the plain version's coarse weights, tables
+with N(0, 0.1) added. Per preset and level, ``[parent]`` (the other
+checkout's call) or ``[time]`` (this checkout's): the call's ms (CUDA
+events), its kernel's device ms and that of every other launch of the
+call (torch.profiler), the device events a call, the host ms a call, the
+kernel's timing variants' device ms, and the standalone
+``hash_encode_apply`` forward at the chunk's points. The parent's variants
+are text edits of its own ``csrc/fused_ingp.cu`` at lego_ingp's register
+build (``no_mlp``: the hash features summed into sigma; ``no_hash``: the
+features read from the point), this checkout's the ``-D`` builds of
+``csrc/ingp_eval_tc.cu`` (``no_mma``: the products skipped; ``no_hash``);
+both compute wrong results and only time. ``[ptxas]`` gives the build's
+report; ``[frame]`` lego_ingp's 400 x 400 frame: its warm host ms, and
+under torch.profiler the device's busy share and the eval kernel's share.
 
 The last line is one JSON object with every number printed.
 """
@@ -471,6 +491,298 @@ def long_worker() -> dict:
     return out
 
 
+# --eval: the INGP eval call at the serving path's shapes, a 32,768-ray chunk
+# of a 400 x 400 frame: lego_ingp (48 + 48 samples) and lego_ingp_occ (32 +
+# 32), each level's depths as the renderer makes them
+EVAL_PRESETS = ("lego_ingp", "lego_ingp_occ")
+EVAL_CHUNK = 32768
+# the parent's eval kernel (csrc/fused_ingp.cu's register build at lego_ingp's
+# width and levels) with its MLP taken out (the point's hash features summed
+# into sigma and the colour) or its hash encode (the features read as the
+# point's coordinates: no lookups), as text edits of that checkout's source
+PARENT_EVAL_DEFINES = {"INGP_W": 64, "INGP_PP": 16}
+PARENT_EVAL_EDITS = {
+    "no_mlp": ("point_forward<W, PP>(A, wts, gbase + i, rgb, sigma);",
+               "{\n  float x_[3];\n  point_of(A, gbase + i, x_);\n  float e_[PP];\n"
+               "  hash_features<PP>(A, x_, e_);\n  float s_ = 0.f;\n#pragma unroll\n"
+               "  for (int k_ = 0; k_ < PP; ++k_) s_ += e_[k_];\n"
+               "  sigma = s_;\n  rgb[0] = rgb[1] = rgb[2] = s_;\n}"),
+    "no_hash": ("hash_features<PP>(A, x, e);",
+                "{\n#pragma unroll\n  for (int k_ = 0; k_ < PP; ++k_) "
+                "e[k_] = k_ < A.L * A.F ? x[k_ % 3] : 0.f;\n}"),
+}
+# this checkout's eval kernel (csrc/ingp_eval_tc.cu) with its products or its
+# hash lookups skipped (timing only: wrong results)
+HEAD_EVAL_VARIANTS = {"no_mma": {"INGP_EVAL_NO_MMA": 1}, "no_hash": {"INGP_EVAL_NO_HASH": 1}}
+# its phase clocks (block 0: consumer thread 0, then encoder thread 0)
+EVAL_CLOCKS = {"INGP_EVAL_CLOCKS": 1}
+EVAL_PHASES = ("wait for features", "layer 0 fragments", "products", "epilogues",
+               "consumers' barrier", "composite", "enc: wait for a buffer", "enc: points",
+               "enc: features", "enc: SH terms")
+
+
+def _eval_inputs(dev, preset):
+    """A seeded ``preset`` model on the fused route (tables + N(0, 0.1)),
+    the first EVAL_CHUNK rays of orbit frame 0 at 400 x 400, their SH and
+    per level (z, deltas): the coarse depths of an eval render, the fine
+    ones importance-sampled from the plain version's coarse weights."""
+    import numpy as np
+    import torch
+
+    from nerf_meets_mlx_torch.cameras.pose import orbit_poses
+    from nerf_meets_mlx_torch.cameras.rays import get_rays
+    from nerf_meets_mlx_torch.config import PRESETS
+    from nerf_meets_mlx_torch.datasets.synthetic import CAMERA_ANGLE_X
+    from nerf_meets_mlx_torch.kernels import fused_ingp_train as fi
+    from nerf_meets_mlx_torch.models import create_nerf
+    from nerf_meets_mlx_torch.sampling.importance import merge_z, sample_pdf
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    m = create_nerf(PRESETS[preset]().replace(use_fused_kernel=True), device=dev)
+    m.init(torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        m.pos_enc.tables.add_(torch.randn(m.pos_enc.tables.shape, generator=g, device=dev) * 0.1)
+    res = 400
+    focal = 0.5 * res / np.tan(0.5 * CAMERA_ANGLE_X)
+    K = np.array([[focal, 0, res / 2], [0, focal, res / 2], [0, 0, 1]], np.float32)
+    c2w = orbit_poses(160)[0][:3, :4]
+    ro, rd = get_rays(res, res, K, c2w, device=dev)
+    ro = ro.reshape(-1, 3)[:EVAL_CHUNK].contiguous()
+    rd = rd.reshape(-1, 3)[:EVAL_CHUNK].contiguous()
+    dnorm = torch.linalg.vector_norm(rd, dim=-1, keepdim=True)
+    sh = m.dir_enc.apply(rd / dnorm).contiguous()
+    rcfg = m.cfg.render
+
+    def level(z):
+        return z, torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e10)], -1) * dnorm
+
+    coarse = level(m._coarse_z(ro, rd, train=False))
+    with torch.no_grad():
+        _, w_c = fi.fused_ingp_eval_reference(m.coarse, m.pos_enc, sh, _eval_spec(m, rcfg.n_samples),
+                                              ro, rd, *coarse)
+    fine = level(merge_z(coarse[0], sample_pdf(coarse[0], w_c, rcfg.n_importance,
+                                                deterministic=True)))
+    return m, (K, c2w), (ro, rd, sh), {"coarse": coarse, "fine": fine}
+
+
+def _eval_spec(m, S):
+    from nerf_meets_mlx_torch.kernels import fused_ingp_train as fi
+    from nerf_meets_mlx_torch.kernels.fused_train import TrainSpec
+
+    rcfg = m.cfg.render
+    rb = fi.ingp_rays_block(S)
+    return TrainSpec(n_samples=S, rays_block=rb, mode=rcfg.compositing,
+                     density_activation=rcfg.density_activation, white_bkgd=rcfg.white_bkgd,
+                     group=fi.ingp_group(S, rb))
+
+
+def _device_events(call, n):
+    """Device events (kernels, copies) a call of ``call`` makes, from
+    torch.profiler over ``n`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / n
+
+
+def _parent_eval_libs():
+    """{variant: library} of the parent's register build at lego_ingp's
+    shape with PARENT_EVAL_EDITS applied (its own source, csrc/ on the
+    include path), built side by side."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nerf_meets_mlx_torch.kernels import _build
+
+    src = (_build.CSRC / "fused_ingp.cu").read_text()
+    out_dir = HEAD / ".runs" / "ingp_kernel_probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    defines = [f"-D{k}={v}" for k, v in PARENT_EVAL_DEFINES.items()]
+
+    def build(name, edit):
+        old, new = edit
+        if src.count(old) != 1:
+            raise RuntimeError(f"{name}: the parent's source does not hold {old!r} once")
+        cu, lib = out_dir / f"parent_eval_{name}.cu", out_dir / f"libparent_eval_{name}.so"
+        cu.write_text(src.replace(old, new))
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *defines, "-I", str(_build.CSRC),
+                               "-o", str(lib), str(cu)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr[-3000:]}")
+        return ctypes.CDLL(str(lib))
+
+    with ThreadPoolExecutor(len(PARENT_EVAL_EDITS)) as ex:
+        futs = {k: ex.submit(build, k, e) for k, e in PARENT_EVAL_EDITS.items()}
+        return {k: f.result() for k, f in futs.items()}
+
+
+def _frame(m, view, kernel):
+    """lego_ingp's 400 x 400 frame: the host ms of a warm frame (the lesser
+    of 2, each ending in a synchronize), and one frame under torch.profiler:
+    its device-busy share of the wall time and the eval kernel's device ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nerf_meets_mlx_torch.rendering import render_image
+
+    K, c2w = view
+
+    def frame():
+        with torch.no_grad():
+            render_image(m, 400, 400, K, c2w)
+        torch.cuda.synchronize()
+
+    frame()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        frame()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        frame()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = kern = 0.0
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = float(getattr(e, "self_cuda_time_total", 0.0) if us is None else us) / 1e3
+        busy += us
+        if kernel in e.name:
+            kern += us
+    out = dict(frame_ms=min(times), traced_wall_ms=wall, busy_ms=busy, busy_share=busy / wall,
+               eval_kernel_ms=kern, eval_kernel_share=kern / wall)
+    print(f"[frame] lego_ingp 400x400: {min(times):.2f} ms a warm frame; traced {wall:.2f} ms, "
+          f"device busy {busy:.2f} ms ({busy / wall:.3f}), {kernel} {kern:.2f} ms "
+          f"({kern / wall:.3f} of the frame)", flush=True)
+    return out
+
+
+def _eval_phases(m, spec, args, lib, mlp):
+    """[phases]: cycles a tile of each phase of the clocks build's block 0."""
+    import torch
+
+    from nerf_meets_mlx_torch.kernels import fused_ingp_train as fi
+
+    R, S = args[3].shape
+    clk = fi._eval_tc_launch(mlp, m.pos_enc, spec, args, lib)[0].flatten()[: len(EVAL_PHASES)].tolist()
+    grid = min(R, torch.cuda.get_device_properties(0).multi_processor_count)
+    tile = min(192, 32 * S)
+    tiles = -(-(R // grid) * S // tile)  # block 0's
+    total = sum(clk[:6])
+    out = {k: c / tiles for k, c in zip(EVAL_PHASES, clk)}
+    print(f"[phases] {S} samples, {tiles} tiles in block 0, consumer {total / tiles:.0f} cycles "
+          "a tile: " + ", ".join(f"{k} {c / tiles:.0f} ({c / total:.1%})"
+                                  for k, c in zip(EVAL_PHASES[:6], clk))
+          + "; encoder: " + ", ".join(f"{k[5:]} {c / tiles:.0f}"
+                                      for k, c in zip(EVAL_PHASES[6:], clk[6:])), flush=True)
+    return out
+
+
+def eval_worker(role: str) -> None:
+    """--eval: the checkout's INGP eval call per preset and level: its
+    event ms, device ms by kernel and of the wrapper's other launches,
+    device events a call, host ms; its variants' kernel device ms; the
+    standalone hash forward at the chunk's points; the build's ptxas
+    report; lego_ingp's frame. This checkout's also its kernel's phase
+    clocks."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from nerf_meets_mlx_torch.kernels import _build
+    from nerf_meets_mlx_torch.kernels import fused_ingp_train as fi
+    from nerf_meets_mlx_torch.kernels import hash_encode as he
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    tag = "[parent]" if role == "parent" else "[time]"
+    # every build of the turn started together
+    with ThreadPoolExecutor(6) as ex:
+        hash_build = ex.submit(_build.build, "hash_encode")
+        if role == "parent":
+            kernel = "ingp_eval_kernel"
+            key = ("fused_ingp", tuple(sorted(PARENT_EVAL_DEFINES.items())))
+            own_build = ex.submit(_build.build, "fused_ingp", PARENT_EVAL_DEFINES)
+            libs = _parent_eval_libs()
+            own_build.result()
+            report = _build.BUILD_LOG.get(_build.variant_name("fused_ingp", PARENT_EVAL_DEFINES),
+                                          "")
+            own = _build.load_library("fused_ingp", PARENT_EVAL_DEFINES)
+        else:
+            kernel = "ingp_eval_tc_kernel"
+            builds = [None, *HEAD_EVAL_VARIANTS.values(), EVAL_CLOCKS]
+            for f in [ex.submit(_build.build, fi.EVAL_SOURCE, d) for d in builds]:
+                f.result()
+            report = _build.BUILD_LOG.get(_build.variant_name(fi.EVAL_SOURCE), "")
+            libs = {k: fi.type_eval_lib(_build.load_library(fi.EVAL_SOURCE, d))
+                    for k, d in HEAD_EVAL_VARIANTS.items()}
+            clocks = fi.type_eval_lib(_build.load_library(fi.EVAL_SOURCE, EVAL_CLOCKS))
+        hash_build.result()
+    for line in report.splitlines():
+        if any(k in line for k in ("registers", "spill", "smem", "Compiling")):
+            print(f"[ptxas] {role} {line.strip()}", flush=True)
+    out = {}
+    for preset in EVAL_PRESETS:
+        m, view, (ro, rd, sh), levels = _eval_inputs(dev, preset)
+        for name, (z, dl) in levels.items():
+            mlp = m.coarse if name == "coarse" else m.fine
+            S = z.shape[1]
+            spec = _eval_spec(m, S)
+
+            def call(mlp=mlp, spec=spec, z=z, dl=dl):
+                with torch.no_grad():
+                    return fi.fused_ingp_eval_apply(mlp, m.pos_enc, sh, spec, ro, rd, z, dl)
+
+            ms = _event_ms(call, 10)
+            split = _split_ms(call, (kernel,), 5)
+            events = _device_events(call, 5)
+            host = _host_ms(call)
+            row = dict(ms=ms, host_ms=host, events=events, **split)
+            for variant, lib in libs.items():
+                if role == "parent":
+                    _build._LIBS[key] = lib
+                    vcall = call
+                else:
+                    args = (ro, rd, sh, z, dl)
+
+                    def vcall(mlp=mlp, spec=spec, args=args, lib=lib):
+                        return fi._eval_tc_launch(mlp, m.pos_enc, spec, args, lib)
+                try:
+                    row[variant] = _split_ms(vcall, (kernel,), 5)[kernel]
+                finally:
+                    if role == "parent":
+                        _build._LIBS[key] = own
+            pts = (ro[:, None, :] + z[..., None] * rd[:, None, :]).reshape(-1, 3)
+            with torch.no_grad():
+                row["hash_fwd_ms"] = _event_ms(lambda pts=pts: he.hash_encode_apply(m.pos_enc, pts),
+                                               10)
+            if role == "head":
+                row["phases"] = _eval_phases(m, spec, (ro, rd, sh, z, dl), clocks, mlp)
+            out[f"{preset}_{name}"] = row
+            print(f"{tag} eval {preset} {name:6s} {EVAL_CHUNK} x {S}: {ms:.4f} ms a call "
+                  f"(events); device {kernel} {split[kernel]:.4f}, other launches "
+                  f"{split['torch ops']:.4f} ms; {events:.1f} device events a call; host "
+                  f"{host:.4f} ms a call; "
+                  + ", ".join(f"{v} {row[v]:.4f}" for v in libs)
+                  + f" ms; hash_encode_apply at its {pts.shape[0]} points {row['hash_fwd_ms']:.4f} ms",
+                  flush=True)
+        if preset == "lego_ingp":
+            out["frame"] = _frame(m, view, kernel)
+        del m
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+
+
 def worker(role: str) -> None:
     from concurrent.futures import ThreadPoolExecutor
 
@@ -484,7 +796,11 @@ def worker(role: str) -> None:
     libs = {}
     if role == "parent":
         variants = {"parent": None}
-        _build.build("fused_ingp", fi.kernel_defines(64, 8, 2))
+        # the build that trains lego_ingp's fine level in that checkout
+        if hasattr(fi, "train_build"):
+            _build.build(*fi.train_build(64, 2, 8, 2, 25, 96))
+        else:
+            _build.build("fused_ingp", fi.kernel_defines(64, 8, 2))
         names = PARENT_KERNELS
     else:
         variants = VARIANTS
@@ -1177,9 +1493,9 @@ def _draws_rt(n: int, width: int) -> dict:
     return {"width": width, "build": str(build), "draws": draws}
 
 
-def _run(role: str, root: Path, feat: bool = False) -> dict:
+def _run(role: str, root: Path, mode: str = "") -> dict:
     env = dict(os.environ, PYTHONPATH=str(root.resolve()))
-    cmd = [sys.executable, __file__, "--worker", role] + (["--feat"] if feat else [])
+    cmd = [sys.executable, __file__, "--worker", role] + ([mode] if mode else [])
     proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True)
     lines = proc.stdout.strip().splitlines()
     for line in lines[:-1]:
@@ -1202,10 +1518,12 @@ def main() -> int:
                    help="probe the feat train launch at the paper tables' levels")
     p.add_argument("--long-rays", action="store_true",
                    help="only the long-ray overlay on the register and runtime-shape builds")
+    p.add_argument("--eval", action="store_true",
+                   help="probe the INGP eval call at the serving path's chunks")
     p.add_argument("--worker", choices=("parent", "head"), help=argparse.SUPPRESS)
     a = p.parse_args()
     if a.worker:
-        (feat_worker if a.feat else worker)(a.worker)
+        (eval_worker if a.eval else feat_worker if a.feat else worker)(a.worker)
         return 0
     import torch
 
@@ -1224,12 +1542,13 @@ def main() -> int:
         out["long"] = long_worker()
         print(json.dumps(out), flush=True)
         return 0
-    if not a.feat:
+    mode = "--eval" if a.eval else "--feat" if a.feat else ""
+    if not mode:
         out.update(acc=_acc_errors(), rate=_rate(), forms=_forms())
     if a.base:
-        out["parent"] = _run("parent", Path(a.base), a.feat)
+        out["parent"] = _run("parent", Path(a.base), mode)
     if not a.no_head:
-        out["head"] = _run("head", HEAD, a.feat)
+        out["head"] = _run("head", HEAD, mode)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -15,14 +15,16 @@ the MLP forward and backward (lego_occ's fine points), the feat train kernel
 400 x 400 frame of lego_ingp and of lego_hierarchical; the INGP, feat and
 image train calls' device time (every kernel they launch, from
 torch.profiler: the host-bound calls read their kernels here, not in their
-event time); the image train call's host time (the host clock around the
+event time), and the INGP eval call's at both levels of its 32,768-ray
+chunk; the image train call's host time (the host clock around the
 call, a synchronize before each); the paper tables' warm train step (the
 feats route, 32 steps, as chip_smoke.py times it) and the warm image step
 (50 steps of 4096 pixels, as chip_smoke.py's phase_image_timing). It prints
 one JSON line per turn and each measurement's four times; then ptxas's
 registers and spills of every kernel of ``csrc/fused_train.cu``,
-``csrc/fused_image.cu`` and ``csrc/image_train_tc.cu`` in each checkout
-that has the source, and, where both checkouts have
+``csrc/fused_image.cu``, ``csrc/image_train_tc.cu``,
+``csrc/ingp_eval_tc.cu`` and ``csrc/fused_ingp.cu``'s runtime-shape build
+in each checkout that has the source, and, where both checkouts have
 ``csrc/ingp_train_tc.cu``, each kernel of it in both: ptxas's report and
 its SASS instruction by instruction (the kernel parameters' constant-bank
 offsets masked), as lines starting with ``[ptxas]`` and ``[sass]``.
@@ -159,9 +161,9 @@ def _image_step_ms(n=50):
 
 def _build_all():
     """Every build the turn times, all started together (where the
-    checkout's ``_build`` takes per-shape defines: lego_ingp's and the
-    paper tables' shapes; and the INGP train kernel's source where the
-    checkout has one)."""
+    checkout's ``_build`` takes per-shape defines: the builds of lego_ingp's
+    and the paper tables' shapes; and the INGP kernels' own sources where
+    the checkout has them)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from nerf_meets_mlx_torch.kernels import _build
@@ -174,12 +176,15 @@ def _build_all():
 
         from nerf_meets_mlx_torch.kernels import fused_feat_train, fused_ingp_train
 
-        # kernel_defines takes (width, levels, features), or (width, L·F)
-        # in checkouts that predate the runtime-shape build
-        ingp = fused_ingp_train.kernel_defines
-        n_args = len(inspect.signature(ingp).parameters)
-        jobs += [("fused_ingp", ingp(64, 8, 2) if n_args == 3 else ingp(64, 16)),
-                 ("fused_feat", fused_feat_train.kernel_defines(64, 32))]
+        jobs.append(("fused_feat", fused_feat_train.kernel_defines(64, 32)))
+        if hasattr(fused_ingp_train, "eval_build"):  # the INGP eval kernel's own source
+            jobs.append(fused_ingp_train.eval_build(64, 2, 8, 2, 25))
+        else:
+            # kernel_defines takes (width, levels, features), or (width,
+            # L·F) in checkouts that predate the runtime-shape build
+            ingp = fused_ingp_train.kernel_defines
+            n_args = len(inspect.signature(ingp).parameters)
+            jobs.append(("fused_ingp", ingp(64, 8, 2) if n_args == 3 else ingp(64, 16)))
         if hasattr(fused_ingp_train, "TC_SOURCE"):  # the INGP train kernel's own source
             jobs.append((fused_ingp_train.TC_SOURCE, None))
         call = _build.build
@@ -261,8 +266,12 @@ def worker():
         espec = tspec(n_samples=S, rays_block=fi.ingp_rays_block(S), mode="canonical",
                       density_activation="softplus", white_bkgd=True)
         with torch.no_grad():
-            out[f"ingp_eval_{name}"] = _ms(lambda z=z, dl=dl, espec=espec: fi.fused_ingp_eval_apply(
-                m.fine, m.pos_enc, sh[:32768], espec, ro[:32768], rd[:32768], z, dl), n=10)
+            def ingp_eval(z=z, dl=dl, espec=espec):
+                return fi.fused_ingp_eval_apply(m.fine, m.pos_enc, sh[:32768], espec, ro[:32768],
+                                                rd[:32768], z, dl)
+
+            out[f"ingp_eval_{name}"] = _ms(ingp_eval, n=10)
+            out[f"ingp_eval_device_{name}"] = _device_ms(ingp_eval, n=10)
     with torch.no_grad():
         out["lego_ingp_frame"] = _ms(lambda: render_image(m, res, res, K, orbit_poses(160)[0][:3, :4]),
                                      n=5)
@@ -331,10 +340,11 @@ def worker():
     print(json.dumps(out), flush=True)
 
 
-def _cubin(root: Path, tag: str, source: str):
-    """Compiles ``root``'s csrc/<source>.cu to a cubin with the build's
-    flags and prints ptxas's registers and spills of each of its kernels
-    (``[ptxas]``); returns the cubin's path."""
+def _cubin(root: Path, tag: str, source: str, defines=()):
+    """Compiles ``root``'s csrc/<source>.cu (with the ``-D`` flags
+    ``defines``) to a cubin with the build's flags and prints ptxas's
+    registers and spills of each of its kernels (``[ptxas]``); returns the
+    cubin's path."""
     from nerf_meets_mlx_torch.kernels import _build
 
     csrc = root / "nerf_meets_mlx_torch" / "csrc"
@@ -342,8 +352,8 @@ def _cubin(root: Path, tag: str, source: str):
     out_dir.mkdir(parents=True, exist_ok=True)
     cubin = out_dir / f"{tag}_{source}.cubin"
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
-    proc = subprocess.run([_build._nvcc(), *flags, "-cubin", "-I", str(csrc), "-o", str(cubin),
-                           str(csrc / f"{source}.cu")], capture_output=True, text=True)
+    proc = subprocess.run([_build._nvcc(), *flags, *defines, "-cubin", "-I", str(csrc), "-o",
+                           str(cubin), str(csrc / f"{source}.cu")], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {tag} {source}:\n{proc.stderr[-3000:]}")
     lines = proc.stderr.splitlines()
@@ -356,12 +366,22 @@ def _cubin(root: Path, tag: str, source: str):
 
 
 def _ptxas_reports(base: Path, head: Path) -> None:
-    """[ptxas] of the sinusoidal train and the image sources in both
-    checkouts (each that has the source)."""
-    for source in ("fused_train", "fused_image", "image_train_tc"):
+    """[ptxas] of the sinusoidal train, the image and the INGP eval sources
+    in both checkouts (each that has the source; csrc/fused_ingp.cu as its
+    runtime-shape build, with ``-DINGP_W=0 -DINGP_PP=0`` where the source
+    still has the register builds), all compiled together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    jobs = []
+    for source in ("fused_train", "fused_image", "image_train_tc", "ingp_eval_tc", "fused_ingp"):
         for tag, root in (("base", base), ("head", head)):
-            if (root / "nerf_meets_mlx_torch" / "csrc" / f"{source}.cu").exists():
-                _cubin(root, tag, source)
+            cu = root / "nerf_meets_mlx_torch" / "csrc" / f"{source}.cu"
+            if cu.exists():
+                rt = source == "fused_ingp" and "INGP_W" in cu.read_text()
+                jobs.append((root, tag, source, ("-DINGP_W=0", "-DINGP_PP=0") if rt else ()))
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        for f in [ex.submit(_cubin, *job) for job in jobs]:
+            f.result()
 
 
 def _tile_kernels(root: Path, tag: str):

@@ -31,6 +31,7 @@ from nerf_meets_mlx_torch import interop
 from nerf_meets_mlx_torch.config import lego_hierarchical as t_lego
 from nerf_meets_mlx_torch.kernels import fused_train as tft
 from nerf_meets_mlx_torch.models import create_nerf as t_create
+from tf32_products import _trunc32
 from torch_threads import one_torch_thread_per_worker  # noqa: F401  (autouse fixture)
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -232,15 +233,6 @@ def test_eval_block_fits_shared_memory():
         assert rb >= 1
         smem = 4 * 16 * 256 * 4 + 4 * 128 * 264 + 8 * 8 + 4 * 128 * 8 + 4 * rb * S * 5
         assert smem <= 232448, (S, rb, smem)
-
-
-def _trunc32(x64):
-    """float64 values to float32, rounded toward zero, as the tensor cores
-    round their adds: the nearest float32, one step back toward zero where
-    it lies past the value (a step of its magnitude bits, either sign)."""
-    y = x64.to(torch.float32)
-    over = (y.double().abs() > x64.abs()).to(torch.int32)
-    return (y.view(torch.int32) - over).view(torch.float32)
 
 
 def _unpack_image(img, n, k_pad):

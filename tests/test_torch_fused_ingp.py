@@ -1,5 +1,5 @@
-"""The port's fused INGP ops (kernels/fused_ingp_train.py,
-csrc/fused_ingp.cu).
+"""The port's fused INGP ops (kernels/fused_ingp_train.py; csrc/ingp_eval_tc.cu,
+csrc/ingp_train_tc.cu and csrc/fused_ingp.cu).
 
 * Their plain versions against the JAX ``fused_ingp_train_apply`` and
   ``fused_ingp_eval_apply``, which run the Pallas ``_ingp_train_kernel`` /
@@ -10,8 +10,11 @@ csrc/fused_ingp.cu).
   atol 5e-6. Both compositing modes, the white background on and off, a
   ragged ray count.
 * The wrappers' routing and the weight layout the kernels read.
-* ``gpu``-marked: both CUDA kernels against the plain version at the
+* ``gpu``-marked: both CUDA calls against the plain version at the
   lego_ingp size, on the card (skipped where no card is present).
+* The train kernel's arithmetic emulated on the CPU
+  (``_emulate_tc_kernel``); the eval kernel's is in
+  tests/test_torch_ingp_eval.py.
 """
 
 import dataclasses
@@ -29,6 +32,7 @@ from nerf_meets_mlx_torch.kernels import fused_ingp_train as tfi
 from nerf_meets_mlx_torch.kernels.fused_train import LAUNCHES, TrainSpec
 from nerf_meets_mlx_torch.models import NeRFMLP
 from nerf_meets_mlx_torch.models import create_nerf as t_create
+from tf32_products import _trunc32
 from torch_threads import one_torch_thread_per_worker  # noqa: F401  (autouse fixture)
 
 # JAX is imported by the tests that compare with it, not at module level:
@@ -199,19 +203,25 @@ def test_pack_weights_layout():
 
 
 def test_pack_weights_pads_layer0_to_the_register_width():
-    """With rows0 (the build's PP), layer 0's weight gains zero rows, so the
-    kernel multiplies all PP columns branch-free; the other pieces keep
-    their values."""
-    tm = t_create(t_ingp(), device="cpu").init(torch.Generator().manual_seed(0))
-    wbuf, offs = tfi.pack_weights(tm.coarse, rows0=32)
-    lin0 = tm.coarse.linears()[0][1]
-    w0 = wbuf[offs[0] : offs[0] + 32 * 64].view(32, 64)
-    torch.testing.assert_close(w0[:16], lin0.weight.detach().t(), rtol=0, atol=0)
-    assert not bool(w0[16:].any())
-    ref, ref_offs = tfi.pack_weights(tm.coarse)
-    assert wbuf.numel() == ref.numel() + 16 * 64
-    torch.testing.assert_close(wbuf[offs[2]:], ref[ref_offs[2]:], rtol=0, atol=0)
-    assert tfi._layer0_rows(tm.coarse, tm.pos_enc) == 16
+    """What took the place of the register builds' zero rows: the eval
+    kernel's layer 0 (csrc/ingp_eval_tc.cu) takes K = L·F rounded up to 8,
+    its image written by each block from nn.Linear's weight with zero
+    columns past L·F (``_eval_image``, the twin of its put_image); the
+    pack of csrc/fused_ingp.cu keeps layer 0 at its L·F rows."""
+    from test_torch_fused_eval import _unpack_image
+    from test_torch_ingp_eval import _eval_image
+
+    mlp = NeRFMLP(MLPConfig(net_depth=2, net_width=64, skips=(), use_viewdirs=True), 12, 25)
+    mlp.init(torch.Generator().manual_seed(0))
+    w0 = mlp.linears()[0][1].weight.detach()
+    img = _eval_image(w0, 12)
+    assert img.numel() == 2 * 16 * 64
+    hi, lo = _unpack_image(img, 64, 16)
+    assert bool(((hi[:12] + lo[:12] - w0.t()).abs() <= 2.0**-22 * w0.t().abs()).all())
+    assert not bool(hi[12:].any()) and not bool(lo[12:].any())
+    wbuf, offs = tfi.pack_weights(mlp)
+    assert offs[1] - offs[0] == 12 * 64
+    torch.testing.assert_close(wbuf[offs[0] : offs[1]].view(12, 64), w0.t(), rtol=0, atol=0)
 
 
 def test_wrappers_route_by_device():
@@ -254,6 +264,7 @@ def test_cuda_ingp_kernels_match_plain(S):
         pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     tm, dev = _cuda_model()
+    assert tfi.eval_build(64, 2, 8, 2, tm.fine.in_dim_views) == (tfi.EVAL_SOURCE, {})
     g = torch.Generator(device=dev).manual_seed(2)
     R = 1001
     ro = torch.randn((R, 3), generator=g, device=dev) * 0.2 + torch.tensor([0.0, 0.0, 3.0], device=dev)
@@ -381,20 +392,23 @@ def test_ingp_ops_match_jax_at_new_shapes(width, enc, dtype, noisy):
     np.testing.assert_allclose(w.numpy(), np.asarray(w_j), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("width,levels,features,pp", [
-    (64, 8, 2, 16), (32, 8, 2, 16), (64, 16, 2, 32), (64, 8, 4, 32), (64, 16, 4, 64),
-    (32, 16, 1, 16), (32, 3, 1, 16),
-    # the runtime-shape build (INGP_W = INGP_PP = 0)
-    (128, 8, 2, 0), (256, 8, 2, 0), (48, 8, 2, 0), (64, 32, 2, 0), (64, 12, 8, 0),
-    (64, 17, 1, 0), (64, 32, 4, 0),
+@pytest.mark.parametrize("width,levels,features,tc", [
+    # the shapes the register builds of csrc/fused_ingp.cu took: now
+    # csrc/ingp_eval_tc.cu's
+    (64, 8, 2, True), (32, 8, 2, True), (64, 16, 2, True), (64, 8, 4, True),
+    (64, 16, 4, True), (32, 16, 1, True), (32, 3, 1, True), (32, 16, 4, True),
+    (64, 1, 1, True),
+    # csrc/fused_ingp.cu
+    (128, 8, 2, False), (256, 8, 2, False), (48, 8, 2, False), (64, 32, 2, False),
+    (64, 12, 8, False), (64, 17, 1, False), (64, 32, 4, False),
 ])
-def test_kernel_builds_cover_the_shapes(width, levels, features, pp):
-    """Each (width, levels, features) the wrapper takes maps to one build of
-    csrc/fused_ingp.cu: a register build with the smallest layer-0 register
-    width that holds the features, or past width 64, 16 levels or 4
-    features the runtime-shape build."""
-    want = {"INGP_W": width if pp else 0, "INGP_PP": pp}
-    assert tfi.kernel_defines(width, levels, features) == want
+def test_kernel_builds_cover_the_shapes(width, levels, features, tc):
+    """Each (width, levels, features) the wrapper takes evaluates in one
+    build, decided by ``eval_build`` from the shape alone: the wgmma
+    kernel for widths 32 and 64 with up to 16 levels of 1, 2 or 4
+    features, csrc/fused_ingp.cu past width 64, 16 levels or 4 features."""
+    want = (tfi.EVAL_SOURCE, {}) if tc else (tfi.RT_SOURCE, {})
+    assert tfi.eval_build(width, 2, levels, features, 25) == want
     tm = NeRFMLP(MLPConfig(net_depth=2, net_width=width, skips=(), use_viewdirs=True),
                  levels * features, 25)
     tenc = HashGridEncoding(n_levels=levels, min_res=4, max_res=64,
@@ -471,6 +485,10 @@ def test_cuda_ingp_kernels_match_plain_at_new_shapes(width, enc, dtype):
     dev = torch.device("cuda")
     tm = _cuda_shape_model(width, enc, dtype, dev,
                            generator=torch.Generator(device=dev).manual_seed(1))
+    L, F = tm.pos_enc.n_levels, tm.pos_enc.features_per_level
+    tc = width in (32, 64) and L <= 16 and F <= 4
+    assert tfi.eval_build(width, 2, L, F, tm.fine.in_dim_views)[0] == (
+        tfi.EVAL_SOURCE if tc else tfi.RT_SOURCE)
     g = torch.Generator(device=dev).manual_seed(2)
     R, S = 501, 48
     ro = torch.randn((R, 3), generator=g, device=dev) * 0.2 + torch.tensor([0.0, 0.0, 3.0], device=dev)
@@ -640,7 +658,7 @@ def test_train_routes_by_shape(width, depth, levels, features, dd, S, rays):
     the shared memory; the runtime-shape build for widths other than 32 and
     64, more than 16 levels, 8 features, a deep trunk or long rays."""
     assert tfi.tc_rays_per_tile(width, depth, levels, features, dd, S) == rays
-    want = (tfi.TC_SOURCE, {}) if rays else ("fused_ingp", {"INGP_W": 0, "INGP_PP": 0})
+    want = (tfi.TC_SOURCE, {}) if rays else (tfi.RT_SOURCE, {})
     assert tfi.train_build(width, depth, levels, features, dd, S) == want
     if rays:
         tp = -(-rays * S // 16) * 16
@@ -674,8 +692,6 @@ def test_presets_train_on_the_tensor_cores():
 def _trunc_sum(parts):
     """float64 sums added one after another into a float32 accumulator that
     rounds toward zero, as the tensor cores add."""
-    from test_torch_fused_eval import _trunc32
-
     acc = torch.zeros_like(parts[0][0])
     for step in zip(*parts):
         for x in step:

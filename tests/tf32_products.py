@@ -3,14 +3,25 @@ torch on the CPU for the tests: TF32 rounding as ``split_tf32`` rounds
 (``nerf_meets_mlx_torch.kernels.fused_train._tf32``), a 3xTF32 product
 summed in one fp32 accumulator, the same with each k-step of 8 summed from
 zero and added in fp32 (the order csrc/fused_train.cu and
-csrc/image_train_tc.cu use), and one TF32 pass, the lower-precision
-control."""
+csrc/image_train_tc.cu use), a whole layer in one accumulator that rounds
+toward zero as the tensor cores add (the wgmma kernels' form,
+csrc/fused_eval.cu and csrc/ingp_eval_tc.cu), and one TF32 pass, the
+lower-precision control."""
 
 import torch
 
 from nerf_meets_mlx_torch.kernels.fused_train import _tf32
 
-__all__ = ["_tf32", "_mm_3xtf32", "_mm_1xtf32", "mm_ksteps"]
+__all__ = ["_tf32", "_trunc32", "_mm_3xtf32", "_mm_1xtf32", "mm_ksteps", "mm_wgmma"]
+
+
+def _trunc32(x64):
+    """float64 values to float32, rounded toward zero, as the tensor cores
+    round their adds: the nearest float32, one step back toward zero where
+    it lies past the value (a step of its magnitude bits, either sign)."""
+    y = x64.to(torch.float32)
+    over = (y.double().abs() > x64.abs()).to(torch.int32)
+    return (y.view(torch.int32) - over).view(torch.float32)
 
 
 def _split(x):
@@ -53,3 +64,27 @@ def mm_ksteps(a, b, passes=3):
             t = ah[:, s] @ bh[s]
         out = out + t
     return out
+
+
+def mm_wgmma(a, b, passes=3):
+    """a [M, K] @ b [K, N] as the wgmma kernels sum a layer: both operands
+    split into TF32 halves, K in steps of 8 (zero-padded), each step's
+    lo·hi, hi·lo and hi·hi (``passes=1``: hi·hi alone) summed exactly over
+    its 8 products and added, in that order, to one accumulator that
+    starts from zero and rounds each add toward zero."""
+    K = a.shape[1]
+    a = torch.nn.functional.pad(a, (0, -K % 8))
+    b = torch.nn.functional.pad(b, (0, 0, 0, -K % 8))
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    pairs = ((al, bh), (ah, bl), (ah, bh)) if passes == 3 else ((ah, bh),)
+    steps = a.shape[1] // 8
+    # every k-step's exact sums at once ([step, row, column], float64), then
+    # the accumulator's truncating adds in the kernels' order
+    sums = [torch.einsum("psk,skn->spn", x.double().reshape(-1, steps, 8),
+                         y.double().reshape(steps, 8, -1)) for x, y in pairs]
+    acc = torch.zeros(sums[0].shape[1:], dtype=torch.float64)
+    for s in range(steps):
+        for part in sums:
+            acc = _trunc32(acc + part[s]).double()
+    return acc.float()
