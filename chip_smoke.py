@@ -39,7 +39,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels: the backward kernel's path) and on the plain route must agree.
    Before the paths: the fused MLP kernels against their plain version on
    the grid update's 262,144 points and lego_occ's coarse and fine points
-   (forward; backward with every dW, db and dX against autograd).
+   (the forward, ``csrc/mlp_fwd_tc.cu``, also within MLP_TIGHT, which one
+   TF32 pass misses; the backward with every dW, db and dX against
+   autograd).
 6. timing: each kernel per level with CUDA events, beside its bound and
    its plain version's time (the eval kernel also beside its fp32 bound,
    with the weight bytes it reads from L2 a launch and their rate, and the
@@ -47,7 +49,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    from the profiler's kernel table); the frame time of the render; the host
    seconds of a warm train step (25 steps ending in one synchronize),
    rays/s, peak memory, and the device's busy share of 5 steps from
-   ``torch.profiler``; the fused MLP kernels per call at lego_occ's shapes;
+   ``torch.profiler``; the fused MLP kernels per call at lego_occ's shapes
+   (each timed forward call held against plain, its kernel's device time,
+   device events and host ms a call beside);
    lego_occ's warm step on both of its kernel routes (32 steps, two grid
    updates inside), its busy share, and its 400 x 400 frame with the grid.
 
@@ -162,6 +166,10 @@ IMAGE_TRAIN_KERNELS = ("image_tc_kernel", "image_dw_kernel", "image_reduce_kerne
 ATOL = 1e-4   # kernel vs plain: fp32 sums in another order (see PERF.md)
 RTOL = 1e-4
 DW_REL = 1e-3  # train kernel: max |dW - plain| <= DW_REL * max |plain dW|
+# the MLP forward kernel (csrc/mlp_fwd_tc.cu) is also held within MLP_TIGHT
+# (atol = rtol) of plain: its 3xTF32 products meet it, one TF32 pass, which
+# can meet ATOL + RTOL, does not (tests/test_torch_fused_mlp.py)
+MLP_TIGHT = 5e-6
 SEED = 0
 RES = 400             # frame H = W of the main paths (lego half-res)
 N_ORBIT = 2           # frames the serving path renders
@@ -409,6 +417,40 @@ def kernel_split_ms(fn, names, n: int) -> dict:
     return out
 
 
+def call_split(fn, kernel: str, n: int) -> dict:
+    """A call of ``fn()`` apart: the device ms of the kernels named
+    ``kernel`` (a substring of the profiler's name) and of every other
+    device event, and the device events, per call (torch.profiler over
+    ``n`` calls after one warm call); and the median host ms of a call,
+    a synchronize before each of ``n`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    mine = other = 0.0
+    events = 0
+    for name, (us, cnt) in device_times(prof).items():
+        events += cnt
+        if kernel in name:
+            mine += us
+        else:
+            other += us
+    host = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return {"device_ms": mine / 1e3 / n, "other_device_ms": other / 1e3 / n,
+            "device_events": events / n, "host_ms": sorted(host)[n // 2]}
+
+
 def profile_device(fn, label: str):
     """Device time by kernel name over ``fn()`` (torch.profiler), and the
     device's busy share of its wall time under the profiler."""
@@ -567,13 +609,26 @@ def mlp_inputs(model, device):
     return out
 
 
+def mlp_fwd_errors(raw_k, raw_p):
+    """(max abs error, worst share of MLP_TIGHT, ok) of the MLP forward
+    kernel's raw against plain: ok within ATOL + RTOL and within MLP_TIGHT
+    (atol = rtol), all finite."""
+    import torch
+
+    err = (raw_k - raw_p).abs()
+    tight = float((err / (MLP_TIGHT * (1.0 + raw_p.abs()))).max())
+    ok = bool(torch.isfinite(raw_k).all()) and bool((err <= ATOL + RTOL * raw_p.abs()).all())
+    return float(err.max()), tight, ok and tight <= 1.0
+
+
 def phase_compare_mlp(device):
     """The fused MLP forward kernel against its plain version on the grid
-    update's 262,144 points and the fine level's 393,216 (both MLPs), and the
-    backward kernel at the coarse and fine levels with random dout,
-    compute_dx off and on: every dW, db and dX against autograd through the
-    plain version. Returns (max abs error of raw, max abs error and worst
-    ratio of the gradients)."""
+    update's 262,144 points and the coarse and fine levels' 131,072 and
+    393,216 (both MLPs), within ATOL + RTOL and MLP_TIGHT, and the backward
+    kernel at the coarse and fine levels with random dout, compute_dx off
+    and on: every dW, db and dX against autograd through the plain version.
+    Returns (max abs error of raw, max abs error and worst ratio of the
+    gradients)."""
     import torch
     from nerf_meets_mlx_torch.config import lego_occ
     from nerf_meets_mlx_torch.kernels import fused_mlp as fm
@@ -581,7 +636,7 @@ def phase_compare_mlp(device):
     model = make_model(lego_occ(), device)
     sets = {name: (p, d) for name, p, d in mlp_inputs(model, device)}
     worst_raw, worst_g, worst_ratio = 0.0, 0.0, 0.0
-    for name in ("grid", "fine"):
+    for name in ("grid", "coarse", "fine"):
         pts, dirs = sets[name]
         for level in ("coarse", "fine"):
             mlp = getattr(model, level)
@@ -589,16 +644,12 @@ def phase_compare_mlp(device):
                 raw_k = fm.fused_mlp_apply(mlp, model.pos_enc, model.dir_enc, pts, dirs)
                 torch.cuda.synchronize()
                 raw_p = fm.fused_mlp_reference(mlp, model.pos_enc, model.dir_enc, pts, dirs)
-            err = (raw_k - raw_p).abs()
-            ok = bool(torch.isfinite(raw_k).all()) and bool(
-                (err <= ATOL + RTOL * raw_p.abs()).all())
+            err, tight, ok = mlp_fwd_errors(raw_k, raw_p)
             log(f"[compare] fused_mlp forward {name:6s} N={pts.shape[0]} {level:6s} mlp "
-                f"max_abs={float(err.max()):.3e} max_rel="
-                f"{float((err / raw_p.abs().clamp_min(1e-6)).max()):.3e} "
-                f"{'ok' if ok else 'FAIL'}")
+                f"max_abs={err:.3e} ({tight:.3f} of MLP_TIGHT) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"fused_mlp forward disagrees with its plain version: {name}")
-            worst_raw = max(worst_raw, float(err.max()))
+            worst_raw = max(worst_raw, err)
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     for name in ("coarse", "fine"):
         pts, dirs = sets[name]
@@ -1224,9 +1275,15 @@ def phase_train_timing(ds, device):
 def phase_mlp_timing(device):
     """Each fused MLP kernel per call (CUDA events) at lego_occ's shapes
     beside its plain version and its bound: the forward on the grid
-    update's 262,144 points and on the coarse and fine points of a step; the
-    backward (which recomputes the forward) at the coarse and fine level,
-    against the plain version's forward + autograd backward."""
+    update's 262,144 points and on the coarse and fine points of a step,
+    each timed call's raw held against plain (ATOL + RTOL and MLP_TIGHT,
+    raising if it disagrees), with its kernel's device time, the device
+    events and the host ms of a call (``call_split``); the backward (which
+    recomputes the forward) at the coarse and fine level, against the plain
+    version's forward + autograd backward. The forward runs its products on
+    the tensor cores in 3xTF32, so its bound counts three TF32 operations
+    for each fp32 one over 495 TFLOP/s (its fp32 bound logged beside); the
+    backward's is the fp32 one."""
     import torch
     from nerf_meets_mlx_torch.config import lego_occ
     from nerf_meets_mlx_torch.kernels import fused_mlp as fm
@@ -1245,27 +1302,38 @@ def phase_mlp_timing(device):
 
         def kernel():
             with torch.no_grad():
-                fm.fused_mlp_apply(mlp, pe, de, pts, dirs)
+                return fm.fused_mlp_apply(mlp, pe, de, pts, dirs)
 
         def plain():
             with torch.no_grad():
-                fm.fused_mlp_reference(mlp, pe, de, pts, dirs)
+                return fm.fused_mlp_reference(mlp, pe, de, pts, dirs)
 
         k1, p_ms, k2 = cuda_time_ms(kernel, reps), cuda_time_ms(plain, reps), cuda_time_ms(kernel, reps)
+        raw_k = kernel()
+        torch.cuda.synchronize()
+        err, tight, ok = mlp_fwd_errors(raw_k, plain())
+        if not ok:
+            raise AssertionError(f"the timed fused_mlp forward disagrees with plain: {name}")
+        split = call_split(kernel, "mlp_fwd_tc_kernel", reps)
         flops = 2.0 * mlp_macs(mlp.cfg, pe.out_dim, de.out_dim) * N
         nbytes = 4 * (6 * N + 4 * N) + wbytes  # points, directions in; raw out; weights
-        t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+        t_ops, t_fp32, t_bytes = 3 * flops / TF32_FLOPS, flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
         ms = (k1 + k2) / 2
         fwd[name] = dict(points=N, ms=ms, ms_runs=[k1, k2], plain_ms=p_ms,
                          bound_ms=max(t_ops, t_bytes) * 1e3,
                          bound_by="operations" if t_ops > t_bytes else "bytes",
+                         fp32_bound_ms=max(t_fp32, t_bytes) * 1e3,
                          tf32_bound_ms=flops / TF32_FLOPS * 1e3,
-                         tf32x3_bound_ms=max(3 * flops / TF32_FLOPS, t_bytes) * 1e3,
-                         achieved_tflops_s=flops / (ms * 1e-3) / 1e12)
-        log(f"[time] fused_mlp forward {name:6s} N={N}: kernel {k1:.3f} / {k2:.3f} ms, plain "
-            f"{p_ms:.3f} ms, fp32 bound {fwd[name]['bound_ms']:.3f} ms ({fwd[name]['bound_by']}), "
-            f"TF32 bound {fwd[name]['tf32_bound_ms']:.3f} ms -> "
-            f"{fwd[name]['achieved_tflops_s']:.2f} TFLOP/s")
+                         tf32x3_bound_ms=max(t_ops, t_bytes) * 1e3,
+                         achieved_tflops_s=flops / (ms * 1e-3) / 1e12,
+                         max_abs_err=err, tight_share=tight, **split)
+        log(f"[time] fused_mlp forward {name:6s} N={N}: kernel {k1:.4f} / {k2:.4f} ms (device "
+            f"{split['device_ms']:.4f} ms, {split['device_events']:.0f} device events and "
+            f"{split['other_device_ms']:.4f} ms beside it, host {split['host_ms']:.4f} ms a call), "
+            f"plain {p_ms:.3f} ms, 3xTF32 bound {fwd[name]['bound_ms']:.3f} ms "
+            f"({fwd[name]['bound_by']}), fp32 bound {fwd[name]['fp32_bound_ms']:.3f} ms -> "
+            f"{fwd[name]['achieved_tflops_s']:.2f} TFLOP/s; timed raw within {err:.3e} of plain "
+            f"({tight:.3f} of MLP_TIGHT)")
         if name == "grid":
             continue
         dout = torch.randn((N, 4), generator=gen, device=device)
@@ -1306,7 +1374,7 @@ def phase_occ_timing(ds, device):
     """lego_occ: the host seconds of a warm train step on the fused-train
     route and on use_fused_train=False (OCC_TIMED_STEPS steps ending in one
     synchronize, the grid updated every 16 steps as the preset says), peak
-    memory, the device's busy share of 5 fused-train steps under
+    memory, the device's busy share of 5 steps of each route under
     torch.profiler, and the 400 x 400 frame time with the grid."""
     import torch
     from nerf_meets_mlx_torch.acceleration.occupancy import init_occupancy_grid
@@ -1346,12 +1414,13 @@ def phase_occ_timing(ds, device):
             f"memory {peak_gb:.2f} GB")
         out[route] = {"step_s": step_s, "rays_per_s": n_rand / step_s, "peak_gb": peak_gb,
                       "launches": launches}
-        if route == "fused_train":
-            def steps():
-                for _ in range(PROFILED_STEPS):
-                    step(state, images, poses, gen)
+        def steps():
+            for _ in range(PROFILED_STEPS):
+                step(state, images, poses, gen)
 
-            out[route]["trace"] = profile_device(steps, f"{PROFILED_STEPS} lego_occ train steps")
+        out[route]["trace"] = profile_device(steps,
+                                             f"{PROFILED_STEPS} lego_occ train steps ({route})")
+        if route == "fused_train":
             focal = 0.5 * RES / np.tan(0.5 * CAMERA_ANGLE_X)
             K = np.array([[focal, 0, RES / 2], [0, focal, RES / 2], [0, 0, 1]], np.float32)
             grid = state.occ_grid
@@ -2580,7 +2649,7 @@ FEAT_SHAPES = ((64, 16), (64, 32), (128, 32))
 # sources are built for, one build each (fused_train.width_defines): the
 # PART_A overlays' and the width-96 image model's
 KW_BUILDS = (("fused_eval", 96), ("fused_train", 96), ("fused_eval", 48), ("fused_train", 48),
-             ("fused_mlp", 48), ("fused_image", 96), ("image_train_tc", 96))
+             ("fused_mlp", 48), ("mlp_fwd_tc", 48), ("fused_image", 96), ("image_train_tc", 96))
 PART_A_STEPS = 10
 # the overlay commands that train in JAX and failed on the card before the
 # fused kernels took their shapes: (tag, preset, overlay, kernels its
@@ -2628,11 +2697,13 @@ CP_TIMED_STEPS = 25
 # register build of csrc/fused_feat.cu); the widths 48 and 96 of the
 # sinusoidal and image kernels
 TEST_FEAT_SHAPES = ((32, 16), (64, 64), (32, 24), (32, 48))
-TEST_KW_BUILDS = tuple((s, w) for s in ("fused_eval", "fused_train", "fused_mlp", "fused_image",
-                                        "image_train_tc") for w in (48, 96))
-# the INGP eval kernel with one TF32 product in place of three: the control
-# that the gpu test of its 3xTF32 products sees fail EVAL_TIGHT
-TEST_EVAL_ONE_PASS = {"INGP_EVAL_ONE_PASS": 1}
+TEST_KW_BUILDS = tuple((s, w) for s in ("fused_eval", "fused_train", "fused_mlp", "mlp_fwd_tc",
+                                        "fused_image", "image_train_tc") for w in (48, 96))
+# the INGP eval and the MLP forward kernel with one TF32 product in place of
+# three: the controls that the gpu tests of their 3xTF32 products see fail
+# EVAL_TIGHT and MLP_TIGHT
+TEST_ONE_PASS = (("ingp_eval_tc", {"INGP_EVAL_ONE_PASS": 1}),
+                 ("mlp_fwd_tc", {"MLP_FWD_ONE_PASS": 1}))
 
 
 def build_variants(tests: bool = False):
@@ -2646,13 +2717,13 @@ def build_variants(tests: bool = False):
     kw = KW_BUILDS + (TEST_KW_BUILDS if tests else ())
     # the INGP sources take every shape in one build each: the eval and the
     # train kernel on the tensor cores, and csrc/fused_ingp.cu for the rest
-    out = [(s, None) for s in ("fused_eval", "fused_train", "fused_mlp", "hash_encode",
-                               "fused_image", "image_train_tc", "cp_encode", fi.TC_SOURCE,
-                               fi.EVAL_SOURCE, fi.RT_SOURCE)]
+    out = [(s, None) for s in ("fused_eval", "fused_train", "fused_mlp", "mlp_fwd_tc",
+                               "hash_encode", "fused_image", "image_train_tc", "cp_encode",
+                               fi.TC_SOURCE, fi.EVAL_SOURCE, fi.RT_SOURCE)]
     out += [("fused_feat", ff.kernel_defines(w, p)) for w, p in feat]
     out += [(s, ft.width_defines(w)) for s, w in kw]
     if tests:
-        out.append((fi.EVAL_SOURCE, TEST_EVAL_ONE_PASS))
+        out += list(TEST_ONE_PASS)
     seen, unique = set(), []
     for name, defines in out:
         key = (name, tuple(sorted((defines or {}).items())))
@@ -2787,9 +2858,9 @@ def check_ingp_shape(cfg, device, tag):
 
 def check_sinusoidal_shape(cfg, device, tag):
     """The eval and train kernels (and, with an occupancy grid, the MLP
-    forward and backward kernels) at this config's widths against their
-    plain versions, both levels at 4096 rays; returns the worst value error
-    and gradient ratio."""
+    forward and backward kernels, the forward also within MLP_TIGHT) at this
+    config's widths against their plain versions, both levels at 4096 rays;
+    returns the worst value error and gradient ratio."""
     import torch
     from nerf_meets_mlx_torch.kernels import fused_mlp as fm
     from nerf_meets_mlx_torch.kernels import fused_train as ft
@@ -2831,6 +2902,9 @@ def check_sinusoidal_shape(cfg, device, tag):
             p = fm.fused_mlp_reference(mlp, model.pos_enc, model.dir_enc, pts, dirs)
             g_p = torch.autograd.grad((p * dout).sum(), mlp_params(mlp))
             val = max(val, check_values(f"{tag} mlp {level}", [("raw", k, p)]))
+            _, tight, ok = mlp_fwd_errors(k.detach(), p.detach())
+            if not ok:
+                raise AssertionError(f"{tag} mlp {level}: raw at {tight:.3f} of MLP_TIGHT")
             ratio = max(ratio, check_grads(f"{tag} mlp {level}", g_k, g_p, floor_rel=0.0))
         with torch.no_grad():
             times[level] = {
@@ -3331,7 +3405,7 @@ def main() -> int:
         return build_only()
     device = torch.device("cuda", 0)
     builds = phase_build()
-    wait_builds(builds, ["fused_eval", "fused_train", "fused_mlp"])
+    wait_builds(builds, ["fused_eval", "fused_train", "fused_mlp", "mlp_fwd_tc"])
     max_err = phase_compare(device)
     train_err, dw_ratio = phase_compare_train(device)
     mlp_raw_err, mlp_grad_err, mlp_grad_ratio = phase_compare_mlp(device)
@@ -3407,7 +3481,7 @@ def main() -> int:
         entry("fused_train", "nerf_meets_mlx_torch/csrc/fused_train.cu",
               "nerf_meets_mlx_tpu/kernels/fused_train.py:219", train_launches["train"],
               train_err, train_level),
-        entry("fused_mlp_fwd", "nerf_meets_mlx_torch/csrc/fused_mlp.cu",
+        entry("fused_mlp_fwd", "nerf_meets_mlx_torch/csrc/mlp_fwd_tc.cu",
               "nerf_meets_mlx_tpu/kernels/fused_mlp.py:342", occ_launches["mlp_fwd"],
               mlp_raw_err, {"grid": mlp_fwd_t["grid"]}),
         entry("fused_mlp_bwd", "nerf_meets_mlx_torch/csrc/fused_mlp.cu",

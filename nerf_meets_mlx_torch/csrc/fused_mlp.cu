@@ -1,46 +1,44 @@
-// Fused point-major sinusoidal encode + NeRF MLP for Hopper (sm_90a):
-// forward and backward.
+// Fused point-major sinusoidal encode + NeRF MLP for Hopper (sm_90a): the
+// backward.
 //
-// Replaces nerf_meets_mlx_tpu/kernels/fused_mlp.py::_fwd_kernel and
-// ::_bwd_kernel (the Pallas kernels of fused_apply and its custom VJP). The
-// op takes points [N,3] and view directions [N,3], one of each per point,
-// and computes the raw network output [N,4] (rgb, sigma):
+// Replaces nerf_meets_mlx_tpu/kernels/fused_mlp.py::_bwd_kernel (the
+// Pallas kernel of fused_apply's custom VJP; the forward, ::_fwd_kernel, is
+// csrc/mlp_fwd_tc.cu). The op takes points [N,3] and view directions
+// [N,3], one of each per point, whose raw network output [N,4] (rgb,
+// sigma) is
 //
 //   sinusoidal encode of the point and the direction
-//   ->  D x W MLP with the skip and the view-direction head.
+//   ->  D x W MLP with the skip and the view-direction head,
 //
-// The backward takes dout [N,4] and writes d(dout . raw)/d(every weight and
-// bias) into one flat buffer laid out like the forward weights ([fan_in]
-// [fan_out] pieces, see fused_mlp.pack_mlp_weights) and, when asked
-// (compute_dx), dX [N,6] = d/d(point, direction).
+// and dout [N,4], and writes d(dout . raw)/d(every weight and bias) into
+// one flat buffer laid out like the forward weights ([fan_in][fan_out]
+// pieces, see fused_mlp.pack_mlp_weights) and, when asked (compute_dx),
+// dX [N,6] = d/d(point, direction).
 //
 // What bounds it: arithmetic. At lego width (D=8, W=256, skip after layer
-// 4, 10/4 bands with the raw input) a point costs 593,408 MACs forward
-// (1.19 MFLOP) and, in the backward, the forward again, dW (as many MACs)
-// and the cotangents of the hidden layers (~3.49 MFLOP a point in all),
-// against 24 bytes of input and 16 of output a point: the fp32 CUDA-core
-// bound is 4.6 ms for the 262,144 points of a 64^3 occupancy-grid update,
-// the bytes take ~3 us.
+// 4, 10/4 bands with the raw input) a point costs the forward again
+// (593,408 MACs, 1.19 MFLOP), dW (as many MACs) and the cotangents of the
+// hidden layers (~3.49 MFLOP a point in all), against 40 bytes of input
+// and 24 of output a point.
 //
-// Design, as csrc/fused_eval.cu and csrc/fused_train.cu (the GEMM code is a
-// copy of theirs, kept apart so that their timings stay the baselines):
+// Design, as csrc/fused_train.cu's first port (the GEMM code is a copy,
+// kept apart so that its timings stay the baselines):
 //
-// * mlp_fwd_kernel: a block owns `block_pts` points and walks them in tiles
-//   of TILE = 64. The encoding is computed in registers and stored
-//   transposed ([feature][point]) in shared memory; each layer is a
-//   register-tiled fp32 GEMM over [W][TILE] ping-pong tiles with the weights
-//   staged in 16-row slices. Nothing but raw leaves the chip. A ragged last
-//   tile is computed on zero inputs and masked on the way out.
-// * mlp_bwd_kernel: per tile, the forward again (the Pallas backward
-//   recomputes too; no activation is kept between the two calls), storing
-//   every layer's input in a device-memory workspace (a point's
-//   activations, ~2,500 floats at W=256, do not fit a block's shared
-//   memory), then the tile's backward from dout: the rgb and alpha heads'
-//   cotangents, W^T GEMMs with the relu masks read back, each layer's
-//   pre-activation cotangent dZ stored point-major. With compute_dx the
-//   encoding cotangents dS are summed in shared memory (layer 0, the skip
-//   layers, the view layer) and dX = (cos(T) dS) . bands is written per
-//   point.
+// * mlp_bwd_kernel: a block owns `block_pts` points and walks them in tiles
+//   of TILE = 64. Per tile, the forward again (the Pallas backward
+//   recomputes too; no activation is kept between the two calls): the
+//   encoding is computed in registers and stored transposed ([feature]
+//   [point]) in shared memory, each layer is a register-tiled fp32 GEMM
+//   over [W][TILE] ping-pong tiles with the weights staged in 16-row
+//   slices, and every layer's input goes to a device-memory workspace (a
+//   point's activations, ~2,500 floats at W=256, do not fit a block's
+//   shared memory); then the tile's backward from dout: the rgb and alpha
+//   heads' cotangents, W^T GEMMs with the relu masks read back, each
+//   layer's pre-activation cotangent dZ stored point-major. With
+//   compute_dx the encoding cotangents dS are summed in shared memory
+//   (layer 0, the skip layers, the view layer) and dX = (cos(T) dS) .
+//   bands is written per point. A ragged last tile is computed on zero
+//   inputs and masked on the way out.
 // * dw_gemm_kernel: dW_l = X_l^T dZ_l and db_l = colsum(dZ_l) for every
 //   layer as one split-K GEMM over the points (128 x 128 tiles), and
 //   reduce_kernel sums the splits in a fixed order: deterministic, no
@@ -73,10 +71,9 @@ __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / 
 struct Args {
   const float* pts;       // [N, 3]
   const float* dirs;      // [N, 3]
-  const float* dout;      // [N, 4] (backward)
+  const float* dout;      // [N, 4]
   const float* wbuf;      // weights, biases, bands, transposed copies
-  float* raw;             // [N, 4] (forward)
-  float* dx;              // [N, 6] (backward with compute_dx)
+  float* dx;              // [N, 6] (with compute_dx)
   // point-major stores of the backward, N rows each
   float* encP;            // [N][pos_pad] encoded position
   float* encD;            // [N][dir_pad] encoded view direction
@@ -315,10 +312,10 @@ __device__ __forceinline__ Smem carve(float* smem, int pos_pad, int dir_pad) {
   return s;
 }
 
-// The forward of one tile (points g0 .. g0 + nv - 1). STORE: write every
-// layer's input point-major to the workspace (backward) and skip the two
-// heads; otherwise write raw [nv, 4].
-template <int W, bool STORE>
+// The forward of one tile (points g0 .. g0 + nv - 1), writing every
+// layer's input point-major to the workspace; the two heads are left out
+// (their inputs are stored, their outputs not needed).
+template <int W>
 __device__ __forceinline__ void forward_tile(const Args& A, const Smem& s, size_t g0, int nv) {
   constexpr int WH = W / 2;
   const int tid = threadIdx.x;
@@ -342,12 +339,12 @@ __device__ __forceinline__ void forward_tile(const Args& A, const Smem& s, size_
     for (int f = part; f < pos_pad; f += NTHREADS / TILE) {
       const float e = encode_feature(f, A.pos_freqs, A.pos_inc, pos_bands, x0, x1, x2);
       s.encP[f * LD + p] = e;
-      if (STORE && p < nv) A.encP[(g0 + p) * pos_pad + f] = e;
+      if (p < nv) A.encP[(g0 + p) * pos_pad + f] = e;
     }
     for (int f = part; f < dir_pad; f += NTHREADS / TILE) {
       const float e = encode_feature(f, A.dir_freqs, A.dir_inc, dir_bands, v0, v1, v2);
       s.encD[f * LD + p] = e;
-      if (STORE && p < nv) A.encD[(g0 + p) * dir_pad + f] = e;
+      if (p < nv) A.encD[(g0 + p) * dir_pad + f] = e;
     }
   }
   __syncthreads();
@@ -355,51 +352,23 @@ __device__ __forceinline__ void forward_tile(const Args& A, const Smem& s, size_
   float* h = s.bufA;
   float* g = s.bufB;
   dense<W>(s.encP, pos_dim, nullptr, 0, wb + A.offs[0], wb + A.offs[1], h, W, EPI_RELU,
-                nullptr, STORE ? A.hs + g0 * W : nullptr, nv, s.wtile);
+                nullptr, A.hs + g0 * W, nv, s.wtile);
   for (int j = 1; j < D; ++j) {
     const float* Wj = wb + A.offs[2 * j];
     const float* bj = wb + A.offs[2 * j + 1];
-    float* gout = STORE ? A.hs + (size_t)j * N * W + g0 * W : nullptr;
+    float* gout = A.hs + (size_t)j * N * W + g0 * W;
     if ((A.skip_mask >> j) & 1u)
       dense<W>(s.encP, pos_dim, h, W, Wj, bj, g, W, EPI_RELU, nullptr, gout, nv, s.wtile);
     else
       dense<W>(h, W, nullptr, 0, Wj, bj, g, W, EPI_RELU, nullptr, gout, nv, s.wtile);
     float* tmp = h; h = g; g = tmp;
   }
-  if (!STORE && tid < TILE) {  // alpha head (W -> 1) from the last hidden layer
-    const float* wa = wb + A.offs[2 * D];
-    float a = __ldg(wb + A.offs[2 * D + 1]);
-    for (int k = 0; k < W; ++k) a = fmaf(h[k * LD + tid], __ldg(wa + k), a);
-    if (tid < nv) A.raw[(g0 + tid) * 4 + 3] = a;
-  }
   // feature (W -> W, no activation), then the view layer on
   // [feature, encoded direction] (W + dir_dim -> W/2, relu)
   dense<W>(h, W, nullptr, 0, wb + A.offs[2 * D + 2], wb + A.offs[2 * D + 3], g, W, EPI_NONE,
-                nullptr, STORE ? A.feat + g0 * W : nullptr, nv, s.wtile);
+                nullptr, A.feat + g0 * W, nv, s.wtile);
   dense<W / 2>(g, W, s.encD, dir_dim, wb + A.offs[2 * D + 4], wb + A.offs[2 * D + 5], h, WH,
-                 EPI_RELU, nullptr, STORE ? A.hd + g0 * WH : nullptr, nv, s.wtile);
-  if (!STORE) {  // rgb head (W/2 -> 3)
-    if (tid < 3 * TILE) {
-      const int p = tid % TILE, c = tid / TILE;
-      const float* wr = wb + A.offs[2 * D + 6];
-      float v = __ldg(wb + A.offs[2 * D + 7] + c);
-      for (int k = 0; k < WH; ++k) v = fmaf(h[k * LD + p], __ldg(wr + k * 3 + c), v);
-      if (p < nv) A.raw[(g0 + p) * 4 + c] = v;
-    }
-    __syncthreads();
-  }
-}
-
-template <int W>
-__global__ void __launch_bounds__(NTHREADS, 1) mlp_fwd_kernel(const __grid_constant__ Args A) {
-  extern __shared__ __align__(16) float smem[];
-  const int pos_pad = round_up(6 * A.pos_freqs + 3 * A.pos_inc, KB);
-  const int dir_pad = round_up(6 * A.dir_freqs + 3 * A.dir_inc, KB);
-  const Smem s = carve<W>(smem, pos_pad, dir_pad);
-  const long long b0 = (long long)blockIdx.x * A.block_pts;
-  const int npts = (int)min((long long)A.block_pts, A.N - b0);
-  for (int t0 = 0; t0 < npts; t0 += TILE)
-    forward_tile<W, false>(A, s, (size_t)(b0 + t0), min(TILE, npts - t0));
+                 EPI_RELU, nullptr, A.hd + g0 * WH, nv, s.wtile);
 }
 
 template <int W>
@@ -426,7 +395,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) mlp_bwd_kernel(const __grid_const
   for (int t0 = 0; t0 < npts; t0 += TILE) {
     const int nv = min(TILE, npts - t0);
     const size_t g0 = (size_t)(b0 + t0);
-    forward_tile<W, true>(A, s, g0, nv);
+    forward_tile<W>(A, s, g0, nv);
 
     // rgb head: d(hd) = (dout[:, :3] @ Wr^T) * (hd > 0) -> bufA rows [0, W/2)
     // (rows up to W/2 rounded up to KB: the next layers read whole slices)
@@ -735,7 +704,7 @@ Args make_args(const float* pts, const float* dirs, const float* wbuf, const int
 
 }  // namespace
 
-// Shared-memory bytes one block of either kernel needs (0 if the width is
+// Shared-memory bytes one block of mlp_bwd_kernel needs (0 if the width is
 // not supported); lets the wrapper check a shape before launching.
 extern "C" long long fused_mlp_smem_bytes(int width, int pos_dim, int dir_dim) {
   if (!width_ok(width)) return 0;
@@ -747,32 +716,6 @@ extern "C" long long fused_mlp_workspace_floats(long long N, int depth, int widt
                                                 int dir_dim, int pts_per_split, int n_dw) {
   if (N <= 0 || pts_per_split <= 0) return 0;
   return (long long)layout(N, depth, width, pos_dim, dir_dim, pts_per_split, n_dw).total;
-}
-
-// Forward: raw [N, 4]. offs: the 2*depth + 10 float offsets of the forward
-// weights (host array). Returns the cudaError_t of the launch.
-extern "C" int fused_mlp_fwd_launch(const float* pts, const float* dirs, const float* wbuf,
-                                    const int* offs, int n_offs, float* raw, long long N,
-                                    int block_pts, int depth, int width, unsigned skip_mask,
-                                    int pos_freqs, int pos_inc, int dir_freqs, int dir_inc,
-                                    void* stream) {
-  if (N == 0) return 0;
-  if (!valid_common(N, block_pts, depth, width, n_offs) || n_offs != 2 * depth + 10)
-    return (int)cudaErrorInvalidValue;
-  const int pos_dim = 6 * pos_freqs + 3 * pos_inc, dir_dim = 6 * dir_freqs + 3 * dir_inc;
-  const size_t smem = smem_bytes(width, pos_dim, dir_dim);
-  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  Args a = make_args(pts, dirs, wbuf, offs, n_offs, N, block_pts, depth, skip_mask, pos_freqs,
-                     pos_inc, dir_freqs, dir_inc);
-  a.raw = raw;
-  void (*kernel)(Args) = PICK_WIDTH(mlp_fwd_kernel, width);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)((N + block_pts - 1) / block_pts);
-  kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
 }
 
 // Backward: dw (n_dw floats, the forward weights' layout) and, when dx is

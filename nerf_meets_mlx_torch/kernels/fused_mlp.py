@@ -2,19 +2,24 @@
 directions, with its gradient.
 
 Counterpart of ``nerf_meets_mlx_tpu/kernels/fused_mlp.py``. The kernels are
-``csrc/fused_mlp.cu``: ``mlp_fwd_kernel`` (the Pallas ``_fwd_kernel``) and
-``mlp_bwd_kernel`` with its split-K dW GEMM (the Pallas ``_bwd_kernel``).
-This module holds their wrapper and their plain PyTorch version.
+``csrc/mlp_fwd_tc.cu``'s ``mlp_fwd_tc_kernel`` (the Pallas ``_fwd_kernel``,
+on ``wgmma`` in 3xTF32) and ``csrc/fused_mlp.cu``'s ``mlp_bwd_kernel`` with
+its split-K dW GEMM (the Pallas ``_bwd_kernel``). This module holds their
+wrapper and their plain PyTorch version.
 
 * ``fused_mlp_apply`` runs ``fused_mlp_reference`` for CPU tensors; for CUDA
   tensors it goes through ``_FusedMLP``, a ``torch.autograd.Function`` whose
   forward launches the forward kernel and whose backward launches the
   backward kernel, or it raises. There is no other fallback.
-* The weights are taken as the ``nn.Linear`` modules hold them; the JAX
-  package's packed 128-lane tile and its [N, 8] padded input and output are
-  a TPU layout and are not carried over.
+* The forward takes the weights as the sinusoidal eval kernel does: the
+  biases, heads and bands in ``fused_train.pack_eval_weights``' buffer and
+  the dense layers' TF32 hi / lo images from ``fused_train.pack_eval_wgmma``,
+  both packed on the device once per call; the backward reads
+  ``pack_train_weights``' layout. The JAX package's packed 128-lane tile and
+  its [N, 8] padded input and output are a TPU layout and are not carried
+  over.
 * The forward saves only its inputs; the backward kernel recomputes the
-  forward, as the Pallas backward does.
+  forward in fp32, as the Pallas backward recomputes.
 * ``LAUNCHES["mlp_fwd"]`` / ``LAUNCHES["mlp_bwd"]`` (the dict shared with
   ``fused_train``) count kernel launches, one per CUDA call.
 """
@@ -33,12 +38,17 @@ from nerf_meets_mlx_torch.kernels.fused_train import (
     _forward_pieces,
     _pack_flat,
     _train_pieces,
+    pack_eval_wgmma,
+    width_defines,
 )
 
-# Points per CUDA block: 8 tiles of 64. The 262,144 points of a 64^3 grid
-# update make 512 blocks, the fine level's 393,216 make 768 (one block of
-# ~182 KB shared memory per SM, 132 SMs).
+# Points per CUDA block of the backward: 8 tiles of 64. The fine level's
+# 393,216 points make 768 blocks (one block of ~182 KB shared memory per
+# SM, 132 SMs).
 MLP_BLOCK_POINTS = 512
+# the forward kernel's source (csrc/mlp_fwd_tc.cu): one persistent block an
+# SM walks tiles of 128 points
+FWD_SOURCE = "mlp_fwd_tc"
 
 
 # ---------------------------------------------------------------------------
@@ -90,17 +100,12 @@ def pack_mlp_weights(mlp, pos_enc, dir_enc, backward: bool = False,
     return _pack_flat(pieces)
 
 
-def _mlp_lib(width: int):
+def _bwd_lib(width: int):
     from nerf_meets_mlx_torch.kernels import _build
-    from nerf_meets_mlx_torch.kernels.fused_train import width_defines
 
     lib = _build.load_library("fused_mlp", width_defines(width))
     if not getattr(lib, "_typed", False):
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.fused_mlp_fwd_launch.argtypes = (
-            [vp] * 4 + [ci, vp, cll] + [ci] * 3 + [ctypes.c_uint] + [ci] * 4 + [vp]
-        )
-        lib.fused_mlp_fwd_launch.restype = ci
         lib.fused_mlp_bwd_launch.argtypes = (
             [vp] * 5 + [ci] + [vp] * 3 + [cll] + [ci] * 3 + [ctypes.c_uint] + [ci] * 6 + [vp]
         )
@@ -111,6 +116,28 @@ def _mlp_lib(width: int):
         lib.fused_mlp_workspace_floats.restype = cll
         lib._typed = True
     return lib
+
+
+def type_fwd_lib(lib):
+    """``lib``, a build of csrc/mlp_fwd_tc.cu, with its C functions typed."""
+    if not getattr(lib, "_typed", False):
+        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.mlp_fwd_tc_launch.argtypes = (
+            [vp] * 5 + [ci, vp, cll] + [ci] * 3 + [ctypes.c_uint] + [ci] * 4 + [vp]
+        )
+        lib.mlp_fwd_tc_launch.restype = ci
+        lib.mlp_fwd_tc_smem_bytes.argtypes = [ci]
+        lib.mlp_fwd_tc_smem_bytes.restype = cll
+        lib.mlp_fwd_tc_image_floats.argtypes = [ci, ci, ctypes.c_uint, ci, ci]
+        lib.mlp_fwd_tc_image_floats.restype = cll
+        lib._typed = True
+    return lib
+
+
+def _fwd_lib(width: int):
+    from nerf_meets_mlx_torch.kernels import _build
+
+    return type_fwd_lib(_build.load_library(FWD_SOURCE, width_defines(width)))
 
 
 def _common(mlp, pos_enc, dir_enc):
@@ -124,24 +151,32 @@ def _common(mlp, pos_enc, dir_enc):
 def _check_smem(lib, mlp, pos_enc, dir_enc):
     smem = lib.fused_mlp_smem_bytes(mlp.cfg.net_width, pos_enc.out_dim, dir_enc.out_dim)
     if not 0 < smem <= 232448:
-        raise ValueError(f"the fused MLP kernels need {smem} bytes of shared memory per block")
+        raise ValueError(f"the fused MLP backward needs {smem} bytes of shared memory per block")
 
 
-def _fwd_launch(mlp, pos_enc, dir_enc, pts, dirs) -> torch.Tensor:
-    """One call of ``mlp_fwd_kernel``: raw [N, 4]."""
+def _fwd_launch(mlp, pos_enc, dir_enc, pts, dirs, lib=None) -> torch.Tensor:
+    """One call of ``mlp_fwd_tc_kernel`` (``lib``: a build of
+    csrc/mlp_fwd_tc.cu, by default the one of the MLP's width): raw [N, 4]."""
     dev = pts.device
     N = pts.shape[0]
     raw = torch.empty((N, 4), dtype=torch.float32, device=dev)
-    lib = _mlp_lib(mlp.cfg.net_width)
-    _check_smem(lib, mlp, pos_enc, dir_enc)
-    wbuf, offs = pack_mlp_weights(mlp, pos_enc, dir_enc)
-    c_offs = (ctypes.c_int * len(offs))(*offs)
     D, W, skip_mask, pf, pi, df, di = _common(mlp, pos_enc, dir_enc)
+    lib = lib or _fwd_lib(W)
+    smem = lib.mlp_fwd_tc_smem_bytes(W)
+    if not 0 < smem <= 232448:
+        raise ValueError(f"the fused MLP forward needs {smem} bytes of shared memory per block")
+    wbuf, offs = pack_mlp_weights(mlp, pos_enc, dir_enc)
+    wimg = pack_eval_wgmma(mlp, pos_enc, dir_enc)
+    want = lib.mlp_fwd_tc_image_floats(D, W, skip_mask, pos_enc.out_dim, dir_enc.out_dim)
+    if wimg.numel() != want:
+        raise RuntimeError(f"pack_eval_wgmma wrote {wimg.numel()} floats, the kernel reads {want}")
+    c_offs = (ctypes.c_int * len(offs))(*offs)
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_mlp_fwd_launch(
-            pts.data_ptr(), dirs.data_ptr(), wbuf.data_ptr(), c_offs, len(offs), raw.data_ptr(),
-            N, MLP_BLOCK_POINTS, D, W, skip_mask, pf, pi, df, di, stream,
+        err = lib.mlp_fwd_tc_launch(
+            pts.data_ptr(), dirs.data_ptr(), wimg.data_ptr(), wbuf.data_ptr(), c_offs, len(offs),
+            raw.data_ptr(), N, blocks, D, W, skip_mask, pf, pi, df, di, stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_mlp forward launch failed with cudaError {err}")
@@ -155,7 +190,7 @@ def _bwd_launch(mlp, pos_enc, dir_enc, pts, dirs, dout, compute_dx: bool):
     and dx [N, 6] (None without compute_dx)."""
     dev = pts.device
     N = pts.shape[0]
-    lib = _mlp_lib(mlp.cfg.net_width)
+    lib = _bwd_lib(mlp.cfg.net_width)
     _check_smem(lib, mlp, pos_enc, dir_enc)
     wbuf, offs = pack_mlp_weights(mlp, pos_enc, dir_enc, backward=True, compute_dx=compute_dx)
     D, W, skip_mask, pf, pi, df, di = _common(mlp, pos_enc, dir_enc)
@@ -220,7 +255,8 @@ def fused_mlp_apply(mlp, pos_enc, dir_enc, pts: torch.Tensor, dirs: torch.Tensor
     MLP's parameters and, with compute_dx, to the points and directions
     (the model path passes data there and leaves it off, as the JAX model
     does). CPU tensors run the plain version; CUDA tensors launch
-    ``csrc/fused_mlp.cu`` through ``_FusedMLP`` or raise."""
+    ``csrc/mlp_fwd_tc.cu`` (and, under autograd, ``csrc/fused_mlp.cu``'s
+    backward) through ``_FusedMLP`` or raise."""
     dev = pts.device
     if not compute_dx:
         pts, dirs = pts.detach(), dirs.detach()
@@ -228,7 +264,8 @@ def fused_mlp_apply(mlp, pos_enc, dir_enc, pts: torch.Tensor, dirs: torch.Tensor
         return fused_mlp_reference(mlp, pos_enc, dir_enc, pts, dirs)
     if dev.type != "cuda":
         raise ValueError(f"fused_mlp_apply runs on cuda or cpu tensors, not {dev}")
-    # offsets passed by value: 3·depth + 11 + the dX pieces ≤ 80
+    # offsets passed by value: 2·depth + 10 ≤ 44 forward, 3·depth + 11 + the
+    # dX pieces ≤ 80 backward
     _check_kernel_config(mlp, pos_enc, dir_enc, kernel="MLP", max_depth=17)
     if mlp.cfg.net_depth < 2:
         raise ValueError("the fused MLP kernels need at least two trunk layers")

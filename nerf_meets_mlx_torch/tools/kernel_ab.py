@@ -10,22 +10,28 @@ started together), then times with CUDA events, at the main paths' shapes:
 the INGP eval and train kernels (lego_ingp, 4096 rays / 32,768-ray chunks, 48
 and 96 samples), the hash forward and dG (lego_ingp's 196,608 / 393,216
 points), the sinusoidal eval and train kernels (lego_hierarchical, 8 x 256),
-the MLP forward and backward (lego_occ's fine points), the feat train kernel
-(the paper tables' 32 channels) and the image kernels (image2d); and a
-400 x 400 frame of lego_ingp and of lego_hierarchical; the INGP, feat and
-image train calls' device time (every kernel they launch, from
-torch.profiler: the host-bound calls read their kernels here, not in their
-event time), and the INGP eval call's at both levels of its 32,768-ray
-chunk; the image train call's host time (the host clock around the
-call, a synchronize before each); the paper tables' warm train step (the
-feats route, 32 steps, as chip_smoke.py times it) and the warm image step
-(50 steps of 4096 pixels, as chip_smoke.py's phase_image_timing). It prints
-one JSON line per turn and each measurement's four times; then ptxas's
-registers and spills of every kernel of ``csrc/fused_train.cu``,
+the MLP forward at lego_occ's three shapes (the grid update's 262,144 cell
+points, a step's 4096 x 32 and 4096 x 96 points; also its device time and
+the call's host time) and forward + backward at the fine one, the feat
+train kernel (the paper tables' 32 channels) and the image kernels
+(image2d); and a 400 x 400 frame of lego_ingp and of lego_hierarchical;
+the INGP, feat and image train calls' device time (every kernel they
+launch, from torch.profiler: the host-bound calls read their kernels here,
+not in their event time), and the INGP eval call's at both levels of its
+32,768-ray chunk; the image train call's host time (the host clock around
+the call, a synchronize before each); the paper tables' warm train step
+(the feats route, 32 steps, as chip_smoke.py times it), the warm image step
+(50 steps of 4096 pixels, as chip_smoke.py's phase_image_timing), and
+lego_occ's warm step on the fused-train and the value_and_grad route (32
+steps, two grid updates inside, as phase_occ_timing) and its frame with the
+grid. It prints one JSON line per turn and each measurement's four times;
+then ptxas's registers and spills of every kernel of
+``csrc/fused_train.cu``, ``csrc/fused_mlp.cu``, ``csrc/mlp_fwd_tc.cu``,
 ``csrc/fused_image.cu``, ``csrc/image_train_tc.cu``,
 ``csrc/ingp_eval_tc.cu`` and ``csrc/fused_ingp.cu``'s runtime-shape build
 in each checkout that has the source, and, where both checkouts have
-``csrc/ingp_train_tc.cu``, each kernel of it in both: ptxas's report and
+``csrc/ingp_train_tc.cu``, each kernel of it in both (and of
+``csrc/fused_mlp.cu`` the backward's three kernels): ptxas's report and
 its SASS instruction by instruction (the kernel parameters' constant-bank
 offsets masked), as lines starting with ``[ptxas]`` and ``[sass]``.
 """
@@ -113,6 +119,65 @@ def _paper_step_ms(n=32):
     return (time.perf_counter() - t0) / n * 1e3
 
 
+def _occ_ms(n=32):
+    """lego_occ on the 400 x 400 procedural scene: host ms a warm train step
+    on the fused-train route and on ``use_fused_train=False`` (the
+    value_and_grad route: the MLP forward and backward kernels), over ``n``
+    steps ending in one synchronize with the grid updated every 16 steps
+    (the preset's cadence), and the lesser of two 400 x 400 frames with the
+    grid of the fused-train run."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from nerf_meets_mlx_torch.acceleration.occupancy import init_occupancy_grid
+    from nerf_meets_mlx_torch.cameras.pose import orbit_poses
+    from nerf_meets_mlx_torch.config import lego_occ
+    from nerf_meets_mlx_torch.datasets.synthetic import CAMERA_ANGLE_X, make_synthetic_scene
+    from nerf_meets_mlx_torch.engine import TrainState, make_nerf_train_step
+    from nerf_meets_mlx_torch.models import create_nerf
+    from nerf_meets_mlx_torch.rendering import render_image
+
+    dev = torch.device("cuda", 0)
+    ds = make_synthetic_scene(2, 1, 1, 400, device=dev)
+    images = torch.as_tensor(ds.images[ds.i_train], device=dev)
+    poses = torch.as_tensor(ds.poses[ds.i_train, :3, :4], device=dev)
+    base = lego_occ().replace(use_fused_kernel=True)
+    out = {}
+    for route, cfg in (("fused_train", base), ("value_and_grad", base.replace(use_fused_train=False))):
+        model = create_nerf(cfg, device=dev)
+        model.init(torch.Generator(device=dev).manual_seed(0))
+        state = TrainState(model, cfg.train,
+                           occ_grid=init_occupancy_grid(cfg.render.occ_resolution, device=dev))
+        step = make_nerf_train_step(model, ds.H, ds.W, ds.focal)
+        gen = torch.Generator(device=dev).manual_seed(27)
+        for _ in range(3):
+            step(state, images, poses, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(state, images, poses, gen)
+        torch.cuda.synchronize()
+        out[f"lego_occ_step_{route}"] = (time.perf_counter() - t0) / n * 1e3
+        if route == "fused_train":
+            focal = 0.5 * 400 / np.tan(0.5 * CAMERA_ANGLE_X)
+            K = np.array([[focal, 0, 200], [0, focal, 200], [0, 0, 1]], np.float32)
+            times = []
+            with torch.no_grad():
+                for _ in range(2):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    render_image(model, 400, 400, K, orbit_poses(160)[0][:3, :4],
+                                 occ_grid=state.occ_grid)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+            out["lego_occ_frame"] = min(times)
+        del model, state
+        torch.cuda.empty_cache()
+    return out
+
+
 def _host_ms(fn, n=20):
     """Median host ms of a call of ``fn``, a synchronize before each."""
     import time
@@ -168,8 +233,8 @@ def _build_all():
 
     from nerf_meets_mlx_torch.kernels import _build
 
-    jobs = [(n, None) for n in ("fused_eval", "fused_train", "fused_mlp", "hash_encode",
-                                "fused_image", "image_train_tc")
+    jobs = [(n, None) for n in ("fused_eval", "fused_train", "fused_mlp", "mlp_fwd_tc",
+                                "hash_encode", "fused_image", "image_train_tc")
             if (_build.CSRC / f"{n}.cu").exists()]
     if hasattr(_build, "variant_name"):
         import inspect
@@ -203,9 +268,10 @@ def worker():
     import numpy as np
     import torch
 
+    from nerf_meets_mlx_torch.acceleration.occupancy import _cell_points
     from nerf_meets_mlx_torch.cameras.pose import orbit_poses
     from nerf_meets_mlx_torch.cameras.rays import get_rays
-    from nerf_meets_mlx_torch.config import image2d, lego_hierarchical, lego_ingp
+    from nerf_meets_mlx_torch.config import image2d, lego_hierarchical, lego_ingp, lego_occ
     from nerf_meets_mlx_torch.datasets.synthetic import CAMERA_ANGLE_X
     from nerf_meets_mlx_torch.kernels import fused_feat_train as ff
     from nerf_meets_mlx_torch.kernels import fused_image as fim
@@ -276,7 +342,7 @@ def worker():
         out["lego_ingp_frame"] = _ms(lambda: render_image(m, res, res, K, orbit_poses(160)[0][:3, :4]),
                                      n=5)
 
-    # sinusoidal kernels at lego_hierarchical, the MLP kernels at lego_occ's fine points
+    # sinusoidal kernels at lego_hierarchical
     m = create_nerf(lego_hierarchical().replace(use_fused_kernel=True), device=dev)
     m.init(torch.Generator(device=dev).manual_seed(0))
     for name, S in (("coarse", 64), ("fine", 192)):
@@ -297,12 +363,26 @@ def worker():
     with torch.no_grad():
         out["lego_hierarchical_frame"] = _ms(
             lambda: render_image(m, res, res, K, orbit_poses(160)[0][:3, :4]), n=2)
-    z, _, _ = level(4096, 96)
-    pts = (ro[:4096, None] + z[..., None] * rd[:4096, None]).reshape(-1, 3)
-    dirs = vd[:4096, None].expand(-1, 96, -1).reshape(-1, 3)
-    with torch.no_grad():
-        out["mlp_fwd_fine"] = _ms(lambda: fm.fused_mlp_apply(m.fine, m.pos_enc, m.dir_enc, pts,
-                                                             dirs), n=5)
+    # the MLP kernels at lego_occ's shapes: the grid update's cell points
+    # (zero directions) and a step's coarse and fine points
+    m = create_nerf(lego_occ().replace(use_fused_kernel=True), device=dev)
+    m.init(torch.Generator(device=dev).manual_seed(0))
+    rc = m.cfg.render
+    cells = _cell_points(rc.occ_resolution, torch.tensor(rc.aabb[:3], device=dev),
+                         torch.tensor(rc.aabb[3:], device=dev), generator=g)
+    sets = [("grid", m.fine, cells, torch.zeros_like(cells))]
+    for name, S, mlp in (("coarse", 32, m.coarse), ("fine", 96, m.fine)):
+        z, _, _ = level(4096, S)
+        pts = (ro[:4096, None] + z[..., None] * rd[:4096, None]).reshape(-1, 3)
+        sets.append((name, mlp, pts, vd[:4096, None].expand(-1, S, -1).reshape(-1, 3).contiguous()))
+    for name, mlp, pts, dirs in sets:
+        def mlp_fwd(mlp=mlp, pts=pts, dirs=dirs):
+            with torch.no_grad():
+                return fm.fused_mlp_apply(mlp, m.pos_enc, m.dir_enc, pts, dirs)
+
+        out[f"mlp_fwd_{name}"] = _ms(mlp_fwd, n=10)
+        out[f"mlp_fwd_device_{name}"] = _device_ms(mlp_fwd)
+        out[f"mlp_fwd_host_{name}"] = _host_ms(mlp_fwd)
     dout = torch.randn((pts.shape[0], 4), generator=g, device=dev)
     out["mlp_fwd_bwd_fine"] = _ms(lambda: (fm.fused_mlp_apply(
         m.fine, m.pos_enc, m.dir_enc, pts, dirs) * dout).sum().backward(), n=5)
@@ -337,6 +417,7 @@ def worker():
         out["image_fwd"] = _ms(lambda: fim.fused_image_apply(m.coarse, m.pos_enc, grid))
     out["paper_step"] = _paper_step_ms()
     out["image_step"] = _image_step_ms()
+    out.update(_occ_ms())
     print(json.dumps(out), flush=True)
 
 
@@ -366,14 +447,15 @@ def _cubin(root: Path, tag: str, source: str, defines=()):
 
 
 def _ptxas_reports(base: Path, head: Path) -> None:
-    """[ptxas] of the sinusoidal train, the image and the INGP eval sources
-    in both checkouts (each that has the source; csrc/fused_ingp.cu as its
-    runtime-shape build, with ``-DINGP_W=0 -DINGP_PP=0`` where the source
-    still has the register builds), all compiled together."""
+    """[ptxas] of the sinusoidal train, the MLP, the image and the INGP eval
+    sources in both checkouts (each that has the source; csrc/fused_ingp.cu
+    as its runtime-shape build, with ``-DINGP_W=0 -DINGP_PP=0`` where the
+    source still has the register builds), all compiled together."""
     from concurrent.futures import ThreadPoolExecutor
 
     jobs = []
-    for source in ("fused_train", "fused_image", "image_train_tc", "ingp_eval_tc", "fused_ingp"):
+    for source in ("fused_train", "fused_mlp", "mlp_fwd_tc", "fused_image", "image_train_tc",
+                   "ingp_eval_tc", "fused_ingp"):
         for tag, root in (("base", base), ("head", head)):
             cu = root / "nerf_meets_mlx_torch" / "csrc" / f"{source}.cu"
             if cu.exists():
@@ -384,31 +466,41 @@ def _ptxas_reports(base: Path, head: Path) -> None:
             f.result()
 
 
-def _tile_kernels(root: Path, tag: str):
+# the kernels whose SASS the two checkouts compare, by source
+SASS_KERNELS = {
+    "ingp_train_tc": r"(ingp_tc_kernel|feat_tc_kernel|ingp_tc_reduce_kernel)(ILi\d+)?",
+    "fused_mlp": r"(mlp_bwd_kernel|dw_gemm_kernel|reduce_kernel)(ILi\d+)?",
+}
+
+
+def _tile_kernels(root: Path, tag: str, source: str):
     """ptxas's report and the SASS of each kernel of ``root``'s
-    csrc/ingp_train_tc.cu: {kernel: [instructions, constant-bank offsets
-    masked]}."""
+    csrc/<source>.cu that ``SASS_KERNELS`` names: {kernel: [instructions,
+    constant-bank offsets masked]}."""
     from nerf_meets_mlx_torch.kernels import _build
 
-    names = r"(ingp_tc_kernel|feat_tc_kernel|ingp_tc_reduce_kernel)(ILi\d+)?"
-    cubin = _cubin(root, tag, "ingp_train_tc")
+    names = SASS_KERNELS[source]
+    cubin = _cubin(root, tag, source)
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(cubin)], capture_output=True,
                           text=True).stdout
     kernels = {}
     for body in re.split(r"\n\s*Function : ", sass)[1:]:
         head, rest = body.split("\n", 1)
+        found = re.search(names, head)
+        if found is None:
+            continue
         ins = [re.sub(r"c\[0x0\]\[[^\]]*\]", "c[0x0][P]", m.group(1))
                for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s*(.*?);", rest)]
-        kernels[re.search(names, head).group(0)] = ins
+        kernels[found.group(0)] = ins
     return kernels
 
 
-def _compare_tile_kernels(base: Path, head: Path) -> None:
-    if not all((r / "nerf_meets_mlx_torch" / "csrc" / "ingp_train_tc.cu").exists()
+def _compare_tile_kernels(base: Path, head: Path, source: str) -> None:
+    if not all((r / "nerf_meets_mlx_torch" / "csrc" / f"{source}.cu").exists()
                for r in (base, head)):
         return
-    a, b = _tile_kernels(base, "base"), _tile_kernels(head, "head")
+    a, b = _tile_kernels(base, "base", source), _tile_kernels(head, "head", source)
     for k in sorted(set(a) & set(b)):
         x, y = a[k], b[k]
         apart = [(u, v) for u, v in zip(x, y) if u != v]
@@ -442,7 +534,8 @@ def main() -> int:
         print(f"{key:18s} {row}", flush=True)
     sys.path.insert(0, str(HEAD))
     _ptxas_reports(Path(a.base).resolve(), Path(a.head).resolve())
-    _compare_tile_kernels(Path(a.base).resolve(), Path(a.head).resolve())
+    for source in SASS_KERNELS:
+        _compare_tile_kernels(Path(a.base).resolve(), Path(a.head).resolve(), source)
     return 0
 
 

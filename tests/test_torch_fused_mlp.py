@@ -1,4 +1,5 @@
-"""The port's fused point-major MLP op (kernels/fused_mlp.py, csrc/fused_mlp.cu).
+"""The port's fused point-major MLP op (kernels/fused_mlp.py; the forward
+kernel csrc/mlp_fwd_tc.cu, the backward csrc/fused_mlp.cu).
 
 * Its plain version against the JAX ``fused_apply``, which runs the Pallas
   ``_fwd_kernel`` / ``_bwd_kernel`` in interpret mode here, on the same
@@ -6,6 +7,12 @@
   / atol 1e-5 (tests/test_fused_mlp.py's kernel-vs-twin bound), at lego
   width against ``fused_apply_reference`` at 2e-4; every dW, db and dX of
   Σ raw² at rtol 5e-3 / atol 1e-4 (the same file's gradient bound).
+* The forward kernel's arithmetic (``_emulate_forward``: every dense layer
+  in 3xTF32 with one truncating accumulator a layer, ``mm_wgmma``) against
+  the JAX kernel at atol 1e-4 + rtol 1e-4 and against the fp32 plain
+  version at ``MLP_TIGHT``, which one TF32 pass misses; the relu decisions
+  it takes apart from fp32 counted. Its weight images' size and its
+  shared-memory plan against their C twins' formulas.
 * ``NeRFModel.query`` on the fused route against the JAX model's fused
   query.
 * The CUDA backward's algorithm replayed in torch from the buffer it reads
@@ -13,9 +20,12 @@
   against autograd through the plain version.
 * The wrapper's routing: CPU tensors run the plain version and launch
   nothing; other devices raise.
-* ``gpu``-marked: both CUDA kernels against the plain version at widths 256
-  and 128 with a ragged point count, on the card (skipped where no card is
-  present).
+* ``gpu``-marked: both CUDA kernels against the plain version at widths
+  256, 128, 64, 32, 48 and 96 with a ragged point count; the forward
+  kernel within ``MLP_TIGHT`` of plain at those widths, over several tiles
+  a block, where the same source built with one TF32 pass
+  (``MLP_FWD_ONE_PASS``) is not; one launch a call, bit-identical over two
+  (skipped where no card is present).
 """
 
 import dataclasses
@@ -29,9 +39,18 @@ from nerf_meets_mlx_torch.config import EncodingConfig, MLPConfig
 from nerf_meets_mlx_torch.config import lego_hierarchical as t_lego
 from nerf_meets_mlx_torch.encoding.sinusoidal import sinusoidal_encode
 from nerf_meets_mlx_torch.kernels import fused_mlp as tfm
+from nerf_meets_mlx_torch.kernels import fused_train as tft
 from nerf_meets_mlx_torch.kernels.fused_train import LAUNCHES
 from nerf_meets_mlx_torch.models import create_nerf as t_create
+from tf32_products import _mm_1xtf32, mm_wgmma
 from torch_threads import one_torch_thread_per_worker  # noqa: F401  (autouse fixture)
+
+# The tight tolerance (atol = rtol) of the forward kernel's raw against the
+# fp32 plain version, as chip_smoke.py's MLP_TIGHT: its 3xTF32 products
+# meet it, one TF32 pass does not (which meets atol 1e-4 + rtol 1e-4 at
+# most shapes). The emulation below puts 3xTF32 at 0.13-0.38 of 1e-6 and
+# one pass at 42-110 times 1e-6 at widths 32-256 (lego_occ's 8 layers).
+MLP_TIGHT = 5e-6
 
 # JAX is imported by the tests that compare with it, not at module level:
 # the gpu-marked tests run on the card's machine, which has no JAX
@@ -131,6 +150,128 @@ def test_forward_reference_squared_bands_matches_jax_kernel():
     want = fused_apply(spec, pack_params(spec, params), jnp.asarray(_x8(pts, dirs)))
     got = _port_raw(tm, pts, dirs)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want)[:, :4], rtol=1e-4, atol=1e-5)
+
+
+def _pad8(x):
+    return torch.nn.functional.pad(x, (0, -x.shape[1] % 8))
+
+
+def _emulate_forward(mlp, pos_enc, dir_enc, pts, dirs, mm=mm_wgmma):
+    """csrc/mlp_fwd_tc.cu's arithmetic in torch: the encodings as the plain
+    version's; each dense layer (trunk, feature, view) with its input
+    segments zero-padded to whole k-steps of 8 as the kernel's B images
+    are (fused_train.pack_eval_wgmma), multiplied by ``mm`` (``mm_wgmma``:
+    3xTF32 with one truncating accumulator a layer, the kernel's form), plus
+    the bias from the buffer the kernel reads; the alpha and rgb heads in
+    fp32. Returns (raw [N, 4], the pre-activations of every relu layer)."""
+    cfg = mlp.cfg
+    D = cfg.net_depth
+    wbuf, offs = tfm.pack_mlp_weights(mlp, pos_enc, dir_enc)
+
+    def vec(i, n):
+        return wbuf[offs[i] : offs[i] + n]
+
+    xp, xd = pos_enc.apply(pts), dir_enc.apply(dirs)
+
+    def dense(i, lin, segs):
+        wt, a, b, at = lin.weight.t(), [], [], 0
+        for x in segs:
+            a.append(_pad8(x))
+            b.append(_pad8(wt[at : at + x.shape[1]].t()).t())
+            at += x.shape[1]
+        return mm(torch.cat(a, 1), torch.cat(b, 0)) + vec(2 * i + 1, lin.out_features)
+
+    pre, h = [], None
+    for j, lin in enumerate(mlp.pos_linears):
+        pre.append(dense(j, lin, [xp] if j == 0 else ([xp, h] if (j - 1) in cfg.skips else [h])))
+        h = torch.relu(pre[-1])
+    sigma = h @ vec(2 * D, cfg.net_width)[:, None] + vec(2 * D + 1, 1)
+    feat = dense(D + 1, mlp.feature_linear, [h])
+    pre.append(dense(D + 2, mlp.dir_linear, [feat, xd]))
+    W2 = cfg.net_width // 2
+    rgb = torch.relu(pre[-1]) @ vec(2 * D + 6, W2 * 3).reshape(W2, 3) + vec(2 * D + 7, 3)
+    return torch.cat([rgb, sigma], -1), pre
+
+
+def _plain_pre_activations(mlp, pos_enc, dir_enc, pts, dirs):
+    """The fp32 plain version's pre-activations of the same relu layers."""
+    cfg = mlp.cfg
+    xp, xd = pos_enc.apply(pts), dir_enc.apply(dirs)
+    pre, h = [], None
+    for j, lin in enumerate(mlp.pos_linears):
+        pre.append(lin(xp if j == 0 else (torch.cat([xp, h], -1) if (j - 1) in cfg.skips else h)))
+        h = torch.relu(pre[-1])
+    pre.append(mlp.dir_linear(torch.cat([mlp.feature_linear(h), xd], -1)))
+    return pre
+
+
+def _over(got, want, tol):
+    """max |got - want| / (tol + tol·|want|): at most 1 within atol = rtol = tol."""
+    return float(((got - want).abs() / (tol * (1.0 + want.abs()))).max())
+
+
+@pytest.mark.parametrize("width,skips", [(32, (1,)), (48, (2,))])
+def test_forward_kernel_arithmetic_matches_jax_kernel(width, skips):
+    """The forward kernel's 3xTF32 arithmetic (``_emulate_forward``) at
+    depth 4 with a skip, 70 points (a ragged 128-point tile), on the JAX
+    weights: within atol 1e-4 + rtol 1e-4 of the Pallas ``fused_apply`` in
+    interpret mode, and within MLP_TIGHT of the fp32 plain version, where
+    one TF32 pass (the kernel's one-pass build, ``mm_wgmma(passes=1)``, and
+    ``_mm_1xtf32``) is not. A relu decision apart from fp32 can only sit
+    where a pre-activation lies within the products' error of 0, so it
+    moves no value by more than that error: the largest pre-activation
+    error and the decisions apart are printed, the values held above."""
+    import jax.numpy as jnp
+
+    from nerf_meets_mlx_tpu.kernels.fused_mlp import fused_apply, pack_params
+
+    spec, params, tm = _pair(depth=4, width=width, skips=skips)
+    pts, dirs = _points(70, seed=12)
+    want = np.asarray(fused_apply(spec, pack_params(spec, params), jnp.asarray(_x8(pts, dirs))))
+    p, d = torch.from_numpy(pts), torch.from_numpy(dirs)
+    args = (tm.coarse, tm.pos_enc, tm.dir_enc, p, d)
+    with torch.no_grad():
+        three, pre3 = _emulate_forward(*args)
+        one, _ = _emulate_forward(*args, mm=lambda a, b: mm_wgmma(a, b, passes=1))
+        one_x, _ = _emulate_forward(*args, mm=_mm_1xtf32)
+        plain = tfm.fused_mlp_reference(*args)
+        pre_p = _plain_pre_activations(*args)
+    np.testing.assert_allclose(three.numpy(), want[:, :4], rtol=1e-4, atol=1e-4)
+    over = {"3xTF32": _over(three, plain, MLP_TIGHT), "one pass": _over(one, plain, MLP_TIGHT),
+            "_mm_1xtf32": _over(one_x, plain, MLP_TIGHT)}
+    err = max(float((a - b).abs().max()) for a, b in zip(pre3, pre_p))
+    flips = sum(int(((a > 0) != (b > 0)).sum()) for a, b in zip(pre3, pre_p))
+    print(f"[tf32] width {width}: over MLP_TIGHT {over}; pre-activations within {err:.2e} of "
+          f"fp32, {flips} relu decisions apart")
+    assert over["3xTF32"] <= 1.0, over
+    assert over["one pass"] > 1.0 and over["_mm_1xtf32"] > 1.0, over
+
+
+def test_forward_image_and_smem_plan_match_the_kernel():
+    """``pack_eval_wgmma``'s buffer has the size the kernel's producer
+    streams (``mlp_fwd_tc_image_floats``: per trunk, feature and view layer
+    its k-steps of 8 rows x N columns x (hi, lo), a skip layer's position
+    segment padded apart), at every depth, skip set and band count the
+    wrapper takes; and the kernel's shared memory (ring of 4 stages of
+    16·W floats, a 128 x (W + 8) activation tile, 8 mbarriers, 128 x 8
+    floats of points) fits a block at every width."""
+    def image_floats(D, W, skips, P, Dd):
+        k = -(-P // 8)
+        steps = k + W // 8 + sum(W // 8 + (k if (j - 1) in skips else 0) for j in range(1, D))
+        return steps * 16 * W + (W // 8 + -(-Dd // 8)) * 16 * (W // 2)
+
+    for depth, width, skips, pos_f, dir_f in ((2, 32, (), 4, 2), (4, 48, (1, 2), 6, 3),
+                                              (8, 64, (4,), 10, 4), (17, 32, (3, 9, 15), 2, 1)):
+        mlp, pos, dir_ = _configs(depth=depth, width=width, skips=skips, pos_f=pos_f, dir_f=dir_f)
+        cfg = t_lego().replace(pos_encoding=pos, dir_encoding=dir_, mlp=mlp, mlp_fine=mlp)
+        tm = t_create(cfg, device="cpu").init(torch.Generator().manual_seed(1))
+        img = tft.pack_eval_wgmma(tm.coarse, tm.pos_enc, tm.dir_enc)
+        assert img.numel() == image_floats(depth, width, skips, tm.pos_enc.out_dim,
+                                           tm.dir_enc.out_dim)
+        assert len(tfm.pack_mlp_weights(tm.coarse, tm.pos_enc, tm.dir_enc)[1]) == 2 * depth + 10
+    for width in range(32, 257, 16):
+        smem = 4 * (4 * 16 * width + 128 * (width + 8)) + 8 * 8 + 4 * 128 * 8
+        assert smem <= 232448, (width, smem)
 
 
 def _port_grads(tm, pts, dirs, compute_dx):
@@ -394,8 +535,9 @@ def _rel_close(got, want, rel):
 @pytest.mark.parametrize("width", [256, 128])
 def test_cuda_kernels_match_plain(width):
     """Both kernels at full depth with the skip, 5,000 points (not a
-    multiple of the 64-point tile or the 512-point block), both MLPs; the
-    backward with compute_dx off and on."""
+    multiple of the forward's 128-point tile, nor of the backward's 64-point
+    tile or 512-point block), both MLPs; the backward with compute_dx off
+    and on."""
     _check_cuda_kernels(width)
 
 
@@ -445,3 +587,89 @@ def _check_cuda_kernels(width):
             for i, (a, b) in enumerate(zip(g, g_p)):
                 ok, err, scale = _rel_close(a, b, 1e-3)
                 assert ok, (level, compute_dx, i, err, scale)
+
+
+def _cuda_forward_case(width, N=40_000):
+    """lego_occ's MLPs at ``width`` on the card (seeded init) and N points
+    with view directions, and the same points with zero directions (the
+    grid update's form). 40,000 points are 313 tiles of 128: two or three
+    tiles a block of the 132-block persistent grid, the last ragged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    from nerf_meets_mlx_torch.config import lego_occ
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = lego_occ()
+    mlp_cfg = dataclasses.replace(cfg.mlp, net_width=width)
+    tm = t_create(cfg.replace(mlp=mlp_cfg, mlp_fine=mlp_cfg), device=dev).init(
+        torch.Generator().manual_seed(0)
+    )
+    pts, dirs = (torch.from_numpy(a).to(dev) for a in _points(N, seed=13))
+    pts = pts * 0.8
+    return tm, [("dirs", pts, dirs), ("grid", pts, torch.zeros_like(dirs))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [256, 128, 64, 32, 48, 96])
+def test_cuda_forward_kernel_matches_plain_tightly(width):
+    """The forward kernel (csrc/mlp_fwd_tc.cu) at lego_occ's depth and skip,
+    both MLPs, on ``_cuda_forward_case``'s points: one launch a call, raw
+    within atol 1e-4 + rtol 1e-4 and within MLP_TIGHT (atol = rtol) of the
+    fp32 plain version; each case's error is printed."""
+    tm, sets = _cuda_forward_case(width)
+    for level in ("coarse", "fine"):
+        mlp = getattr(tm, level)
+        for name, pts, dirs in sets:
+            with torch.no_grad():
+                n0 = LAUNCHES["mlp_fwd"]
+                raw = tfm.fused_mlp_apply(mlp, tm.pos_enc, tm.dir_enc, pts, dirs)
+                torch.cuda.synchronize()
+                assert LAUNCHES["mlp_fwd"] == n0 + 1
+                want = tfm.fused_mlp_reference(mlp, tm.pos_enc, tm.dir_enc, pts, dirs)
+            over = _over(raw, want, MLP_TIGHT)
+            print(f"[tf32] width {width} {level} {name}: max abs "
+                  f"{float((raw - want).abs().max()):.3e}, {over:.3f} of MLP_TIGHT")
+            torch.testing.assert_close(raw, want, rtol=1e-4, atol=1e-4)
+            assert over <= 1.0, (level, name, over)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [256, 128, 64, 32])
+def test_cuda_forward_kernel_runs_three_tf32_passes(width):
+    """The forward kernel lies within MLP_TIGHT of plain, and the same
+    source built with one TF32 product in place of three
+    (``MLP_FWD_ONE_PASS``: hi·hi alone) lies outside it, on every case of
+    ``_cuda_forward_case`` at the default build's widths: the tight
+    tolerance tells the 3xTF32 kernel from a one-pass one (which can meet
+    atol 1e-4 + rtol 1e-4). Both builds' errors are printed."""
+    from nerf_meets_mlx_torch.kernels import _build
+
+    tm, sets = _cuda_forward_case(width)
+    one_pass = tfm.type_fwd_lib(_build.load_library(tfm.FWD_SOURCE, {"MLP_FWD_ONE_PASS": 1}))
+    for level in ("coarse", "fine"):
+        mlp = getattr(tm, level)
+        for name, pts, dirs in sets:
+            with torch.no_grad():
+                three = tfm.fused_mlp_apply(mlp, tm.pos_enc, tm.dir_enc, pts, dirs)
+                one = tfm._fwd_launch(mlp, tm.pos_enc, tm.dir_enc, pts, dirs, lib=one_pass)
+                torch.cuda.synchronize()
+                want = tfm.fused_mlp_reference(mlp, tm.pos_enc, tm.dir_enc, pts, dirs)
+            over = {"3xTF32": _over(three, want, MLP_TIGHT), "one pass": _over(one, want, MLP_TIGHT)}
+            print(f"[tf32] width {width} {level} {name}: " + ", ".join(
+                f"{k} max abs {float((o - want).abs().max()):.3e} ({over[k]:.3f} of MLP_TIGHT)"
+                for k, o in (("3xTF32", three), ("one pass", one))))
+            assert over["3xTF32"] <= 1.0, over
+            assert over["one pass"] > 1.0, over
+
+
+@pytest.mark.gpu
+def test_cuda_forward_kernel_is_deterministic():
+    """No atomics: two launches on the same inputs give bit-identical raw."""
+    tm, sets = _cuda_forward_case(256)
+    _, pts, dirs = sets[0]
+    with torch.no_grad():
+        a = tfm.fused_mlp_apply(tm.fine, tm.pos_enc, tm.dir_enc, pts, dirs)
+        b = tfm.fused_mlp_apply(tm.fine, tm.pos_enc, tm.dir_enc, pts, dirs)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
