@@ -40,8 +40,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    Before the paths: the fused MLP kernels against their plain version on
    the grid update's 262,144 points and lego_occ's coarse and fine points
    (the forward, ``csrc/mlp_fwd_tc.cu``, also within MLP_TIGHT, which one
-   TF32 pass misses; the backward with every dW, db and dX against
-   autograd).
+   TF32 pass misses; the backward, ``csrc/mlp_bwd_tc.cu``, with every dW,
+   db and dX against autograd, ``fused_mlp.grad_check``).
 6. timing: each kernel per level with CUDA events, beside its bound and
    its plain version's time (the eval kernel also beside its fp32 bound,
    with the weight bytes it reads from L2 a launch and their rate, and the
@@ -51,7 +51,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    rays/s, peak memory, and the device's busy share of 5 steps from
    ``torch.profiler``; the fused MLP kernels per call at lego_occ's shapes
    (each timed forward call held against plain, its kernel's device time,
-   device events and host ms a call beside);
+   device events and host ms a call beside; the backward's kernels' device
+   time, its launches and host ms a call, beside its 3xTF32 and workspace
+   bounds);
    lego_occ's warm step on both of its kernel routes (32 steps, two grid
    updates inside), its busy share, and its 400 x 400 frame with the grid.
 
@@ -166,6 +168,8 @@ IMAGE_TRAIN_KERNELS = ("image_tc_kernel", "image_dw_kernel", "image_reduce_kerne
 ATOL = 1e-4   # kernel vs plain: fp32 sums in another order (see PERF.md)
 RTOL = 1e-4
 DW_REL = 1e-3  # train kernel: max |dW - plain| <= DW_REL * max |plain dW|
+# the MLP backward (csrc/mlp_bwd_tc.cu) is held to fused_mlp.grad_check with
+# DW_REL: see there
 # the MLP forward kernel (csrc/mlp_fwd_tc.cu) is also held within MLP_TIGHT
 # (atol = rtol) of plain: its 3xTF32 products meet it, one TF32 pass, which
 # can meet ATOL + RTOL, does not (tests/test_torch_fused_mlp.py)
@@ -218,6 +222,15 @@ def train_macs(mlp_cfg, pos_dim: int, dir_dim: int) -> int:
     fwd = mlp_macs(mlp_cfg, pos_dim, dir_dim)
     dx = (D - 1) * W * W + W * W + W + W * (W // 2) + (W // 2) * 3
     return 2 * fwd + dx
+
+
+def mlp_bwd_ws_floats(mlp_cfg, pos_dim: int, dir_dim: int) -> int:
+    """Floats a point of the MLP backward's workspace (csrc/mlp_bwd_tc.cu's
+    make_plan): the encodings (rows padded to 8), every trunk layer's
+    output, the feature and view layers' outputs, every trunk dZ, dfeat, the
+    view layer's dZ and dout's four columns."""
+    D, W = mlp_cfg.net_depth, mlp_cfg.net_width
+    return (-(-pos_dim // 8) * 8 + -(-dir_dim // 8) * 8 + 2 * D * W + 2 * W + W + 4)
 
 
 def reset_launches():
@@ -625,10 +638,10 @@ def phase_compare_mlp(device):
     """The fused MLP forward kernel against its plain version on the grid
     update's 262,144 points and the coarse and fine levels' 131,072 and
     393,216 (both MLPs), within ATOL + RTOL and MLP_TIGHT, and the backward
-    kernel at the coarse and fine levels with random dout, compute_dx off
-    and on: every dW, db and dX against autograd through the plain version.
-    Returns (max abs error of raw, max abs error and worst ratio of the
-    gradients)."""
+    kernels at the coarse and fine levels with random dout, compute_dx off
+    and on: every dW, db and dX against autograd through the plain version
+    (``fused_mlp.grad_check``). Returns (max abs error of raw, max abs error
+    and worst ratio of the gradients against the fp32 plain version)."""
     import torch
     from nerf_meets_mlx_torch.config import lego_occ
     from nerf_meets_mlx_torch.kernels import fused_mlp as fm
@@ -663,23 +676,16 @@ def phase_compare_mlp(device):
             out = fm.fused_mlp_apply(mlp, model.pos_enc, model.dir_enc, p, d, compute_dx=compute_dx)
             g_k = torch.autograd.grad((out * dout).sum(), wrt)
             torch.cuda.synchronize()
-            out_p = fm.fused_mlp_reference(mlp, model.pos_enc, model.dir_enc, p, d)
-            g_p = torch.autograd.grad((out_p * dout).sum(), wrt)
-            ratios, ok = [], True
-            for a, b in zip(g_k, g_p):
-                scale = float(b.abs().max())
-                e = float((a - b).abs().max())
-                ratios.append(e / scale if scale > 0 else (0.0 if e == 0 else float("inf")))
-                ok &= bool(torch.isfinite(a).all())
-                worst_g = max(worst_g, e)
-            ok &= max(ratios) <= DW_REL
+            del out
+            check = fm.grad_check(mlp, model.pos_enc, model.dir_enc, pts, dirs, dout, compute_dx,
+                                  g_k, DW_REL)
+            worst_g = max(worst_g, check.err32)
             log(f"[compare] fused_mlp backward {name:6s} N={pts.shape[0]} compute_dx="
-                f"{int(compute_dx)}: max|g-plain|/max|plain| per array: "
-                + " ".join(f"{r:.1e}" for r in ratios) + f" {'ok' if ok else 'FAIL'}")
-            if not ok:
+                f"{int(compute_dx)}: {check.describe()} {'ok' if check.ok else 'FAIL'}")
+            if not check.ok:
                 raise AssertionError(
                     f"fused_mlp backward disagrees with its plain version: {name} dx={compute_dx}")
-            worst_ratio = max(worst_ratio, max(ratios))
+            worst_ratio = max(worst_ratio, max(check.r32))
     reset_launches()
     return worst_raw, worst_g, worst_ratio
 
@@ -1280,10 +1286,13 @@ def phase_mlp_timing(device):
     raising if it disagrees), with its kernel's device time, the device
     events and the host ms of a call (``call_split``); the backward (which
     recomputes the forward) at the coarse and fine level, against the plain
-    version's forward + autograd backward. The forward runs its products on
-    the tensor cores in 3xTF32, so its bound counts three TF32 operations
-    for each fp32 one over 495 TFLOP/s (its fp32 bound logged beside); the
-    backward's is the fp32 one."""
+    version's forward + autograd backward, with its kernels' device time,
+    the device events (its launches) and host ms of a call (``call_split``).
+    Both run their products on the tensor cores in 3xTF32, so their bound
+    counts three TF32 operations for each fp32 one over 495 TFLOP/s (the
+    fp32 bound logged beside); the backward's workspace (every layer's input
+    and dZ written feature-major and read back by its dW kernel,
+    ``mlp_bwd_ws_floats``) is logged as a second floor beside it."""
     import torch
     from nerf_meets_mlx_torch.config import lego_occ
     from nerf_meets_mlx_torch.kernels import fused_mlp as fm
@@ -1291,7 +1300,8 @@ def phase_mlp_timing(device):
     model = make_model(lego_occ(), device)
     pe, de = model.pos_enc, model.dir_enc
     wbytes = 4 * fm.pack_mlp_weights(model.fine, pe, de)[0].numel()
-    n_dw = fm.pack_mlp_weights(model.fine, pe, de, backward=True)[1][2 * lego_occ().mlp.net_depth + 8]
+    n_dw = fm.grad_offsets(model.fine)[1]
+    ws_floats = mlp_bwd_ws_floats(model.fine.cfg, pe.out_dim, de.out_dim)
     fwd, bwd = {}, {}
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
     for name, pts, dirs in mlp_inputs(model, device):
@@ -1348,21 +1358,28 @@ def phase_mlp_timing(device):
         reps = max(2, int(600_000 // N))
         k1, p_ms, k2 = (cuda_time_ms(kernel_bwd, reps), cuda_time_ms(plain_bwd, reps),
                         cuda_time_ms(kernel_bwd, reps))
+        split = call_split(kernel_bwd, "mlp_bwd", reps)
         flops = 2.0 * train_macs(mlp.cfg, pe.out_dim, de.out_dim) * N
         # points, directions, dout in; weights in; dW out
         nbytes = 4 * (6 * N + 4 * N + n_dw) + wbytes
-        t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+        t_ops, t_fp32, t_bytes = 3 * flops / TF32_FLOPS, flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+        t_ws = 2 * 4 * ws_floats * N / HBM_BYTES_PER_S  # written once, read back once
         ms = (k1 + k2) / 2
         bwd[name] = dict(points=N, ms=ms, ms_runs=[k1, k2], plain_ms=p_ms,
                          bound_ms=max(t_ops, t_bytes) * 1e3,
                          bound_by="operations" if t_ops > t_bytes else "bytes",
+                         fp32_bound_ms=max(t_fp32, t_bytes) * 1e3,
                          tf32_bound_ms=flops / TF32_FLOPS * 1e3,
-                         tf32x3_bound_ms=max(3 * flops / TF32_FLOPS, t_bytes) * 1e3,
-                         achieved_tflops_s=flops / (ms * 1e-3) / 1e12)
-        log(f"[time] fused_mlp backward {name:6s} N={N}: kernel {k1:.3f} / {k2:.3f} ms, plain "
-            f"fwd+bwd {p_ms:.3f} ms, fp32 bound {bwd[name]['bound_ms']:.3f} ms "
-            f"({bwd[name]['bound_by']}), TF32 bound {bwd[name]['tf32_bound_ms']:.3f} ms -> "
-            f"{bwd[name]['achieved_tflops_s']:.2f} TFLOP/s")
+                         tf32x3_bound_ms=max(t_ops, t_bytes) * 1e3,
+                         workspace_bound_ms=t_ws * 1e3, workspace_bytes=2 * 4 * ws_floats * N,
+                         achieved_tflops_s=flops / (ms * 1e-3) / 1e12, **split)
+        log(f"[time] fused_mlp backward {name:6s} N={N}: kernels {k1:.3f} / {k2:.3f} ms (device "
+            f"{split['device_ms']:.4f} ms, {split['device_events']:.0f} device events and "
+            f"{split['other_device_ms']:.4f} ms beside them, host {split['host_ms']:.4f} ms a "
+            f"call), plain fwd+bwd {p_ms:.3f} ms, 3xTF32 bound {bwd[name]['bound_ms']:.3f} ms "
+            f"({bwd[name]['bound_by']}), workspace bound {t_ws * 1e3:.3f} ms "
+            f"({2 * 4 * ws_floats * N / 1e9:.2f} GB at 3.35 TB/s), fp32 bound "
+            f"{bwd[name]['fp32_bound_ms']:.3f} ms -> {bwd[name]['achieved_tflops_s']:.2f} TFLOP/s")
     reset_launches()
     return fwd, bwd
 
@@ -2649,7 +2666,7 @@ FEAT_SHAPES = ((64, 16), (64, 32), (128, 32))
 # sources are built for, one build each (fused_train.width_defines): the
 # PART_A overlays' and the width-96 image model's
 KW_BUILDS = (("fused_eval", 96), ("fused_train", 96), ("fused_eval", 48), ("fused_train", 48),
-             ("fused_mlp", 48), ("mlp_fwd_tc", 48), ("fused_image", 96), ("image_train_tc", 96))
+             ("mlp_bwd_tc", 48), ("mlp_fwd_tc", 48), ("fused_image", 96), ("image_train_tc", 96))
 PART_A_STEPS = 10
 # the overlay commands that train in JAX and failed on the card before the
 # fused kernels took their shapes: (tag, preset, overlay, kernels its
@@ -2697,13 +2714,15 @@ CP_TIMED_STEPS = 25
 # register build of csrc/fused_feat.cu); the widths 48 and 96 of the
 # sinusoidal and image kernels
 TEST_FEAT_SHAPES = ((32, 16), (64, 64), (32, 24), (32, 48))
-TEST_KW_BUILDS = tuple((s, w) for s in ("fused_eval", "fused_train", "fused_mlp", "mlp_fwd_tc",
+TEST_KW_BUILDS = tuple((s, w) for s in ("fused_eval", "fused_train", "mlp_bwd_tc", "mlp_fwd_tc",
                                         "fused_image", "image_train_tc") for w in (48, 96))
-# the INGP eval and the MLP forward kernel with one TF32 product in place of
-# three: the controls that the gpu tests of their 3xTF32 products see fail
-# EVAL_TIGHT and MLP_TIGHT
+# the INGP eval, the MLP forward and the MLP backward kernels with one TF32
+# product in place of three: the controls that the gpu tests of their
+# 3xTF32 products see fail EVAL_TIGHT, MLP_TIGHT and the backward's gradient
+# criterion
 TEST_ONE_PASS = (("ingp_eval_tc", {"INGP_EVAL_ONE_PASS": 1}),
-                 ("mlp_fwd_tc", {"MLP_FWD_ONE_PASS": 1}))
+                 ("mlp_fwd_tc", {"MLP_FWD_ONE_PASS": 1}),
+                 ("mlp_bwd_tc", {"MLP_BWD_ONE_PASS": 1}))
 
 
 def build_variants(tests: bool = False):
@@ -2717,7 +2736,7 @@ def build_variants(tests: bool = False):
     kw = KW_BUILDS + (TEST_KW_BUILDS if tests else ())
     # the INGP sources take every shape in one build each: the eval and the
     # train kernel on the tensor cores, and csrc/fused_ingp.cu for the rest
-    out = [(s, None) for s in ("fused_eval", "fused_train", "fused_mlp", "mlp_fwd_tc",
+    out = [(s, None) for s in ("fused_eval", "fused_train", "mlp_bwd_tc", "mlp_fwd_tc",
                                "hash_encode", "fused_image", "image_train_tc", "cp_encode",
                                fi.TC_SOURCE, fi.EVAL_SOURCE, fi.RT_SOURCE)]
     out += [("fused_feat", ff.kernel_defines(w, p)) for w, p in feat]
@@ -2858,9 +2877,10 @@ def check_ingp_shape(cfg, device, tag):
 
 def check_sinusoidal_shape(cfg, device, tag):
     """The eval and train kernels (and, with an occupancy grid, the MLP
-    forward and backward kernels, the forward also within MLP_TIGHT) at this
-    config's widths against their plain versions, both levels at 4096 rays;
-    returns the worst value error and gradient ratio."""
+    forward and backward kernels, the forward also within MLP_TIGHT, the
+    backward by ``fused_mlp.grad_check``) at this config's widths against their
+    plain versions, both levels at 4096 rays; returns the worst value error
+    and gradient ratio (against the fp32 plain versions)."""
     import torch
     from nerf_meets_mlx_torch.kernels import fused_mlp as fm
     from nerf_meets_mlx_torch.kernels import fused_train as ft
@@ -2899,13 +2919,22 @@ def check_sinusoidal_shape(cfg, device, tag):
             k = fm.fused_mlp_apply(mlp, model.pos_enc, model.dir_enc, pts, dirs)
             g_k = torch.autograd.grad((k * dout).sum(), mlp_params(mlp))
             torch.cuda.synchronize()
-            p = fm.fused_mlp_reference(mlp, model.pos_enc, model.dir_enc, pts, dirs)
-            g_p = torch.autograd.grad((p * dout).sum(), mlp_params(mlp))
+            with torch.no_grad():
+                p = fm.fused_mlp_reference(mlp, model.pos_enc, model.dir_enc, pts, dirs)
+            k = k.detach()
             val = max(val, check_values(f"{tag} mlp {level}", [("raw", k, p)]))
-            _, tight, ok = mlp_fwd_errors(k.detach(), p.detach())
+            _, tight, ok = mlp_fwd_errors(k, p)
             if not ok:
                 raise AssertionError(f"{tag} mlp {level}: raw at {tight:.3f} of MLP_TIGHT")
-            ratio = max(ratio, check_grads(f"{tag} mlp {level}", g_k, g_p, floor_rel=0.0))
+            del k, p
+            check = fm.grad_check(mlp, model.pos_enc, model.dir_enc, pts, dirs, dout, False, g_k,
+                                  DW_REL)
+            log(f"[part-a] {tag} {level} mlp backward: {check.describe()} "
+                f"{'ok' if check.ok else 'FAIL'}")
+            if not check.ok:
+                raise AssertionError(f"{tag} mlp {level}: the backward's gradients miss "
+                                     "fused_mlp.grad_check")
+            ratio = max(ratio, max(check.r32))
         with torch.no_grad():
             times[level] = {
                 "width": mlp.cfg.net_width, "rays": ro.shape[0], "samples": S,
@@ -3405,7 +3434,7 @@ def main() -> int:
         return build_only()
     device = torch.device("cuda", 0)
     builds = phase_build()
-    wait_builds(builds, ["fused_eval", "fused_train", "fused_mlp", "mlp_fwd_tc"])
+    wait_builds(builds, ["fused_eval", "fused_train", "mlp_bwd_tc", "mlp_fwd_tc"])
     max_err = phase_compare(device)
     train_err, dw_ratio = phase_compare_train(device)
     mlp_raw_err, mlp_grad_err, mlp_grad_ratio = phase_compare_mlp(device)
@@ -3484,7 +3513,7 @@ def main() -> int:
         entry("fused_mlp_fwd", "nerf_meets_mlx_torch/csrc/mlp_fwd_tc.cu",
               "nerf_meets_mlx_tpu/kernels/fused_mlp.py:342", occ_launches["mlp_fwd"],
               mlp_raw_err, {"grid": mlp_fwd_t["grid"]}),
-        entry("fused_mlp_bwd", "nerf_meets_mlx_torch/csrc/fused_mlp.cu",
+        entry("fused_mlp_bwd", "nerf_meets_mlx_torch/csrc/mlp_bwd_tc.cu",
               "nerf_meets_mlx_tpu/kernels/fused_mlp.py:480",
               occ_routes["value_and_grad"]["launches"]["mlp_bwd"], mlp_grad_err, mlp_bwd_t),
         entry("hash_fwd", "nerf_meets_mlx_torch/csrc/hash_encode.cu",

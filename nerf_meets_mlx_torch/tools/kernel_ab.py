@@ -2,7 +2,10 @@
 
     python nerf_meets_mlx_torch/tools/kernel_ab.py --base <checkout> [--head <checkout>]
 
-``--head`` defaults to the checkout this file is in. Each turn is a fresh
+``--head`` defaults to the checkout this file is in. With ``--frames R`` a
+turn times the lego_hierarchical 400 x 400 frame alone (its eval kernel's
+build, 5 frames after one), in R rounds of base, head, head, base, and
+nothing else runs. Each turn is a fresh
 process with that checkout first on ``PYTHONPATH``; the turns run base,
 head, head, base, so that a drift of the card shows as a difference between
 a checkout's two turns. A turn builds the kernels it times (all builds
@@ -12,7 +15,9 @@ and 96 samples), the hash forward and dG (lego_ingp's 196,608 / 393,216
 points), the sinusoidal eval and train kernels (lego_hierarchical, 8 x 256),
 the MLP forward at lego_occ's three shapes (the grid update's 262,144 cell
 points, a step's 4096 x 32 and 4096 x 96 points; also its device time and
-the call's host time) and forward + backward at the fine one, the feat
+the call's host time), the MLP backward at the coarse and fine ones (a
+call's device time, host time and kernel launches: ``mlp_bwd_*``) and
+forward + backward at the fine one, the feat
 train kernel (the paper tables' 32 channels) and the image kernels
 (image2d); and a 400 x 400 frame of lego_ingp and of lego_hierarchical;
 the INGP, feat and image train calls' device time (every kernel they
@@ -27,13 +32,14 @@ steps, two grid updates inside, as phase_occ_timing) and its frame with the
 grid. It prints one JSON line per turn and each measurement's four times;
 then ptxas's registers and spills of every kernel of
 ``csrc/fused_train.cu``, ``csrc/fused_mlp.cu``, ``csrc/mlp_fwd_tc.cu``,
-``csrc/fused_image.cu``, ``csrc/image_train_tc.cu``,
+``csrc/mlp_bwd_tc.cu``, ``csrc/fused_image.cu``, ``csrc/image_train_tc.cu``,
 ``csrc/ingp_eval_tc.cu`` and ``csrc/fused_ingp.cu``'s runtime-shape build
 in each checkout that has the source, and, where both checkouts have
-``csrc/ingp_train_tc.cu``, each kernel of it in both (and of
-``csrc/fused_mlp.cu`` the backward's three kernels): ptxas's report and
-its SASS instruction by instruction (the kernel parameters' constant-bank
-offsets masked), as lines starting with ``[ptxas]`` and ``[sass]``.
+``csrc/ingp_train_tc.cu`` (or ``csrc/mlp_bwd_tc.cu``), each kernel of it in
+both: ptxas's report and its SASS instruction by instruction (the kernel
+parameters' constant-bank offsets masked), as lines starting with
+``[ptxas]`` and ``[sass]``; and the count of ``HGMMA`` instructions in
+each kernel of each checkout's ``csrc/mlp_bwd_tc.cu`` (``[hgmma]``).
 """
 
 from __future__ import annotations
@@ -63,8 +69,9 @@ def _ms(fn, n=20):
     return a.elapsed_time(b) / n
 
 
-def _device_ms(fn, n=10):
-    """Device ms a call of everything ``fn`` launches (torch.profiler)."""
+def _device_ms(fn, n=10, events=False):
+    """Device ms a call of everything ``fn`` launches (torch.profiler); with
+    ``events``, also the device events (launches and copies) a call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -74,13 +81,14 @@ def _device_ms(fn, n=10):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = 0.0
+    us, count = 0.0, 0
     for e in prof.events():
         if (e.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(e, "is_user_annotation", False)):
             t = getattr(e, "self_device_time_total", None)
             us += float(getattr(e, "self_cuda_time_total", 0.0) if t is None else t)
-    return us / 1e3 / n
+            count += 1
+    return (us / 1e3 / n, count / n) if events else us / 1e3 / n
 
 
 def _paper_step_ms(n=32):
@@ -234,7 +242,7 @@ def _build_all():
     from nerf_meets_mlx_torch.kernels import _build
 
     jobs = [(n, None) for n in ("fused_eval", "fused_train", "fused_mlp", "mlp_fwd_tc",
-                                "hash_encode", "fused_image", "image_train_tc")
+                                "mlp_bwd_tc", "hash_encode", "fused_image", "image_train_tc")
             if (_build.CSRC / f"{n}.cu").exists()]
     if hasattr(_build, "variant_name"):
         import inspect
@@ -264,15 +272,45 @@ def _build_all():
             f.result()
 
 
-def worker():
+def _frame_setup():
+    """(the rays' camera K, the 400 x 400 resolution) of the timed frames."""
     import numpy as np
+
+    from nerf_meets_mlx_torch.datasets.synthetic import CAMERA_ANGLE_X
+
+    res = 400
+    focal = 0.5 * res / np.tan(0.5 * CAMERA_ANGLE_X)
+    return np.array([[focal, 0, res / 2], [0, focal, res / 2], [0, 0, 1]], np.float32), res
+
+
+def frames_worker():
+    """``--frames``' turn: the lego_hierarchical frame, as ``worker`` times
+    it, over 5 frames."""
+    import torch
+
+    from nerf_meets_mlx_torch.cameras.pose import orbit_poses
+    from nerf_meets_mlx_torch.config import lego_hierarchical
+    from nerf_meets_mlx_torch.kernels import _build
+    from nerf_meets_mlx_torch.models import create_nerf
+    from nerf_meets_mlx_torch.rendering import render_image
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build("fused_eval")
+    K, res = _frame_setup()
+    m = create_nerf(lego_hierarchical().replace(use_fused_kernel=True), device=torch.device("cuda"))
+    m.init(torch.Generator(device=torch.device("cuda")).manual_seed(0))
+    with torch.no_grad():
+        ms = _ms(lambda: render_image(m, res, res, K, orbit_poses(160)[0][:3, :4]), n=5)
+    print(json.dumps({"lego_hierarchical_frame": ms}), flush=True)
+
+
+def worker():
     import torch
 
     from nerf_meets_mlx_torch.acceleration.occupancy import _cell_points
     from nerf_meets_mlx_torch.cameras.pose import orbit_poses
     from nerf_meets_mlx_torch.cameras.rays import get_rays
     from nerf_meets_mlx_torch.config import image2d, lego_hierarchical, lego_ingp, lego_occ
-    from nerf_meets_mlx_torch.datasets.synthetic import CAMERA_ANGLE_X
     from nerf_meets_mlx_torch.kernels import fused_feat_train as ff
     from nerf_meets_mlx_torch.kernels import fused_image as fim
     from nerf_meets_mlx_torch.kernels import fused_ingp_train as fi
@@ -288,9 +326,7 @@ def worker():
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     out = {}
-    res = 400
-    focal = 0.5 * res / np.tan(0.5 * CAMERA_ANGLE_X)
-    K = np.array([[focal, 0, res / 2], [0, focal, res / 2], [0, 0, 1]], np.float32)
+    K, res = _frame_setup()
     ro, rd = get_rays(res, res, K, orbit_poses(160)[0][:3, :4], device=dev)
     ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
     vd = rd / torch.linalg.vector_norm(rd, dim=-1, keepdim=True)
@@ -383,6 +419,16 @@ def worker():
         out[f"mlp_fwd_{name}"] = _ms(mlp_fwd, n=10)
         out[f"mlp_fwd_device_{name}"] = _device_ms(mlp_fwd)
         out[f"mlp_fwd_host_{name}"] = _host_ms(mlp_fwd)
+    for name, mlp, p, d in sets[1:]:
+        dz = torch.randn((p.shape[0], 4), generator=g, device=dev)
+
+        def mlp_bwd(mlp=mlp, p=p, d=d, dz=dz):
+            fm._bwd_launch(mlp, m.pos_enc, m.dir_enc, p, d, dz, False)
+
+        out[f"mlp_bwd_{name}"] = _ms(mlp_bwd, n=5)
+        out[f"mlp_bwd_device_{name}"], out[f"mlp_bwd_launches_{name}"] = _device_ms(
+            mlp_bwd, n=5, events=True)
+        out[f"mlp_bwd_host_{name}"] = _host_ms(mlp_bwd, n=10)
     dout = torch.randn((pts.shape[0], 4), generator=g, device=dev)
     out["mlp_fwd_bwd_fine"] = _ms(lambda: (fm.fused_mlp_apply(
         m.fine, m.pos_enc, m.dir_enc, pts, dirs) * dout).sum().backward(), n=5)
@@ -454,8 +500,8 @@ def _ptxas_reports(base: Path, head: Path) -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     jobs = []
-    for source in ("fused_train", "fused_mlp", "mlp_fwd_tc", "fused_image", "image_train_tc",
-                   "ingp_eval_tc", "fused_ingp"):
+    for source in ("fused_train", "fused_mlp", "mlp_fwd_tc", "mlp_bwd_tc", "fused_image",
+                   "image_train_tc", "ingp_eval_tc", "fused_ingp"):
         for tag, root in (("base", base), ("head", head)):
             cu = root / "nerf_meets_mlx_torch" / "csrc" / f"{source}.cu"
             if cu.exists():
@@ -469,7 +515,7 @@ def _ptxas_reports(base: Path, head: Path) -> None:
 # the kernels whose SASS the two checkouts compare, by source
 SASS_KERNELS = {
     "ingp_train_tc": r"(ingp_tc_kernel|feat_tc_kernel|ingp_tc_reduce_kernel)(ILi\d+)?",
-    "fused_mlp": r"(mlp_bwd_kernel|dw_gemm_kernel|reduce_kernel)(ILi\d+)?",
+    "mlp_bwd_tc": r"(?<=\d)mlp_bwd_(tile|dw|pack|reduce)_kernel(ILi\d+)?",
 }
 
 
@@ -480,7 +526,9 @@ def _tile_kernels(root: Path, tag: str, source: str):
     from nerf_meets_mlx_torch.kernels import _build
 
     names = SASS_KERNELS[source]
-    cubin = _cubin(root, tag, source)
+    cubin = HEAD / ".runs" / "kernel_ab" / f"{tag}_{source}.cubin"  # _ptxas_reports' build
+    if not cubin.exists():
+        cubin = _cubin(root, tag, source)
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(cubin)], capture_output=True,
                           text=True).stdout
@@ -509,19 +557,34 @@ def _compare_tile_kernels(base: Path, head: Path, source: str) -> None:
               + "".join(f"; {u} | {v}" for u, v in apart[:3]), flush=True)
 
 
+def _hgmma_counts(root: Path, tag: str) -> None:
+    """[hgmma]: the HGMMA instructions of each kernel of ``root``'s
+    csrc/mlp_bwd_tc.cu and the first one's text, where it has the source."""
+    if not (root / "nerf_meets_mlx_torch" / "csrc" / "mlp_bwd_tc.cu").exists():
+        return
+    for k, ins in sorted(_tile_kernels(root, tag, "mlp_bwd_tc").items()):
+        hg = [i for i in ins if i.startswith("HGMMA")]
+        print(f"[hgmma] {tag} {k}: {len(hg)} of {len(ins)} instructions"
+              + (f"; {hg[0]}" if hg else ""), flush=True)
+
+
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--base", required=True, help="the other checkout's root")
     p.add_argument("--head", default=str(HEAD), help="this checkout's root (default)")
+    p.add_argument("--frames", type=int, default=0,
+                   help="rounds of base, head, head, base timing the lego_hierarchical frame alone")
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     a = p.parse_args()
     if a.worker:
-        worker()
+        frames_worker() if a.frames else worker()
         return 0
     turns = []
-    for tag, root in (("base", a.base), ("head", a.head), ("head", a.head), ("base", a.base)):
+    order = (("base", a.base), ("head", a.head), ("head", a.head), ("base", a.base))
+    for tag, root in order * max(a.frames, 1):
         env = dict(os.environ, PYTHONPATH=str(Path(root).resolve()))
-        proc = subprocess.run([sys.executable, __file__, "--worker", "--base", a.base],
+        proc = subprocess.run([sys.executable, __file__, "--worker", "--base", a.base,
+                               "--frames", str(a.frames)],
                               cwd=root, env=env, capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-3000:], proc.stderr[-6000:], file=sys.stderr)
@@ -532,10 +595,14 @@ def main() -> int:
     for key in turns[0][1]:
         row = " ".join(f"{t}={d[key]:.4f}" for t, d in turns)
         print(f"{key:18s} {row}", flush=True)
+    if a.frames:
+        return 0
     sys.path.insert(0, str(HEAD))
     _ptxas_reports(Path(a.base).resolve(), Path(a.head).resolve())
     for source in SASS_KERNELS:
         _compare_tile_kernels(Path(a.base).resolve(), Path(a.head).resolve(), source)
+    for tag, root in (("base", a.base), ("head", a.head)):
+        _hgmma_counts(Path(root).resolve(), tag)
     return 0
 
 

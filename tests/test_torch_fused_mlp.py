@@ -1,5 +1,5 @@
 """The port's fused point-major MLP op (kernels/fused_mlp.py; the forward
-kernel csrc/mlp_fwd_tc.cu, the backward csrc/fused_mlp.cu).
+kernel csrc/mlp_fwd_tc.cu, the backward csrc/mlp_bwd_tc.cu).
 
 * Its plain version against the JAX ``fused_apply``, which runs the Pallas
   ``_fwd_kernel`` / ``_bwd_kernel`` in interpret mode here, on the same
@@ -15,17 +15,25 @@ kernel csrc/mlp_fwd_tc.cu, the backward csrc/fused_mlp.cu).
   shared-memory plan against their C twins' formulas.
 * ``NeRFModel.query`` on the fused route against the JAX model's fused
   query.
-* The CUDA backward's algorithm replayed in torch from the buffer it reads
-  (``pack_mlp_weights``) and into the dW layout it writes, dX included,
-  against autograd through the plain version.
+* The backward's arithmetic (``_emulate_backward``: B read from the weight
+  images its pack kernel writes, every product in 3xTF32 with each k-step
+  summed from zero and added in fp32, the feature-major workspace, dW by
+  slices of 32 points and point ranges, the gradients in nn.Linear's
+  layout) against autograd through the plain version and against the
+  Pallas ``_bwd_kernel`` in interpret mode, where one TF32 pass misses the
+  dW tolerance; its images' forward part against ``pack_eval_wgmma`` and
+  their size and the shared-memory plans against the C formulas.
 * The wrapper's routing: CPU tensors run the plain version and launch
   nothing; other devices raise.
 * ``gpu``-marked: both CUDA kernels against the plain version at widths
   256, 128, 64, 32, 48 and 96 with a ragged point count; the forward
   kernel within ``MLP_TIGHT`` of plain at those widths, over several tiles
   a block, where the same source built with one TF32 pass
-  (``MLP_FWD_ONE_PASS``) is not; one launch a call, bit-identical over two
-  (skipped where no card is present).
+  (``MLP_FWD_ONE_PASS``) is not; one launch a call, bit-identical over two;
+  the backward at lego_occ's fine shape within the gradient criterion
+  (``fused_mlp.grad_check``) that its one-pass build (``MLP_BWD_ONE_PASS``)
+  misses, bit-identical over two launches, its four kernels a call and
+  nothing else (skipped where no card is present).
 """
 
 import dataclasses
@@ -37,12 +45,11 @@ import torch
 from nerf_meets_mlx_torch import interop
 from nerf_meets_mlx_torch.config import EncodingConfig, MLPConfig
 from nerf_meets_mlx_torch.config import lego_hierarchical as t_lego
-from nerf_meets_mlx_torch.encoding.sinusoidal import sinusoidal_encode
 from nerf_meets_mlx_torch.kernels import fused_mlp as tfm
 from nerf_meets_mlx_torch.kernels import fused_train as tft
 from nerf_meets_mlx_torch.kernels.fused_train import LAUNCHES
 from nerf_meets_mlx_torch.models import create_nerf as t_create
-from tf32_products import _mm_1xtf32, mm_wgmma
+from tf32_products import _mm_1xtf32, _split, mm_wgmma, mm_wgmma_runs
 from torch_threads import one_torch_thread_per_worker  # noqa: F401  (autouse fixture)
 
 # The tight tolerance (atol = rtol) of the forward kernel's raw against the
@@ -51,6 +58,9 @@ from torch_threads import one_torch_thread_per_worker  # noqa: F401  (autouse fi
 # most shapes). The emulation below puts 3xTF32 at 0.13-0.38 of 1e-6 and
 # one pass at 42-110 times 1e-6 at widths 32-256 (lego_occ's 8 layers).
 MLP_TIGHT = 5e-6
+# chip_smoke.py's DW_REL: the bound of a gradient array against the fp32
+# plain version that fused_mlp.grad_check takes first
+DW_REL = 1e-3
 
 # JAX is imported by the tests that compare with it, not at module level:
 # the gpu-marked tests run on the card's machine, which has no JAX
@@ -394,53 +404,139 @@ def test_fused_query_matches_jax_fused_query():
     assert LAUNCHES["mlp_fwd"] == 0  # the CPU runs the plain version
 
 
-def _emulate_backward(mlp, pos_enc, dir_enc, pts, dirs, dout):
-    """csrc/fused_mlp.cu's backward in torch, reading the weights from the
-    buffer the kernel reads and writing dW into the layout it writes:
-    (grads as ``_bwd_launch`` returns them, dX [N, 6])."""
+# csrc/mlp_bwd_tc.cu's tile: the workspace holds N rounded up to 128 points
+_TILE = 128
+
+
+def _dx_cols(dim):
+    return 64 if dim <= 64 else 128
+
+
+def _bwd_segments(mlp, pos_enc, dir_enc, compute_dx):
+    """The B operands csrc/mlp_bwd_tc.cu's tile kernel streams, in its order
+    (``make_plan``): (M, np) with B[k][n] = M[n][k], np the product's
+    columns. The forward reads M = weight ([fan_out][fan_in]), the
+    cotangent and dS products M = weight^T."""
+    cfg = mlp.cfg
+    D, W = cfg.net_depth, cfg.net_width
+    P = pos_enc.out_dim
+    w = [lin.weight.detach() for _, lin in mlp.linears()]
+
+    def skip(j):
+        return (j - 1) in cfg.skips
+
+    fwd = [(w[0], W)]
+    for j in range(1, D):
+        fwd += [(w[j][:, :P], W), (w[j][:, P:], W)] if skip(j) else [(w[j], W)]
+    fwd += [(w[D + 1], W), (w[D + 2][:, :W], W // 2), (w[D + 2][:, W:], W // 2)]
+    bwd = []
+    if compute_dx:
+        bwd.append((w[D + 2][:, W:].t(), _dx_cols(dir_enc.out_dim)))
+    bwd += [(w[D + 2][:, :W].t(), W), (w[D + 1].t(), W)]
+    for j in range(D - 1, 0, -1):
+        if skip(j):
+            if compute_dx:
+                bwd.append((w[j][:, :P].t(), _dx_cols(P)))
+            bwd.append((w[j][:, P:].t(), W))
+        else:
+            bwd.append((w[j].t(), W))
+    if compute_dx:
+        bwd.append((w[0].t(), _dx_cols(P)))
+    return fwd, bwd
+
+
+def _bwd_image(segments):
+    """The weight images as mlp_bwd_pack_kernel writes them: per segment
+    its M padded to np rows, each k-step's TF32 hi then lo image in the
+    wgmma core-matrix layout (``fused_train._wgmma_image``)."""
+    pieces = []
+    for M, np_ in segments:
+        Mp = torch.nn.functional.pad(M.contiguous(), (0, 0, 0, np_ - M.shape[0]))
+        pieces.append(tft._wgmma_image(Mp, [M.shape[1]]))
+    return torch.cat(pieces)
+
+
+# the wgmma K order of a k-step (fused_train.WGMMA_K_ORDER) inverted: row f
+# of the step sits at position _K_INV[f]
+_K_INV = [tft.WGMMA_K_ORDER.index(f) for f in range(8)]
+
+
+def _image_b(img, segments):
+    """Each segment's B [8·steps, np] read back from the images: (hi, lo),
+    the rows in natural order."""
+    out, at = [], 0
+    for M, np_ in segments:
+        steps = -(-M.shape[1] // 8)
+        x = img[at : at + 16 * np_ * steps].reshape(steps, 2, 2, np_ // 8, 8, 4)
+        at += 16 * np_ * steps
+        # [step][hi/lo][K half][N/8][8 of N][4 of K] -> [hi/lo][step][K position][N]
+        x = x.permute(1, 0, 2, 5, 3, 4).reshape(2, steps, 8, np_)[:, :, _K_INV]
+        out.append(tuple(x.reshape(2, 8 * steps, np_)))
+    assert at == img.numel()
+    return out
+
+
+def _emulate_backward(mlp, pos_enc, dir_enc, pts, dirs, dout, passes=3):
+    """csrc/mlp_bwd_tc.cu's arithmetic in torch: (grads as ``_bwd_launch``
+    returns them, dX [N, 6]). The points padded to whole tiles (dout 0
+    there); every dense product reads its B from the weight images the pack
+    kernel writes (``_bwd_image``) and runs as ``mm_wgmma_runs`` (3xTF32,
+    each k-step summed from zero and added in fp32; ``passes=1``: hi·hi
+    alone); every layer's input and dZ go to a feature-major workspace;
+    dW = X^T dZ from it per product (``make_plan``'s jobs), each slice of 32
+    points summed from zero, the point ranges of DW_SPLIT_POINTS added in
+    order; the heads, the biases and dX in fp32. Also returns the
+    workspace [rows, N padded to 128] and the image floats before it."""
     cfg = mlp.cfg
     D, W = cfg.net_depth, cfg.net_width
     WH = W // 2
-    wbuf, offs = tfm.pack_mlp_weights(mlp, pos_enc, dir_enc, backward=True, compute_dx=True)
-    n_skips = len(cfg.skips)
-    assert len(offs) == 3 * D + 11 + 2 + n_skips and all(o % 4 == 0 for o in offs)
+    P, Dd = pos_enc.out_dim, dir_enc.out_dim
+    lins = [lin for _, lin in mlp.linears()]
+    N = pts.shape[0]
+    npad = -(-N // _TILE) * _TILE
+    pts = torch.nn.functional.pad(pts, (0, 0, 0, npad - N))
+    dirs = torch.nn.functional.pad(dirs, (0, 0, 0, npad - N))
+    dout = torch.nn.functional.pad(dout, (0, 0, 0, npad - N))
+    segs = _bwd_segments(mlp, pos_enc, dir_enc, True)
+    bs = iter(_image_b(_bwd_image(segs[0] + segs[1]), segs[0] + segs[1]))
 
-    def mat(i, rows, cols):
-        return wbuf[offs[i] : offs[i] + rows * cols].reshape(rows, cols)
+    def gemm(inputs, ncols):
+        """[inputs] (each zero-padded to whole k-steps) times the next
+        len(inputs) segments' B, the first ncols columns."""
+        a = torch.cat([_pad8(x) for x in inputs], 1)
+        b = [next(bs) for _ in inputs]
+        bh, bl = torch.cat([x[0] for x in b]), torch.cat([x[1] for x in b])
+        return mm_wgmma_runs(a, bh, bl, 1, passes)[:, :ncols]
 
-    def vec(i, n):
-        return wbuf[offs[i] : offs[i] + n]
+    def bias(i):
+        return lins[i].bias.detach()
 
-    pb, db = vec(2 * D + 8, pos_enc.n_freqs), vec(2 * D + 9, dir_enc.n_freqs)
-    xp = sinusoidal_encode(pts, pb, pos_enc.include_input)
-    xd = sinusoidal_encode(dirs, db, dir_enc.include_input)
-    Pd, Dd = xp.shape[1], xd.shape[1]
-    hs = [torch.relu(xp @ mat(0, Pd, W) + vec(1, W))]
-    for j in range(1, D):
-        if (j - 1) in cfg.skips:
-            hs.append(torch.relu(torch.cat([xp, hs[-1]], -1) @ mat(2 * j, Pd + W, W)
-                                 + vec(2 * j + 1, W)))
-        else:
-            hs.append(torch.relu(hs[-1] @ mat(2 * j, W, W) + vec(2 * j + 1, W)))
-    feat = hs[-1] @ mat(2 * D + 2, W, W) + vec(2 * D + 3, W)
-    hd = torch.relu(torch.cat([feat, xd], -1) @ mat(2 * D + 4, W + Dd, WH) + vec(2 * D + 5, WH))
+    xp, xd = pos_enc.apply(pts), dir_enc.apply(dirs)
+    rows, n_rows = tfm.bwd_ws_rows(mlp, pos_enc, dir_enc)
+    ws = torch.zeros((n_rows, npad))
 
-    drgb, dalpha = dout[:, :3], dout[:, 3:]
-    ddir = (drgb @ mat(2 * D + 6, WH, 3).t()) * (hd > 0)
-    dfeat = ddir @ mat(3 * D + 10, WH, W)
-    dzs = [None] * D
-    dzs[D - 1] = (torch.cat([dfeat, dalpha], -1) @ mat(3 * D + 9, W + 1, W)) * (hs[-1] > 0)
-    for j in range(D - 1, 0, -1):
-        dzs[j - 1] = (dzs[j] @ mat(2 * D + 10 + j - 1, W, W)) * (hs[j - 1] > 0)
+    def put(name, x, at=0):
+        ws[rows[name] + at : rows[name] + at + x.shape[1]] = x.t()
 
-    # dS: the encoding rows of layer 0, the skip layers and the view layer
-    o_dx = 3 * D + 11
-    ngp, ngd = -(-Pd // 64), -(-Dd // 64)
-    enc_layers = [0] + [s + 1 for s in sorted(cfg.skips)]
-    dS_pos = sum(dzs[j] @ mat(o_dx + k, W, 64 * ngp)[:, :Pd] for k, j in enumerate(enc_layers))
-    dS_dir = ddir @ mat(o_dx + 1 + n_skips, WH, 64 * ngd)[:, :Dd]
+    put("encP", xp)
+    put("encD", xd)
+    put("dout", dout)
+    # the forward again
+    hs = []
+    for j in range(D):
+        x = [xp] if j == 0 else ([xp, hs[-1]] if (j - 1) in cfg.skips else [hs[-1]])
+        hs.append(torch.relu(gemm(x, W) + bias(j)))
+        put("h", hs[-1], j * W)
+    feat = gemm([hs[-1]], W) + bias(D + 1)
+    put("feat", feat)
+    zv = gemm([feat, xd], WH) + bias(D + 2)
+    put("hd", torch.relu(zv))
+    # the backward: the rgb head on the CUDA cores, then the products
+    wr, wa = lins[D + 3].weight.detach(), lins[D].weight.detach()
+    ddir = (dout[:, :3] @ wr) * (zv > 0)
+    put("ddir", ddir)
 
-    def dx_of(x, dS, bands, inc):
+    def dx_of(x, dS, bands, inc):  # sum over features of d(feature)/dx * dS
         F = bands.shape[0]
         ph = x[..., None] * bands                                      # [N, 3, F]
         s = dS[:, : 3 * F].reshape(-1, 3, F) * torch.cos(ph)
@@ -448,42 +544,72 @@ def _emulate_backward(mlp, pos_enc, dir_enc, pts, dirs, dout):
         out = ((s + c) * bands).sum(-1)
         return out + dS[:, 6 * F : 6 * F + 3] if inc else out
 
-    dx = torch.cat([dx_of(pts, dS_pos, pb, pos_enc.include_input),
-                    dx_of(dirs, dS_dir, db, dir_enc.include_input)], -1)
-
-    dwbuf = torch.zeros(offs[2 * D + 8])
-
-    def job(X, dZ, c_off, bias_off=None):
-        blk = X.t() @ dZ
-        dwbuf[c_off : c_off + blk.numel()] = blk.reshape(-1)
-        if bias_off is not None:
-            dwbuf[bias_off : bias_off + dZ.shape[1]] = dZ.sum(0)
-
-    job(xp, dzs[0], offs[0], offs[1])
-    for j in range(1, D):
+    pb, db = tfm._bands(pos_enc, pts.device), tfm._bands(dir_enc, pts.device)
+    dx_dir = dx_of(dirs, gemm([ddir], Dd), db, dir_enc.include_input)
+    dfeat = gemm([ddir], W)
+    put("dfeat", dfeat)
+    dz = [None] * D
+    dz[D - 1] = (gemm([dfeat], W) + dout[:, 3:] * wa) * (hs[-1] > 0)
+    put("dz", dz[D - 1], (D - 1) * W)
+    dx_pos = torch.zeros((npad, 3))
+    for j in range(D - 1, 0, -1):
         if (j - 1) in cfg.skips:
-            job(xp, dzs[j], offs[2 * j], offs[2 * j + 1])
-            job(hs[j - 1], dzs[j], offs[2 * j] + Pd * W)
+            dx_pos = dx_pos + dx_of(pts, gemm([dz[j]], P), pb, pos_enc.include_input)
+        dz[j - 1] = gemm([dz[j]], W) * (hs[j - 1] > 0)
+        put("dz", dz[j - 1], (j - 1) * W)
+    dx_pos = dx_pos + dx_of(pts, gemm([dz[0]], P), pb, pos_enc.include_input)
+    assert next(bs, None) is None  # every image segment read, in order
+    dx = torch.cat([dx_pos, dx_dir], -1)[:N]
+
+    # dW = X^T dZ per product, from the workspace
+    offs, n_dw = tfm.grad_offsets(mlp)
+    flat = torch.zeros(n_dw)
+
+    def job(x_row, m, z_row, n, lin, ldo, col0, with_bias):
+        X, Z = ws[x_row : x_row + m], ws[z_row : z_row + n]
+        dw = torch.zeros((m, n))
+        dbias = torch.zeros(n)
+        for p0 in range(0, npad, tft.DW_SPLIT_POINTS):
+            s = slice(p0, min(npad, p0 + tft.DW_SPLIT_POINTS))
+            zh, zl = _split(Z[:, s].t().contiguous())
+            dw = dw + mm_wgmma_runs(X[:, s], zh, zl, 4, passes)
+            dbias = dbias + Z[:, s].sum(1)
+        o = lins[lin].out_features
+        flat[offs[2 * lin] : offs[2 * lin] + o * ldo].view(o, ldo)[:, col0 : col0 + m] = dw.t()
+        if with_bias:
+            flat[offs[2 * lin + 1] : offs[2 * lin + 1] + o] = dbias
+
+    r = rows
+    job(r["encP"], P, r["dz"], W, 0, P, 0, True)
+    for j in range(1, D):
+        dzr, hprev = r["dz"] + j * W, r["h"] + (j - 1) * W
+        if (j - 1) in cfg.skips:
+            job(r["encP"], P, dzr, W, j, P + W, 0, True)
+            job(hprev, W, dzr, W, j, P + W, P, False)
         else:
-            job(hs[j - 1], dzs[j], offs[2 * j], offs[2 * j + 1])
-    job(hs[-1], dalpha, offs[2 * D], offs[2 * D + 1])
-    job(hs[-1], dfeat, offs[2 * D + 2], offs[2 * D + 3])
-    job(feat, ddir, offs[2 * D + 4], offs[2 * D + 5])
-    job(xd, ddir, offs[2 * D + 4] + W * WH)
-    job(hd, drgb, offs[2 * D + 6], offs[2 * D + 7])
+            job(hprev, W, dzr, W, j, W, 0, True)
+    h_last = r["h"] + (D - 1) * W
+    job(h_last, W, r["dout"] + 3, 1, D, W, 0, True)
+    job(h_last, W, r["dfeat"], W, D + 1, W, 0, True)
+    job(r["feat"], W, r["ddir"], WH, D + 2, W + Dd, 0, True)
+    job(r["encD"], Dd, r["ddir"], WH, D + 2, W + Dd, W, False)
+    job(r["hd"], WH, r["dout"], 3, D + 3, WH, 0, True)
     grads = []
-    for i, (_, lin) in enumerate(mlp.linears()):
-        fi, fo = lin.in_features, lin.out_features
-        grads.append(dwbuf[offs[2 * i] : offs[2 * i] + fi * fo].view(fi, fo).t())
-        grads.append(dwbuf[offs[2 * i + 1] : offs[2 * i + 1] + fo])
-    return grads, dx
+    for i, lin in enumerate(lins):
+        grads.append(flat[offs[2 * i] : offs[2 * i] + lin.weight.numel()].view_as(lin.weight))
+        grads.append(flat[offs[2 * i + 1] : offs[2 * i + 1] + lin.bias.numel()])
+    return grads, dx, ws, sum(16 * np_ * -(-M.shape[1] // 8) for M, np_ in segs[0] + segs[1])
 
 
 @pytest.mark.parametrize("shape", ["lego", "two_skips"])
 def test_backward_algorithm_and_layout_match_autograd(shape):
+    """csrc/mlp_bwd_tc.cu's arithmetic and layouts (``_emulate_backward``:
+    the weight images, the feature-major workspace, dW's products and
+    point ranges, the gradients in nn.Linear's layout) against autograd
+    through the fp32 plain version, dX included."""
     if shape == "lego":
         tm = t_create(t_lego(), device="cpu").init(torch.Generator().manual_seed(3))
-    else:  # two skips, an encoding wider than 64 features (two dS column groups)
+    else:  # two skips, an encoding wider than 64 features (dS of 128 columns)
         mlp, pos, dir_ = _configs(depth=5, width=128, skips=(1, 3), pos_f=12, dir_f=4)
         cfg = t_lego().replace(pos_encoding=pos, dir_encoding=dir_, mlp=mlp, mlp_fine=mlp)
         tm = t_create(cfg, device="cpu").init(torch.Generator().manual_seed(4))
@@ -492,7 +618,7 @@ def test_backward_algorithm_and_layout_match_autograd(shape):
     pts = pts * 0.5
     dout = torch.from_numpy(np.random.default_rng(10).normal(size=(40, 4)).astype(np.float32))
     with torch.no_grad():
-        g_e, dx_e = _emulate_backward(mlp, tm.pos_enc, tm.dir_enc, pts, dirs, dout)
+        g_e, dx_e, _, _ = _emulate_backward(mlp, tm.pos_enc, tm.dir_enc, pts, dirs, dout)
     p, d = pts.clone().requires_grad_(True), dirs.clone().requires_grad_(True)
     params = [q for _, lin in mlp.linears() for q in (lin.weight, lin.bias)]
     raw = tfm.fused_mlp_reference(mlp, tm.pos_enc, tm.dir_enc, p, d)
@@ -502,6 +628,219 @@ def test_backward_algorithm_and_layout_match_autograd(shape):
         assert ge.shape == ga.shape
         torch.testing.assert_close(ge, ga, rtol=2e-4, atol=5e-6, msg=f"param {i}")
     torch.testing.assert_close(dx_e, torch.cat(g[-2:], -1), rtol=2e-4, atol=5e-5)
+
+
+def _worst_over(got, want, rtol, atol):
+    """max |got - want| / (atol + rtol·|want|) over the arrays: at most 1
+    within the tolerance."""
+    return max(float(((a - b).abs() / (atol + rtol * b.abs())).max()) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("width,skips", [(64, (2,)), (128, (1, 3))])
+def test_backward_arithmetic_matches_jax_kernel(width, skips):
+    """The backward's 3xTF32 arithmetic (``_emulate_backward``) at depth 5,
+    with one or two skips and 12 / 4 bands (75 position features, 27
+    direction), 200 points (a ragged tile), on the JAX weights: every dW and
+    db of Σ dout · raw within rtol 2e-4 / atol 5e-6 of jax.grad through the
+    Pallas ``_bwd_kernel`` in interpret mode, and dX as
+    test_gradients_match_jax_kernel holds it; the same emulation with one
+    TF32 pass (the ``MLP_BWD_ONE_PASS`` build's arithmetic) misses the dW
+    tolerance. Both distances are printed."""
+    import jax
+    import jax.numpy as jnp
+
+    from nerf_meets_mlx_tpu.kernels.fused_mlp import fused_apply, pack_params
+
+    spec, params, tm = _pair(depth=5, width=width, skips=skips, pos_f=12, dir_f=4)
+    assert tm.pos_enc.out_dim == 75 and tm.dir_enc.out_dim == 27
+    pts, dirs = _points(200, seed=21)
+    dout = np.random.default_rng(22).normal(size=(200, 4)).astype(np.float32)
+
+    def loss(p, x):
+        return jnp.sum(fused_apply(spec, pack_params(spec, p), x)[:, :4] * dout)
+
+    gp, gx = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(_x8(pts, dirs)))
+    want = []
+    for name, lin in tm.coarse.linears():
+        leaf = (gp["pos_linears"][int(name.split(".")[1])] if name.startswith("pos_linears.")
+                else gp[name])
+        want += [torch.from_numpy(np.asarray(leaf["w"]).T.copy()),
+                 torch.from_numpy(np.asarray(leaf["b"]).copy())]
+    args = (tm.coarse, tm.pos_enc, tm.dir_enc, torch.from_numpy(pts), torch.from_numpy(dirs),
+            torch.from_numpy(dout))
+    with torch.no_grad():
+        three, dx3, _, _ = _emulate_backward(*args)
+        one = _emulate_backward(*args, passes=1)[0]
+    over = {"3xTF32": _worst_over(three, want, 2e-4, 5e-6), "one pass": _worst_over(one, want, 2e-4, 5e-6)}
+    print(f"[tf32] backward width {width} skips {skips}: dW over rtol 2e-4 / atol 5e-6 {over}")
+    for i, (a, b) in enumerate(zip(three, want)):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=5e-6, msg=f"param {i}")
+    gx = torch.from_numpy(np.asarray(gx)[:, :6].copy())
+    torch.testing.assert_close(dx3, gx, rtol=5e-3, atol=1e-4)
+    assert float(gx.abs().max()) > 0
+    assert over["one pass"] > 1.0, over
+
+
+def test_relu_reference_and_workspace_masks():
+    """``relu_reference`` with the plain version's own relu decisions
+    (``relu_decisions``) is the plain version, values and gradients; its
+    margin leaves few decisions open to rounding; and ``workspace_masks``
+    reads the kernel's decisions from the rows of the workspace where
+    ``_emulate_backward`` lays out h_j and the view layer's output, after
+    the weight images (rounded up to 32 floats)."""
+    import types
+
+    mlp, pos, dir_ = _configs(depth=4, width=64, skips=(1,))
+    cfg = t_lego().replace(pos_encoding=pos, dir_encoding=dir_, mlp=mlp, mlp_fine=mlp)
+    tm = t_create(cfg, device="cpu").init(torch.Generator().manual_seed(5))
+    mlp = tm.fine
+    pts, dirs = (torch.from_numpy(a) for a in _points(150, seed=23))
+    dout = torch.from_numpy(np.random.default_rng(24).normal(size=(150, 4)).astype(np.float32))
+    dec = tfm.relu_decisions(mlp, tm.pos_enc, tm.dir_enc, pts, dirs, 1e-5)
+    assert len(dec) == mlp.cfg.net_depth + 1
+    assert all(bool(sure.float().mean() > 0.99) for _, sure in dec)
+    params = [q for _, lin in mlp.linears() for q in (lin.weight, lin.bias)]
+    raw = tfm.relu_reference(mlp, tm.pos_enc, tm.dir_enc, pts, dirs, [on for on, _ in dec])
+    want = tfm.fused_mlp_reference(mlp, tm.pos_enc, tm.dir_enc, pts, dirs)
+    torch.testing.assert_close(raw, want, rtol=0, atol=0)
+    for a, b in zip(torch.autograd.grad((raw * dout).sum(), params),
+                    torch.autograd.grad((want * dout).sum(), params)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with torch.no_grad():
+        _, _, ws, img = _emulate_backward(mlp, tm.pos_enc, tm.dir_enc, pts, dirs, dout)
+        scratch = torch.cat([torch.full((-(-img // 32) * 32,), float("nan")), ws.reshape(-1)])
+        lib = types.SimpleNamespace(mlp_bwd_tc_image_floats=lambda *a: img)
+        masks = tfm.workspace_masks(mlp, tm.pos_enc, tm.dir_enc, 150, scratch, True, lib=lib)
+    assert [tuple(m.shape) for m in masks] == [(150, 64)] * 4 + [(150, 32)]
+    for m, (on, sure) in zip(masks, dec):
+        assert bool(((m == on) | ~sure).all())
+
+
+def _criterion_arrays():
+    """(fp32 plain, float64) gradient arrays made with numpy: [64, 48] and
+    [48], float64 within 1e-7 of fp32."""
+    rng = np.random.default_rng(31)
+    g64 = [torch.from_numpy(rng.normal(size=s)) for s in ((64, 48), (48,))]
+    g_p = [(a * (1 + 1e-7 * torch.from_numpy(rng.normal(size=a.shape)))).float() for a in g64]
+    return g_p, g64
+
+
+@pytest.mark.parametrize("case,want", [
+    ("plain", ["i", "i"]),
+    ("flip", ["ii", "i"]),
+    ("flip_loose", ["no", "i"]),
+    ("flip_far_decision", ["no", "i"]),
+    ("flip_near_at_bound", ["ii", "i"]),
+    ("flip_many_near", ["no", "i"]),
+    ("not_finite", ["no", "i"]),
+])
+def test_gradient_criterion(case, want):
+    """``grad_criteria``: an array within DW_REL of the fp32 plain version
+    is held by "i"; one that misses it (a relu decision taken the other way
+    moves a unit's share of it) only by "ii": within GRAD_TIGHT of float64
+    with the kernel's decisions, none of them apart from float64's beyond
+    the margin, and those inside it at most NEAR_FACTOR times the fp32 plain
+    version's plus NEAR_SLACK."""
+    g_p, g64 = _criterion_arrays()
+    g_k = [a.clone() for a in g_p]
+    apart, near, plain_near = 0, 3, 2
+    if case != "plain":
+        # a decision the other way than cuBLAS's: 5e-3 of the array moves,
+        # the kernel's arithmetic within 1e-6 of float64 with its decisions
+        g64[0][3, :] += 5e-3 * float(g64[0].abs().max())
+        g_k[0] = (g64[0] * (1 + 1e-6)).float()
+    if case == "flip_loose":
+        g_k[0][0, 0] += 2 * tfm.GRAD_TIGHT * float(g64[0].abs().max())
+    if case == "flip_far_decision":
+        apart = 1
+    if case in ("flip_near_at_bound", "flip_many_near"):
+        near = int(tfm.NEAR_FACTOR * plain_near) + tfm.NEAR_SLACK + (case == "flip_many_near")
+    if case == "not_finite":
+        g_k[0][1, 1] = float("nan")
+    by, r32, r64 = tfm.grad_criteria(g_k, g_p, g64, apart, near, plain_near, DW_REL)
+    assert by == want, (by, r32, r64)
+
+
+@pytest.mark.parametrize("passes", [3, 1], ids=["3xTF32", "one_pass"])
+def test_grad_reference_holds_the_emulated_backward(passes):
+    """``grad_reference`` and ``grad_criteria`` on the backward's emulated
+    arithmetic (``_emulate_backward``) and its workspace, read back by
+    ``workspace_masks`` as ``grad_check`` reads the card's: 3xTF32 takes no
+    relu decision apart from float64's beyond the margin and meets the
+    criterion, every array within GRAD_TIGHT of float64 with its own
+    decisions; one TF32 pass lies beyond GRAD_TIGHT there."""
+    import types
+
+    mlp, pos, dir_ = _configs(depth=5, width=64, skips=(1, 3))
+    cfg = t_lego().replace(pos_encoding=pos, dir_encoding=dir_, mlp=mlp, mlp_fine=mlp)
+    tm = t_create(cfg, device="cpu").init(torch.Generator().manual_seed(7))
+    mlp = tm.fine
+    N = 300
+    pts, dirs = (torch.from_numpy(a) for a in _points(N, seed=29))
+    dout = torch.from_numpy(np.random.default_rng(30).normal(size=(N, 4)).astype(np.float32))
+    with torch.no_grad():
+        grads, dx, ws, img = _emulate_backward(mlp, tm.pos_enc, tm.dir_enc, pts, dirs, dout,
+                                               passes=passes)
+        scratch = torch.cat([torch.full((-(-img // 32) * 32,), float("nan")), ws.reshape(-1)])
+        lib = types.SimpleNamespace(mlp_bwd_tc_image_floats=lambda *a: img)
+        masks = tfm.workspace_masks(mlp, tm.pos_enc, tm.dir_enc, N, scratch, True, lib=lib)
+    g_k = list(grads) + [dx[:, :3], dx[:, 3:]]
+    p, d = pts.clone().requires_grad_(True), dirs.clone().requires_grad_(True)
+    out = tfm.fused_mlp_reference(mlp, tm.pos_enc, tm.dir_enc, p, d)
+    g_p = torch.autograd.grad((out * dout).sum(), tfm._params(mlp) + [p, d])
+    g64, apart, near, plain_near = tfm.grad_reference(mlp, tm.pos_enc, tm.dir_enc, pts, dirs,
+                                                      dout, True, masks)
+    by, r32, r64 = tfm.grad_criteria(g_k, g_p, g64, apart, near, plain_near, DW_REL)
+    print(f"[grad] emulated {passes} pass(es): held by {' '.join(by)}; against float64 "
+          + " ".join(f"{r:.1e}" for r in r64)
+          + f"; decisions apart {near} (fp32 plain {plain_near}), {apart} beyond the margin")
+    if passes == 3:
+        assert apart == 0 and "no" not in by, (by, r64, apart, near)
+        assert max(r64) <= tfm.GRAD_TIGHT, r64
+    else:
+        assert max(r64) > tfm.GRAD_TIGHT, r64
+
+
+def test_backward_images_and_smem_plan_match_the_kernel():
+    """The backward's weight images: their forward part is
+    ``pack_eval_wgmma``'s buffer bit for bit (the layout the forward kernel
+    reads), and their size is ``mlp_bwd_tc_image_floats``' (per segment its
+    k-steps x 16 x np floats: the forward's, then with compute_dx a dS
+    product a skip layer, layer 0 and the view layer, np 64 or 128), at
+    every depth, skip set and band count the wrapper takes; the tile
+    kernel's shared memory (4 stages of 16 x max(W, 128) floats, a 128 x
+    (W + 8) activation tile, 8 mbarriers, 128 x 16 floats of points) and the
+    dW kernel's (three stages of 128 rows of 36 floats of X and of the 4
+    k-steps' hi / lo images of 128 dZ rows, 256 floats of row sums) fit a
+    block at every width."""
+    def image_floats(D, W, skips, P, Dd, dx):
+        k = -(-P // 8)
+        steps = k + W // 8 + sum(W // 8 + (k if (j - 1) in skips else 0) for j in range(1, D))
+        fwd = steps * 16 * W + (W // 8 + -(-Dd // 8)) * 16 * (W // 2)
+        bwd = (W // 16 + W // 8 + (D - 1) * W // 8) * 16 * W
+        if dx:
+            bwd += W // 16 * 16 * _dx_cols(Dd) + (1 + len(skips)) * W // 8 * 16 * _dx_cols(P)
+        return fwd + bwd
+
+    for depth, width, skips, pos_f, dir_f in ((2, 32, (), 4, 2), (4, 48, (1, 2), 6, 3),
+                                              (8, 64, (4,), 10, 4), (5, 96, (1, 3), 12, 4),
+                                              (17, 32, (3, 9, 15), 2, 1)):
+        mlp, pos, dir_ = _configs(depth=depth, width=width, skips=skips, pos_f=pos_f, dir_f=dir_f)
+        cfg = t_lego().replace(pos_encoding=pos, dir_encoding=dir_, mlp=mlp, mlp_fine=mlp)
+        tm = t_create(cfg, device="cpu").init(torch.Generator().manual_seed(1))
+        P, Dd = tm.pos_enc.out_dim, tm.dir_enc.out_dim
+        for dx in (False, True):
+            fwd, bwd = _bwd_segments(tm.coarse, tm.pos_enc, tm.dir_enc, dx)
+            assert len(fwd) + len(bwd) <= 80  # MAX_SEGS
+            img = _bwd_image(fwd + bwd)
+            assert img.numel() == image_floats(depth, width, skips, P, Dd, dx)
+            n_fwd = _bwd_image(fwd).numel()
+            torch.testing.assert_close(img[:n_fwd], tft.pack_eval_wgmma(tm.coarse, tm.pos_enc,
+                                                                       tm.dir_enc), rtol=0, atol=0)
+    for width in range(32, 257, 16):
+        smem = 4 * (4 * 16 * max(width, 128) + 128 * (width + 8)) + 8 * 8 + 4 * 128 * 16
+        assert smem <= 232448, (width, smem)
+    assert 4 * (3 * (128 * 36 + 64 * 128) + 256) <= 232448
 
 
 def test_cpu_call_runs_plain_and_launches_nothing():
@@ -524,20 +863,13 @@ def test_other_devices_raise():
         tfm.fused_mlp_apply(tm.coarse, tm.pos_enc, tm.dir_enc, pts, pts)
 
 
-def _rel_close(got, want, rel):
-    """max |got - want| <= rel * max |want| (and finite)."""
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    return bool(torch.isfinite(got).all()) and err <= rel * max(scale, 1e-30), err, scale
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("width", [256, 128])
 def test_cuda_kernels_match_plain(width):
     """Both kernels at full depth with the skip, 5,000 points (not a
-    multiple of the forward's 128-point tile, nor of the backward's 64-point
-    tile or 512-point block), both MLPs; the backward with compute_dx off
-    and on."""
+    multiple of either kernel's 128-point tile), both MLPs; the backward
+    with compute_dx off and on, every dW, db and dX held to
+    ``fused_mlp.grad_check``."""
     _check_cuda_kernels(width)
 
 
@@ -582,11 +914,10 @@ def _check_cuda_kernels(width):
             g = torch.autograd.grad((out * dout).sum(), wrt)
             torch.cuda.synchronize()
             assert LAUNCHES["mlp_bwd"] == n0 + 1
-            out_p = tfm.fused_mlp_reference(mlp, tm.pos_enc, tm.dir_enc, p, d)
-            g_p = torch.autograd.grad((out_p * dout).sum(), wrt)
-            for i, (a, b) in enumerate(zip(g, g_p)):
-                ok, err, scale = _rel_close(a, b, 1e-3)
-                assert ok, (level, compute_dx, i, err, scale)
+            check = tfm.grad_check(mlp, tm.pos_enc, tm.dir_enc, pts, dirs, dout, compute_dx, g,
+                                   DW_REL)
+            print(f"[grad] width {width} {level} dx={int(compute_dx)}: {check.describe()}")
+            assert check.ok, (level, compute_dx, check.describe())
 
 
 def _cuda_forward_case(width, N=40_000):
@@ -673,3 +1004,75 @@ def test_cuda_forward_kernel_is_deterministic():
         b = tfm.fused_mlp_apply(tm.fine, tm.pos_enc, tm.dir_enc, pts, dirs)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+def _cuda_backward_case(N=4096 * 96):
+    """lego_occ's fine MLP on the card (seeded init), lego_occ's fine
+    shape's 393,216 points (``_points``, seed 13, scaled 0.8) and a random
+    dout."""
+    tm, sets = _cuda_forward_case(256, N)
+    _, pts, dirs = sets[0]
+    dout = torch.randn((N, 4), generator=torch.Generator(device=pts.device).manual_seed(3),
+                       device=pts.device)
+    return tm, pts, dirs, dout
+
+
+@pytest.mark.gpu
+def test_cuda_backward_runs_three_tf32_passes():
+    """The backward's 3xTF32 build meets ``fused_mlp.grad_check`` at
+    lego_occ's fine shape, and the same source built with one TF32 product
+    in place of three (``MLP_BWD_ONE_PASS``: hi·hi alone) misses it, and
+    lies beyond GRAD_TIGHT of float64 with its own relu decisions on some
+    array. Both builds' readings are printed."""
+    from nerf_meets_mlx_torch.kernels import _build
+
+    tm, pts, dirs, dout = _cuda_backward_case()
+    one_pass = tfm.type_bwd_lib(_build.load_library(tfm.BWD_SOURCE, {"MLP_BWD_ONE_PASS": 1}))
+    checks = {}
+    for name, lib in (("3xTF32", None), ("one pass", one_pass)):
+        g, _ = tfm._bwd_launch(tm.fine, tm.pos_enc, tm.dir_enc, pts, dirs, dout, False, lib=lib)
+        checks[name] = tfm.grad_check(tm.fine, tm.pos_enc, tm.dir_enc, pts, dirs, dout, False, g,
+                                      DW_REL, lib=lib)
+        print(f"[tf32] backward {name}: {checks[name].describe()}")
+        assert checks[name].same
+    assert checks["3xTF32"].ok, checks["3xTF32"].describe()
+    assert not checks["one pass"].ok
+    # the one-pass build misses GRAD_TIGHT itself, not only the decisions
+    assert max(checks["one pass"].r64) > tfm.GRAD_TIGHT, checks["one pass"].r64
+
+
+@pytest.mark.gpu
+def test_cuda_backward_is_deterministic():
+    """No atomics: two backward calls on the same inputs give bit-identical
+    gradients and dX."""
+    tm, pts, dirs, dout = _cuda_backward_case(4096 * 32)
+    a, xa = tfm._bwd_launch(tm.fine, tm.pos_enc, tm.dir_enc, pts, dirs, dout, True)
+    b, xb = tfm._bwd_launch(tm.fine, tm.pos_enc, tm.dir_enc, pts, dirs, dout, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(xa, xb)
+
+
+@pytest.mark.gpu
+def test_cuda_backward_launches_as_designed():
+    """A backward call launches csrc/mlp_bwd_tc.cu's four kernels, the
+    weight-image pack, the tile kernel, dW and the reduction, once each,
+    and nothing else on the device (no host pack, no copy of the
+    gradients); ``LAUNCHES["mlp_bwd"]`` counts it once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tm, pts, dirs, dout = _cuda_backward_case(4096 * 32)
+    call = lambda: tfm._bwd_launch(tm.fine, tm.pos_enc, tm.dir_enc, pts, dirs, dout, False)  # noqa: E731
+    call()
+    torch.cuda.synchronize()
+    n0 = LAUNCHES["mlp_bwd"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    assert LAUNCHES["mlp_bwd"] == n0 + 1
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
+    kinds = sorted(k for k in ("pack", "tile", "dw", "reduce") for n in names
+                   if f"mlp_bwd_{k}_kernel" in n)
+    assert kinds == ["dw", "pack", "reduce", "tile"], names
+    assert len(names) == 4, names

@@ -5,14 +5,16 @@ summed in one fp32 accumulator, the same with each k-step of 8 summed from
 zero and added in fp32 (the order csrc/fused_train.cu and
 csrc/image_train_tc.cu use), a whole layer in one accumulator that rounds
 toward zero as the tensor cores add (the wgmma kernels' form,
-csrc/fused_eval.cu and csrc/ingp_eval_tc.cu), and one TF32 pass, the
+csrc/fused_eval.cu and csrc/ingp_eval_tc.cu), the same restarted every few
+k-steps and added in fp32 (csrc/mlp_bwd_tc.cu), and one TF32 pass, the
 lower-precision control."""
 
 import torch
 
 from nerf_meets_mlx_torch.kernels.fused_train import _tf32
 
-__all__ = ["_tf32", "_trunc32", "_mm_3xtf32", "_mm_1xtf32", "mm_ksteps", "mm_wgmma"]
+__all__ = ["_tf32", "_trunc32", "_split", "_mm_3xtf32", "_mm_1xtf32", "mm_ksteps", "mm_wgmma",
+           "mm_wgmma_runs"]
 
 
 def _trunc32(x64):
@@ -88,3 +90,37 @@ def mm_wgmma(a, b, passes=3):
         for part in sums:
             acc = _trunc32(acc + part[s]).double()
     return acc.float()
+
+
+def mm_wgmma_runs(a, bh, bl, group=1, passes=3):
+    """a [M, K] @ b [K, N] as csrc/mlp_bwd_tc.cu runs it on wgmma: a split
+    into TF32 halves, b given as its halves bh, bl [K', N] (K' >= K rows,
+    the rows past K zero: a weight image, or dZ split as the dW kernel
+    splits it), K in steps of 8; each run of ``group`` k-steps (1: the tile
+    kernel's products, 4: dW's slices of 32 points) summed in one
+    accumulator that starts from zero and rounds each add toward zero (per
+    k-step lo·hi, hi·lo, hi·hi, each exact over its 8 products; ``passes=1``:
+    hi·hi alone), then added to an fp32 sum, run after run."""
+    steps = -(-bh.shape[0] // 8)
+    a = torch.nn.functional.pad(a, (0, 8 * steps - a.shape[1]))
+    bh = torch.nn.functional.pad(bh, (0, 0, 0, 8 * steps - bh.shape[0]))
+    bl = torch.nn.functional.pad(bl, (0, 0, 0, 8 * steps - bl.shape[0]))
+    ah, al = _split(a)
+    pairs = ((al, bh), (ah, bl), (ah, bh)) if passes == 3 else ((ah, bh),)
+    runs = -(-steps // group)
+    pad = runs * group - steps  # zero k-steps: adding 0 is exact
+
+    def step_sums(x, y):  # [run, k-step of the run, row, column], float64
+        s = torch.einsum("psk,skn->spn", x.double().reshape(-1, steps, 8),
+                         y.double().reshape(steps, 8, -1))
+        return torch.nn.functional.pad(s, (0, 0, 0, 0, 0, pad)).reshape(runs, group, *s.shape[1:])
+
+    sums = [step_sums(x, y) for x, y in pairs]
+    acc = torch.zeros((runs,) + sums[0].shape[2:], dtype=torch.float64)
+    for s in range(group):
+        for part in sums:
+            acc = _trunc32(acc + part[:, s]).double()
+    out = torch.zeros(acc.shape[1:], dtype=torch.float32)
+    for r in range(runs):
+        out = out + acc[r].float()
+    return out
