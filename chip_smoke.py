@@ -80,7 +80,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 8. the image path (``image2d``: 2-D sinusoidal encoding, 8 x 256 MLP):
    the image train kernels (``csrc/image_train_tc.cu``) against their plain
    version at 4096 and 4001 pixels (sse, every dW and db) and the forward
-   kernel on a 400 x 400 frame; ``image_learning(size=400, max_iters=300,
+   kernel (``csrc/image_fwd_tc.cu``, also within IMAGE_TIGHT) on a 400 x 400
+   frame; ``image_learning(size=400, max_iters=300,
    frame_every=100)`` with every count at 0: 300 train launches, all on
    that build, and 4 forward launches, a rising PSNR; then each kernel per
    launch (the train call's device time by kernel too) and the warm step
@@ -174,6 +175,9 @@ DW_REL = 1e-3  # train kernel: max |dW - plain| <= DW_REL * max |plain dW|
 # (atol = rtol) of plain: its 3xTF32 products meet it, one TF32 pass, which
 # can meet ATOL + RTOL, does not (tests/test_torch_fused_mlp.py)
 MLP_TIGHT = 5e-6
+# the image forward kernel (csrc/image_fwd_tc.cu) likewise within IMAGE_TIGHT
+# (tests/test_torch_image.py, where the readings that set it are)
+IMAGE_TIGHT = 2e-6
 SEED = 0
 RES = 400             # frame H = W of the main paths (lego half-res)
 N_ORBIT = 2           # frames the serving path renders
@@ -2251,7 +2255,8 @@ def phase_compare_image(device, width=None):
     width) from a seeded init: the train kernel at 4096 pixels and at 4001
     (a ragged last tile), sse to atol 1e-4 + rtol 1e-4 and every dW and db
     to DW_REL of the array's largest plain value; the forward kernel on the
-    160,000 pixels of a 400 x 400 frame to atol 1e-4 + rtol 1e-4. Returns
+    160,000 pixels of a 400 x 400 frame to atol 1e-4 + rtol 1e-4 and within
+    IMAGE_TIGHT (atol = rtol). Returns
     (max abs error of sse, worst dW ratio, max abs error of the forward)."""
     import torch
     from nerf_meets_mlx_torch.datasets.image import make_test_image, pixel_dataset
@@ -2288,9 +2293,11 @@ def phase_compare_image(device, width=None):
         torch.cuda.synchronize()
         out_p = fim.fused_image_reference(mlp, enc, coords)
     err = (out_k - out_p).abs()
+    tight = float((err / (IMAGE_TIGHT * (1.0 + out_p.abs()))).max())
     ok = bool(torch.isfinite(out_k).all()) and bool((err <= ATOL + RTOL * out_p.abs()).all())
+    ok &= tight <= 1.0
     log(f"[compare] image_fwd width {mlp.cfg.net_width} N={coords.shape[0]}: max_abs {float(err.max()):.3e} "
-        + ("ok" if ok else "FAIL"))
+        f"({tight:.3f} of IMAGE_TIGHT) " + ("ok" if ok else "FAIL"))
     if not ok:
         raise AssertionError("image_fwd disagrees with its plain version")
     reset_launches()
@@ -2416,13 +2423,15 @@ def phase_feat_image_timing(device):
     (4096 x 48) and fine (4096 x 96) level (plain: forward + autograd
     backward); the image train call at 4096 pixels (plain: forward +
     autograd backward), with its kernels' device time (torch.profiler),
-    and the forward kernel on a 400 x 400 frame. The bound is the larger
-    of the bytes each launch must move over 3.35 TB/s and its operations
-    over the rate of the units that run them: three TF32 operations for
-    each fp32 one over 495 TFLOP/s where the build runs its products on the
-    tensor cores in 3xTF32 (the feat call's ``csrc/ingp_train_tc.cu``, the
-    image train call's ``csrc/image_train_tc.cu``), fp32 over 67 TFLOP/s
-    elsewhere; both are logged."""
+    and the forward call on a 400 x 400 frame, with its two kernels'
+    device time and its host ms (``call_split``; raising if the call runs
+    any other device event). The bound is the larger of the bytes each
+    launch must move over 3.35 TB/s and its operations over the rate of the
+    units that run them: three TF32 operations for each fp32 one over 495
+    TFLOP/s where the build runs its products on the tensor cores in
+    3xTF32 (the feat call's ``csrc/ingp_train_tc.cu``, the image calls'
+    ``csrc/image_train_tc.cu`` and ``csrc/image_fwd_tc.cu``), fp32 over 67
+    TFLOP/s elsewhere; both are logged."""
     import torch
     from nerf_meets_mlx_torch.datasets.image import make_test_image, pixel_dataset
     from nerf_meets_mlx_torch.kernels import fused_feat_train as ff
@@ -2484,7 +2493,7 @@ def phase_feat_image_timing(device):
     x, y = coords[idx], colors[idx]
     params = mlp_params(mlp)
     fwd_macs, train_macs_ = image_macs(mlp.cfg, enc.out_dim)
-    n_w = fim.pack_image_weights(mlp, enc)[1][2 * mlp.cfg.net_depth + 2]
+    n_w = sum(p.numel() for p in params)  # every weight and bias, read once
 
     def kernel():
         with torch.no_grad():
@@ -2507,15 +2516,30 @@ def phase_feat_image_timing(device):
         f"{b['tf32x3_bound_ms']:.3f}, fp32 {b['fp32_bound_ms']:.3f} ms), "
         f"{b['achieved_tflops_s']:.2f} TFLOP/s")
     N = coords.shape[0]
-    with torch.no_grad():
-        k1 = cuda_time_ms(lambda: fim.fused_image_apply(mlp, enc, coords), 5)
-        p_ms = cuda_time_ms(lambda: fim.fused_image_reference(mlp, enc, coords), 5)
-        k2 = cuda_time_ms(lambda: fim.fused_image_apply(mlp, enc, coords), 5)
+
+    def kernel_fwd():
+        with torch.no_grad():
+            fim.fused_image_apply(mlp, enc, coords)
+
+    def plain_fwd():
+        with torch.no_grad():
+            fim.fused_image_reference(mlp, enc, coords)
+
+    k1, p_ms, k2 = cuda_time_ms(kernel_fwd, 5), cuda_time_ms(plain_fwd, 5), cuda_time_ms(kernel_fwd, 5)
+    # the call's device time (its pack and tile-walk kernels), the device
+    # events and the host ms of a call: a call launches those two and nothing else
+    split = call_split(kernel_fwd, "image_fwd", 10)
     image_fwd = {"frame": entry([k1, k2], p_ms, 4 * (2 * N + 3 * N + n_w),
-                                2.0 * fwd_macs * N, pixels=N)}
-    log(f"[time] image_fwd N={N}: kernel {k1:.3f} / {k2:.3f} ms, plain {p_ms:.3f} ms, bound "
-        f"{image_fwd['frame']['bound_ms']:.3f} ms ({image_fwd['frame']['bound_by']}), "
-        f"{image_fwd['frame']['achieved_tflops_s']:.2f} TFLOP/s")
+                                2.0 * fwd_macs * N, tensor_cores=True, pixels=N, **split)}
+    f = image_fwd["frame"]
+    log(f"[time] image_fwd N={N}: a call {k1:.3f} / {k2:.3f} ms (device {split['device_ms']:.4f} "
+        f"ms, {split['device_events']:.0f} device events and {split['other_device_ms']:.4f} ms "
+        f"beside them, host {split['host_ms']:.4f} ms a call), plain {p_ms:.3f} ms, bound "
+        f"{f['bound_ms']:.3f} ms ({f['bound_by']}; 3xTF32 {f['tf32x3_bound_ms']:.3f}, fp32 "
+        f"{f['fp32_bound_ms']:.3f} ms), {f['achieved_tflops_s']:.2f} TFLOP/s")
+    if split["device_events"] != 2 or split["other_device_ms"] != 0.0:
+        raise AssertionError(f"an image_fwd call ran {split['device_events']} device events, "
+                             f"{split['other_device_ms']} ms of them not its two kernels")
     reset_launches()
     return feat, image_train, image_fwd
 
@@ -2666,7 +2690,7 @@ FEAT_SHAPES = ((64, 16), (64, 32), (128, 32))
 # sources are built for, one build each (fused_train.width_defines): the
 # PART_A overlays' and the width-96 image model's
 KW_BUILDS = (("fused_eval", 96), ("fused_train", 96), ("fused_eval", 48), ("fused_train", 48),
-             ("mlp_bwd_tc", 48), ("mlp_fwd_tc", 48), ("fused_image", 96), ("image_train_tc", 96))
+             ("mlp_bwd_tc", 48), ("mlp_fwd_tc", 48), ("image_fwd_tc", 96), ("image_train_tc", 96))
 PART_A_STEPS = 10
 # the overlay commands that train in JAX and failed on the card before the
 # fused kernels took their shapes: (tag, preset, overlay, kernels its
@@ -2715,14 +2739,18 @@ CP_TIMED_STEPS = 25
 # sinusoidal and image kernels
 TEST_FEAT_SHAPES = ((32, 16), (64, 64), (32, 24), (32, 48))
 TEST_KW_BUILDS = tuple((s, w) for s in ("fused_eval", "fused_train", "mlp_bwd_tc", "mlp_fwd_tc",
-                                        "fused_image", "image_train_tc") for w in (48, 96))
-# the INGP eval, the MLP forward and the MLP backward kernels with one TF32
-# product in place of three: the controls that the gpu tests of their
-# 3xTF32 products see fail EVAL_TIGHT, MLP_TIGHT and the backward's gradient
-# criterion
+                                        "image_fwd_tc", "image_train_tc") for w in (48, 96))
+# the INGP eval, the MLP forward, the MLP backward and the image forward
+# kernels with one TF32 product in place of three: the controls that the gpu
+# tests of their 3xTF32 products see fail EVAL_TIGHT, MLP_TIGHT, the
+# backward's gradient criterion and IMAGE_TIGHT (the image forward's at the
+# widths 48 and 96 of those tests too)
 TEST_ONE_PASS = (("ingp_eval_tc", {"INGP_EVAL_ONE_PASS": 1}),
                  ("mlp_fwd_tc", {"MLP_FWD_ONE_PASS": 1}),
-                 ("mlp_bwd_tc", {"MLP_BWD_ONE_PASS": 1}))
+                 ("mlp_bwd_tc", {"MLP_BWD_ONE_PASS": 1}),
+                 ("image_fwd_tc", {"IMAGE_FWD_ONE_PASS": 1}),
+                 ("image_fwd_tc", {"IMAGE_FWD_ONE_PASS": 1, "KW": 48}),
+                 ("image_fwd_tc", {"IMAGE_FWD_ONE_PASS": 1, "KW": 96}))
 
 
 def build_variants(tests: bool = False):
@@ -2737,7 +2765,7 @@ def build_variants(tests: bool = False):
     # the INGP sources take every shape in one build each: the eval and the
     # train kernel on the tensor cores, and csrc/fused_ingp.cu for the rest
     out = [(s, None) for s in ("fused_eval", "fused_train", "mlp_bwd_tc", "mlp_fwd_tc",
-                               "hash_encode", "fused_image", "image_train_tc", "cp_encode",
+                               "hash_encode", "image_fwd_tc", "image_train_tc", "cp_encode",
                                fi.TC_SOURCE, fi.EVAL_SOURCE, fi.RT_SOURCE)]
     out += [("fused_feat", ff.kernel_defines(w, p)) for w, p in feat]
     out += [(s, ft.width_defines(w)) for s, w in kw]
@@ -3444,7 +3472,7 @@ def main() -> int:
     ds = train_scene(device)
     routes = phase_train_routes(ds, device)
     occ_routes = phase_occ_routes(ds, device)
-    wait_builds(builds, ["fused_image", "image_train_tc"])
+    wait_builds(builds, ["image_fwd_tc", "image_train_tc"])
     image_err = phase_compare_image(device)
     image_launches, image_run = phase_image_path(device)
     wait_builds(builds, ["hash_encode", "ingp_eval_tc", "ingp_train_tc", "fused_ingp"])
@@ -3535,7 +3563,7 @@ def main() -> int:
         entry("image_train", "nerf_meets_mlx_torch/csrc/image_train_tc.cu",
               "nerf_meets_mlx_tpu/kernels/fused_image.py:262", image_launches["image_train"],
               image_err[0], image_train_t),
-        entry("image_fwd", "nerf_meets_mlx_torch/csrc/fused_image.cu",
+        entry("image_fwd", "nerf_meets_mlx_torch/csrc/image_fwd_tc.cu",
               "nerf_meets_mlx_tpu/kernels/fused_image.py:304", image_launches["image_fwd"],
               image_err[2], image_fwd_t),
         # the CP kernels' path: lego_cp's train steps with the kernel behind

@@ -4,11 +4,11 @@ the forward alone.
 Counterpart of ``nerf_meets_mlx_tpu/kernels/fused_image.py``. The kernels
 are ``csrc/image_train_tc.cu`` (the Pallas ``_train_kernel``: the tile
 kernel on the tensor cores, its split-K dW GEMM and the reduction) and
-``csrc/fused_image.cu``'s ``image_fwd_kernel`` (the Pallas
-``_fwd_kernel``). This module holds their wrappers and their plain PyTorch
-version. The function is the image task's model: sinusoidal encode of
-pixel coordinates, then the non-viewdir NeRF MLP (``NeRFMLP`` with its
-output head).
+``csrc/image_fwd_tc.cu`` (the Pallas ``_fwd_kernel``: a pack launch that
+writes the weight images, then the ``wgmma`` tile walk). This module holds
+their wrappers and their plain PyTorch version. The function is the image
+task's model: sinusoidal encode of pixel coordinates, then the non-viewdir
+NeRF MLP (``NeRFMLP`` with its output head).
 
 * ``fused_image_train`` (sse = Σ (out − target)² over the rows and
   ``out_channels`` columns, differentiable with respect to the MLP) and
@@ -22,7 +22,11 @@ output head).
   (``_train_plan``). A call launches the three kernels of
   ``csrc/image_train_tc.cu`` and nothing else; its backward scales the
   gradients by the incoming cotangent.
-* The forward kernel takes the weights packed (``pack_image_weights``).
+* The forward call launches the pack, which writes every layer's TF32
+  weight images from the ``nn.Linear`` weights by pointer into a buffer of
+  the shape's plan (``_fwd_plan``: the segment table ``fwd_segments``, the
+  bands, the buffer), then the tile walk, which reads the biases and the
+  head by pointer; a later call of the shape allocates only its output.
   The JAX package's band matrix, zero-extended skip rows and [N, 8] padded
   input and output are a TPU layout and are not carried over.
 * ``LAUNCHES["image_train"]`` / ``LAUNCHES["image_fwd"]`` (the dict shared
@@ -41,16 +45,15 @@ from nerf_meets_mlx_torch.kernels.fused_train import (
     LAUNCHES,
     MAX_WIDTH,
     MIN_WIDTH,
-    _pack_flat,
     width_defines,
     width_ok,
 )
 
-# Points per CUDA block of the forward kernel: 8 tiles of 64; a 400 x 400
-# frame makes 313 blocks (one block of ~170 KB shared memory per SM).
-IMAGE_FWD_BLOCK_POINTS = 512
-# The train kernels' source (one build per width set, as fused_train's)
+# The kernels' sources (one build per width set, as fused_train's)
 TRAIN_SOURCE = "image_train_tc"
+FWD_SOURCE = "image_fwd_tc"
+# the shapes whose plans (_fwd_plan, _train_plan) a wrapper keeps: the newest few
+_MAX_PLANS = 4
 
 
 # ---------------------------------------------------------------------------
@@ -68,20 +71,6 @@ def fused_image_reference(mlp, pos_enc, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
-
-
-def pack_image_weights(mlp, pos_enc) -> Tuple[torch.Tensor, List[int]]:
-    """The forward kernel's weights: one flat fp32 buffer, each piece on a
-    16-byte boundary, and the piece offsets: every weight as [fan_in,
-    fan_out] (``nn.Linear.weight`` transposed) and its bias, for the trunk
-    layers and the output head (the skip layers' rows are [encoded input,
-    h], input first), then the frequency bands (offset 2·D + 2)."""
-    dev = mlp.pos_linears[0].weight.device
-    pieces: List[torch.Tensor] = []
-    for _, lin in mlp.linears():
-        pieces += [lin.weight.t(), lin.bias]
-    pieces.append(pos_enc.bands(dev))
-    return _pack_flat(pieces)
 
 
 def grad_layout(mlp) -> List[Tuple[int, Tuple[int, ...]]]:
@@ -103,20 +92,24 @@ def train_build(width: int):
     return TRAIN_SOURCE, width_defines(width)
 
 
-def _image_lib(width: int):
-    from nerf_meets_mlx_torch.kernels import _build
-
-    lib = _build.load_library("fused_image", width_defines(width))
+def type_fwd_lib(lib):
+    """``lib``, a build of csrc/image_fwd_tc.cu, with its C functions typed."""
     if not getattr(lib, "_typed", False):
         vp, ci, cll, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
-        lib.fused_image_fwd_launch.argtypes = (
-            [vp] * 3 + [ci, vp, cll] + [ci] * 3 + [cu] + [ci] * 4 + [vp]
+        lib.image_fwd_tc_launch.argtypes = (
+            [vp] * 5 + [ci, vp, cll, vp, cll] + [ci] * 3 + [cu] + [ci] * 4 + [vp]
         )
-        lib.fused_image_fwd_launch.restype = ci
-        lib.fused_image_smem_bytes.argtypes = [ci] * 2
-        lib.fused_image_smem_bytes.restype = cll
+        lib.image_fwd_tc_launch.restype = ci
+        lib.image_fwd_tc_smem_bytes.argtypes = [ci]
+        lib.image_fwd_tc_smem_bytes.restype = cll
         lib._typed = True
     return lib
+
+
+def _fwd_lib(width: int):
+    from nerf_meets_mlx_torch.kernels import _build
+
+    return type_fwd_lib(_build.load_library(FWD_SOURCE, width_defines(width)))
 
 
 def _train_lib(width: int):
@@ -175,17 +168,108 @@ def _common(mlp, pos_enc):
     )
 
 
-def _check_smem(lib, mlp, pos_enc):
-    smem = lib.fused_image_smem_bytes(mlp.cfg.net_width, pos_enc.out_dim)
-    if not 0 < smem <= 232448:
-        raise ValueError(f"the image kernels need {smem} bytes of shared memory per block")
+def fwd_segments(mlp, pos_enc) -> List[Tuple[int, int, int, int]]:
+    """The forward kernel's segment table: (linear, first column, row
+    stride, columns) of every input segment whose weight images its pack
+    launch writes, in the order its tile walk streams them: layer 0's
+    encoding, then per layer j > 0 the encoding when j is a skip layer
+    ([encoded input, h], input first) and its h. ``linear`` indexes
+    ``mlp.linears()``; the segment is ``weight[:, first : first + columns]``."""
+    cfg = mlp.cfg
+    W, P = cfg.net_width, pos_enc.out_dim
+    segs = [(0, 0, P, P)]
+    for j in range(1, cfg.net_depth):
+        if (j - 1) in cfg.skips:
+            segs += [(j, 0, P + W, P), (j, P, P + W, W)]
+        else:
+            segs.append((j, 0, W, W))
+    return segs
+
+
+def fwd_image_offsets(segments, width: int) -> List[int]:
+    """Floats of the forward kernel's weight images before each segment of
+    ``segments``, then their total: per k-step of 8 columns the TF32 hi and
+    lo images of 8 x width floats each."""
+    offs = [0]
+    for *_, k in segments:
+        offs.append(offs[-1] + -(-k // 8) * 16 * width)
+    return offs
+
+
+def fwd_smem_bytes(width: int) -> int:
+    """Shared-memory bytes of a forward block (csrc/image_fwd_tc.cu's
+    smem_bytes): 4 weight stages of 16 x width floats, the 128 x (width + 8)
+    activation tile, 8 mbarriers, 128 x 4 floats of coordinates and as
+    many of output staging."""
+    return 4 * (4 * 16 * width + 128 * (width + 8)) + 8 * 8 + 2 * 4 * 128 * 4
+
+
+class _FwdPlan(NamedTuple):
+    img: torch.Tensor     # the weight images, rewritten by every call's pack launch
+    bands: torch.Tensor
+    segs: ctypes.Array    # fwd_segments, 4 ints a segment
+    blocks: int           # the device's SMs: one persistent block each
+
+
+# (device, stream, shape) -> the forward's plan, the newest few kept
+_FWD_PLANS: Dict[tuple, _FwdPlan] = {}
+
+
+def _fwd_plan(mlp, pos_enc, dev, stream: int) -> _FwdPlan:
+    """The weight-image buffer, bands and segment table of a forward shape,
+    made at its first call. The buffer is the shape's on one stream, whose
+    calls run in order."""
+    key = (dev, stream, _common(mlp, pos_enc), pos_enc)
+    plan = _FWD_PLANS.get(key)
+    if plan is None:
+        segs = fwd_segments(mlp, pos_enc)
+        n_img = fwd_image_offsets(segs, mlp.cfg.net_width)[-1]
+        flat = [v for seg in segs for v in seg]
+        plan = _FwdPlan(torch.empty(n_img, dtype=torch.float32, device=dev),
+                        pos_enc.bands(dev).to(torch.float32).contiguous(),
+                        (ctypes.c_int * len(flat))(*flat),
+                        torch.cuda.get_device_properties(dev).multi_processor_count)
+        if len(_FWD_PLANS) >= _MAX_PLANS:
+            _FWD_PLANS.pop(next(iter(_FWD_PLANS)))
+        _FWD_PLANS[key] = plan
+    return plan
+
+
+def _fwd_launch(mlp, pos_enc, x: torch.Tensor, lib=None) -> torch.Tensor:
+    """One call of csrc/image_fwd_tc.cu (``lib``: a build of it, by default
+    the one of the MLP's width): the pack launch, then the tile walk; the
+    output [N, out_channels]."""
+    dev = x.device
+    N = x.shape[0]
+    W = mlp.cfg.net_width
+    lib = lib or _fwd_lib(W)
+    smem = lib.image_fwd_tc_smem_bytes(W)
+    if smem != fwd_smem_bytes(W) or smem > 232448:
+        raise ValueError(f"the image forward kernel's build says {smem} bytes of shared memory "
+                         f"a block, the wrapper {fwd_smem_bytes(W)}")
+    lins = [lin for _, lin in mlp.linears()]
+    ptrs = ctypes.c_void_p * len(lins)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        plan = _fwd_plan(mlp, pos_enc, dev, stream)
+        out = torch.empty((N, mlp.cfg.out_channels), dtype=torch.float32, device=dev)
+        err = lib.image_fwd_tc_launch(
+            x.data_ptr(), ptrs(*[lin.weight.data_ptr() for lin in lins]),
+            ptrs(*[lin.bias.data_ptr() for lin in lins]), plan.bands.data_ptr(), plan.segs,
+            len(plan.segs) // 4, plan.img.data_ptr(), plan.img.numel(), out.data_ptr(), N,
+            plan.blocks, *_common(mlp, pos_enc), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"the image forward launch failed with cudaError {err}")
+    LAUNCHES["image_fwd"] += 1
+    return out
 
 
 @torch.no_grad()
 def fused_image_apply(mlp, pos_enc, x: torch.Tensor) -> torch.Tensor:
     """Forward-only image MLP: the output [N, out_channels] of the encoded
     coordinates x [N, in_dim]. CPU tensors run the plain version; CUDA
-    tensors launch ``image_fwd_kernel`` of ``csrc/fused_image.cu`` or raise.
+    tensors launch csrc/image_fwd_tc.cu's pack and tile walk or raise.
     Not differentiable (the kernel has no backward), so it runs under
     ``no_grad``."""
     dev = x.device
@@ -194,23 +278,7 @@ def fused_image_apply(mlp, pos_enc, x: torch.Tensor) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"fused_image_apply runs on cuda or cpu tensors, not {dev}")
     _check_config(mlp, pos_enc, x)
-    x = x.contiguous()
-    N = x.shape[0]
-    lib = _image_lib(mlp.cfg.net_width)
-    _check_smem(lib, mlp, pos_enc)
-    wbuf, offs = pack_image_weights(mlp, pos_enc)
-    out = torch.empty((N, mlp.cfg.out_channels), dtype=torch.float32, device=dev)
-    c_offs = (ctypes.c_int * len(offs))(*offs)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_image_fwd_launch(
-            x.data_ptr(), wbuf.data_ptr(), c_offs, len(offs), out.data_ptr(), N,
-            IMAGE_FWD_BLOCK_POINTS, *_common(mlp, pos_enc), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fused_image forward launch failed with cudaError {err}")
-    LAUNCHES["image_fwd"] += 1
-    return out
+    return _fwd_launch(mlp, pos_enc, x.contiguous())
 
 
 class _TrainPlan(NamedTuple):
@@ -221,9 +289,8 @@ class _TrainPlan(NamedTuple):
     n_dw: int
 
 
-# (device, stream, N, shape) -> plan; a few shapes at most, the newest kept
+# (device, stream, N, shape) -> plan
 _PLANS: Dict[tuple, _TrainPlan] = {}
-_MAX_PLANS = 4
 
 
 def _train_plan(mlp, pos_enc, dev, stream: int, N: int) -> _TrainPlan:

@@ -34,7 +34,7 @@ from nerf_meets_mlx_torch.rendering.volume import exclusive_cumsum, softplus
 # kernels/fused_feat_train.py and kernels/fused_image.py; a run sets them to
 # 0 and reads them after
 # MLP widths of the default builds of csrc/fused_eval.cu, fused_train.cu,
-# mlp_fwd_tc.cu, mlp_bwd_tc.cu and fused_image.cu; every other multiple of 16
+# mlp_fwd_tc.cu, mlp_bwd_tc.cu and image_fwd_tc.cu; every other multiple of 16
 # from 32 to 256 is a build of its own (width_defines)
 KERNEL_WIDTHS = (32, 64, 128, 256)
 MIN_WIDTH, MAX_WIDTH = 32, 256

@@ -3,9 +3,12 @@
     python nerf_meets_mlx_torch/tools/kernel_ab.py --base <checkout> [--head <checkout>]
 
 ``--head`` defaults to the checkout this file is in. With ``--frames R`` a
-turn times the lego_hierarchical 400 x 400 frame alone (its eval kernel's
-build, 5 frames after one), in R rounds of base, head, head, base, and
-nothing else runs. Each turn is a fresh
+turn times the host-bound end-to-end metrics alone: the lego_hierarchical
+400 x 400 frame (5 frames after one), lego_occ's warm steps on both routes
+and its frame with the grid, and the warm image step, as the full turn
+times them; in R rounds of base, head, head, base, every second round
+head, base, base, head, so that neither checkout always takes the middle
+turns, and nothing else runs. Each turn is a fresh
 process with that checkout first on ``PYTHONPATH``; the turns run base,
 head, head, base, so that a drift of the card shows as a difference between
 a checkout's two turns. A turn builds the kernels it times (all builds
@@ -23,8 +26,10 @@ train kernel (the paper tables' 32 channels) and the image kernels
 the INGP, feat and image train calls' device time (every kernel they
 launch, from torch.profiler: the host-bound calls read their kernels here,
 not in their event time), and the INGP eval call's at both levels of its
-32,768-ray chunk; the image train call's host time (the host clock around
-the call, a synchronize before each); the paper tables' warm train step
+32,768-ray chunk; the image train and forward calls' host time (the host
+clock around the call, a synchronize before each) and the forward call's
+device time and device events (its launches and copies) at the 160,000
+pixels of a 400 x 400 frame; the paper tables' warm train step
 (the feats route, 32 steps, as chip_smoke.py times it), the warm image step
 (50 steps of 4096 pixels, as chip_smoke.py's phase_image_timing), and
 lego_occ's warm step on the fused-train and the value_and_grad route (32
@@ -32,8 +37,9 @@ steps, two grid updates inside, as phase_occ_timing) and its frame with the
 grid. It prints one JSON line per turn and each measurement's four times;
 then ptxas's registers and spills of every kernel of
 ``csrc/fused_train.cu``, ``csrc/fused_mlp.cu``, ``csrc/mlp_fwd_tc.cu``,
-``csrc/mlp_bwd_tc.cu``, ``csrc/fused_image.cu``, ``csrc/image_train_tc.cu``,
-``csrc/ingp_eval_tc.cu`` and ``csrc/fused_ingp.cu``'s runtime-shape build
+``csrc/mlp_bwd_tc.cu``, ``csrc/fused_image.cu``, ``csrc/image_fwd_tc.cu``,
+``csrc/image_train_tc.cu``, ``csrc/ingp_eval_tc.cu`` and
+``csrc/fused_ingp.cu``'s runtime-shape build
 in each checkout that has the source, and, where both checkouts have
 ``csrc/ingp_train_tc.cu`` (or ``csrc/mlp_bwd_tc.cu``), each kernel of it in
 both: ptxas's report and its SASS instruction by instruction (the kernel
@@ -242,7 +248,8 @@ def _build_all():
     from nerf_meets_mlx_torch.kernels import _build
 
     jobs = [(n, None) for n in ("fused_eval", "fused_train", "fused_mlp", "mlp_fwd_tc",
-                                "mlp_bwd_tc", "hash_encode", "fused_image", "image_train_tc")
+                                "mlp_bwd_tc", "hash_encode", "fused_image", "image_fwd_tc",
+                                "image_train_tc")
             if (_build.CSRC / f"{n}.cu").exists()]
     if hasattr(_build, "variant_name"):
         import inspect
@@ -284,8 +291,11 @@ def _frame_setup():
 
 
 def frames_worker():
-    """``--frames``' turn: the lego_hierarchical frame, as ``worker`` times
-    it, over 5 frames."""
+    """``--frames``' turn: the lego_hierarchical frame over 5 frames,
+    lego_occ's steps and frame (``_occ_ms``) and the image step
+    (``_image_step_ms``), as ``worker`` times them."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
 
     from nerf_meets_mlx_torch.cameras.pose import orbit_poses
@@ -295,13 +305,21 @@ def frames_worker():
     from nerf_meets_mlx_torch.rendering import render_image
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    _build.build("fused_eval")
+    names = ("fused_eval", "fused_train", "mlp_fwd_tc", "mlp_bwd_tc", "image_train_tc")
+    with ThreadPoolExecutor(len(names)) as ex:
+        for f in [ex.submit(_build.build, n) for n in names]:
+            f.result()
     K, res = _frame_setup()
     m = create_nerf(lego_hierarchical().replace(use_fused_kernel=True), device=torch.device("cuda"))
     m.init(torch.Generator(device=torch.device("cuda")).manual_seed(0))
     with torch.no_grad():
-        ms = _ms(lambda: render_image(m, res, res, K, orbit_poses(160)[0][:3, :4]), n=5)
-    print(json.dumps({"lego_hierarchical_frame": ms}), flush=True)
+        out = {"lego_hierarchical_frame": _ms(
+            lambda: render_image(m, res, res, K, orbit_poses(160)[0][:3, :4]), n=5)}
+    del m
+    torch.cuda.empty_cache()
+    out.update(_occ_ms())
+    out["image_step"] = _image_step_ms()
+    print(json.dumps(out), flush=True)
 
 
 def worker():
@@ -461,6 +479,9 @@ def worker():
     grid = torch.rand((160_000, 2), generator=g, device=dev)
     with torch.no_grad():
         out["image_fwd"] = _ms(lambda: fim.fused_image_apply(m.coarse, m.pos_enc, grid))
+        out["image_fwd_device"], out["image_fwd_launches"] = _device_ms(
+            lambda: fim.fused_image_apply(m.coarse, m.pos_enc, grid), events=True)
+        out["image_fwd_host"] = _host_ms(lambda: fim.fused_image_apply(m.coarse, m.pos_enc, grid))
     out["paper_step"] = _paper_step_ms()
     out["image_step"] = _image_step_ms()
     out.update(_occ_ms())
@@ -501,7 +522,7 @@ def _ptxas_reports(base: Path, head: Path) -> None:
 
     jobs = []
     for source in ("fused_train", "fused_mlp", "mlp_fwd_tc", "mlp_bwd_tc", "fused_image",
-                   "image_train_tc", "ingp_eval_tc", "fused_ingp"):
+                   "image_fwd_tc", "image_train_tc", "ingp_eval_tc", "fused_ingp"):
         for tag, root in (("base", base), ("head", head)):
             cu = root / "nerf_meets_mlx_torch" / "csrc" / f"{source}.cu"
             if cu.exists():
@@ -573,7 +594,8 @@ def main() -> int:
     p.add_argument("--base", required=True, help="the other checkout's root")
     p.add_argument("--head", default=str(HEAD), help="this checkout's root (default)")
     p.add_argument("--frames", type=int, default=0,
-                   help="rounds of base, head, head, base timing the lego_hierarchical frame alone")
+                   help="rounds timing the host-bound frames and steps alone, the order "
+                        "alternating (base, head, head, base; head, base, base, head)")
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     a = p.parse_args()
     if a.worker:
@@ -581,7 +603,8 @@ def main() -> int:
         return 0
     turns = []
     order = (("base", a.base), ("head", a.head), ("head", a.head), ("base", a.base))
-    for tag, root in order * max(a.frames, 1):
+    flipped = (order[1], order[0], order[3], order[2])
+    for tag, root in [t for r in range(max(a.frames, 1)) for t in (flipped if r % 2 else order)]:
         env = dict(os.environ, PYTHONPATH=str(Path(root).resolve()))
         proc = subprocess.run([sys.executable, __file__, "--worker", "--base", a.base,
                                "--frames", str(a.frames)],

@@ -1,5 +1,5 @@
 """The port's 2-D image task: ``datasets/image.py``,
-``kernels/fused_image.py`` (csrc/image_train_tc.cu, csrc/fused_image.cu),
+``kernels/fused_image.py`` (csrc/image_train_tc.cu, csrc/image_fwd_tc.cu),
 ``make_image_train_step``, ``entrypoints/image_learning.py`` and the
 ``image`` command.
 
@@ -18,12 +18,25 @@
   parameters after the last step at rtol 5e-3 / atol 1e-4 where the two
   gradients agree within 25% at every step, the rest within one Adam step
   each way per step.
+* The forward kernel's arithmetic (``_emulate_forward``: every dense
+  layer in 3xTF32 with one truncating accumulator a layer, ``mm_wgmma``)
+  against the JAX ``fused_image_apply`` at atol 1e-4 + rtol 1e-4 and
+  against the fp32 plain version at ``IMAGE_TIGHT``, which one TF32 pass
+  misses, at image2d, widths 32 / 48 / 96, depth 20 and two skips with the
+  raw input. Its weight images (``_pack_rendering``: the pack kernel's
+  index arithmetic in torch) against ``fused_train._wgmma_image`` and
+  against each ``nn.Linear`` weight, its segment table, image offsets and
+  shared-memory plan.
 * ``image_learning(device="cpu")`` and the ``image`` command.
 * ``gpu``-marked: both CUDA kernels against the plain version on the card,
   the train call in the build ``fused_image.train_build`` names
   (csrc/image_train_tc.cu), at image2d's shape, at narrow widths, at depth
   20 and with two skips and the raw input; two train launches give
-  bit-identical sse and gradients (skipped where no card is present).
+  bit-identical sse and gradients; the forward kernel within
+  ``IMAGE_TIGHT`` of plain where its one-pass build
+  (``IMAGE_FWD_ONE_PASS``) is not, one launch a call allocating only its
+  output, two calls bit-identical, the images its pack wrote equal to
+  ``_pack_rendering`` (skipped where no card is present).
 """
 
 import dataclasses
@@ -36,9 +49,19 @@ from nerf_meets_mlx_torch import interop
 from nerf_meets_mlx_torch.config import image2d as t_image2d
 from nerf_meets_mlx_torch.datasets import image as timg
 from nerf_meets_mlx_torch.kernels import fused_image as tfi
+from nerf_meets_mlx_torch.kernels import fused_train as tft
 from nerf_meets_mlx_torch.kernels.fused_train import LAUNCHES
 from nerf_meets_mlx_torch.models import create_nerf as t_create
+from tf32_products import _mm_1xtf32, _tf32, mm_wgmma
 from torch_threads import one_torch_thread_per_worker  # noqa: F401  (autouse fixture)
+
+# The tight tolerance (atol = rtol) of the forward kernel's output against
+# the fp32 plain version, as chip_smoke.py's IMAGE_TIGHT: its 3xTF32
+# products meet it, one TF32 pass does not (which meets atol 1e-4 + rtol
+# 1e-4). On an H100 at test_cuda_image_fwd_runs_three_tf32_passes' cases
+# the kernel's worst error read 3.9e-7 (max |d| / (1 + |plain|)) and the
+# one-pass build's least 1.27e-5: IMAGE_TIGHT lies between, ~5x from each.
+IMAGE_TIGHT = 2e-6
 
 # JAX is imported by the tests that compare with it, not at module level:
 # the gpu-marked tests run on the card's machine, which has no JAX
@@ -147,24 +170,184 @@ def test_image_ops_match_jax(kw, n):
         np.testing.assert_allclose(a.numpy(), b, rtol=3e-4, atol=5e-6)
 
 
-def test_pack_image_weights_layout():
-    """The forward kernel's pieces: every weight as [fan_in, fan_out] and
-    its bias, then the bands at 2·D + 2 (the train kernel reads the
-    parameters where the modules hold them, and packs nothing)."""
-    tm = t_create(t_image2d(), device="cpu").init(torch.Generator().manual_seed(0))
+def _pad8(x):
+    return torch.nn.functional.pad(x, (0, -x.shape[1] % 8))
+
+
+def _emulate_forward(mlp, pos_enc, x, mm=mm_wgmma):
+    """csrc/image_fwd_tc.cu's arithmetic in torch: the encoding as the plain
+    version's; each trunk layer with its input segments zero-padded to
+    whole k-steps of 8 as the kernel's B images are, multiplied by ``mm``
+    (``mm_wgmma``: 3xTF32 with one truncating accumulator a layer, the
+    kernel's form), plus the bias, relu; the output head in fp32."""
+    cfg = mlp.cfg
+    xe, h = pos_enc.apply(x), None
+    for j, lin in enumerate(mlp.pos_linears):
+        segs = [xe] if j == 0 else ([xe, h] if (j - 1) in cfg.skips else [h])
+        a, b, at = [], [], 0
+        for seg in segs:
+            a.append(_pad8(seg))
+            b.append(_pad8(lin.weight[:, at : at + seg.shape[1]]).t())
+            at += seg.shape[1]
+        h = torch.relu(mm(torch.cat(a, 1), torch.cat(b, 0)) + lin.bias)
+    return mlp.output_linear(h)
+
+
+def _over(got, want, tol):
+    """max |got - want| / (tol + tol·|want|): at most 1 within atol = rtol = tol."""
+    return float(((got - want).abs() / (tol * (1.0 + want.abs()))).max())
+
+
+@pytest.mark.parametrize(
+    "kw,n",
+    [
+        (dict(), 130),
+        (dict(depth=4, width=32, skips=(2,)), 200),
+        (dict(depth=2, width=48), 150),
+        (dict(depth=3, width=96, skips=(1,)), 150),
+        (dict(depth=20, width=64, skips=(4,)), 130),
+        (dict(depth=8, width=64, skips=(2, 5), include_input=True), 300),
+    ],
+    ids=["image2d", "width32", "width48", "width96", "depth20", "two_skips_raw_input"],
+)
+def test_forward_kernel_arithmetic_matches_jax_kernel(kw, n):
+    """The forward kernel's 3xTF32 arithmetic (``_emulate_forward``) on the
+    JAX weights: within atol 1e-4 + rtol 1e-4 of the Pallas
+    ``fused_image_apply`` in interpret mode, and within IMAGE_TIGHT of the
+    fp32 plain version, where one TF32 pass (the kernel's one-pass build,
+    ``mm_wgmma(passes=1)``, and ``_mm_1xtf32``) is not; the readings are
+    printed."""
+    import jax.numpy as jnp
+
+    from nerf_meets_mlx_tpu.kernels.fused_image import (
+        FusedImageSpec,
+        fused_image_apply as j_apply,
+        pack_image_inputs,
+        pack_image_params,
+    )
+
+    jc, jm, params, tm = _pair(**kw)
+    x, _ = _data(n, seed=5)
+    spec = FusedImageSpec.from_configs(jc.mlp, jc.pos_encoding, block=128)
+    want = np.asarray(j_apply(spec, pack_image_params(spec, params["coarse"]),
+                              pack_image_inputs(jnp.asarray(x))))[:, :3]
+    args = (tm.coarse, tm.pos_enc, torch.from_numpy(x))
+    with torch.no_grad():
+        three = _emulate_forward(*args)
+        one = _emulate_forward(*args, mm=lambda a, b: mm_wgmma(a, b, passes=1))
+        one_x = _emulate_forward(*args, mm=_mm_1xtf32)
+        plain = tfi.fused_image_reference(*args)
+    np.testing.assert_allclose(three.numpy(), want, rtol=1e-4, atol=1e-4)
+    over = {"3xTF32": _over(three, plain, IMAGE_TIGHT), "one pass": _over(one, plain, IMAGE_TIGHT),
+            "_mm_1xtf32": _over(one_x, plain, IMAGE_TIGHT)}
+    print(f"[tf32] {kw}: over IMAGE_TIGHT {over}")
+    assert over["3xTF32"] <= 1.0, over
+    assert over["one pass"] > 1.0 and over["_mm_1xtf32"] > 1.0, over
+
+
+def _pack_rendering(mlp, pos_enc):
+    """csrc/image_fwd_tc.cu's image_fwd_pack_kernel in torch, element by
+    element on the weights' device: element i of the images lies in the
+    segment of ``fwd_segments`` whose ``fwd_image_offsets`` range holds it;
+    within it, k-step i // (16 W), then the hi image (8 W floats) and the lo
+    image, each [K half][W / 8][8 rows of N][4 of K], K index 4 · half + kk
+    holding row 2 · kk + half of the step; the value is weight[n][first + k]
+    (zero for k past the segment's columns), TF32-rounded (hi) or its
+    remainder TF32-rounded (lo)."""
+    W = mlp.cfg.net_width
+    segs = tfi.fwd_segments(mlp, pos_enc)
+    w = [lin.weight.detach() for _, lin in mlp.linears()]
+    dev = w[0].device
+    offs = torch.tensor(tfi.fwd_image_offsets(segs, W), device=dev)
+    i = torch.arange(int(offs[-1]), device=dev)
+    q = torch.searchsorted(offs, i, right=True) - 1
+    e = i - offs[q]
+    step, r = e // (16 * W), e % (16 * W)
+    half_lo = r >= 8 * W
+    r = r - 8 * W * half_lo.long()
+    kh = r // (4 * W)
+    r = r - kh * 4 * W
+    n = 8 * (r // 32) + (r // 4) % 8
+    k = 8 * step + 2 * (r % 4) + kh
+    v = torch.zeros(i.shape, device=dev)
+    for s, (lin, first, ld, cols) in enumerate(segs):
+        assert ld == w[lin].shape[1]
+        m = (q == s) & (k < cols)
+        v[m] = w[lin].reshape(-1)[n[m] * ld + first + k[m]]
+    hi = _tf32(v)
+    return torch.where(half_lo, _tf32(v - hi), hi)
+
+
+# the wgmma K order of a k-step (fused_train.WGMMA_K_ORDER) inverted: row f
+# of the step sits at position _K_INV[f]
+_K_INV = [tft.WGMMA_K_ORDER.index(f) for f in range(8)]
+
+
+def _image_model(depth=8, width=256, skips=(4,), include_input=False, in_dim=2, n_freqs=10,
+                 device="cpu", seed=0):
+    cfg = t_image2d()
+    cfg = cfg.replace(
+        mlp=dataclasses.replace(cfg.mlp, net_depth=depth, net_width=width, skips=skips),
+        pos_encoding=dataclasses.replace(cfg.pos_encoding, include_input=include_input,
+                                         in_dim=in_dim, n_freqs=n_freqs),
+    )
+    dev = torch.device(device)
+    return t_create(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(depth=20, width=32, skips=(4, 9, 15), include_input=True),
+    dict(depth=3, width=48, skips=(0, 1), include_input=True, in_dim=3, n_freqs=21),
+    dict(depth=1, width=96, skips=(), in_dim=1, n_freqs=4),
+    dict(depth=4, width=160, skips=(1,), in_dim=3, n_freqs=3),
+], ids=["image2d", "depth20_three_skips", "two_skips_128_features", "depth1_in_dim1", "width160"])
+def test_forward_images_and_smem_plan_match_the_pack(kw):
+    """The forward call's weight images, as the pack kernel's index
+    arithmetic writes them (``_pack_rendering``), are
+    ``fused_train._wgmma_image`` of every trunk layer in order (a skip
+    layer's encoding and h columns padded apart); read back through
+    WGMMA_K_ORDER, each segment's hi and lo halves are the TF32 split of
+    its ``nn.Linear`` weight columns transposed, zero past them. The
+    segment table walks layer 0's encoding, then per layer the encoding at
+    a skip and its h; the offsets advance 16·W floats a k-step; the
+    shared-memory plan (4 stages of 16·W floats, the 128 x (W + 8)
+    activation tile, 8 mbarriers, 2 x 128 x 4 floats of coordinates and
+    output staging) fits a block at every width."""
+    tm = _image_model(**kw)
     mlp, enc = tm.coarse, tm.pos_enc
-    wbuf, offs = tfi.pack_image_weights(mlp, enc)
-    D = mlp.cfg.net_depth
-    assert len(offs) == 2 * D + 3 and all(o % 4 == 0 for o in offs)
-    for i, (_, lin) in enumerate(mlp.linears()):
-        fi, fo = lin.in_features, lin.out_features
-        torch.testing.assert_close(wbuf[offs[2 * i] : offs[2 * i] + fi * fo].view(fi, fo),
-                                   lin.weight.detach().t(), rtol=0, atol=0)
-        torch.testing.assert_close(wbuf[offs[2 * i + 1] : offs[2 * i + 1] + fo],
-                                   lin.bias.detach(), rtol=0, atol=0)
-    torch.testing.assert_close(wbuf[offs[2 * D + 2] : offs[2 * D + 2] + enc.n_freqs],
-                               enc.bands(), rtol=0, atol=0)
-    assert wbuf.numel() >= offs[2 * D + 2] + enc.n_freqs
+    cfg = mlp.cfg
+    W, P = cfg.net_width, enc.out_dim
+    segs = tfi.fwd_segments(mlp, enc)
+    want_segs = [(0, 0, P, P)]
+    for j in range(1, cfg.net_depth):
+        want_segs += ([(j, 0, P + W, P), (j, P, P + W, W)] if (j - 1) in cfg.skips
+                      else [(j, 0, W, W)])
+    assert segs == want_segs
+    offs = tfi.fwd_image_offsets(segs, W)
+    assert offs == [0] + list(np.cumsum([16 * W * -(-k // 8) for *_, k in segs]))
+    img = _pack_rendering(mlp, enc)
+    assert img.numel() == offs[-1]
+    layers = [tft._wgmma_image(lin.weight.detach(), [P] if j == 0 else
+                               ([P, W] if (j - 1) in cfg.skips else [W]))
+              for j, lin in enumerate(mlp.pos_linears)]
+    torch.testing.assert_close(img, torch.cat(layers), rtol=0, atol=0)
+    w = [lin.weight.detach() for _, lin in mlp.linears()]
+    for (lin, first, _, cols), a, b in zip(segs, offs, offs[1:]):
+        steps = (b - a) // (16 * W)
+        x = img[a:b].reshape(steps, 2, 2, W // 8, 8, 4)
+        # [step][hi/lo][K half][N/8][8 of N][4 of K] -> [hi/lo][step][K position][N]
+        x = x.permute(1, 0, 2, 5, 3, 4).reshape(2, steps, 8, W)[:, :, _K_INV].reshape(2, -1, W)
+        bt = w[lin][:, first : first + cols].t()
+        bt = torch.nn.functional.pad(bt, (0, 0, 0, 8 * steps - cols))
+        hi = _tf32(bt)
+        torch.testing.assert_close(x[0], hi, rtol=0, atol=0)
+        torch.testing.assert_close(x[1], _tf32(bt - hi), rtol=0, atol=0)
+        assert float((x[0] + x[1] - bt).abs().max()) <= 2.0**-21 * float(bt.abs().max())
+    for width in range(32, 257, 16):
+        smem = tfi.fwd_smem_bytes(width)
+        assert smem == 4 * 4 * 16 * width + 4 * 128 * (width + 8) + 8 * 8 + 2 * 4 * 128 * 4
+        assert smem <= 232448, (width, smem)
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused_route", "standard_route"])
@@ -273,7 +456,7 @@ def test_cuda_image_kernels_match_plain(n):
     rtol 1e-4 / atol 1e-4 (fp32 sums in another order than cuBLAS's), sse
     at rtol 1e-4, every dW and db within 1e-3 of its array's largest plain
     value; a pixel count that is not a multiple of the train kernel's
-    32-point tile or the forward's 64 (4001), and a 400 x 400 frame
+    32-point tile or the forward's 128 (4001), and a 400 x 400 frame
     (160,000, the forward alone)."""
     _check_cuda_image_kernels(n, None)
 
@@ -318,6 +501,64 @@ def test_cuda_image_train_is_deterministic():
     assert torch.equal(sse_a, sse_b)
     assert all(torch.equal(a, b) for a, b in zip(g_a, g_b))
 
+
+# the forward kernel's cases on the card: image2d at a whole number of its
+# 128-pixel tiles, a ragged count and a 400 x 400 frame; the narrow widths
+# (builds of their own); depth 20; two skips with the raw input
+FWD_CASES = [
+    (4096, {}), (4001, {}), (160_000, {}), (4001, dict(width=64)), (4001, dict(width=32)),
+    (4001, dict(width=96)), (4001, dict(width=48)), (4001, dict(depth=20, width=64)),
+    (4001, dict(skips=(2, 5), include_input=True)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,kw", FWD_CASES, ids=[
+    "4096", "4001", "160000", "width64", "width32", "width96", "width48", "depth20",
+    "two_skips_raw_input"])
+def test_cuda_image_fwd_runs_three_tf32_passes(n, kw):
+    """The forward kernel (csrc/image_fwd_tc.cu) lies within IMAGE_TIGHT
+    (atol = rtol) of the fp32 plain version, and the same source built with
+    one TF32 product in place of three (``IMAGE_FWD_ONE_PASS``: hi·hi alone)
+    lies outside it; both errors are printed. A call after the first of its
+    shape counts one launch and allocates only its output; two calls give
+    bit-identical output; the weight images the pack launch wrote are
+    ``_pack_rendering``'s bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    from nerf_meets_mlx_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    tm = _image_model(device="cuda", **kw)
+    mlp, enc = tm.coarse, tm.pos_enc
+    x = torch.rand((n, 2), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    one_pass = tfi.type_fwd_lib(_build.load_library(
+        tfi.FWD_SOURCE, {**(tft.width_defines(mlp.cfg.net_width) or {}), "IMAGE_FWD_ONE_PASS": 1}))
+    with torch.no_grad():
+        tfi.fused_image_apply(mlp, enc, x)  # the shape's first call makes its plan
+        torch.cuda.synchronize()
+        n0 = LAUNCHES["image_fwd"]
+        allocs0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+        three = tfi.fused_image_apply(mlp, enc, x)
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs0
+        again = tfi.fused_image_apply(mlp, enc, x)
+        torch.cuda.synchronize()
+        launches = LAUNCHES["image_fwd"] - n0
+        one = tfi._fwd_launch(mlp, enc, x, lib=one_pass)
+        torch.cuda.synchronize()
+        want = tfi.fused_image_reference(mlp, enc, x)
+    over = {"3xTF32": _over(three, want, IMAGE_TIGHT), "one pass": _over(one, want, IMAGE_TIGHT)}
+    print(f"[tf32] image_fwd N={n} {kw}: " + ", ".join(
+        f"{k} max abs {float((o - want).abs().max()):.3e} ({over[k]:.3f} of IMAGE_TIGHT)"
+        for k, o in (("3xTF32", three), ("one pass", one))))
+    assert launches == 2 and allocs == 1, (launches, allocs)
+    assert torch.equal(three, again)
+    torch.testing.assert_close(three, want, rtol=1e-4, atol=1e-4)
+    assert over["3xTF32"] <= 1.0, over
+    assert over["one pass"] > 1.0, over
+    plan = tfi._fwd_plan(mlp, enc, x.device, torch.cuda.current_stream(dev).cuda_stream)
+    assert torch.equal(plan.img, _pack_rendering(mlp, enc))
 
 def _check_cuda_image_kernels(n, width, depth=None, skips=None, include_input=False):
     if not torch.cuda.is_available():
