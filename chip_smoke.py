@@ -1585,6 +1585,24 @@ def ingp_point_sets(model, device):
     return out
 
 
+def long_ray_point_sets(device):
+    """(name, points [N, 3]) the hash kernels see on the long-ray route (the
+    feats route of lego_ingp at LONG_RAYS samples): a train step's coarse
+    (4096 x 128) and fine (4096 x 384) points in ray order, made as
+    ingp_point_sets makes lego_ingp's."""
+    import torch
+    from nerf_meets_mlx_torch.config import lego_ingp
+
+    base = lego_ingp()
+    model = make_model(base.replace(use_fused_kernel=True, render=dataclasses.replace(
+        base.render, n_samples=LONG_RAYS[0], n_importance=LONG_RAYS[1])), device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    ro, rd, vd = picked_rays(device)
+    _, coarse, fine = ingp_level_inputs(model, ro, rd, vd, None, gen, 0.0)
+    return [(name, (ro[:, None, :] + z[..., None] * rd[:, None, :]).reshape(-1, 3))
+            for name, (z, _, _) in (("long_coarse", coarse), ("long_fine", fine))]
+
+
 def grad_ratios(g_k, g_p):
     """max |kernel - plain| / max |plain| per array."""
     out = []
@@ -1599,9 +1617,10 @@ def phase_compare_ingp(device):
     """The four INGP kernels against their plain versions at the main
     paths' shapes (full-width lego_ingp weights from a seeded init, tables
     with N(0, 0.1) added, 4096 rays of orbit frame 0): the hash forward on
-    the grid update's 262,144 points and the train step's 196,608 / 393,216
-    (features exact: the same IEEE operations in the same order), its dG
-    with random dout; the eval and the train kernel at S = 48 and 96, both
+    the grid update's 262,144 points, the train step's 196,608 / 393,216
+    and the long-ray route's 524,288 / 1,572,864 (features exact: the same
+    IEEE operations in the same order), its dG at the last four with
+    random dout; the eval and the train kernel at S = 48 and 96, both
     MLPs, both compositing modes, the white background on and off (train),
     density noise on; values to atol 1e-4 + rtol 1e-4, the hash dG kernel to
     DG_REL and the train kernel's dW and dG to DW_REL of the array's largest
@@ -1628,7 +1647,7 @@ def phase_compare_ingp(device):
     if build[0] != fi.EVAL_SOURCE:
         raise AssertionError(f"lego_ingp evaluates in {build}, not {fi.EVAL_SOURCE}")
     gen = torch.Generator(device=device).manual_seed(SEED + 12)
-    for name, pts in ingp_point_sets(model, device):
+    for name, pts in ingp_point_sets(model, device) + long_ray_point_sets(device):
         with torch.no_grad():
             f_k = he.hash_encode_apply(enc, pts)
             torch.cuda.synchronize()
@@ -1781,9 +1800,11 @@ def phase_ingp_routes(ds, device):
 def phase_ingp_kernel_timing(device):
     """Each INGP kernel per launch (CUDA events) at the main paths' shapes,
     beside its plain version's time and its bound: the hash forward on the
-    grid update's 262,144 points and the train step's coarse and fine
-    points, its dG (kernel alone; plain: forward + autograd backward) at the
-    coarse and fine points; the eval call per level on a 32,768-ray chunk
+    grid update's 262,144 points, the train step's coarse and fine points
+    and the long-ray route's (4096 x 128 / 384), its dG (kernel alone;
+    plain: forward + autograd backward) at the last four, the batches of
+    its two routes (lego_ingp's value_and_grad, the long-ray feats route);
+    the eval call per level on a 32,768-ray chunk
     of a 400 x 400 frame (the serving path), also its kernel's device time
     (profiler), and its output on that chunk against plain's (as
     phase_compare_ingp holds it, raising if it disagrees); the train kernel per level at 4096 rays (plain: forward +
@@ -1832,7 +1853,7 @@ def phase_ingp_kernel_timing(device):
                     tf32x3_bound_ms=max(3 * flops / TF32_FLOPS, t_bytes) * 1e3, **extra)
 
     hfwd, hbwd, ev, tr = {}, {}, {}, {}
-    for name, pts in ingp_point_sets(model, device):
+    for name, pts in ingp_point_sets(model, device) + long_ray_point_sets(device):
         N = pts.shape[0]
         reps = max(5, int(4_000_000 // N))
         with torch.no_grad():
@@ -1858,7 +1879,7 @@ def phase_ingp_kernel_timing(device):
                            hash_flops * N, points=N)
         log(f"[time] hash_bwd {name:6s} N={N}: kernel {k1:.4f} / {k2:.4f} ms, plain fwd+bwd "
             f"{p_ms:.3f} ms, bound {hbwd[name]['bound_ms']:.4f} ms ({hbwd[name]['bound_by']}), "
-            f"{N * L * 8 * F / (hbwd[name]['ms'] * 1e-3) / 1e9:.1f} G atomics/s")
+            f"{N * L * 8 * F / (hbwd[name]['ms'] * 1e-3) / 1e9:.1f} G terms/s")
 
     # eval: a 32,768-ray chunk of a 400 x 400 frame
     ro, rd, vd = frame_rays(RES, RES, device)
@@ -2552,7 +2573,7 @@ def phase_feats_e2e(ds, device):
     time by kernel of 5 steps under torch.profiler, and the 400 x 400 frame
     (standard route: plain gather and MLP, no kernel) with its busy share;
     then the long-ray overlay's warm step (hash kernels + feat train
-    kernel)."""
+    kernel), its busy share and device time by kernel likewise."""
     import torch
     from nerf_meets_mlx_torch.cameras.pose import orbit_poses
     from nerf_meets_mlx_torch.config import lego_ingp
@@ -2593,12 +2614,13 @@ def phase_feats_e2e(ds, device):
             f"{peak_gb:.2f} GB")
         res = {"step_s": step_s, "rays_per_s": n_rand / step_s, "peak_gb": peak_gb,
                "launches": launches}
-        if key == "paper_tables":
-            def steps():
-                for _ in range(PROFILED_STEPS):
-                    step(state, images, poses, gen)
 
-            res["trace"] = profile_device(steps, f"{PROFILED_STEPS} lego_ingp+{key} train steps")
+        def steps():
+            for _ in range(PROFILED_STEPS):
+                step(state, images, poses, gen)
+
+        res["trace"] = profile_device(steps, f"{PROFILED_STEPS} lego_ingp+{key} train steps")
+        if key == "paper_tables":
             times = []
             for pose in orbit_poses(160)[:2]:
                 torch.cuda.synchronize()
@@ -3547,10 +3569,13 @@ def main() -> int:
         entry("hash_fwd", "nerf_meets_mlx_torch/csrc/hash_encode.cu",
               "nerf_meets_mlx_tpu/kernels/hash_encode.py:340", ingp_occ_launches["hash_fwd"],
               ingp_err["hash_fwd"], {"grid": hash_fwd_t["grid"]}),
+        # the hash dG kernel's two routes: lego_ingp's value_and_grad steps
+        # and the long-ray feats route's steps (a coarse and a fine launch a
+        # step each); its time the mean over their four batches
         entry("hash_bwd", "nerf_meets_mlx_torch/csrc/hash_encode.cu",
               "nerf_meets_mlx_tpu/kernels/hash_encode.py:376",
-              ingp_routes["value_and_grad"]["launches"]["hash_bwd"], ingp_err["hash_dg"],
-              hash_bwd_t),
+              ingp_routes["value_and_grad"]["launches"]["hash_bwd"]
+              + long_routes["launches"]["hash_bwd"], ingp_err["hash_dg"], hash_bwd_t),
         entry("ingp_eval", "nerf_meets_mlx_torch/csrc/ingp_eval_tc.cu",
               "nerf_meets_mlx_tpu/kernels/fused_ingp_train.py:306", ingp_launches["ingp_eval"],
               ingp_err["eval"], ingp_eval_t),

@@ -4,10 +4,11 @@
 //
 //   hash_fwd_kernel<F, BODY>      ::_fwd_body_kernel (the forward, all
 //                                 levels in one body)
-//   hash_bwd_kernel<F, BODY>      ::_bwd_body_kernel (the scatter-add of the
-//                                 cotangent into the tables)
+//   hash_bwd_kernel<F>            ::_bwd_body_kernel and ::_bwd_grid_kernel
+//                                 (the scatter-add of the cotangent into the
+//                                 tables; the two give the same dG)
 //   hash_fwd_kernel<F, GRID>      ::_fwd_grid_kernel (levels_in_body=False:
-//   hash_bwd_kernel<F, GRID>      ::_bwd_grid_kernel  one level per grid step)
+//                                 one level per grid step)
 //   hash_fwd_kernel<F, DX>        ::_fwd_kernel (compute_dx=True)
 //   hash_dx_bwd_kernel<F>         ::_bwd_kernel (compute_dx=True: dG and dX)
 //
@@ -40,22 +41,41 @@
 // not by device memory. The bytes it must move are the points in and the
 // features out (and the tables once): 12 + 4*L*F bytes a point.
 //
-// Design: one thread per (point, level). BODY: the level fastest, so that a
-// warp's threads write neighbouring features and share their points'
-// loads. GRID: the launch grid runs over (point block, level), so a block
-// touches one level's table only, as the Pallas grid (L, nblocks) does;
-// its numbers are the body kernels' (the same roundings, in both compute
-// types), and it writes feats [N, L*F] in place, where the Pallas kernel
-// writes [L, N, F] and transposes. Staging a level's table in shared
-// memory (128 KB at lego_ingp's 2^14 x 2) is later work: a 256-point block
-// makes 2,048 lookups, a sixteenth of the table's rows. The resolutions
-// come from the host as the int32 values of _level_resolutions. The
-// backward uses atomicAdd into a dG that the
-// wrapper zeroes: on the coarse levels (16^3 .. 35^3 cells) hundreds of
-// thousands of points land on a few thousand rows, so those atomics contend
-// and their order changes from run to run (dG agrees with the plain
-// version's scatter-add to rounding, not bit for bit). A segmented
-// reduction in place of the contended atomics is later work.
+// Design of the forwards: one thread per (point, level). BODY: the level
+// fastest, so that a warp's threads write neighbouring features and share
+// their points' loads. GRID: the launch grid runs over (point block, level),
+// so a block touches one level's table only, as the Pallas grid (L,
+// nblocks) does; its numbers are the body kernels' (the same roundings, in
+// both compute types), and it writes feats [N, L*F] in place, where the
+// Pallas kernel writes [L, N, F] and transposes. Staging a level's table in
+// shared memory (128 KB at lego_ingp's 2^14 x 2) is later work: a 256-point
+// block makes 2,048 lookups, a sixteenth of the table's rows. The
+// resolutions come from the host as the int32 values of _level_resolutions.
+//
+// The table gradient (hash_bwd_kernel, both Pallas backwards): one
+// scalar atomic a term, 8*F a (point, level), would be 128 a point at
+// lego_ingp, and on the coarse levels (16^3 .. 35^3 cells) they contend for
+// a few thousand rows. But the points come in rays ([rays, samples]
+// flattened), so consecutive points share a coarse cell, often ten or more
+// at 384 samples a ray, and their 8 corner rows with it; and a ray moves
+// from a cell to a face neighbour, which shares 4 of its corners. So a
+// block works one level over a contiguous range of points (the grid: one
+// block an SM, the SMs shared equally by the levels, as every level takes
+// every point), each thread a stretch of it in order, and the terms of a
+// run of points in one cell are summed in registers, kept for the shared
+// corners when the run slides to a face neighbour, and added to dG once a
+// row with sm_90's vector atomics (see merge_runs). A copy of the level's
+// dG slice in shared memory (128 KB at lego_ingp) measured slower at every
+// batch: sm_90 has no fp32 add on shared memory, so each add is a
+// compare-and-swap loop (tools/hash_bwd_probe.py). Only the grouping of
+// the sums differs from the plain scatter-add: each term is w_c * d
+// (bf16(w_c) * bf16(d) in bf16 mode, exact in fp32), summed in fp32; a row
+// no point touches stays exactly 0; the atomics' order changes from run to
+// run, so dG agrees with the plain version's to rounding, not bit for bit.
+// What bounds it: at every level the walk reads a point's x (12 bytes) and
+// the 32-byte sector of its dout row that holds the level's features, 44
+// bytes a (point, level) where the byte bound counts 12 + 4*L*F a point;
+// and the atomics, one REDG a row added (two at F = 8).
 //
 // compute_dx (DX and hash_dx_bwd_kernel) computes in fp32 whatever
 // hash_compute_dtype says, and normalises as the Pallas kernels do,
@@ -215,27 +235,237 @@ __global__ void __launch_bounds__(NTHREADS) hash_fwd_kernel(const __grid_constan
   for (int k = 0; k < F; ++k) o[k] = acc[k];
 }
 
-template <int F, int MAP>
-__global__ void __launch_bounds__(NTHREADS) hash_bwd_kernel(const __grid_constant__ HashArgs A) {
-  long long n;
-  int l;
-  if (!item_of<MAP>(A, n, l)) return;
-  float d[F];
-  const float* dp = A.dout + (size_t)n * A.L * F + (size_t)l * F;
+// ---- the table gradient: hash_bwd_kernel --------------------------------
+//
+// A block works one level l over a contiguous range of points; its threads
+// split the range into stretches, one a thread, each walked in the points'
+// order. While consecutive points of the stretch fall in the same cell
+// (ix, iy, iz), their 8 corners' F-vectors w_c * d are summed in registers
+// (a run). When the next point's cell is a face neighbour, the run slides:
+// the 4 corners the two cells share keep their sums, and only the other 4
+// are added to dG; any other move, and the stretch's end, add all 8. A row
+// is added with sm_90's vector atomics (float2 / float4 atomicAdd: one
+// REDG a row for F <= 4). A point whose dout is all zero adds nothing and
+// does not end a run. A warp stages its lanes' next points (x and the
+// level's dout) in shared memory with coalesced loads.
+
+constexpr int BWD_THREADS = 512;
+
+struct BwdArgs {
+  HashArgs A;
+  long long block_points;  // points a block; block b takes range b / L of level b % L
+};
+
+// the cell and its fractions of a loaded point at level l, as corners_of
+// computes them
+__device__ __forceinline__ void cell_of(const HashArgs& A, const float (&p)[3], int l,
+                                        unsigned (&b)[3], float (&f)[3]) {
+  const float r = (float)A.res[l];
 #pragma unroll
-  for (int k = 0; k < F; ++k) d[k] = rb(__ldg(dp + k), A.bf16);
-  bool any = false;
+  for (int a = 0; a < 3; ++a) {
+    float u = unit_of<BODY>(A, p[a]);
+    u = fminf(fmaxf(u, 0.f), 1.f);
+    const float s = __fmul_rn(u, r);
+    const float fl = floorf(s);
+    b[a] = (unsigned)fl;
+    f[a] = __fsub_rn(s, fl);
+  }
+}
+
+__device__ __forceinline__ float corner_weight(const float (&f)[3], int c) {
+  const float wx = (c & 1) ? f[0] : __fsub_rn(1.f, f[0]);
+  const float wy = ((c >> 1) & 1) ? f[1] : __fsub_rn(1.f, f[1]);
+  const float wz = ((c >> 2) & 1) ? f[2] : __fsub_rn(1.f, f[2]);
+  return __fmul_rn(__fmul_rn(wx, wy), wz);
+}
+
+__device__ __forceinline__ unsigned corner_row(const HashArgs& A, const unsigned (&b)[3], int c) {
+  const unsigned bx = c & 1, by = (c >> 1) & 1, bz = (c >> 2) & 1;
+  return (((b[0] + bx) * 1u) ^ ((b[1] + by) * 2654435761u) ^ ((b[2] + bz) * 805459861u)) & A.mask;
+}
+
+// a run's F sums added to one row of dG's level gl, a vector atomic a chunk
+// of up to 4 floats
+template <int F>
+__device__ __forceinline__ void add_row(float* gl, unsigned row, const float (&v)[F]) {
+  float* p = gl + (size_t)row * F;
+  if constexpr (F == 1) {
+    atomicAdd(p, v[0]);
+  } else if constexpr (F == 2) {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  } else {
 #pragma unroll
-  for (int k = 0; k < F; ++k) any |= d[k] != 0.f;
-  if (!any) return;  // adds nothing (padded rows, dead samples)
-  const Corners C = corners_of<MAP>(A, n, l);
-  float* gl = A.out + (size_t)l * A.T * F;
+    for (int k = 0; k < F; k += 4)
+      atomicAdd(reinterpret_cast<float4*>(p + k), make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]));
+  }
+}
+
+// a run's sums at its cell's 8 corner rows
+template <int F>
+__device__ __forceinline__ void flush_run(const HashArgs& A, const unsigned (&b)[3],
+                                          const float (&acc)[8][F], float* gl) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) add_row<F>(gl, corner_row(A, b, c), acc[c]);
+}
+
+// the run moves from cell b to its face neighbour one step along AXIS (UP:
+// +1): the 4 corners the two cells share keep their sums (renamed to the
+// new cell's corners), the other 4 are added to dG, and the new cell's own
+// 4 start from 0
+template <int F, int AXIS, bool UP>
+__device__ __forceinline__ void slide_run(const HashArgs& A, const unsigned (&b)[3],
+                                          float (&acc)[8][F], float* gl) {
+  constexpr int bit = 1 << AXIS;
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
-    float* row = gl + (size_t)C.h[c] * F;
+    if ((c & bit) == (UP ? 0 : bit)) {
+      add_row<F>(gl, corner_row(A, b, c), acc[c]);
 #pragma unroll
-    for (int k = 0; k < F; ++k) atomicAdd(row + k, __fmul_rn(rb(C.w[c], A.bf16), d[k]));
+      for (int k = 0; k < F; ++k) {
+        acc[c][k] = acc[c ^ bit][k];
+        acc[c ^ bit][k] = 0.f;
+      }
+    }
   }
+}
+
+// the run leaves cell cur for cell b: a slide where b is a face neighbour
+// of cur, else a flush of all 8 corners; false after a flush
+template <int F>
+__device__ __forceinline__ bool next_cell(const HashArgs& A, const unsigned (&cur)[3],
+                                          const unsigned (&b)[3], float (&acc)[8][F],
+                                          float* gl) {
+  const int d0 = (int)(b[0] - cur[0]), d1 = (int)(b[1] - cur[1]), d2 = (int)(b[2] - cur[2]);
+  if (d1 == 0 && d2 == 0 && (d0 == 1 || d0 == -1)) {
+    d0 > 0 ? slide_run<F, 0, true>(A, cur, acc, gl) : slide_run<F, 0, false>(A, cur, acc, gl);
+  } else if (d0 == 0 && d2 == 0 && (d1 == 1 || d1 == -1)) {
+    d1 > 0 ? slide_run<F, 1, true>(A, cur, acc, gl) : slide_run<F, 1, false>(A, cur, acc, gl);
+  } else if (d0 == 0 && d1 == 0 && (d2 == 1 || d2 == -1)) {
+    d2 > 0 ? slide_run<F, 2, true>(A, cur, acc, gl) : slide_run<F, 2, false>(A, cur, acc, gl);
+  } else {
+    flush_run<F>(A, cur, acc, gl);
+    return false;
+  }
+  return true;
+}
+
+// points a lane takes from its stretch at a time: its warp stages them
+// (x and the level's dout) in shared memory with coalesced loads, in rows of
+// an odd number of floats a lane, so that the lanes' reads miss each other's
+// banks
+__host__ __device__ constexpr int stage_points(int F) { return F <= 2 ? 8 : 16 / F; }
+__host__ __device__ constexpr int stage_x(int F) { return 3 * stage_points(F) + 1; }
+__host__ __device__ constexpr int stage_d(int F) { return stage_points(F) * F + 1; }
+__host__ __device__ constexpr size_t stage_bytes(int F) {
+  return (size_t)BWD_THREADS * (stage_x(F) + stage_d(F)) * sizeof(float);
+}
+
+// the warp's 32 stretches' points j .. j + P - 1 (lane s's stretch from
+// wbase + s * per, up to n1) into registers, coalesced: x into vx, the level's
+// dout into vd, each lane a share of them (0 past a stretch's end)
+template <int F>
+__device__ __forceinline__ void stage_load(const HashArgs& A, int l, long long wbase,
+                                           long long per, long long n1, long long j,
+                                           float (&vx)[3 * stage_points(F)],
+                                           float (&vd)[stage_points(F) * F]) {
+  constexpr int P = stage_points(F);
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < 3 * P; ++k) {
+    const int e = k * 32 + lane, sl = e / (3 * P), o = e - sl * 3 * P;
+    const long long first = wbase + sl * per + j, end = wbase + (sl + 1) * per;
+    vx[k] = first + o / 3 < (end < n1 ? end : n1) ? __ldg(A.x + first * 3 + o) : 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < P * F; ++k) {
+    const int e = k * 32 + lane, sl = e / (P * F), o = e - sl * P * F;
+    const long long n = wbase + sl * per + j + o / F, end = wbase + (sl + 1) * per;
+    vd[k] = n < (end < n1 ? end : n1)
+                ? __ldg(A.dout + (size_t)n * A.L * F + (size_t)l * F + o % F)
+                : 0.f;
+  }
+}
+
+// this thread's stretch of the block's points [n0, n1) at level l, walked
+// in order, its runs merged and added to dG's level gl; stage: the block's
+// staging rows
+template <int F>
+__device__ __forceinline__ void merge_runs(const HashArgs& A, int l, long long n0, long long n1,
+                                           float* gl, float* stage) {
+  constexpr int P = stage_points(F), SX = stage_x(F), SD = stage_d(F);
+  const int lane = threadIdx.x & 31;
+  const long long per = (n1 - n0 + BWD_THREADS - 1) / BWD_THREADS;
+  const long long wbase = n0 + (long long)(threadIdx.x - lane) * per;
+  float* xs = stage + (threadIdx.x - lane) * SX;
+  float* ds = stage + BWD_THREADS * SX + (threadIdx.x - lane) * SD;
+  const long long s0 = wbase + lane * per;
+  float acc[8][F];
+  unsigned cur[3] = {0u, 0u, 0u};
+  bool open = false;
+  for (long long j = 0; j < per; j += P) {
+    // every load of the warp's next points issued before any store
+    float vx[3 * P], vd[P * F];
+    stage_load<F>(A, l, wbase, per, n1, j, vx, vd);
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < 3 * P; ++k) {
+      const int e = k * 32 + lane, sl = e / (3 * P);
+      xs[sl * SX + e - sl * 3 * P] = vx[k];
+    }
+#pragma unroll
+    for (int k = 0; k < P * F; ++k) {
+      const int e = k * 32 + lane, sl = e / (P * F);
+      ds[sl * SD + e - sl * P * F] = vd[k];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      if (s0 + j + i >= n1 || j + i >= per) break;
+      float d[F];
+      bool any = false;
+#pragma unroll
+      for (int k = 0; k < F; ++k) {
+        d[k] = rb(ds[lane * SD + i * F + k], A.bf16);
+        any |= d[k] != 0.f;
+      }
+      if (!any) continue;  // adds nothing (padded rows, dead samples)
+      const float p[3] = {xs[lane * SX + 3 * i], xs[lane * SX + 3 * i + 1],
+                          xs[lane * SX + 3 * i + 2]};
+      unsigned b[3];
+      float f[3];
+      cell_of(A, p, l, b, f);
+      if (open && (b[0] != cur[0] || b[1] != cur[1] || b[2] != cur[2])) {
+        open = next_cell<F>(A, cur, b, acc, gl);
+        cur[0] = b[0]; cur[1] = b[1]; cur[2] = b[2];
+      }
+      if (!open) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+#pragma unroll
+          for (int k = 0; k < F; ++k) acc[c][k] = 0.f;
+        cur[0] = b[0]; cur[1] = b[1]; cur[2] = b[2];
+        open = true;
+      }
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float w = rb(corner_weight(f, c), A.bf16);
+#pragma unroll
+        for (int k = 0; k < F; ++k) acc[c][k] = __fadd_rn(acc[c][k], __fmul_rn(w, d[k]));
+      }
+    }
+  }
+  if (open) flush_run<F>(A, cur, acc, gl);
+}
+
+template <int F>
+__global__ void __launch_bounds__(BWD_THREADS) hash_bwd_kernel(const __grid_constant__ BwdArgs P) {
+  extern __shared__ float stage[];  // the warps' staging rows
+  const HashArgs& A = P.A;
+  const int l = (int)(blockIdx.x % (unsigned)A.L);
+  const long long n0 = (long long)(blockIdx.x / (unsigned)A.L) * P.block_points;
+  if (n0 >= A.N) return;
+  const long long n1 = n0 + P.block_points < A.N ? n0 + P.block_points : A.N;
+  merge_runs<F>(A, l, n0, n1, A.out + (size_t)l * A.T * F, stage);
 }
 
 // compute_dx backward: a thread per point over every level; dG by atomics
@@ -336,16 +566,28 @@ int launch_fwd(const HashArgs& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <int MAP>
-int launch_bwd(const HashArgs& a, cudaStream_t st) {
-  const dim3 g = grid_of(MAP, a.N, a.L);
-  switch (a.F) {
-    case 1: hash_bwd_kernel<1, MAP><<<g, NTHREADS, 0, st>>>(a); break;
-    case 2: hash_bwd_kernel<2, MAP><<<g, NTHREADS, 0, st>>>(a); break;
-    case 4: hash_bwd_kernel<4, MAP><<<g, NTHREADS, 0, st>>>(a); break;
-    default: hash_bwd_kernel<8, MAP><<<g, NTHREADS, 0, st>>>(a); break;
-  }
+template <int F>
+int launch_bwd_f(const BwdArgs& P, int ranges, cudaStream_t st) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      hash_bwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)stage_bytes(F));
+  if (e != cudaSuccess) return (int)e;
+  hash_bwd_kernel<F><<<(unsigned)(ranges * P.A.L), BWD_THREADS, stage_bytes(F), st>>>(P);
   return (int)cudaGetLastError();
+}
+
+// the plan (ranges, block_points) comes from kernels/hash_encode.py's
+// bwd_plan; it must cover the points
+int launch_bwd(const HashArgs& a, int ranges, long long block_points, cudaStream_t st) {
+  if (ranges < 1 || block_points < 1 || (long long)ranges * block_points < a.N ||
+      (long long)ranges * a.L > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const BwdArgs P{a, block_points};
+  switch (a.F) {
+    case 1: return launch_bwd_f<1>(P, ranges, st);
+    case 2: return launch_bwd_f<2>(P, ranges, st);
+    case 4: return launch_bwd_f<4>(P, ranges, st);
+    default: return launch_bwd_f<8>(P, ranges, st);
+  }
 }
 
 }  // namespace
@@ -376,26 +618,26 @@ extern "C" int hash_fwd_grid_launch(const float* x, const float* tables, float* 
 }
 
 // dG [L, 2^log2_T, F] += the scatter of dout [N, L*F]; dG must be zeroed by
-// the caller. The levels-in-body and the one-level-per-grid-step kernels.
-// Return the first cudaError_t.
+// the caller. The levels-in-body and the
+// one-level-per-grid-step entry points launch the same kernel (the two Pallas
+// kernels give the same dG) on the plan (ranges, block_points). Return the
+// first cudaError_t.
 extern "C" int hash_bwd_launch(const float* x, const float* dout, float* dG, long long N, int L,
                                int F, int log2_T, const int* res, float bmin, float brange,
-                               int bf16, void* stream) {
+                               int bf16, int ranges, long long block_points, void* stream) {
   if (!valid(N, L, F, log2_T)) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
-  return launch_bwd<BODY>(make_args(x, nullptr, dout, dG, nullptr, N, L, F, log2_T, res, bmin,
-                                    brange, 0.f, bf16),
-                          static_cast<cudaStream_t>(stream));
+  return launch_bwd(make_args(x, nullptr, dout, dG, nullptr, N, L, F, log2_T, res, bmin, brange,
+                              0.f, bf16),
+                    ranges, block_points, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int hash_bwd_grid_launch(const float* x, const float* dout, float* dG, long long N,
                                     int L, int F, int log2_T, const int* res, float bmin,
-                                    float brange, int bf16, void* stream) {
-  if (!valid(N, L, F, log2_T)) return (int)cudaErrorInvalidValue;
-  if (N == 0) return 0;
-  return launch_bwd<GRID>(make_args(x, nullptr, dout, dG, nullptr, N, L, F, log2_T, res, bmin,
-                                    brange, 0.f, bf16),
-                          static_cast<cudaStream_t>(stream));
+                                    float brange, int bf16, int ranges, long long block_points,
+                                    void* stream) {
+  return hash_bwd_launch(x, dout, dG, N, L, F, log2_T, res, bmin, brange, bf16, ranges,
+                         block_points, stream);
 }
 
 // compute_dx forward: feats [N, L*F] in fp32, normalised by multiplying

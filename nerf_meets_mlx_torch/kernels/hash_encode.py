@@ -4,8 +4,11 @@ Counterpart of ``nerf_meets_mlx_tpu/kernels/hash_encode.py``. The kernels
 are ``csrc/hash_encode.cu``, one for each of the six Pallas kernels:
 ``hash_fwd_kernel`` (the Pallas ``_fwd_body_kernel``; with
 ``levels_in_body=False`` ``_fwd_grid_kernel``; with ``compute_dx=True``
-``_fwd_kernel``), ``hash_bwd_kernel``, an atomic scatter-add into the
-tables (``_bwd_body_kernel``; ``_bwd_grid_kernel``), and
+``_fwd_kernel``), ``hash_bwd_kernel``, the scatter-add into the tables
+(``_bwd_body_kernel`` and ``_bwd_grid_kernel``, which give the same dG: a
+block works one level over a range of points, summing the terms of a run
+of points in one cell, or in face-neighbouring cells, before it adds them,
+on ``bwd_plan``'s plan), and
 ``hash_dx_bwd_kernel`` (``_bwd_kernel``: dG and dX). The TPU formulation
 (one-hot GEMM lookups into [L, T/128, F·128] packed tables) is not carried
 over: the tables stay [L, T, F] and the kernels gather their rows.
@@ -64,9 +67,11 @@ def _hash_lib():
     lib = _build.load_library("hash_encode")
     if not getattr(lib, "_typed", False):
         vp, ci, cll, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        for fn in (lib.hash_fwd_launch, lib.hash_bwd_launch, lib.hash_fwd_grid_launch,
-                   lib.hash_bwd_grid_launch):
+        for fn in (lib.hash_fwd_launch, lib.hash_fwd_grid_launch):
             fn.argtypes = [vp] * 3 + [cll] + [ci] * 3 + [vp, cf, cf, ci, vp]
+            fn.restype = ci
+        for fn in (lib.hash_bwd_launch, lib.hash_bwd_grid_launch):
+            fn.argtypes = [vp] * 3 + [cll] + [ci] * 3 + [vp, cf, cf, ci, ci, cll, vp]
             fn.restype = ci
         lib.hash_dx_fwd_launch.argtypes = [vp] * 3 + [cll] + [ci] * 3 + [vp, cf, cf, vp]
         lib.hash_dx_fwd_launch.restype = ci
@@ -80,6 +85,21 @@ def _hash_lib():
 MAX_LEVELS = 32
 FEATURES = (1, 2, 4, 8)
 MAX_CHANNELS = 128
+
+
+# the table gradient's plan (csrc/hash_encode.cu's hash_bwd_kernel)
+BWD_THREADS = 512          # its 128 registers a thread fill an SM's 65,536
+MIN_THREAD_POINTS = 8      # fewer ranges where the points would give a thread fewer
+
+
+def bwd_plan(n_levels: int, n_points: int, n_sm: int):
+    """(ranges, block_points) of ``hash_bwd_kernel``: a block works one
+    level over one of ``ranges`` contiguous ranges of ``block_points``
+    points, one block an SM. The SMs are shared equally by the levels,
+    since every level takes every point."""
+    ranges = max(1, min(n_sm // n_levels,
+                        -(-n_points // (BWD_THREADS * MIN_THREAD_POINTS))))
+    return ranges, max(1, -(-n_points // ranges))
 
 
 def check_hash_encoding(enc) -> None:
@@ -135,11 +155,14 @@ def _fwd_launch(enc, x: torch.Tensor, grid: bool = False) -> torch.Tensor:
 
 
 def _bwd_launch(enc, x: torch.Tensor, dout: torch.Tensor, grid: bool = False) -> torch.Tensor:
-    """One call of ``hash_bwd_kernel`` (``grid``: its one-level-per-grid-step
-    instance): dG [L, T, F] of Σ dout · feats."""
+    """One call of ``hash_bwd_kernel`` on ``bwd_plan``'s plan (``grid``:
+    through the one-level-per-grid-step entry point): dG [L, T, F] of
+    Σ dout · feats."""
     dev = x.device
     N = x.shape[0]
     L, F, log2_t, c_res, bmin, brange, bf16 = _geometry(enc)
+    ranges, block_points = bwd_plan(
+        L, N, torch.cuda.get_device_properties(dev).multi_processor_count)
     dG = torch.zeros(enc.tables.shape, dtype=torch.float32, device=dev)
     lib = _hash_lib()
     launch = lib.hash_bwd_grid_launch if grid else lib.hash_bwd_launch
@@ -147,7 +170,7 @@ def _bwd_launch(enc, x: torch.Tensor, dout: torch.Tensor, grid: bool = False) ->
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(
             x.data_ptr(), dout.data_ptr(), dG.data_ptr(), N, L, F, log2_t, c_res,
-            bmin, brange, bf16, stream,
+            bmin, brange, bf16, ranges, block_points, stream,
         )
     if err != 0:
         raise RuntimeError(f"hash_encode backward launch failed with cudaError {err}")

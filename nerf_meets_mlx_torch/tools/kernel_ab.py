@@ -14,8 +14,11 @@ head, head, base, so that a drift of the card shows as a difference between
 a checkout's two turns. A turn builds the kernels it times (all builds
 started together), then times with CUDA events, at the main paths' shapes:
 the INGP eval and train kernels (lego_ingp, 4096 rays / 32,768-ray chunks, 48
-and 96 samples), the hash forward and dG (lego_ingp's 196,608 / 393,216
-points), the sinusoidal eval and train kernels (lego_hierarchical, 8 x 256),
+and 96 samples), the hash forward and forward + dG (lego_ingp's 196,608 /
+393,216 points) and the dG kernel alone (``hash_bwd_*``, also at the
+long-ray route's 524,288 / 1,572,864; ``hash_bwd_device_*`` its device
+time, the zeroing of dG included), the sinusoidal eval and train kernels
+(lego_hierarchical, 8 x 256),
 the MLP forward at lego_occ's three shapes (the grid update's 262,144 cell
 points, a step's 4096 x 32 and 4096 x 96 points; also its device time and
 the call's host time), the MLP backward at the coarse and fine ones (a
@@ -30,7 +33,8 @@ not in their event time), and the INGP eval call's at both levels of its
 clock around the call, a synchronize before each) and the forward call's
 device time and device events (its launches and copies) at the 160,000
 pixels of a 400 x 400 frame; the paper tables' warm train step
-(the feats route, 32 steps, as chip_smoke.py times it), the warm image step
+(the feats route, 32 steps, as chip_smoke.py times it) and the long-ray
+overlay's (128 + 256 samples, 10 steps), the warm image step
 (50 steps of 4096 pixels, as chip_smoke.py's phase_image_timing), and
 lego_occ's warm step on the fused-train and the value_and_grad route (32
 steps, two grid updates inside, as phase_occ_timing) and its frame with the
@@ -38,10 +42,11 @@ grid. It prints one JSON line per turn and each measurement's four times;
 then ptxas's registers and spills of every kernel of
 ``csrc/fused_train.cu``, ``csrc/fused_mlp.cu``, ``csrc/mlp_fwd_tc.cu``,
 ``csrc/mlp_bwd_tc.cu``, ``csrc/fused_image.cu``, ``csrc/image_fwd_tc.cu``,
-``csrc/image_train_tc.cu``, ``csrc/ingp_eval_tc.cu`` and
-``csrc/fused_ingp.cu``'s runtime-shape build
+``csrc/image_train_tc.cu``, ``csrc/ingp_eval_tc.cu``,
+``csrc/fused_ingp.cu``'s runtime-shape build and ``csrc/hash_encode.cu``
 in each checkout that has the source, and, where both checkouts have
-``csrc/ingp_train_tc.cu`` (or ``csrc/mlp_bwd_tc.cu``), each kernel of it in
+``csrc/ingp_train_tc.cu`` (or ``csrc/mlp_bwd_tc.cu``, or
+``csrc/hash_encode.cu``: its forward and dX kernels), each kernel of it in
 both: ptxas's report and its SASS instruction by instruction (the kernel
 parameters' constant-bank offsets masked), as lines starting with
 ``[ptxas]`` and ``[sass]``; and the count of ``HGMMA`` instructions in
@@ -97,26 +102,21 @@ def _device_ms(fn, n=10, events=False):
     return (us / 1e3 / n, count / n) if events else us / 1e3 / n
 
 
-def _paper_step_ms(n=32):
-    """Host ms a warm train step of lego_ingp with the paper's tables (the
-    feats route) on the 400 x 400 procedural scene, over ``n`` steps
-    ending in one synchronize."""
-    import dataclasses
+def _hash_step_ms(cfg, n):
+    """Host ms a warm train step of a lego_ingp config on the feats route on
+    the 400 x 400 procedural scene, over ``n`` steps ending in one
+    synchronize (as chip_smoke.py's phase_feats_e2e takes them)."""
     import time
 
     import torch
 
-    from nerf_meets_mlx_torch.config import lego_ingp
     from nerf_meets_mlx_torch.datasets.synthetic import make_synthetic_scene
     from nerf_meets_mlx_torch.engine import TrainState, make_nerf_train_step
     from nerf_meets_mlx_torch.models import create_nerf
 
     dev = torch.device("cuda", 0)
     ds = make_synthetic_scene(2, 1, 1, 400, device=dev)
-    cfg = lego_ingp()
-    cfg = cfg.replace(use_fused_kernel=True, pos_encoding=dataclasses.replace(
-        cfg.pos_encoding, hash_n_levels=16, hash_log2_table_size=19, hash_max_res=512))
-    model = create_nerf(cfg, device=dev)
+    model = create_nerf(cfg.replace(use_fused_kernel=True), device=dev)
     model.init(torch.Generator(device=dev).manual_seed(0))
     images = torch.as_tensor(ds.images[ds.i_train], device=dev)
     poses = torch.as_tensor(ds.poses[ds.i_train, :3, :4], device=dev)
@@ -131,6 +131,29 @@ def _paper_step_ms(n=32):
         step(state, images, poses, gen)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / n * 1e3
+
+
+def _paper_step_ms(n=32):
+    """The paper tables' warm step (16 levels of 2^19 x 2, 512 finest)."""
+    import dataclasses
+
+    from nerf_meets_mlx_torch.config import lego_ingp
+
+    cfg = lego_ingp()
+    return _hash_step_ms(cfg.replace(pos_encoding=dataclasses.replace(
+        cfg.pos_encoding, hash_n_levels=16, hash_log2_table_size=19, hash_max_res=512)), n)
+
+
+def _long_step_ms(n=10):
+    """The long-ray overlay's warm step (128 + 256 samples: the hash
+    forward and dG kernels and the feat train kernel a level)."""
+    import dataclasses
+
+    from nerf_meets_mlx_torch.config import lego_ingp
+
+    cfg = lego_ingp()
+    return _hash_step_ms(cfg.replace(render=dataclasses.replace(
+        cfg.render, n_samples=128, n_importance=256)), n)
 
 
 def _occ_ms(n=32):
@@ -392,6 +415,17 @@ def worker():
 
             out[f"ingp_eval_{name}"] = _ms(ingp_eval, n=10)
             out[f"ingp_eval_device_{name}"] = _device_ms(ingp_eval, n=10)
+    # the hash dG kernel alone at the batches of its two routes
+    for name, S in (("coarse", 48), ("fine", 96), ("long_coarse", 128), ("long_fine", 384)):
+        z, _, _ = level(4096, S)
+        pts = (ro[:4096, None] + z[..., None] * rd[:4096, None]).reshape(-1, 3)
+        dout = torch.randn((pts.shape[0], m.pos_enc.out_dim), generator=g, device=dev)
+
+        def hash_bwd(pts=pts, dout=dout):
+            he._bwd_launch(m.pos_enc, pts, dout)
+
+        out[f"hash_bwd_{name}"] = _ms(hash_bwd)
+        out[f"hash_bwd_device_{name}"] = _device_ms(hash_bwd)
     with torch.no_grad():
         out["lego_ingp_frame"] = _ms(lambda: render_image(m, res, res, K, orbit_poses(160)[0][:3, :4]),
                                      n=5)
@@ -483,6 +517,7 @@ def worker():
             lambda: fim.fused_image_apply(m.coarse, m.pos_enc, grid), events=True)
         out["image_fwd_host"] = _host_ms(lambda: fim.fused_image_apply(m.coarse, m.pos_enc, grid))
     out["paper_step"] = _paper_step_ms()
+    out["long_ray_step"] = _long_step_ms()
     out["image_step"] = _image_step_ms()
     out.update(_occ_ms())
     print(json.dumps(out), flush=True)
@@ -522,7 +557,7 @@ def _ptxas_reports(base: Path, head: Path) -> None:
 
     jobs = []
     for source in ("fused_train", "fused_mlp", "mlp_fwd_tc", "mlp_bwd_tc", "fused_image",
-                   "image_fwd_tc", "image_train_tc", "ingp_eval_tc", "fused_ingp"):
+                   "image_fwd_tc", "image_train_tc", "ingp_eval_tc", "fused_ingp", "hash_encode"):
         for tag, root in (("base", base), ("head", head)):
             cu = root / "nerf_meets_mlx_torch" / "csrc" / f"{source}.cu"
             if cu.exists():
@@ -537,6 +572,7 @@ def _ptxas_reports(base: Path, head: Path) -> None:
 SASS_KERNELS = {
     "ingp_train_tc": r"(ingp_tc_kernel|feat_tc_kernel|ingp_tc_reduce_kernel)(ILi\d+)?",
     "mlp_bwd_tc": r"(?<=\d)mlp_bwd_(tile|dw|pack|reduce)_kernel(ILi\d+)?",
+    "hash_encode": r"hash_(fwd|dx_bwd)_kernelILi\d+E(Li\d+E)?",
 }
 
 

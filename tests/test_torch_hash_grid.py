@@ -11,8 +11,13 @@ kernels/hash_encode.py, csrc/hash_encode.cu).
   ``jax.grad`` through JAX's (the Pallas ``_bwd_body_kernel``), at rtol 1e-5
   / atol 1e-7; the hash's wrap mod 2^32 on corners whose products exceed
   2^32; the float64 level resolutions; the tables through ``interop``.
+* The table gradient kernel's grouping (runs of points in one cell summed
+  before they are added), emulated on the CPU, against the Pallas
+  ``_bwd_body_kernel`` on ray-ordered points.
 * ``gpu``-marked: both CUDA kernels against the plain version at the
-  lego_ingp size, on the card (skipped where no card is present).
+  lego_ingp size, and the table gradient at F = 1..8, fp32 and bf16,
+  through both entry points, on ray-ordered points at tables of 128 and 256
+  KB a level, on the card (skipped where no card is present).
 """
 
 import numpy as np
@@ -303,6 +308,157 @@ def test_bf16_hash_encode_matches_jax_pallas(f):
         assert not torch.equal(plain, feats)
 
 
+def _ray_points(n_rays, n_samples, seed):
+    """Points along rays, [rays, samples] flattened as the training routes
+    give them: origins 4 from the box's centre, aimed within 0.5 of it,
+    depths sorted uniform in [2, 6], so that consecutive samples share a
+    coarse cell and some lie outside the box."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(n_rays, 3))
+    o *= 4.0 / np.linalg.norm(o, axis=1, keepdims=True)
+    d = rng.uniform(-0.5, 0.5, size=(n_rays, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    z = np.sort(rng.uniform(2.0, 6.0, size=(n_rays, n_samples)), axis=1)
+    return (o[:, None] + z[..., None] * d[:, None]).reshape(-1, 3).astype(np.float32)
+
+
+def _dead_rows(dout, L, F):
+    """dout with the rows the kernel must skip: every 5th point's whole row
+    (dead samples) and every 3rd point's level-1 features."""
+    dout = dout.copy()
+    dout[::5] = 0.0
+    dout[::3, F:2 * F] = 0.0
+    return dout
+
+
+def _cells_and_terms(enc, x, dout):
+    """Each point's cell [N, L, 3], corner rows [N, L, 8], terms w_c·d [N,
+    L, 8, F] and liveness [N, L] at every level, with the kernel's
+    arithmetic: the division by the box size, products rounded one by one,
+    bf16(w)·bf16(d) in bf16 mode."""
+    L, F, T = enc.n_levels, enc.features_per_level, enc.table_size
+    brange = np.float32(enc.bbox_max - enc.bbox_min)
+    u = np.clip((x - np.float32(enc.bbox_min)) / brange, np.float32(0), np.float32(1))
+    s = u[:, None, :] * enc.resolutions.astype(np.float32)[None, :, None]
+    fl = np.floor(s)
+    cell, f = fl.astype(np.int64), s - fl
+    d = dout.reshape(len(x), L, F)
+    if enc.compute_dtype == "bfloat16":
+        def rnd(a):
+            return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+    else:
+        def rnd(a):
+            return a
+    d = rnd(d)
+    rows, terms = [], []
+    for c in range(8):
+        bits = np.array([c & 1, (c >> 1) & 1, (c >> 2) & 1])
+        ijk = cell + bits
+        rows.append(((ijk[..., 0] * 1) ^ (ijk[..., 1] * 2654435761) ^ (ijk[..., 2] * 805459861))
+                    & 0xFFFFFFFF & (T - 1))
+        w3 = np.where(bits == 1, f, np.float32(1) - f)
+        w = (w3[..., 0] * w3[..., 1]) * w3[..., 2]
+        terms.append(rnd(w)[..., None] * d)
+    return cell, np.stack(rows, -1), np.stack(terms, 2), (d != 0).any(-1)
+
+
+def _merged_runs_dG(enc, x, dout, ranges, block_points, threads=the.BWD_THREADS):
+    """CPU emulation of ``hash_bwd_kernel``'s grouping: block r of level l
+    takes points [r·block_points, (r + 1)·block_points), each of its
+    ``threads`` threads a stretch of them in order; a run of live points
+    sums its terms at its cell's 8 corners in fp32, one after another. When
+    the next live point's cell is a face neighbour, the run slides: the 4
+    corners the cells share keep their sums, the other 4 are added to their
+    rows; else all 8 are added; the stretch's end adds all 8. Returns (dG,
+    corner rows added, live (point, level) pairs)."""
+    L, F, T = enc.n_levels, enc.features_per_level, enc.table_size
+    cell, rows, terms, live = _cells_and_terms(enc, x, dout)
+    N = len(x)
+    dG = np.zeros((L, T, F), np.float32)
+    adds = 0
+    for l in range(L):
+        for r in range(ranges):
+            n0, n1 = r * block_points, min((r + 1) * block_points, N)
+            if n0 >= N:
+                continue
+            out = dG[l]
+            per = -(-(n1 - n0) // threads)
+            for t in range(threads):
+                cur = None  # (cell, its corner rows, sums [8, F])
+                for n in range(n0 + t * per, min(n0 + (t + 1) * per, n1)):
+                    if not live[n, l]:
+                        continue
+                    if cur is not None and (cell[n, l] != cur[0]).any():
+                        step = cell[n, l] - cur[0]
+                        axis = int(np.argmax(np.abs(step)))
+                        if np.abs(step).sum() == 1:  # a face neighbour: slide
+                            bit = 1 << axis
+                            up = step[axis] > 0
+                            acc = cur[2].copy()
+                            for c in range(8):
+                                if bool(c & bit) != up:
+                                    out[cur[1][c]] += acc[c]
+                                    adds += 1
+                                    acc[c], acc[c ^ bit] = acc[c ^ bit], 0.0
+                            cur = (cell[n, l], rows[n, l], acc)
+                        else:
+                            for c in range(8):
+                                out[cur[1][c]] += cur[2][c]
+                            adds += 8
+                            cur = None
+                    if cur is None:
+                        cur = (cell[n, l], rows[n, l], np.zeros((8, F), np.float32))
+                    cur[2][:] = cur[2] + terms[n, l]
+                if cur is not None:
+                    for c in range(8):
+                        out[cur[1][c]] += cur[2][c]
+                    adds += 8
+    return dG, adds, int(live.sum())
+
+
+@pytest.mark.parametrize("f", [1, 2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_merged_runs_grouping_matches_jax_pallas(dtype, f):
+    """The CUDA table gradient's grouping, emulated on the CPU
+    (``_merged_runs_dG``), against ``jax.grad`` through JAX's
+    ``hash_encode_apply`` (the Pallas ``_bwd_body_kernel`` in interpret
+    mode), on ray-ordered points (runs of samples in one coarse cell, some
+    outside the box, where both normalisations agree) with dead rows in
+    dout: on ``bwd_plan``'s plan for 132 SMs and on a plan of 3 ranges of
+    16 threads, whose stretches hold long runs (fewer
+    than 4 rows added a live term, where one scalar atomic a term adds 8); dG to
+    rtol 1e-4 / atol 1e-5, and every entry no live point touches exactly
+    0."""
+    import jax
+    import jax.numpy as jnp
+
+    from nerf_meets_mlx_tpu.kernels.hash_encode import hash_encode_apply as j_apply
+
+    kw = dict(SMALL, features_per_level=f, compute_dtype=dtype)
+    tenc, jenc, params = _pair(noisy=False, **kw)
+    x = _ray_points(24, 192, seed=11)
+    dx = x - np.float32(-1.5)
+    x = np.ascontiguousarray(x[(dx / np.float32(3.0) == dx * np.float32(1.0 / 3.0)).all(1)])
+    L, F = tenc.n_levels, f
+    co = _dead_rows(np.random.default_rng(12).normal(size=(len(x), L * F)).astype(np.float32),
+                    L, F)
+    g_j = jax.grad(lambda p: jnp.sum(j_apply(jenc, p, jnp.asarray(x), block=128) * co))(params)
+    g_j = np.asarray(g_j["tables"])
+    _, rows, _, live = _cells_and_terms(tenc, x, co)
+    touched = np.zeros(g_j.shape[:2], bool)
+    for l in range(L):
+        touched[l, rows[live[:, l], l].ravel()] = True
+    assert (~touched).sum() > 0
+    for ranges, block_points, threads in (
+        (*the.bwd_plan(L, len(x), 132), the.BWD_THREADS), (3, -(-len(x) // 3), 16),
+    ):
+        dG, adds, n_live = _merged_runs_dG(tenc, x, co, ranges, block_points, threads)
+        if threads == 16:
+            assert adds < 4 * n_live  # runs merged: fewer than 4 rows a live term
+        np.testing.assert_allclose(dG, g_j, rtol=1e-4, atol=1e-5)
+        assert not dG[~touched].any() and not g_j[~touched].any()
+
+
 @pytest.mark.gpu
 def test_cuda_hash_kernels_match_plain():
     """Both kernels at the lego_ingp size on 100,003 points (some outside
@@ -356,3 +512,46 @@ def test_cuda_bf16_hash_kernels_match_twin(f):
     torch.cuda.synchronize()
     torch.testing.assert_close(feats, feats_p, rtol=0, atol=0)
     torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("f", [1, 2, 4, 8])
+@pytest.mark.parametrize("level_kb", [128, 256])
+def test_cuda_table_grad_merged_runs_match_plain(level_kb, f, dtype, grid):
+    """The table gradient kernel on ray-ordered points (1031 rays x 97
+    samples: N = 100,007, a multiple of no thread's, warp's or block's
+    range, runs crossing each) with dead rows in dout, at the lego_ingp
+    levels with F features, fp32 and bf16, through both entry points
+    (levels in the body; one level per grid step), at tables of 128 KB a
+    level (the largest a block's shared memory holds) and 256 KB. dG to
+    rtol 1e-4 / atol 1e-5 of the plain scatter-add; every entry no live
+    point touches exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    log2_t = int(np.log2(level_kb * 1024 // (4 * f)))
+    kw = dict(_preset_kw(), features_per_level=f, log2_table_size=log2_t, compute_dtype=dtype)
+    tenc = HashGridEncoding(**kw, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    assert tenc.tables[0].numel() * 4 == level_kb * 1024
+    x_np = _ray_points(1031, 97, seed=13)
+    N, L = len(x_np), tenc.n_levels
+    x = torch.from_numpy(x_np).to(dev)
+    dout = torch.from_numpy(_dead_rows(
+        np.random.default_rng(14).normal(size=(N, L * f)).astype(np.float32), L, f)).to(dev)
+    key = "hash_grid_bwd" if grid else "hash_bwd"
+    n0 = LAUNCHES[key]
+    feats = the.hash_encode_apply(tenc, x, levels_in_body=not grid)
+    (g,) = torch.autograd.grad((feats * dout).sum(), tenc.tables)
+    torch.cuda.synchronize()
+    assert LAUNCHES[key] == n0 + 1
+    (g_p,) = torch.autograd.grad((the.hash_encode_reference(tenc, x) * dout).sum(), tenc.tables)
+    torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-5)
+    live = dout.reshape(N, L, f).ne(0).any(-1)
+    touched = torch.zeros(g.shape[:2], dtype=torch.bool, device=dev)
+    level = torch.arange(L, device=dev)[None, :].expand(N, L)
+    for h, _ in tenc.corners(x):
+        touched[level[live], h[live]] = True
+    assert bool((~touched).any())
+    assert not bool(g[~touched].any()) and not bool(g_p[~touched].any())
