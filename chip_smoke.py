@@ -1603,6 +1603,33 @@ def long_ray_point_sets(device):
             for name, (z, _, _) in (("long_coarse", coarse), ("long_fine", fine))]
 
 
+def long_ray_frame_point_sets(device):
+    """(name, points [N, 3]) the hash forward sees on the long-ray route's
+    frame (the eval route: the standard query at LONG_RAYS samples): the
+    first 32,768-ray chunk of a RES x RES orbit frame, its coarse (32,768 x
+    128) and fine (32,768 x 384) points in ray order, the fine depths
+    importance-sampled from the coarse level's weights (deterministic, as
+    in eval)."""
+    import torch
+    from nerf_meets_mlx_torch.config import lego_ingp
+
+    base = lego_ingp()
+    model = make_model(base.replace(use_fused_kernel=True, render=dataclasses.replace(
+        base.render, n_samples=LONG_RAYS[0], n_importance=LONG_RAYS[1])), device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    ro, rd, vd = frame_rays(RES, RES, device)
+    c = model.cfg.render.ray_chunk
+    ro, rd, vd = ro[:c].contiguous(), rd[:c].contiguous(), vd[:c].contiguous()
+    _, coarse, fine = ingp_level_inputs(model, ro, rd, vd, None, gen, 0.0, train=False)
+    return [(name, (ro[:, None, :] + z[..., None] * rd[:, None, :]).reshape(-1, 3))
+            for name, (z, _, _) in (("frame_coarse", coarse), ("frame_fine", fine))]
+
+
+# the hash forward's batches that no dG follows: the grid update's and the
+# long-ray frame's
+FORWARD_ONLY = ("grid", "frame_coarse", "frame_fine")
+
+
 def grad_ratios(g_k, g_p):
     """max |kernel - plain| / max |plain| per array."""
     out = []
@@ -1617,9 +1644,10 @@ def phase_compare_ingp(device):
     """The four INGP kernels against their plain versions at the main
     paths' shapes (full-width lego_ingp weights from a seeded init, tables
     with N(0, 0.1) added, 4096 rays of orbit frame 0): the hash forward on
-    the grid update's 262,144 points, the train step's 196,608 / 393,216
-    and the long-ray route's 524,288 / 1,572,864 (features exact: the same
-    IEEE operations in the same order), its dG at the last four with
+    the grid update's 262,144 points, the train step's 196,608 / 393,216,
+    the long-ray route's 524,288 / 1,572,864 and its frame's 4,194,304 /
+    12,582,912 (features equal: the same IEEE operations in the same
+    order), its dG at the four train batches with
     random dout; the eval and the train kernel at S = 48 and 96, both
     MLPs, both compositing modes, the white background on and off (train),
     density noise on; values to atol 1e-4 + rtol 1e-4, the hash dG kernel to
@@ -1647,16 +1675,17 @@ def phase_compare_ingp(device):
     if build[0] != fi.EVAL_SOURCE:
         raise AssertionError(f"lego_ingp evaluates in {build}, not {fi.EVAL_SOURCE}")
     gen = torch.Generator(device=device).manual_seed(SEED + 12)
-    for name, pts in ingp_point_sets(model, device) + long_ray_point_sets(device):
+    for name, pts in (ingp_point_sets(model, device) + long_ray_point_sets(device)
+                      + long_ray_frame_point_sets(device)):
         with torch.no_grad():
             f_k = he.hash_encode_apply(enc, pts)
             torch.cuda.synchronize()
             f_p = enc.apply(pts)
         err = float((f_k - f_p).abs().max())
-        ok = bool(torch.isfinite(f_k).all()) and err <= ATOL
-        line = f"[compare] hash_fwd {name:6s} N={pts.shape[0]} max_abs={err:.3e}"
+        ok = bool(torch.isfinite(f_k).all()) and bool(torch.equal(f_k, f_p))
+        line = f"[compare] hash_fwd {name:6s} N={pts.shape[0]} max_abs={err:.3e} (equal: {ok})"
         out["hash_fwd"] = max(out["hash_fwd"], err)
-        if name != "grid":
+        if name not in FORWARD_ONLY:
             dout = torch.randn(f_p.shape, generator=gen, device=device)
             (g_k,) = torch.autograd.grad((he.hash_encode_apply(enc, pts) * dout).sum(), enc.tables)
             torch.cuda.synchronize()
@@ -1799,9 +1828,11 @@ def phase_ingp_routes(ds, device):
 
 def phase_ingp_kernel_timing(device):
     """Each INGP kernel per launch (CUDA events) at the main paths' shapes,
-    beside its plain version's time and its bound: the hash forward on the
-    grid update's 262,144 points, the train step's coarse and fine points
-    and the long-ray route's (4096 x 128 / 384), its dG (kernel alone;
+    beside its plain version's time and its bound: the hash forward (a
+    call's event time and its kernel's device time, profiler) on the grid
+    update's 262,144 points, the train step's coarse and fine points, the
+    long-ray route's (4096 x 128 / 384) and its frame's chunk (32,768 x 128
+    / 384), its dG (kernel alone;
     plain: forward + autograd backward) at the last four, the batches of
     its two routes (lego_ingp's value_and_grad, the long-ray feats route);
     the eval call per level on a 32,768-ray chunk
@@ -1853,19 +1884,27 @@ def phase_ingp_kernel_timing(device):
                     tf32x3_bound_ms=max(3 * flops / TF32_FLOPS, t_bytes) * 1e3, **extra)
 
     hfwd, hbwd, ev, tr = {}, {}, {}, {}
-    for name, pts in ingp_point_sets(model, device) + long_ray_point_sets(device):
+    for name, pts in (ingp_point_sets(model, device) + long_ray_point_sets(device)
+                      + long_ray_frame_point_sets(device)):
         N = pts.shape[0]
         reps = max(5, int(4_000_000 // N))
+
+        def fwd():
+            with torch.no_grad():
+                he.hash_encode_apply(enc, pts)
+
+        k1 = cuda_time_ms(fwd, reps)
         with torch.no_grad():
-            k1 = cuda_time_ms(lambda: he.hash_encode_apply(enc, pts), reps)
             p_ms = cuda_time_ms(lambda: enc.apply(pts), max(2, reps // 4))
-            k2 = cuda_time_ms(lambda: he.hash_encode_apply(enc, pts), reps)
+        k2 = cuda_time_ms(fwd, reps)
+        device_ms = kernel_split_ms(fwd, ("hash_fwd_kernel",), reps)["hash_fwd_kernel"]
         hfwd[name] = entry([k1, k2], p_ms, 4 * (3 * N + L * F * N) + table_bytes,
-                           hash_flops * N, points=N)
-        log(f"[time] hash_fwd {name:6s} N={N}: kernel {k1:.4f} / {k2:.4f} ms, plain {p_ms:.3f} ms, "
-            f"bound {hfwd[name]['bound_ms']:.4f} ms ({hfwd[name]['bound_by']}), "
-            f"{N * L * 8 / (hfwd[name]['ms'] * 1e-3) / 1e9:.1f} G lookups/s")
-        if name == "grid":
+                           hash_flops * N, points=N, device_ms=device_ms)
+        log(f"[time] hash_fwd {name:6s} N={N}: a call {k1:.4f} / {k2:.4f} ms, its kernel's "
+            f"device time {device_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
+            f"{hfwd[name]['bound_ms']:.4f} ms ({hfwd[name]['bound_by']}), "
+            f"{N * L * 8 / (device_ms * 1e-3) / 1e9:.1f} G lookups/s")
+        if name in FORWARD_ONLY:
             continue
         dout = torch.randn((N, L * F), generator=gen, device=device)
 
@@ -2573,7 +2612,11 @@ def phase_feats_e2e(ds, device):
     time by kernel of 5 steps under torch.profiler, and the 400 x 400 frame
     (standard route: plain gather and MLP, no kernel) with its busy share;
     then the long-ray overlay's warm step (hash kernels + feat train
-    kernel), its busy share and device time by kernel likewise."""
+    kernel), its busy share and device time by kernel likewise, and its
+    frame (the standard route with the hash forward kernel: 2 launches a
+    32,768-ray chunk, 10 a frame, and no other kernel) as the paper tables'
+    frame is timed: 2 warm frames, peak memory, busy share, device time by
+    kernel."""
     import torch
     from nerf_meets_mlx_torch.cameras.pose import orbit_poses
     from nerf_meets_mlx_torch.config import lego_ingp
@@ -2620,28 +2663,34 @@ def phase_feats_e2e(ds, device):
                 step(state, images, poses, gen)
 
         res["trace"] = profile_device(steps, f"{PROFILED_STEPS} lego_ingp+{key} train steps")
-        if key == "paper_tables":
-            times = []
-            for pose in orbit_poses(160)[:2]:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                render_image(model, RES, RES, K, pose[:3, :4])
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            torch.cuda.reset_peak_memory_stats()
-            reset_launches()
-            render_image(model, RES, RES, K, orbit_poses(160)[0][:3, :4])
-            frame_peak = torch.cuda.max_memory_allocated() / 1e9
-            if launches_now() != counts():
-                raise AssertionError(f"the feats eval route launched {launches_now()}")
-            res["frame_trace"] = profile_device(
-                lambda: render_image(model, RES, RES, K, orbit_poses(160)[0][:3, :4]),
-                f"one {RES}x{RES} lego_ingp+{key} frame")
-            log(f"[time] render_image {RES}x{RES} lego_ingp+{key}: frames {times} s -> "
-                f"{min(times):.4f} s/frame, {RES * RES / min(times):.1f} rays/s; peak device "
-                f"memory {frame_peak:.2f} GB")
-            res["frame"] = {"frame_seconds": times, "rays_per_s": RES * RES / min(times),
-                            "peak_gb": frame_peak}
+        # the frame on the eval route (the standard query): the paper
+        # tables' gathers its features in plain torch, the long-ray
+        # overlay's launches the hash forward at both levels of each chunk
+        chunks = -(-RES * RES // cfg.render.ray_chunk)
+        want = counts() if key == "paper_tables" else counts(hash_fwd=2 * chunks)
+        times = []
+        for pose in orbit_poses(160)[:2]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render_image(model, RES, RES, K, pose[:3, :4])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        render_image(model, RES, RES, K, orbit_poses(160)[0][:3, :4])
+        frame_peak = torch.cuda.max_memory_allocated() / 1e9
+        frame_launches = launches_now()
+        if frame_launches != want:
+            raise AssertionError(f"the {key} frame launched {frame_launches}, want {want}")
+        res["frame_trace"] = profile_device(
+            lambda: render_image(model, RES, RES, K, orbit_poses(160)[0][:3, :4]),
+            f"one {RES}x{RES} lego_ingp+{key} frame")
+        log(f"[time] render_image {RES}x{RES} lego_ingp+{key}: frames {times} s -> "
+            f"{min(times):.4f} s/frame, {RES * RES / min(times):.1f} rays/s; launches "
+            f"{ {k: v for k, v in frame_launches.items() if v} }; peak device memory "
+            f"{frame_peak:.2f} GB")
+        res["frame"] = {"frame_seconds": times, "rays_per_s": RES * RES / min(times),
+                        "peak_gb": frame_peak, "launches": frame_launches}
         out[key] = res
         del model, state
         torch.cuda.empty_cache()
@@ -3566,9 +3615,15 @@ def main() -> int:
         entry("fused_mlp_bwd", "nerf_meets_mlx_torch/csrc/mlp_bwd_tc.cu",
               "nerf_meets_mlx_tpu/kernels/fused_mlp.py:480",
               occ_routes["value_and_grad"]["launches"]["mlp_bwd"], mlp_grad_err, mlp_bwd_t),
+        # the hash forward's paths: lego_ingp_occ's grid updates, lego_ingp's
+        # value_and_grad steps, the long-ray steps and the long-ray frame;
+        # its time the mean over their seven batches
         entry("hash_fwd", "nerf_meets_mlx_torch/csrc/hash_encode.cu",
-              "nerf_meets_mlx_tpu/kernels/hash_encode.py:340", ingp_occ_launches["hash_fwd"],
-              ingp_err["hash_fwd"], {"grid": hash_fwd_t["grid"]}),
+              "nerf_meets_mlx_tpu/kernels/hash_encode.py:340",
+              ingp_occ_launches["hash_fwd"] + ingp_routes["value_and_grad"]["launches"]["hash_fwd"]
+              + long_routes["launches"]["hash_fwd"]
+              + feats_time["long_rays"]["frame"]["launches"]["hash_fwd"],
+              ingp_err["hash_fwd"], hash_fwd_t),
         # the hash dG kernel's two routes: lego_ingp's value_and_grad steps
         # and the long-ray feats route's steps (a coarse and a fine launch a
         # step each); its time the mean over their four batches

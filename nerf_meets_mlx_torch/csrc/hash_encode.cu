@@ -2,13 +2,14 @@
 //
 // Replaces six kernels of nerf_meets_mlx_tpu/kernels/hash_encode.py:
 //
-//   hash_fwd_kernel<F, BODY>      ::_fwd_body_kernel (the forward, all
-//                                 levels in one body)
+//   hash_fwd_kernel<F, BODY|BF16> ::_fwd_body_kernel (the forward, all
+//                                 levels in one body; BF16: bf16 compute)
+//                                 and ::_fwd_grid_kernel (levels_in_body=
+//                                 False: one level per grid step; the same
+//                                 numbers, one kernel)
 //   hash_bwd_kernel<F>            ::_bwd_body_kernel and ::_bwd_grid_kernel
 //                                 (the scatter-add of the cotangent into the
 //                                 tables; the two give the same dG)
-//   hash_fwd_kernel<F, GRID>      ::_fwd_grid_kernel (levels_in_body=False:
-//                                 one level per grid step)
 //   hash_fwd_kernel<F, DX>        ::_fwd_kernel (compute_dx=True)
 //   hash_dx_bwd_kernel<F>         ::_bwd_kernel (compute_dx=True: dG and dX)
 //
@@ -33,24 +34,22 @@
 // 8 corners are summed in fp32; the backward adds bf16(w_c) * bf16(dout),
 // exact in fp32, in fp32 (the transposed GEMM's fp32 accumulation).
 //
-// What bounds it on this card: the gathers. A point reads 8 corners x L
-// levels table rows of F floats at hashed (random) rows, 64 lookups at the
-// lego_ingp shape (L = 8, F = 2: one 8-byte float2 each); the tables are
-// L*T*F*4 = 1 MB and stay in the 50 MB L2, so the lookups are L2 hits and
-// the kernel is bound by L2 transactions (one 32-byte sector per lookup),
-// not by device memory. The bytes it must move are the points in and the
-// features out (and the tables once): 12 + 4*L*F bytes a point.
+// The gathers: a point reads 8 corners x L levels table rows of F floats
+// at hashed (random) rows, 64 lookups at the lego_ingp shape (L = 8, F = 2:
+// one 8-byte float2 each); the tables are L*T*F*4 = 1 MB and stay in the 50
+// MB L2. The bytes a call must move are the points in and the features out
+// (and the tables once): 12 + 4*L*F bytes a point.
 //
-// Design of the forwards: one thread per (point, level). BODY: the level
-// fastest, so that a warp's threads write neighbouring features and share
-// their points' loads. GRID: the launch grid runs over (point block, level),
-// so a block touches one level's table only, as the Pallas grid (L,
-// nblocks) does; its numbers are the body kernels' (the same roundings, in
-// both compute types), and it writes feats [N, L*F] in place, where the
-// Pallas kernel writes [L, N, F] and transposes. Staging a level's table in
-// shared memory (128 KB at lego_ingp's 2^14 x 2) is later work: a 256-point
-// block makes 2,048 lookups, a sixteenth of the table's rows. The
-// resolutions come from the host as the int32 values of _level_resolutions.
+// The forward (hash_fwd_kernel, one kernel for the three Pallas forwards,
+// below): a thread a point and 32 bytes of its row, a warp one level at a
+// time over 32 consecutive points; it writes feats [N, L*F] in place, where
+// the Pallas grid kernel writes [L, N, F] and transposes. Its numbers are
+// the plain version's to the last bit in every instance. A level's table in
+// shared memory (a block a level, or a cluster of L blocks assembling rows
+// in distributed shared memory), tiles of points with their rows staged in
+// shared memory, and a block walking a range of points were all right and
+// slower (tools/hash_fwd_probe.py, PERF.md). The resolutions come
+// from the host as the int32 values of _level_resolutions.
 //
 // The table gradient (hash_bwd_kernel, both Pallas backwards): one
 // scalar atomic a term, 8*F a (point, level), would be 128 a point at
@@ -105,7 +104,7 @@ constexpr int MAX_LEVELS = 32;
 constexpr int MAX_CHANNELS = 128;  // L*F
 
 // which Pallas kernel an instance stands for
-enum Map { BODY = 0, GRID = 1, DX = 2 };
+enum Map { BODY, BF16, DX };  // BF16: BODY rounding as the bf16 compute
 
 struct HashArgs {
   const float* x;        // [N, 3]
@@ -169,20 +168,6 @@ __device__ __forceinline__ Corners corners_of(const HashArgs& A, long long n, in
   return C;
 }
 
-// the (point, level) of this thread; false past the last point
-template <int MAP>
-__device__ __forceinline__ bool item_of(const HashArgs& A, long long& n, int& l) {
-  if (MAP == GRID) {
-    l = blockIdx.y;
-    n = (long long)blockIdx.x * NTHREADS + threadIdx.x;
-    return n < A.N;
-  }
-  const long long t = (long long)blockIdx.x * NTHREADS + threadIdx.x;
-  n = t / A.L;
-  l = (int)(t - n * A.L);
-  return t < A.N * A.L;
-}
-
 // F-float row of a table
 template <int F>
 __device__ __forceinline__ void load_row(const float* row, float (&g)[F]) {
@@ -200,39 +185,6 @@ __device__ __forceinline__ void load_row(const float* row, float (&g)[F]) {
   } else {
     g[0] = __ldg(row);
   }
-}
-
-template <int F, int MAP>
-__global__ void __launch_bounds__(NTHREADS) hash_fwd_kernel(const __grid_constant__ HashArgs A) {
-  long long n;
-  int l;
-  if (!item_of<MAP>(A, n, l)) return;
-  const Corners C = corners_of<MAP>(A, n, l);
-  const float* tl = A.tables + (size_t)l * A.T * F;
-  float acc[F];
-#pragma unroll
-  for (int k = 0; k < F; ++k) acc[k] = 0.f;
-  if (MAP != DX && A.bf16) {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float* row = tl + (size_t)C.h[c] * F;
-      const float w = rb(C.w[c], 1);
-#pragma unroll
-      for (int k = 0; k < F; ++k)
-        acc[k] = __fadd_rn(acc[k], rb(__fmul_rn(rb(__ldg(row + k), 1), w), 1));
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      float g[F];
-      load_row<F>(tl + (size_t)C.h[c] * F, g);
-#pragma unroll
-      for (int k = 0; k < F; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(g[k], C.w[c]));
-    }
-  }
-  float* o = A.out + (size_t)n * A.L * F + (size_t)l * F;
-#pragma unroll
-  for (int k = 0; k < F; ++k) o[k] = acc[k];
 }
 
 // ---- the table gradient: hash_bwd_kernel --------------------------------
@@ -530,6 +482,151 @@ __global__ void __launch_bounds__(NTHREADS) hash_dx_bwd_kernel(const __grid_cons
     A.dx[n * 3 + a] = t[a] >= 0.f && t[a] <= 1.f ? __fmul_rn(g[a], A.inv) : 0.f;
 }
 
+// ---- the forward: hash_fwd_kernel ----------------------------------------
+//
+// A thread takes one point and a chunk of its levels, K = FWD_CHUNK / F of
+// them from l0: the chunk's FWD_CHUNK floats are 32 bytes of the point's
+// feats row, stored with two 16-byte stores (where the row's length L*F is
+// a multiple of 4; else float by float), so that one thread writes each
+// sector of feats whole (storing a level's F floats at a time took twice as
+// long). A warp takes one chunk of 32 consecutive points, so that it works
+// one level at a time over them: where points along a ray share a cell, its
+// lanes' corner rows coincide. The thread normalises each coordinate once
+// for its K levels and indexes with one 32-bit division by the chunk count.
+// Block b takes chunk b % chunks of the FWD_THREADS points from (b /
+// chunks) * FWD_THREADS, so that a block reads K levels' tables only, which
+// L1 reuses along coherent rays (blocks whose warps spanned every level
+// were 30% slower at a frame's chunk). The bf16 rounding is an instance of
+// its own (BF16), not a branch, which cost ~25% at every batch. 32
+// registers, 8 blocks an SM, no shared memory: L1 keeps all of it. What
+// bounds it: the gathers' L1 and L2 traffic (with every row of a level in
+// one sector it runs 1.6-2.6x faster). tools/hash_fwd_probe.py measures
+// these choices.
+
+constexpr int FWD_THREADS = 256;
+constexpr int FWD_CHUNK = 8;       // floats a thread stores: a 32-byte sector
+constexpr int FWD_MIN_BLOCKS = 8;  // blocks an SM: at most 32 registers a thread
+
+struct FwdArgs {
+  HashArgs A;
+  unsigned chunks;  // chunks a point: ceil(L / (FWD_CHUNK / F))
+};
+
+// row h of a level's table tl (F floats), indexed as F-float vectors so
+// that the address is one multiply-add off the level's base
+template <int F>
+__device__ __forceinline__ void table_row(const float* tl, unsigned h, float (&g)[F]) {
+  if constexpr (F >= 4) {
+    const float4* row = reinterpret_cast<const float4*>(tl) + (size_t)h * (F / 4);
+#pragma unroll
+    for (int q = 0; q < F / 4; ++q) {
+      const float4 v = row[q];
+      g[4 * q] = v.x; g[4 * q + 1] = v.y; g[4 * q + 2] = v.z; g[4 * q + 3] = v.w;
+    }
+  } else if constexpr (F == 2) {
+    const float2 v = reinterpret_cast<const float2*>(tl)[h];
+    g[0] = v.x; g[1] = v.y;
+  } else {
+    g[0] = tl[h];
+  }
+}
+
+// the F features of level l of the point whose clipped unit coordinates
+// are u, from the level's table tl: corners_of's cell, rows and weights,
+// the 8 corners summed in order
+template <int F, int MAP>
+__device__ __forceinline__ void level_features(const HashArgs& A, const float (&u)[3], int l,
+                                               const float* tl, float* acc) {
+  const float r = (float)A.res[l];
+  unsigned b[3];
+  float f[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float s = __fmul_rn(u[a], r);
+    const float fl = floorf(s);
+    b[a] = (unsigned)fl;
+    f[a] = __fsub_rn(s, fl);
+  }
+#pragma unroll
+  for (int k = 0; k < F; ++k) acc[k] = 0.f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    float g[F];
+    table_row<F>(tl, corner_row(A, b, c), g);
+    const float w = corner_weight(f, c);
+    if constexpr (MAP == BF16) {
+      const float wb = rb(w, 1);
+#pragma unroll
+      for (int k = 0; k < F; ++k) acc[k] = __fadd_rn(acc[k], rb(__fmul_rn(rb(g[k], 1), wb), 1));
+    } else {
+#pragma unroll
+      for (int k = 0; k < F; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(g[k], w));
+    }
+  }
+}
+
+template <int F, int MAP>
+__global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS)
+    hash_fwd_kernel(const __grid_constant__ FwdArgs P) {
+  constexpr int K = FWD_CHUNK / F;  // levels a chunk
+  const HashArgs& A = P.A;
+  const unsigned group = blockIdx.x / P.chunks;
+  const long long n = (long long)group * FWD_THREADS + threadIdx.x;
+  if (n >= A.N) return;
+  const int L = A.L, l0 = (int)(blockIdx.x - group * P.chunks) * K;
+  float u[3];  // the point's clipped unit coordinates
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float t = unit_of<MAP>(A, __ldg(A.x + n * 3 + a));
+    u[a] = fminf(fmaxf(t, 0.f), 1.f);
+  }
+  float v[FWD_CHUNK];
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+    if (l0 + j < L)
+      level_features<F, MAP>(A, u, l0 + j, A.tables + (size_t)(l0 + j) * A.T * F, v + j * F);
+  float* d = A.out + n * L * F + l0 * F;
+  if ((L * F) % 4 == 0 && l0 + K <= L) {
+#pragma unroll
+    for (int q = 0; q < FWD_CHUNK / 4; ++q)
+      reinterpret_cast<float4*>(d)[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2],
+                                                    v[4 * q + 3]);
+  } else {
+    const int valid = (L - l0 < K ? L - l0 : K) * F;
+#pragma unroll
+    for (int k = 0; k < FWD_CHUNK; ++k)
+      if (k < valid) d[k] = v[k];
+  }
+}
+
+template <int MAP>
+int launch_fwd_map(const HashArgs& a, cudaStream_t st) {
+  const int K = FWD_CHUNK / a.F;
+  const unsigned chunks = (unsigned)((a.L + K - 1) / K);
+  const long long blocks = (a.N + FWD_THREADS - 1) / FWD_THREADS * chunks;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const FwdArgs P{a, chunks};
+  const unsigned g = (unsigned)blocks;
+  switch (a.F) {
+    case 1: hash_fwd_kernel<1, MAP><<<g, FWD_THREADS, 0, st>>>(P); break;
+    case 2: hash_fwd_kernel<2, MAP><<<g, FWD_THREADS, 0, st>>>(P); break;
+    case 4: hash_fwd_kernel<4, MAP><<<g, FWD_THREADS, 0, st>>>(P); break;
+    default: hash_fwd_kernel<8, MAP><<<g, FWD_THREADS, 0, st>>>(P); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+// chunks x ceil(N / FWD_THREADS) blocks; feats on a 16-byte boundary. The
+// levels-in-body and one-level-per-grid-step calls launch the same
+// instance (the same numbers): BF16 where a.bf16 says so, else BODY.
+int launch_fwd(const HashArgs& a, bool dx, cudaStream_t st) {
+  if (reinterpret_cast<uintptr_t>(a.out) % 16 != 0) return (int)cudaErrorInvalidValue;
+  return dx ? launch_fwd_map<DX>(a, st)
+            : a.bf16 ? launch_fwd_map<BF16>(a, st) : launch_fwd_map<BODY>(a, st);
+}
+
+// ---- end of the forward -------------------------------------------------
+
 HashArgs make_args(const float* x, const float* tables, const float* dout, float* out, float* dx,
                    long long N, int L, int F, int log2_T, const int* res, float bmin,
                    float brange, float inv, int bf16) {
@@ -546,24 +643,6 @@ HashArgs make_args(const float* x, const float* tables, const float* dout, float
 bool valid(long long N, int L, int F, int log2_T) {
   return N >= 0 && L >= 1 && L <= MAX_LEVELS && (F == 1 || F == 2 || F == 4 || F == 8) &&
          L * F <= MAX_CHANNELS && log2_T >= 1 && log2_T <= 31;
-}
-
-// a thread per (point, level): blocks over N*L (BODY, DX) or (N, L) (GRID)
-dim3 grid_of(int map, long long N, int L) {
-  if (map == GRID) return dim3((unsigned)((N + NTHREADS - 1) / NTHREADS), (unsigned)L);
-  return dim3((unsigned)((N * L + NTHREADS - 1) / NTHREADS));
-}
-
-template <int MAP>
-int launch_fwd(const HashArgs& a, cudaStream_t st) {
-  const dim3 g = grid_of(MAP, a.N, a.L);
-  switch (a.F) {
-    case 1: hash_fwd_kernel<1, MAP><<<g, NTHREADS, 0, st>>>(a); break;
-    case 2: hash_fwd_kernel<2, MAP><<<g, NTHREADS, 0, st>>>(a); break;
-    case 4: hash_fwd_kernel<4, MAP><<<g, NTHREADS, 0, st>>>(a); break;
-    default: hash_fwd_kernel<8, MAP><<<g, NTHREADS, 0, st>>>(a); break;
-  }
-  return (int)cudaGetLastError();
 }
 
 template <int F>
@@ -594,27 +673,23 @@ int launch_bwd(const HashArgs& a, int ranges, long long block_points, cudaStream
 
 // feats [N, L*F] from points x [N, 3] and tables [L, 2^log2_T, F]; res: the
 // L int32 resolutions (host array); bf16: round as the Pallas kernel's bf16
-// compute. hash_fwd_launch is the levels-in-body kernel, hash_fwd_grid_launch
-// the one-level-per-grid-step kernel (the same numbers). Return the first
-// cudaError_t.
+// compute; feats on a 16-byte boundary. hash_fwd_launch is the
+// levels-in-body kernel, hash_fwd_grid_launch the one-level-per-grid-step
+// kernel (the same numbers: one kernel). Return the first cudaError_t.
 extern "C" int hash_fwd_launch(const float* x, const float* tables, float* feats, long long N,
                                int L, int F, int log2_T, const int* res, float bmin, float brange,
                                int bf16, void* stream) {
   if (!valid(N, L, F, log2_T)) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
-  return launch_fwd<BODY>(make_args(x, tables, nullptr, feats, nullptr, N, L, F, log2_T, res,
-                                    bmin, brange, 0.f, bf16),
-                          static_cast<cudaStream_t>(stream));
+  return launch_fwd(make_args(x, tables, nullptr, feats, nullptr, N, L, F, log2_T, res, bmin,
+                             brange, 0.f, bf16),
+                    false, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int hash_fwd_grid_launch(const float* x, const float* tables, float* feats,
                                     long long N, int L, int F, int log2_T, const int* res,
                                     float bmin, float brange, int bf16, void* stream) {
-  if (!valid(N, L, F, log2_T)) return (int)cudaErrorInvalidValue;
-  if (N == 0) return 0;
-  return launch_fwd<GRID>(make_args(x, tables, nullptr, feats, nullptr, N, L, F, log2_T, res,
-                                    bmin, brange, 0.f, bf16),
-                          static_cast<cudaStream_t>(stream));
+  return hash_fwd_launch(x, tables, feats, N, L, F, log2_T, res, bmin, brange, bf16, stream);
 }
 
 // dG [L, 2^log2_T, F] += the scatter of dout [N, L*F]; dG must be zeroed by
@@ -647,9 +722,9 @@ extern "C" int hash_dx_fwd_launch(const float* x, const float* tables, float* fe
                                   void* stream) {
   if (!valid(N, L, F, log2_T)) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
-  return launch_fwd<DX>(make_args(x, tables, nullptr, feats, nullptr, N, L, F, log2_T, res, bmin,
-                                  0.f, inv, 0),
-                        static_cast<cudaStream_t>(stream));
+  return launch_fwd(make_args(x, tables, nullptr, feats, nullptr, N, L, F, log2_T, res, bmin, 0.f,
+                             inv, 0),
+                    true, static_cast<cudaStream_t>(stream));
 }
 
 // compute_dx backward: dG [L, 2^log2_T, F] += the fp32 scatter of dout

@@ -4,7 +4,9 @@ Counterpart of ``nerf_meets_mlx_tpu/kernels/hash_encode.py``. The kernels
 are ``csrc/hash_encode.cu``, one for each of the six Pallas kernels:
 ``hash_fwd_kernel`` (the Pallas ``_fwd_body_kernel``; with
 ``levels_in_body=False`` ``_fwd_grid_kernel``; with ``compute_dx=True``
-``_fwd_kernel``), ``hash_bwd_kernel``, the scatter-add into the tables
+``_fwd_kernel``: one kernel, a thread a point and 32 bytes of its feats
+row, a warp one level at a time over 32 consecutive points),
+``hash_bwd_kernel``, the scatter-add into the tables
 (``_bwd_body_kernel`` and ``_bwd_grid_kernel``, which give the same dG: a
 block works one level over a range of points, summing the terms of a run
 of points in one cell, or in face-neighbouring cells, before it adds them,
@@ -134,8 +136,8 @@ def _inv(enc) -> float:
 
 
 def _fwd_launch(enc, x: torch.Tensor, grid: bool = False) -> torch.Tensor:
-    """One call of ``hash_fwd_kernel`` (``grid``: its one-level-per-grid-step
-    instance): feats [N, L·F]."""
+    """One call of ``hash_fwd_kernel`` (``grid``: through the
+    one-level-per-grid-step entry point): feats [N, L·F]."""
     dev = x.device
     N = x.shape[0]
     L, F, log2_t, c_res, bmin, brange, bf16 = _geometry(enc)

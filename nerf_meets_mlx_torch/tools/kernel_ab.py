@@ -2,7 +2,9 @@
 
     python nerf_meets_mlx_torch/tools/kernel_ab.py --base <checkout> [--head <checkout>]
 
-``--head`` defaults to the checkout this file is in. With ``--frames R`` a
+``--head`` defaults to the checkout this file is in. With ``--hash R`` a
+turn times the hash forward's calls alone (``hash_worker``), in R rounds
+alternating as ``--frames`` does. With ``--frames R`` a
 turn times the host-bound end-to-end metrics alone: the lego_hierarchical
 400 x 400 frame (5 frames after one), lego_occ's warm steps on both routes
 and its frame with the grid, and the warm image step, as the full turn
@@ -15,9 +17,14 @@ a checkout's two turns. A turn builds the kernels it times (all builds
 started together), then times with CUDA events, at the main paths' shapes:
 the INGP eval and train kernels (lego_ingp, 4096 rays / 32,768-ray chunks, 48
 and 96 samples), the hash forward and forward + dG (lego_ingp's 196,608 /
-393,216 points) and the dG kernel alone (``hash_bwd_*``, also at the
-long-ray route's 524,288 / 1,572,864; ``hash_bwd_device_*`` its device
-time, the zeroing of dG included), the sinusoidal eval and train kernels
+393,216 points), the forward alone (``hash_fwd_device_*``: its kernel's
+device time at the grid update's 262,144 cell points, lego_ingp's, the
+long-ray route's 524,288 / 1,572,864 and the long-ray frame's chunks,
+4,194,304 / 12,582,912, in ray order) and the dG kernel alone
+(``hash_bwd_*``, also at the long-ray route's batches;
+``hash_bwd_device_*`` its device time, the zeroing of dG included), the
+long-ray route's 400 x 400 frame (``long_ray_frame``, and its device time,
+``long_ray_frame_device``), the sinusoidal eval and train kernels
 (lego_hierarchical, 8 x 256),
 the MLP forward at lego_occ's three shapes (the grid update's 262,144 cell
 points, a step's 4096 x 32 and 4096 x 96 points; also its device time and
@@ -46,7 +53,7 @@ then ptxas's registers and spills of every kernel of
 ``csrc/fused_ingp.cu``'s runtime-shape build and ``csrc/hash_encode.cu``
 in each checkout that has the source, and, where both checkouts have
 ``csrc/ingp_train_tc.cu`` (or ``csrc/mlp_bwd_tc.cu``, or
-``csrc/hash_encode.cu``: its forward and dX kernels), each kernel of it in
+``csrc/hash_encode.cu``: its dG and dX kernels), each kernel of it in
 both: ptxas's report and its SASS instruction by instruction (the kernel
 parameters' constant-bank offsets masked), as lines starting with
 ``[ptxas]`` and ``[sass]``; and the count of ``HGMMA`` instructions in
@@ -56,6 +63,7 @@ each kernel of each checkout's ``csrc/mlp_bwd_tc.cu`` (``[hgmma]``).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -313,6 +321,79 @@ def _frame_setup():
     return np.array([[focal, 0, res / 2], [0, focal, res / 2], [0, 0, 1]], np.float32), res
 
 
+def _hash_fwd_device(enc, level, ro, rd, g):
+    """The hash forward alone (its kernel's device time, ``hash_fwd_device_*``)
+    at the seven batches the main paths give it: the grid update's cell
+    points, lego_ingp's train batches, the long-ray route's and the long-ray
+    frame's chunks (32,768 rays), in ray order; ``level(R, S)`` gives the
+    depths."""
+    import torch
+
+    from nerf_meets_mlx_torch.acceleration.occupancy import _cell_points
+    from nerf_meets_mlx_torch.config import lego_ingp_occ
+    from nerf_meets_mlx_torch.kernels import hash_encode as he
+
+    dev = ro.device
+    rcfg = lego_ingp_occ().render
+    sets = [("grid", _cell_points(rcfg.occ_resolution, torch.tensor(rcfg.aabb[:3], device=dev),
+                                  torch.tensor(rcfg.aabb[3:], device=dev), generator=g))]
+    for name, R, S in (("coarse", 4096, 48), ("fine", 4096, 96), ("long_coarse", 4096, 128),
+                       ("long_fine", 4096, 384), ("frame_coarse", 32768, 128),
+                       ("frame_fine", 32768, 384)):
+        z, _, _ = level(R, S)
+        sets.append((name, (ro[:R, None] + z[..., None] * rd[:R, None]).reshape(-1, 3)))
+    return {f"hash_fwd_device_{name}": _device_ms(lambda pts=pts: he._fwd_launch(enc, pts),
+                                                  n=max(5, int(4_000_000 // len(pts))))
+            for name, pts in sets}
+
+
+def hash_worker():
+    """``--hash``' turn: the hash forward at the seven batches
+    (``_hash_fwd_device``), and the forward and the forward + dG through
+    ``hash_encode_apply`` at lego_ingp's 4096 x 48 / 96 points: a call's
+    event time and its device time (every kernel it launches), as
+    ``worker`` times them; only csrc/hash_encode.cu is built."""
+    import torch
+
+    from nerf_meets_mlx_torch.cameras.pose import orbit_poses
+    from nerf_meets_mlx_torch.cameras.rays import get_rays
+    from nerf_meets_mlx_torch.config import lego_ingp
+    from nerf_meets_mlx_torch.kernels import _build
+    from nerf_meets_mlx_torch.kernels import hash_encode as he
+    from nerf_meets_mlx_torch.models import create_nerf
+
+    _build.build("hash_encode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    K, res = _frame_setup()
+    ro, rd = get_rays(res, res, K, orbit_poses(160)[0][:3, :4], device=dev)
+    ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
+
+    def level(n_rays, S):
+        z = torch.sort(torch.rand((n_rays, S), generator=g, device=dev) * 4.0 + 2.0, -1).values
+        return z, None, None
+
+    m = create_nerf(lego_ingp().replace(use_fused_kernel=True), device=dev)
+    m.init(torch.Generator(device=dev).manual_seed(0))
+    out = _hash_fwd_device(m.pos_enc, level, ro, rd, g)
+    for name, S in (("coarse", 48), ("fine", 96)):
+        z, _, _ = level(4096, S)
+        pts = (ro[:4096, None] + z[..., None] * rd[:4096, None]).reshape(-1, 3)
+        dout = torch.randn((pts.shape[0], m.pos_enc.out_dim), generator=g, device=dev)
+
+        def fwd(pts=pts):
+            he.hash_encode_apply(m.pos_enc, pts)
+
+        def fwd_bwd(pts=pts, dout=dout):
+            (he.hash_encode_apply(m.pos_enc, pts) * dout).sum().backward()
+
+        out[f"hash_fwd_{name}"] = _ms(fwd)
+        out[f"hash_fwd_bwd_{name}"] = _ms(fwd_bwd)
+        out[f"hash_fwd_bwd_device_{name}"] = _device_ms(fwd_bwd)
+        out[f"hash_fwd_bwd_host_{name}"] = _host_ms(fwd_bwd)
+    print(json.dumps(out), flush=True)
+
+
 def frames_worker():
     """``--frames``' turn: the lego_hierarchical frame over 5 frames,
     lego_occ's steps and frame (``_occ_ms``) and the image step
@@ -415,6 +496,7 @@ def worker():
 
             out[f"ingp_eval_{name}"] = _ms(ingp_eval, n=10)
             out[f"ingp_eval_device_{name}"] = _device_ms(ingp_eval, n=10)
+    out.update(_hash_fwd_device(m.pos_enc, level, ro, rd, g))
     # the hash dG kernel alone at the batches of its two routes
     for name, S in (("coarse", 48), ("fine", 96), ("long_coarse", 128), ("long_fine", 384)):
         z, _, _ = level(4096, S)
@@ -429,6 +511,20 @@ def worker():
     with torch.no_grad():
         out["lego_ingp_frame"] = _ms(lambda: render_image(m, res, res, K, orbit_poses(160)[0][:3, :4]),
                                      n=5)
+    # the long-ray route's frame (the standard query: the hash forward, 10
+    # launches a frame), its time and its device time
+    cfg = lego_ingp()
+    m = create_nerf(cfg.replace(use_fused_kernel=True, render=dataclasses.replace(
+        cfg.render, n_samples=128, n_importance=256)), device=dev)
+    m.init(torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        def long_frame():
+            render_image(m, res, res, K, orbit_poses(160)[0][:3, :4])
+
+        out["long_ray_frame"] = _ms(long_frame, n=3)
+        out["long_ray_frame_device"] = _device_ms(long_frame, n=2)
+    del m
+    torch.cuda.empty_cache()
 
     # sinusoidal kernels at lego_hierarchical
     m = create_nerf(lego_hierarchical().replace(use_fused_kernel=True), device=dev)
@@ -572,7 +668,7 @@ def _ptxas_reports(base: Path, head: Path) -> None:
 SASS_KERNELS = {
     "ingp_train_tc": r"(ingp_tc_kernel|feat_tc_kernel|ingp_tc_reduce_kernel)(ILi\d+)?",
     "mlp_bwd_tc": r"(?<=\d)mlp_bwd_(tile|dw|pack|reduce)_kernel(ILi\d+)?",
-    "hash_encode": r"hash_(fwd|dx_bwd)_kernelILi\d+E(Li\d+E)?",
+    "hash_encode": r"hash_(bwd|dx_bwd)_kernelILi\d+E(Li\d+E)?",
 }
 
 
@@ -632,18 +728,21 @@ def main() -> int:
     p.add_argument("--frames", type=int, default=0,
                    help="rounds timing the host-bound frames and steps alone, the order "
                         "alternating (base, head, head, base; head, base, base, head)")
+    p.add_argument("--hash", type=int, default=0,
+                   help="rounds timing the hash forward's calls alone, alternating as --frames")
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     a = p.parse_args()
     if a.worker:
-        frames_worker() if a.frames else worker()
+        hash_worker() if a.hash else frames_worker() if a.frames else worker()
         return 0
     turns = []
     order = (("base", a.base), ("head", a.head), ("head", a.head), ("base", a.base))
     flipped = (order[1], order[0], order[3], order[2])
-    for tag, root in [t for r in range(max(a.frames, 1)) for t in (flipped if r % 2 else order)]:
+    rounds = max(a.frames, a.hash, 1)
+    for tag, root in [t for r in range(rounds) for t in (flipped if r % 2 else order)]:
         env = dict(os.environ, PYTHONPATH=str(Path(root).resolve()))
         proc = subprocess.run([sys.executable, __file__, "--worker", "--base", a.base,
-                               "--frames", str(a.frames)],
+                               "--frames", str(a.frames), "--hash", str(a.hash)],
                               cwd=root, env=env, capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-3000:], proc.stderr[-6000:], file=sys.stderr)
@@ -654,7 +753,7 @@ def main() -> int:
     for key in turns[0][1]:
         row = " ".join(f"{t}={d[key]:.4f}" for t, d in turns)
         print(f"{key:18s} {row}", flush=True)
-    if a.frames:
+    if a.frames or a.hash:
         return 0
     sys.path.insert(0, str(HEAD))
     _ptxas_reports(Path(a.base).resolve(), Path(a.head).resolve())

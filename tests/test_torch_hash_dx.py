@@ -108,6 +108,42 @@ def test_compute_dx_matches_jax_pallas(dtype, f):
     assert float(np.abs(np.asarray(gx_j)).max()) > 1.0  # dX at full scale, not ~0
 
 
+def _ray_points(n_rays, n_samples, seed):
+    """Points along rays, [rays, samples] flattened as the model's routes
+    give them: origins 4 from the box's centre, aimed within 0.5 of it,
+    depths sorted uniform in [2, 6], so that consecutive samples share a
+    coarse cell and some lie outside the box."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(n_rays, 3))
+    o *= 4.0 / np.linalg.norm(o, axis=1, keepdims=True)
+    d = rng.uniform(-0.5, 0.5, size=(n_rays, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    z = np.sort(rng.uniform(2.0, 6.0, size=(n_rays, n_samples)), axis=1)
+    return (o[:, None] + z[..., None] * d[:, None]).reshape(-1, 3).astype(np.float32)
+
+
+@pytest.mark.parametrize("f", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_compute_dx_forward_on_ray_points_matches_jax_pallas(dtype, f):
+    """The compute_dx forward (on the CPU its plain version) against the
+    Pallas ``_fwd_kernel`` in interpret mode on ray-ordered points (3 rays x
+    96 samples: runs of samples in one coarse cell, some outside the box)
+    and noisy tables: features at atol 1e-6, as
+    ``test_compute_dx_matches_jax_pallas`` holds them; a bf16 encoding's is
+    the fp32 path."""
+    import jax.numpy as jnp
+
+    from nerf_meets_mlx_tpu.kernels.hash_encode import hash_encode_apply as j_apply
+
+    tenc, jenc, params = _pair(**dict(SMALL, features_per_level=f, compute_dtype=dtype))
+    x = _ray_points(3, 96, seed=22)
+    assert bool((np.abs(x) > 1.5).any())
+    got = the.hash_encode_apply(tenc, torch.from_numpy(x), compute_dx=True)
+    want = np.asarray(j_apply(jenc, params, jnp.asarray(x), block=128, compute_dx=True))
+    assert got.shape == (len(x), tenc.out_dim)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=0, atol=1e-6)
+
+
 def test_compute_dx_ignores_the_compute_dtype():
     """A bf16 encoding's compute_dx path is the fp32 one (the Pallas
     compute_dx kernels never read compute_dtype), not the bf16 body."""
@@ -230,6 +266,11 @@ def test_cuda_compute_dx_kernels_match_plain(enc, dtype):
     assert float((g_x - p_x).abs().max()) <= 1e-4 * float(p_x.abs().max())
     assert float((g_t - p_t).abs().max()) <= 1e-3 * float(p_t.abs().max())
     assert float(p_x.abs().max()) > 0 and bool((g_x[(x.abs() > 1.5).any(-1)] == 0).any())
+    # the forward on ray-ordered points, runs of samples in one cell
+    rays = torch.from_numpy(_ray_points(1031, 97, seed=23)).to(dev)
+    with torch.no_grad():
+        torch.testing.assert_close(the.hash_encode_apply(tenc, rays, compute_dx=True),
+                                   the.hash_encode_dx_reference(tenc, rays), rtol=0, atol=0)
 
 
 @pytest.mark.gpu
@@ -255,3 +296,8 @@ def test_cuda_grid_kernels_match_plain(f, dtype):
     (g_p,) = torch.autograd.grad((feats_p * dout).sum(), tenc.tables)
     torch.testing.assert_close(feats, feats_p, rtol=0, atol=0)
     torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-5)
+    # the forward on ray-ordered points, runs of samples in one cell
+    rays = torch.from_numpy(_ray_points(1031, 97, seed=24)).to(dev)
+    with torch.no_grad():
+        torch.testing.assert_close(the.hash_encode_apply(tenc, rays, levels_in_body=False),
+                                   the.hash_encode_reference(tenc, rays), rtol=0, atol=0)

@@ -459,6 +459,94 @@ def test_merged_runs_grouping_matches_jax_pallas(dtype, f):
         assert not dG[~touched].any() and not g_j[~touched].any()
 
 
+def _agreeing_ray_points(n_rays, n_samples, seed):
+    """``_ray_points`` (samples along rays, many to a coarse cell, some
+    outside the box) where the Pallas kernels' normalisation, (x −
+    bmin)·f32(1/3), and the port's, (x − bmin)/3, round to the same float32
+    on every axis."""
+    x = _ray_points(n_rays, n_samples, seed)
+    d = x - np.float32(-1.5)
+    return np.ascontiguousarray(x[(d / np.float32(3.0) == d * np.float32(1.0 / 3.0)).all(1)])
+
+
+@pytest.mark.parametrize("levels_in_body", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("f", [1, 2, 4, 8])
+def test_forward_on_ray_points_matches_jax_pallas(f, dtype, levels_in_body):
+    """The port's forward on the CPU (its plain version) against JAX's
+    Pallas ``_fwd_body_kernel`` (levels in the body) and
+    ``_fwd_grid_kernel`` (one level per grid step) in interpret mode, on
+    ray-ordered points (8 rays x 96 samples, runs of samples in one coarse
+    cell, some outside the box, where both normalisations agree) and noisy
+    tables: features to fp32 summation order (rtol 1e-5 / atol 1e-7), as
+    ``test_grid_path_matches_jax_pallas`` holds them."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from nerf_meets_mlx_tpu.kernels.hash_encode import HashEncodeSpec, hash_encode, pack_tables
+
+    kw = dict(SMALL, features_per_level=f, compute_dtype=dtype)
+    tenc, jenc, params = _pair(**kw)
+    spec = dataclasses.replace(HashEncodeSpec.from_encoding(jenc, block=128),
+                               levels_in_body=levels_in_body)
+    x = _agreeing_ray_points(8, 96, seed=21)
+    assert 150 < len(x) and bool((np.abs(x) > 1.5).any())
+    xp = jnp.pad(jnp.asarray(x), ((0, 0), (0, 5)))  # the lane padding hash_encode_apply makes
+    got = the.hash_encode_apply(tenc, torch.from_numpy(x), levels_in_body=levels_in_body)
+    want = np.asarray(hash_encode(spec, pack_tables(spec, params["tables"]), xp))
+    assert got.shape == (len(x), tenc.out_dim)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5, atol=1e-7)
+
+
+def _fwd_constants():
+    """csrc/hash_encode.cu's FWD_THREADS and FWD_CHUNK."""
+    import re
+    from pathlib import Path
+
+    import nerf_meets_mlx_torch
+
+    src = (Path(nerf_meets_mlx_torch.__file__).parent / "csrc" / "hash_encode.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+                 for k in ("FWD_THREADS", "FWD_CHUNK"))
+
+
+def _fwd_chunk_writes(L, F, N):
+    """How many times ``hash_fwd_kernel``'s threads write each float of
+    feats [N, L·F], and how many floats they write past it (its indexing
+    transcribed): chunks = ceil(L / K) with K = FWD_CHUNK / F; block b takes
+    chunk b % chunks (levels from (b % chunks)·K) of the FWD_THREADS points
+    from (b / chunks)·FWD_THREADS, a thread a point; it stores FWD_CHUNK
+    floats where L·F is a multiple of 4 and the chunk is whole, else the
+    chunk's floats one by one."""
+    threads, chunk = _fwd_constants()
+    K, LF = chunk // F, L * F
+    chunks = -(-L // K)
+    writes = np.zeros(N * LF, np.int64)
+    outside = 0
+    for b in range(chunks * -(-N // threads)):
+        group, l0 = b // chunks, (b % chunks) * K
+        for n in range(group * threads, min((group + 1) * threads, N)):
+            width = chunk if LF % 4 == 0 and l0 + K <= L else min(L - l0, K) * F
+            start = n * LF + l0 * F
+            outside += max(0, start + width - N * LF)
+            writes[start:min(start + width, N * LF)] += 1
+    return writes, outside
+
+
+@pytest.mark.parametrize("levels,f", [(8, 2), (16, 2), (5, 1), (3, 2), (7, 4), (1, 8), (16, 8),
+                                      (32, 4), (1, 1)])
+@pytest.mark.parametrize("n_points", [1, 257, 1000])
+def test_forward_chunks_write_every_feature_once(levels, f, n_points):
+    """The forward kernel's grid and indexing (``_fwd_chunk_writes``) write
+    every feature of every point exactly once and nothing past feats, with
+    whole chunks and ragged ones (L not a multiple of FWD_CHUNK / F, L·F
+    not a multiple of 4) and a ragged last block."""
+    writes, outside = _fwd_chunk_writes(levels, f, n_points)
+    assert outside == 0
+    assert (writes == 1).all()
+
+
 @pytest.mark.gpu
 def test_cuda_hash_kernels_match_plain():
     """Both kernels at the lego_ingp size on 100,003 points (some outside
@@ -486,6 +574,11 @@ def test_cuda_hash_kernels_match_plain():
     (g_p,) = torch.autograd.grad((feats_p * dout).sum(), tenc.tables)
     torch.testing.assert_close(feats, feats_p, rtol=0, atol=0)
     torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-5)
+    # and on ray-ordered points, runs of samples in one cell
+    rays = torch.from_numpy(_ray_points(1031, 97, seed=15)).to(dev)
+    with torch.no_grad():
+        torch.testing.assert_close(the.hash_encode_apply(tenc, rays), tenc.apply(rays),
+                                   rtol=0, atol=0)
 
 
 @pytest.mark.gpu
@@ -512,6 +605,87 @@ def test_cuda_bf16_hash_kernels_match_twin(f):
     torch.cuda.synchronize()
     torch.testing.assert_close(feats, feats_p, rtol=0, atol=0)
     torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-5)
+    # and on ray-ordered points, runs of samples in one cell
+    rays = torch.from_numpy(_ray_points(1031, 97, seed=15)).to(dev)
+    with torch.no_grad():
+        torch.testing.assert_close(the.hash_encode_apply(tenc, rays),
+                                   the.hash_encode_reference(tenc, rays), rtol=0, atol=0)
+
+
+def _forward_and_plain(tenc, x, entry):
+    """(the kernel's features, the plain version's, the launch count's
+    key) of one forward entry point: the levels-in-body kernel ("body"),
+    the one-level-per-grid-step one ("grid") or compute_dx ("dx")."""
+    with torch.no_grad():
+        if entry == "dx":
+            return (the.hash_encode_apply(tenc, x, compute_dx=True),
+                    the.hash_encode_dx_reference(tenc, x), "hash_dx_fwd")
+        return (the.hash_encode_apply(tenc, x, levels_in_body=entry == "body"),
+                the.hash_encode_reference(tenc, x),
+                "hash_fwd" if entry == "body" else "hash_grid_fwd")
+
+
+def _noisy_cuda_encoding(kw):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    tenc = HashGridEncoding(**kw, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        tenc.tables.add_(torch.randn(tenc.tables.shape, device=dev) * 0.1)
+    return tenc, dev
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["body", "grid", "dx"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("f", [1, 2, 4, 8])
+@pytest.mark.parametrize("level_kb", [128, 512])
+def test_cuda_forward_on_ray_points_equals_plain(level_kb, f, dtype, entry):
+    """The forward kernel through its three entry points on ray-ordered
+    points (1031 rays x 97 samples: N = 100,007, a multiple of no warp's or
+    block's points, runs of samples in one cell crossing each, some outside
+    the box), at the lego_ingp levels with F features (1 to 8 levels a
+    thread's chunk), fp32 and bf16 compute, at tables of 128 KB a level
+    (lego_ingp's) and 512 KB (past what a block's shared memory holds):
+    features equal to the plain version's."""
+    log2_t = int(np.log2(level_kb * 1024 // (4 * f)))
+    tenc, dev = _noisy_cuda_encoding(
+        dict(_preset_kw(), features_per_level=f, log2_table_size=log2_t, compute_dtype=dtype))
+    x = torch.from_numpy(_ray_points(1031, 97, seed=16)).to(dev)
+    n0 = dict(LAUNCHES)
+    feats, plain, key = _forward_and_plain(tenc, x, entry)
+    torch.cuda.synchronize()
+    assert LAUNCHES[key] == n0[key] + 1
+    torch.testing.assert_close(feats, plain, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["body", "dx"])
+@pytest.mark.parametrize("levels,f", [(5, 1), (3, 2), (7, 4), (1, 8), (16, 2)])
+def test_cuda_forward_ragged_shapes_equal_plain(levels, f, entry):
+    """Level counts that leave a thread's chunk of levels ragged (L not a
+    multiple of 8 / F) or a row's length not a multiple of 4 floats (stored
+    float by float), and 16 levels, on 20,011 ray-ordered points: features
+    equal to the plain version's."""
+    tenc, dev = _noisy_cuda_encoding(dict(n_levels=levels, min_res=16, max_res=256,
+                                          features_per_level=f, log2_table_size=12))
+    x = torch.from_numpy(_ray_points(211, 97, seed=17)[:20_011]).to(dev)
+    feats, plain, _ = _forward_and_plain(tenc, x, entry)
+    torch.testing.assert_close(feats, plain, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry,dtype", [("body", "float32"), ("body", "bfloat16"),
+                                         ("grid", "float32"), ("dx", "float32")])
+def test_cuda_forward_at_a_frame_chunk_equals_plain(entry, dtype):
+    """A long-ray frame chunk's batch: 32,768 rays x 128 samples =
+    4,194,304 ray-ordered points at lego_ingp's tables: features equal to
+    the plain version's."""
+    tenc, dev = _noisy_cuda_encoding(dict(_preset_kw(), compute_dtype=dtype))
+    x = torch.from_numpy(_ray_points(32768, 128, seed=18)).to(dev)
+    assert x.shape[0] == 4_194_304
+    feats, plain, _ = _forward_and_plain(tenc, x, entry)
+    torch.testing.assert_close(feats, plain, rtol=0, atol=0)
 
 
 @pytest.mark.gpu
