@@ -2795,8 +2795,10 @@ PART_A = (
 # the image model's width reached through the Python API only (image2d())
 IMAGE_API_WIDTH = 96
 # lego_cp's batches for the CP kernels: a train step's coarse and fine
-# points, and one eval chunk's fine points (rays, samples a ray)
-CP_BATCHES = (("coarse", 4096, 48), ("fine", 4096, 96), ("eval_chunk", 32768, 96))
+# points, and one eval chunk's fine and coarse points (rays, samples a ray)
+CP_BATCHES = (("coarse", 4096, 48), ("fine", 4096, 96), ("eval_chunk", 32768, 96),
+              ("frame_coarse", 32768, 48))
+CP_RANDOM = 393_216  # uniform random points in and around the box, as the gpu test draws
 CP_VAL_ATOL, CP_VAL_RTOL = 1e-6, 1e-5  # the same roundings; sums of two exact products
 CP_DL_REL = 1e-4                       # dLines: atomics add in another order
 CP_ROUTE_RTOL = 1e-2                   # kernel route vs standard route, see phase_cp_routes
@@ -3325,17 +3327,19 @@ def cp_point_sets(device):
 
 def phase_compare_cp(device):
     """Both CP kernels against their plain versions (the Pallas semantics)
-    at CP_BATCHES, in lego_cp's bf16 compute and in fp32: the features to
-    CP_VAL_ATOL + CP_VAL_RTOL·|plain|, dLines (random cotangent) to
-    CP_DL_REL of the largest plain value."""
+    at CP_BATCHES (ray order) and on CP_RANDOM uniform random points, in
+    lego_cp's bf16 compute and in fp32: the features to CP_VAL_ATOL +
+    CP_VAL_RTOL·|plain| (whether they are equal bit for bit is logged),
+    dLines (random cotangent) to CP_DL_REL of the largest plain value."""
     import torch
     from nerf_meets_mlx_torch.kernels import cp_encode as ce
 
-    out = {"fwd": 0.0, "bwd": 0.0, "bwd_ratio": 0.0}
+    out = {"fwd": 0.0, "bwd": 0.0, "bwd_ratio": 0.0, "fwd_equal": True}
     gen = torch.Generator(device=device).manual_seed(SEED + 31)
     model = cp_model(device)
     enc = model.pos_enc
-    for name, pts in cp_point_sets(device):
+    uniform = torch.rand((CP_RANDOM, 3), generator=gen, device=device) * 3.4 - 1.7
+    for name, pts in cp_point_sets(device) + [("random", uniform)]:
         for dtype in ("bfloat16", "float32"):
             enc.compute_dtype = dtype
             spec = ce.CPEncodeSpec.from_encoding(enc)
@@ -3351,8 +3355,10 @@ def phase_compare_cp(device):
                 ((f_k - f_p).abs() <= CP_VAL_ATOL + CP_VAL_RTOL * f_p.abs()).all())
             ratios = grad_ratios(d_k, d_p)
             ok &= all(bool(torch.isfinite(a).all()) for a in d_k) and max(ratios) <= CP_DL_REL
-            log(f"[compare] cp_fwd/cp_bwd {name:10s} N={pts.shape[0]} {dtype}: max_abs features "
-                f"{err:.3e}; max|dLines-plain|/max|plain| per level "
+            equal = bool(torch.equal(f_k, f_p))
+            out["fwd_equal"] &= equal
+            log(f"[compare] cp_fwd/cp_bwd {name:12s} N={pts.shape[0]} {dtype}: max_abs features "
+                f"{err:.3e} (equal bit for bit: {equal}); max|dLines-plain|/max|plain| per level "
                 + " ".join(f"{r:.1e}" for r in ratios) + (" ok" if ok else " FAIL"))
             if not ok:
                 raise AssertionError(f"the CP kernels disagree with their plain versions: {name}")
@@ -3422,13 +3428,15 @@ def phase_cp_routes(ds, device):
 
 
 def phase_cp_timing(ds, device):
-    """The CP kernels per launch at CP_BATCHES beside their bound (bytes: 12
+    """The CP kernels per launch at CP_BATCHES: a call's event time and its
+    kernel's device time (torch.profiler) beside their bound (bytes: 12
     bytes of position and L·C·4 of features or cotangent a point, the lines
     read once, dLines written once, over HBM_BYTES_PER_S), their plain
     versions, and CPGridEncoding.apply (with autograd for the backward);
     lego_cp's warm step on the standard route and with the kernel (mean of
     CP_TIMED_STEPS ending in a synchronize), rays/s, peak memory, busy
-    share of 5 steps; a RES x RES frame on both."""
+    share of 5 steps; a RES x RES frame on both, and the kernel route's
+    frame's device time by kernel."""
     import torch
     from nerf_meets_mlx_torch.cameras.pose import orbit_poses
     from nerf_meets_mlx_torch.config import lego_cp
@@ -3450,6 +3458,8 @@ def phase_cp_timing(ds, device):
         n = 20 if N < 1_000_000 else 5
         io = N * (12 + 4 * spec.out_dim)
         fwd = {"ms": cuda_time_ms(lambda: ce.cp_fwd_launch(spec, flat, pts), n),
+               "device_ms": kernel_split_ms(lambda: ce.cp_fwd_launch(spec, flat, pts),
+                                            ("cp_fwd",), n)["cp_fwd"],
                "plain_ms": cuda_time_ms(lambda: ce.cp_fwd_reference(spec, enc.lines, pts), n),
                "bound_ms": (io + line_bytes) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
         with torch.no_grad():
@@ -3460,14 +3470,18 @@ def phase_cp_timing(ds, device):
             torch.autograd.grad((f * dout).sum(), list(enc.lines))
 
         bwd = {"ms": cuda_time_ms(lambda: ce.cp_bwd_launch(spec, flat, pts, dout), n),
+               "device_ms": kernel_split_ms(lambda: ce.cp_bwd_launch(spec, flat, pts, dout),
+                                            ("cp_bwd",), n)["cp_bwd"],
                "plain_ms": cuda_time_ms(lambda: ce.cp_bwd_reference(spec, enc.lines, pts, dout),
                                         n),
                "bound_ms": (io + 2 * line_bytes) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
                "apply_fwd_bwd_ms": cuda_time_ms(apply_bwd, n)}
-        log(f"[time] cp_fwd {name:10s} N={N}: {fwd['ms']:.4f} ms (bound {fwd['bound_ms']:.4f} ms "
-            f"bytes; plain {fwd['plain_ms']:.4f} ms; CPGridEncoding.apply {fwd['apply_ms']:.4f} ms)"
-            f" | cp_bwd {bwd['ms']:.4f} ms (bound {bwd['bound_ms']:.4f}; plain "
-            f"{bwd['plain_ms']:.4f}; apply + autograd {bwd['apply_fwd_bwd_ms']:.4f} ms)")
+        log(f"[time] cp_fwd {name:12s} N={N}: {fwd['ms']:.4f} ms a call, kernel "
+            f"{fwd['device_ms']:.4f} ms device (bound {fwd['bound_ms']:.4f} ms bytes; plain "
+            f"{fwd['plain_ms']:.4f} ms; CPGridEncoding.apply {fwd['apply_ms']:.4f} ms) | cp_bwd "
+            f"{bwd['ms']:.4f} ms a call, kernel {bwd['device_ms']:.4f} ms device (bound "
+            f"{bwd['bound_ms']:.4f}; plain {bwd['plain_ms']:.4f}; apply + autograd "
+            f"{bwd['apply_fwd_bwd_ms']:.4f} ms)")
         fwd_t[name], bwd_t[name] = fwd, bwd
 
     images = torch.as_tensor(ds.images[ds.i_train], device=device)
@@ -3514,9 +3528,16 @@ def phase_cp_timing(ds, device):
                     step(state, images, poses, g)
 
             res["trace"] = profile_device(steps, f"{PROFILED_STEPS} lego_cp {key} train steps")
-            res["frame_trace"] = profile_device(
-                lambda: render_image(model, RES, RES, K, orbit_poses(160)[0][:3, :4]),
-                f"one {RES}x{RES} lego_cp {key} frame")
+
+            def frame():
+                render_image(model, RES, RES, K, orbit_poses(160)[0][:3, :4])
+
+            res["frame_trace"] = profile_device(frame, f"one {RES}x{RES} lego_cp {key} frame")
+            if patch:
+                with torch.no_grad():
+                    res["frame_cp_fwd_device_ms"] = kernel_split_ms(frame, ("cp_fwd",), 2)["cp_fwd"]
+                log(f"[time] lego_cp {key} frame: cp_fwd {res['frame_cp_fwd_device_ms']:.4f} ms "
+                    f"of device time in its {2 * -(-RES * RES // cfg.render.ray_chunk)} launches")
         e2e[key] = res
         del model, state
         torch.cuda.empty_cache()

@@ -5,7 +5,7 @@ image (the default) and its pixels as normalized coordinates + colours for
 MLP regression. The procedural image is made with numpy from a seed, so
 both packages get the same pixels. Reading an image file needs
 ``imageio`` and comes with the PNG loaders in a later slice (ROADMAP.md
-Queue 1 item 3).
+Queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ def load_image_2d(path: Optional[str | Path] = None, size: int = 400) -> np.ndar
         return make_test_image(size)
     raise NotImplementedError(
         "reading an image file needs imageio, which the port does not use yet "
-        "(ROADMAP.md Queue 1 item 3); omit the path for the procedural image"
+        "(ROADMAP.md Queue 1 item 1); omit the path for the procedural image"
     )
 
 

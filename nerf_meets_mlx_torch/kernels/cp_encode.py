@@ -48,9 +48,19 @@ from nerf_meets_mlx_torch.encoding.cp_grid import two_taps
 from nerf_meets_mlx_torch.kernels.fused_train import LAUNCHES
 from nerf_meets_mlx_torch.utils.tensors import round_bf16
 
-MAX_LEVELS = 16  # csrc/cp_encode.cu
-# dLines of a level are summed in shared memory: 3 · R_l · C floats a block
-MAX_LINE_FLOATS = 232448 // 4
+# csrc/cp_encode.cu's bounds: levels; nodes a line (indices exact in fp32)
+MAX_LEVELS = 16
+MAX_NODES = 1 << 24
+# the kernels' grids (csrc/cp_encode.cu, fwd_plan and bwd_plan): the
+# forward's threads a block; the backward's threads a block, blocks an SM it
+# is built for, points a lane group walks at least and at most; bytes of
+# shared memory a block may use on sm_90
+FWD_THREADS = 1024
+BWD_THREADS = 256
+BWD_MIN_BLOCKS = 2
+BWD_MIN_STRETCH = 16
+BWD_MAX_STRETCH = 64
+MAX_SMEM = 232448
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,6 +197,8 @@ def _cp_lib():
         lib.cp_bwd_launch.argtypes = [vp] * 4 + tail
         for fn in (lib.cp_fwd_launch, lib.cp_bwd_launch):
             fn.restype = ci
+        lib.cp_plans.argtypes = [cll, ci, ci, cll, ci, vp]
+        lib.cp_plans.restype = None
         lib._typed = True
     return lib
 
@@ -199,11 +211,61 @@ def check_cp_encoding(spec: CPEncodeSpec) -> None:
             f"the CUDA CP kernels take 1..{MAX_LEVELS} levels and 4..64 components in "
             f"multiples of 4, not {spec.n_levels} and {C}"
         )
-    if 3 * max(spec.resolutions) * C > MAX_LINE_FLOATS:
+    if max(spec.resolutions) > MAX_NODES:
         raise ValueError(
-            f"the CUDA CP backward sums a level's 3·R·C line floats in shared memory, at "
-            f"most {MAX_LINE_FLOATS}; R = {max(spec.resolutions)}, C = {C} is past it"
+            f"the CUDA CP kernels take at most 2^24 nodes a line (node indices exact in "
+            f"fp32), not R = {max(spec.resolutions)}"
         )
+
+
+def group_width(n_components: int) -> int:
+    """Lanes a (point, level) in the forward and a (stretch, level) in the
+    backward: C/4 rounded up to a power of two (csrc/cp_encode.cu's
+    group_width)."""
+    return 1 << max(0, (n_components // 4 - 1).bit_length())
+
+
+def line_floats(spec: CPEncodeSpec) -> int:
+    """Floats of the flat lines: 3 · R_l · C a level."""
+    return 3 * sum(spec.resolutions) * spec.n_components
+
+
+def fwd_plan(spec: CPEncodeSpec, n_points: int, n_sm: int):
+    """(staged, smem bytes, blocks, block_points) of ``cp_fwd_kernel``: blocks
+    of FWD_THREADS walk the points, ``block_points`` a turn, block b taking
+    turns b, b + blocks, ...; where the lines fit in a block's shared memory
+    they are staged there and a block runs on each SM, else they are read
+    through L1 and two blocks share an SM (the C launcher's fwd_plan, which
+    ``cp_plans`` exports)."""
+    block_points = FWD_THREADS // (spec.n_levels * group_width(spec.n_components))
+    nbytes = 4 * line_floats(spec)
+    staged = nbytes <= MAX_SMEM
+    want = n_sm if staged else 2 * n_sm
+    blocks = max(1, min(want, -(-n_points // block_points)))
+    return staged, nbytes if staged else 0, blocks, block_points
+
+
+def bwd_plan(n_points: int, n_levels: int, n_components: int, n_sm: int):
+    """(ranges, block_points, stretch) of ``cp_bwd_kernel``: block b works
+    points b · block_points onwards at every level; its BWD_THREADS / (L ·
+    GW) stretches of ``stretch`` points are each walked in order by L lane
+    groups, one a level. Stretches are BWD_MIN_STRETCH .. BWD_MAX_STRETCH
+    points, as short as fill BWD_MIN_BLOCKS blocks an SM once (the C
+    launcher's bwd_plan, which ``cp_plans`` exports)."""
+    stretches = BWD_THREADS // (n_levels * group_width(n_components))
+    fill = n_sm * BWD_MIN_BLOCKS * stretches
+    stretch = min(BWD_MAX_STRETCH, max(BWD_MIN_STRETCH, -(-n_points // fill)))
+    ranges = max(1, -(-n_points // (stretches * stretch)))
+    return ranges, stretches * stretch, stretch
+
+
+def kernel_plans(spec: CPEncodeSpec, n_points: int, n_sm: int):
+    """The C launchers' (fwd_plan, bwd_plan) for these shapes, from the
+    built library (``cp_plans``), as ``fwd_plan`` and ``bwd_plan`` give
+    them."""
+    out = (ctypes.c_longlong * 7)()
+    _cp_lib().cp_plans(n_points, spec.n_levels, spec.n_components, line_floats(spec), n_sm, out)
+    return (bool(out[0]), out[1], out[2], out[3]), (out[4], out[5], out[6])
 
 
 def _geometry(spec: CPEncodeSpec):

@@ -88,9 +88,10 @@ def _ms(fn, n=20):
     return a.elapsed_time(b) / n
 
 
-def _device_ms(fn, n=10, events=False):
-    """Device ms a call of everything ``fn`` launches (torch.profiler); with
-    ``events``, also the device events (launches and copies) a call."""
+def _device_ms(fn, n=10, events=False, key=""):
+    """Device ms a call of everything ``fn`` launches (torch.profiler), or of
+    the kernels whose names hold ``key``; with ``events``, also the device
+    events (launches and copies) a call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -102,7 +103,7 @@ def _device_ms(fn, n=10, events=False):
         torch.cuda.synchronize()
     us, count = 0.0, 0
     for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
+        if (e.device_type == torch.autograd.DeviceType.CUDA and key in e.name
                 and not getattr(e, "is_user_annotation", False)):
             t = getattr(e, "self_device_time_total", None)
             us += float(getattr(e, "self_cuda_time_total", 0.0) if t is None else t)
@@ -394,6 +395,117 @@ def hash_worker():
     print(json.dumps(out), flush=True)
 
 
+# lego_cp's ray-ordered batches for the CP kernels, as chip_smoke.py's
+# CP_BATCHES (rays, samples a ray): a train step's coarse and fine points, a
+# 400 x 400 frame's fine and coarse chunks
+CP_BATCHES = (("coarse", 4096, 48), ("fine", 4096, 96), ("eval_chunk", 32768, 96),
+              ("frame_coarse", 32768, 48))
+CP_RANDOM = 393_216  # uniform random points in and around the box
+
+
+def cp_batches(dev):
+    """(name, points [N, 3]) of CP_BATCHES, as chip_smoke.py's
+    cp_point_sets makes them (random rays of orbit frame 0 at 400 x 400,
+    lego_cp's AABB-tightened jittered depths, the same seeds), then
+    ("random", CP_RANDOM uniform points in [-1.7, 1.7]^3)."""
+    import torch
+
+    from nerf_meets_mlx_torch.cameras.pose import orbit_poses
+    from nerf_meets_mlx_torch.cameras.rays import get_rays
+    from nerf_meets_mlx_torch.config import lego_cp
+    from nerf_meets_mlx_torch.models import create_nerf
+
+    K, res = _frame_setup()
+    ro, rd = get_rays(res, res, K, orbit_poses(160)[0][:3, :4], device=dev)
+    ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
+    gen = torch.Generator(device=dev).manual_seed(30)
+    out = []
+    for name, n_rays, S in CP_BATCHES:
+        cfg = lego_cp()
+        cfg = cfg.replace(render=dataclasses.replace(cfg.render, n_samples=S))
+        model = create_nerf(cfg, device=dev).init(torch.Generator().manual_seed(0))
+        pick = torch.randperm(ro.shape[0], generator=gen, device=dev)[:n_rays]
+        o, d = ro[pick], rd[pick]
+        z = model._coarse_z(o, d, train=True, generator=gen)
+        out.append((name, (o[:, None, :] + z[..., None] * d[:, None, :]).reshape(-1, 3)))
+    g = torch.Generator(device=dev).manual_seed(31)
+    out.append(("random", (torch.rand((CP_RANDOM, 3), generator=g, device=dev) * 3.4 - 1.7)))
+    return out
+
+
+def cp_worker():
+    """``--cp``' turn: the CP kernels alone at ``cp_batches`` (each
+    kernel's device time, lego_cp's bf16 compute; the backward's zeroing of
+    dLines left out), then lego_cp's kernel route (``cp_encode_apply``
+    behind the query, as chip_smoke.py's with_cp_kernel): its warm step (25
+    steps ending in one synchronize), its 400 x 400 frame (the lesser of 2),
+    the frame's device time and the CP forward's share of it; only
+    csrc/cp_encode.cu is built."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from nerf_meets_mlx_torch.cameras.pose import orbit_poses
+    from nerf_meets_mlx_torch.config import lego_cp
+    from nerf_meets_mlx_torch.datasets.synthetic import make_synthetic_scene
+    from nerf_meets_mlx_torch.engine import TrainState, make_nerf_train_step
+    from nerf_meets_mlx_torch.kernels import _build
+    from nerf_meets_mlx_torch.kernels import cp_encode as ce
+    from nerf_meets_mlx_torch.models import create_nerf
+    from nerf_meets_mlx_torch.rendering import render_image
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build("cp_encode")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(32)
+    cfg = lego_cp()
+    model = create_nerf(cfg, device=dev).init(torch.Generator().manual_seed(0))
+    enc = model.pos_enc
+    spec = ce.CPEncodeSpec.from_encoding(enc)
+    flat = ce.flatten_lines(enc.lines)
+    out = {}
+    for name, pts in cp_batches(dev):
+        dout = torch.randn((pts.shape[0], spec.out_dim), generator=g, device=dev)
+        n = max(5, int(20_000_000 // pts.shape[0]))
+        out[f"cp_fwd_device_{name}"] = _device_ms(
+            lambda pts=pts: ce.cp_fwd_launch(spec, flat, pts), n, key="cp_fwd")
+        out[f"cp_bwd_device_{name}"] = _device_ms(
+            lambda pts=pts, dout=dout: ce.cp_bwd_launch(spec, flat, pts, dout), n, key="cp_bwd")
+    model._encode_pos = lambda p: ce.cp_encode_apply(model.pos_enc, p)
+    ds = make_synthetic_scene(2, 1, 1, 400, device=dev)
+    images = torch.as_tensor(ds.images[ds.i_train], device=dev)
+    poses = torch.as_tensor(ds.poses[ds.i_train, :3, :4], device=dev)
+    state = TrainState(model, cfg.train)
+    step = make_nerf_train_step(model, ds.H, ds.W, ds.focal)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    for _ in range(3):
+        step(state, images, poses, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(25):
+        step(state, images, poses, gen)
+    torch.cuda.synchronize()
+    out["lego_cp_kernel_step"] = (time.perf_counter() - t0) / 25 * 1e3
+    K, res = _frame_setup()
+    pose = orbit_poses(160)[0][:3, :4]
+    with torch.no_grad():
+        def frame():
+            render_image(model, res, res, K, pose)
+
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["lego_cp_kernel_frame"] = float(np.min(times))
+        out["lego_cp_kernel_frame_device"] = _device_ms(frame, n=2)
+        out["lego_cp_kernel_frame_cp_fwd"] = _device_ms(frame, n=2, key="cp_fwd")
+    print(json.dumps(out), flush=True)
+
+
 def frames_worker():
     """``--frames``' turn: the lego_hierarchical frame over 5 frames,
     lego_occ's steps and frame (``_occ_ms``) and the image step
@@ -653,7 +765,8 @@ def _ptxas_reports(base: Path, head: Path) -> None:
 
     jobs = []
     for source in ("fused_train", "fused_mlp", "mlp_fwd_tc", "mlp_bwd_tc", "fused_image",
-                   "image_fwd_tc", "image_train_tc", "ingp_eval_tc", "fused_ingp", "hash_encode"):
+                   "image_fwd_tc", "image_train_tc", "ingp_eval_tc", "fused_ingp", "hash_encode",
+                   "cp_encode"):
         for tag, root in (("base", base), ("head", head)):
             cu = root / "nerf_meets_mlx_torch" / "csrc" / f"{source}.cu"
             if cu.exists():
@@ -730,19 +843,24 @@ def main() -> int:
                         "alternating (base, head, head, base; head, base, base, head)")
     p.add_argument("--hash", type=int, default=0,
                    help="rounds timing the hash forward's calls alone, alternating as --frames")
+    p.add_argument("--cp", type=int, default=0,
+                   help="rounds timing the CP kernels and lego_cp's kernel route alone, "
+                        "alternating as --frames")
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     a = p.parse_args()
     if a.worker:
-        hash_worker() if a.hash else frames_worker() if a.frames else worker()
+        (cp_worker() if a.cp else hash_worker() if a.hash else frames_worker() if a.frames
+         else worker())
         return 0
     turns = []
     order = (("base", a.base), ("head", a.head), ("head", a.head), ("base", a.base))
     flipped = (order[1], order[0], order[3], order[2])
-    rounds = max(a.frames, a.hash, 1)
+    rounds = max(a.frames, a.hash, a.cp, 1)
     for tag, root in [t for r in range(rounds) for t in (flipped if r % 2 else order)]:
         env = dict(os.environ, PYTHONPATH=str(Path(root).resolve()))
         proc = subprocess.run([sys.executable, __file__, "--worker", "--base", a.base,
-                               "--frames", str(a.frames), "--hash", str(a.hash)],
+                               "--frames", str(a.frames), "--hash", str(a.hash),
+                               "--cp", str(a.cp)],
                               cwd=root, env=env, capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-3000:], proc.stderr[-6000:], file=sys.stderr)
@@ -753,7 +871,7 @@ def main() -> int:
     for key in turns[0][1]:
         row = " ".join(f"{t}={d[key]:.4f}" for t, d in turns)
         print(f"{key:18s} {row}", flush=True)
-    if a.frames or a.hash:
+    if a.frames or a.hash or a.cp:
         return 0
     sys.path.insert(0, str(HEAD))
     _ptxas_reports(Path(a.base).resolve(), Path(a.head).resolve())

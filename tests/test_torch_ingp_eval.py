@@ -446,13 +446,51 @@ def test_cuda_eval_smem_matches_its_python_twin():
         assert (nbytes, streamed.value) == (want, D + 2 - len(resident))
 
 
+def _graph_launches(fn):
+    """The device work of one call of ``fn()``, without the profiler: the
+    call captured in a CUDA graph (kept, not run) and its nodes read through
+    libcuda's graph functions. Returns [(node type, kernel name or None)];
+    type 0 is a kernel (CU_GRAPH_NODE_TYPE_KERNEL), 1 a copy, 2 a memset."""
+    import ctypes
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(raw, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)) == 0
+    get_params = getattr(cu, "cuGraphKernelNodeGetParams_v2", cu.cuGraphKernelNodeGetParams)
+    out = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        name = None
+        if kind.value == 0:
+            # CUDA_KERNEL_NODE_PARAMS: the CUfunction first; in its v2 form
+            # the CUkernel at byte 56
+            params = (ctypes.c_void_p * 16)()
+            assert get_params(ctypes.c_void_p(node), params) == 0
+            text = ctypes.c_char_p()
+            if params[0]:
+                assert cu.cuFuncGetName(ctypes.byref(text), ctypes.c_void_p(params[0])) == 0
+            else:
+                assert cu.cuKernelGetName(ctypes.byref(text), ctypes.c_void_p(params[7])) == 0
+            name = text.value.decode()
+        out.append((kind.value, name))
+    del graph
+    return out
+
+
 @pytest.mark.gpu
 def test_cuda_eval_call_launches_only_its_kernel():
     """At lego_ingp's shape a call of fused_ingp_eval_apply makes one
     device launch, csrc/ingp_eval_tc.cu's kernel, and two allocations, its
-    outputs: no weight pack, no copy."""
-    from torch.profiler import ProfilerActivity, profile
-
+    outputs: no weight pack, no copy. The launches are read from the call
+    captured in a CUDA graph (``_graph_launches``), not from torch.profiler,
+    whose device events from CUPTI came back empty once for this call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     tm, (sh, ro, rd, z, dl) = _cuda_case(64, 2, L8F2, "float32", 4096, 48)
@@ -460,15 +498,13 @@ def test_cuda_eval_call_launches_only_its_kernel():
     tfi.fused_ingp_eval_apply(*args)
     torch.cuda.synchronize()
     before = torch.cuda.memory_stats()["allocation.all.allocated"]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = tfi.fused_ingp_eval_apply(*args)
-        torch.cuda.synchronize()
+    out = tfi.fused_ingp_eval_apply(*args)
+    torch.cuda.synchronize()
     assert torch.cuda.memory_stats()["allocation.all.allocated"] == before + 2
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False)]
-    assert len(names) == 1 and "ingp_eval_tc_kernel" in names[0], names
     assert [tuple(t.shape) for t in out] == [(4096, 3), (4096, 48)]
+    launches = _graph_launches(lambda: tfi.fused_ingp_eval_apply(*args))
+    assert len(launches) == 1 and launches[0][0] == 0, launches
+    assert "ingp_eval_tc_kernel" in launches[0][1], launches
 
 
 @pytest.mark.gpu
