@@ -434,6 +434,21 @@ def kernel_split_ms(fn, names, n: int) -> dict:
     return out
 
 
+def launches_a_call(fn, kernel: str, n: int = 3) -> float:
+    """Device launches a call of ``fn()`` of the kernels whose names hold
+    ``kernel`` (torch.profiler over ``n`` calls after one warm call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(c for name, (_, c) in device_times(prof).items() if kernel in name) / n
+
+
 def call_split(fn, kernel: str, n: int) -> dict:
     """A call of ``fn()`` apart: the device ms of the kernels named
     ``kernel`` (a substring of the profiler's name) and of every other
@@ -3141,19 +3156,25 @@ def phase_part_a(device):
 # tables at the fine batch: the shapes of the compute_dx and grid kernels
 DX_REL = 1e-4   # dX: sums over levels and corners in another order
 HASH_DG_REL = 1e-3  # dG: atomics add in another order
+HASH_RANDOM = 393_216  # uniform random points in and around the box, as the gpu test draws
+DX_KERNELS = ("hash_dx_dg_kernel", "hash_dx_kernel")  # the compute_dx backward's launches
 
 
 def hash_api_sets(device):
     """(name, encoding, points [N, 3]) of the hash API paths: lego_ingp's
     coarse (196,608) and fine (393,216) points of a train step, with tables
-    N(0, 0.1) added, and the fine points under the paper's 16 x 2^19 x 2
-    tables."""
+    N(0, 0.1) added, the fine points under the paper's 16 x 2^19 x 2
+    tables, and HASH_RANDOM uniform random points in [-1.6, 1.6]^3 at
+    lego_ingp's tables (no runs along a ray)."""
     import torch
 
     model = ingp_model("lego_ingp", device, noisy=True)
     sets = [(n, model.pos_enc, pts) for n, pts in ingp_point_sets(model, device) if n != "grid"]
     paper = feat_model("paper", device)
     sets.append(("paper", paper.pos_enc, sets[-1][2]))
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    sets.append(("random", model.pos_enc,
+                 torch.rand((HASH_RANDOM, 3), generator=gen, device=device) * 3.2 - 1.6))
     return sets
 
 
@@ -3169,7 +3190,9 @@ def phase_hash_api(device):
     plain value; then each timed per launch (CUDA events) beside its plain
     version and its byte bound (points, features or cotangent and dX, the
     tables read once where a kernel reads them, dG written once, over 3.35
-    TB/s). Returns
+    TB/s), the compute_dx backward also by its kernels' device time
+    (torch.profiler: ``DX_KERNELS``, each and together, and their launches
+    a call). Returns
     (launches, worst errors, times)."""
     import copy
 
@@ -3282,6 +3305,14 @@ def phase_hash_api(device):
                 p_ms = cuda_time_ms(plain, max(2, reps // 4))
                 k2 = cuda_time_ms(kern, reps)
             times[key][name] = entry([k1, k2], p_ms, nbytes, points=N)
+            if key == "dx_bwd":
+                split = kernel_split_ms(kern, DX_KERNELS, reps)
+                times[key][name].update(device_ms=sum(split.values()), device_split=split,
+                                        device_launches=launches_a_call(kern, "hash_dx"))
+                log(f"[time] hash_dx_bwd {name:6s} N={N}: device "
+                    f"{times[key][name]['device_ms']:.4f} ms in "
+                    f"{times[key][name]['device_launches']:g} launches a call "
+                    + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
             log(f"[time] hash_{key} {name:6s} N={N}: kernel {k1:.4f} / {k2:.4f} ms, plain "
                 f"{p_ms:.3f} ms, bound {times[key][name]['bound_ms']:.4f} ms (bytes)")
     reset_launches()

@@ -11,7 +11,8 @@
 //                                 (the scatter-add of the cotangent into the
 //                                 tables; the two give the same dG)
 //   hash_fwd_kernel<F, DX>        ::_fwd_kernel (compute_dx=True)
-//   hash_dx_bwd_kernel<F>         ::_bwd_kernel (compute_dx=True: dG and dX)
+//   hash_dx_dg_kernel<F> and      ::_bwd_kernel (compute_dx=True: dG and dX,
+//   hash_dx_kernel<F>             two launches a call)
 //
 // Per point x [N,3] and level l:
 //
@@ -76,22 +77,38 @@
 // bytes a (point, level) where the byte bound counts 12 + 4*L*F a point;
 // and the atomics, one REDG a row added (two at F = 8).
 //
-// compute_dx (DX and hash_dx_bwd_kernel) computes in fp32 whatever
-// hash_compute_dtype says, and normalises as the Pallas kernels do,
-// u = clip((x - bbox_min) * inv, 0, 1) with inv = f32(1 / (bbox_max -
+// compute_dx (DX, hash_dx_dg_kernel and hash_dx_kernel) computes in fp32
+// whatever hash_compute_dtype says, and normalises as the Pallas kernels
+// do, u = clip((x - bbox_min) * inv, 0, 1) with inv = f32(1 / (bbox_max -
 // bbox_min)), where the body kernels divide. The forward is the fp32 body
-// forward under that normalisation. The backward takes one thread per
-// point over every level: dG[l][h_c][f] += w_c * d[n][l*F + f] (fp32
-// products, atomics), and for each corner s = sum_f d * v_raw, adding
-// s * (+-res_l) * (wy*wz) to the x gradient (likewise y and z), then
-// chaining through the clip with the mask 0 <= t <= 1, inclusive at both
-// ends. The Pallas forward stashes every corner's raw table value [N,
-// L*8*F] so that its backward spares the MXU a one-hot GEMM; here the
-// backward gathers the 8 corners again: the stash would be 512 bytes a
-// point at lego_ingp (201 MB at 393,216 points) written and read back
-// through device memory, while the re-gather reads tables that stay in the
-// 50 MB L2 (1 MB at lego_ingp). Either gives the same dX. Its bytes: x and
-// d in (12 + 4*L*F a point), dX out (12).
+// forward under that normalisation. The backward is two launches. dG (fp32
+// products dG[l][h_c][f] += w_c * d[n][l*F + f]) is the table gradient's
+// walk (merge_runs, instanced for DX: the normalisation and the absent
+// rounding fixed at compile time). dX is hash_dx_kernel's: for each
+// (level, corner) s = sum_f d * v_raw, adding s * (+-res_l) * (wy*wz) to the
+// x gradient (likewise y and z), then chaining through the clip with the
+// mask 0 <= t <= 1, inclusive at both ends; a thread a point over every
+// level, so dX is written once, with no atomic and the same bits from run
+// to run. The first form, a thread a point over every level adding its 8*F
+// terms a level to dG with scalar atomics, spent 84-88% of its time in
+// those atomics (0.41 / 0.74 ms on one H100 at lego_ingp's 196,608 / 393,216
+// ray-ordered points); this form takes 0.16 / 0.23 ms, the walk's row
+// atomics most of it, the dX kernel 0.04 / 0.05 ms, bound by its gathers.
+// Weighed and not kept (tools/hash_dx_probe.py, PERF.md): a dX thread
+// taking a chunk of levels, as the forward does, and adding its part with
+// atomics (3% faster at 196,608 points, 2% slower at the paper's tables,
+// and not the same bits from run to run); one launch whose walk also takes
+// dX, a run's 8 rows gathered once and each (point, level) added to a
+// padded [N, 4] dX with a vector atomic (1-25% slower on ray-ordered
+// points, 9% faster on random ones); the walk on 2 or 4 times the ranges
+// (no faster). The Pallas
+// forward stashes every corner's raw table value [N, L*8*F] so that its
+// backward spares the MXU a one-hot GEMM; here the dX kernel gathers the 8
+// corners again: the stash would be 512 bytes a point at lego_ingp (201 MB
+// at 393,216 points) written and read back through device memory, while
+// the re-gather reads tables that stay in the 50 MB L2 (1 MB at lego_ingp).
+// Either gives the same dX. Its bytes: x and d in (12 + 4*L*F a point), dX
+// out (12), the tables read and dG written once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,7 +116,6 @@
 
 namespace {
 
-constexpr int NTHREADS = 256;
 constexpr int MAX_LEVELS = 32;
 constexpr int MAX_CHANNELS = 128;  // L*F
 
@@ -126,11 +142,6 @@ __device__ __forceinline__ float rb(float v, int on) {
   return on ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
-struct Corners {
-  unsigned h[8];
-  float w[8];
-};
-
 // the normalised coordinate t = (x - bbox_min) / range (DX: * inv), before
 // the clip
 template <int MAP>
@@ -139,36 +150,8 @@ __device__ __forceinline__ float unit_of(const HashArgs& A, float x) {
   return MAP == DX ? __fmul_rn(d, A.inv) : __fdiv_rn(d, A.brange);
 }
 
-template <int MAP>
-__device__ __forceinline__ Corners corners_of(const HashArgs& A, long long n, int l) {
-  const float* p = A.x + n * 3;
-  const float r = (float)A.res[l];
-  unsigned b[3];
-  float f[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    float u = unit_of<MAP>(A, __ldg(p + a));
-    u = fminf(fmaxf(u, 0.f), 1.f);
-    const float s = __fmul_rn(u, r);
-    const float fl = floorf(s);
-    b[a] = (unsigned)fl;
-    f[a] = __fsub_rn(s, fl);
-  }
-  Corners C;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const unsigned bx = c & 1, by = (c >> 1) & 1, bz = (c >> 2) & 1;
-    C.h[c] = (((b[0] + bx) * 1u) ^ ((b[1] + by) * 2654435761u) ^ ((b[2] + bz) * 805459861u)) &
-             A.mask;
-    const float wx = bx ? f[0] : __fsub_rn(1.f, f[0]);
-    const float wy = by ? f[1] : __fsub_rn(1.f, f[1]);
-    const float wz = bz ? f[2] : __fsub_rn(1.f, f[2]);
-    C.w[c] = __fmul_rn(__fmul_rn(wx, wy), wz);
-  }
-  return C;
-}
-
-// F-float row of a table
+// F-float row of a table through the read-only path (the forms that
+// tools/hash_fwd_probe.py and tools/hash_bwd_probe.py build read with it)
 template <int F>
 __device__ __forceinline__ void load_row(const float* row, float (&g)[F]) {
   if constexpr (F == 8) {
@@ -208,14 +191,16 @@ struct BwdArgs {
   long long block_points;  // points a block; block b takes range b / L of level b % L
 };
 
-// the cell and its fractions of a loaded point at level l, as corners_of
-// computes them
+// the cell i = floor(s) and its fractions f = s - i of a loaded point at
+// level l, s = clip(t, 0, 1) * res_l (MAP: t divides by the box size, DX
+// multiplies by inv)
+template <int MAP>
 __device__ __forceinline__ void cell_of(const HashArgs& A, const float (&p)[3], int l,
                                         unsigned (&b)[3], float (&f)[3]) {
   const float r = (float)A.res[l];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    float u = unit_of<BODY>(A, p[a]);
+    float u = unit_of<MAP>(A, p[a]);
     u = fminf(fmaxf(u, 0.f), 1.f);
     const float s = __fmul_rn(u, r);
     const float fl = floorf(s);
@@ -340,8 +325,9 @@ __device__ __forceinline__ void stage_load(const HashArgs& A, int l, long long w
 
 // this thread's stretch of the block's points [n0, n1) at level l, walked
 // in order, its runs merged and added to dG's level gl; stage: the block's
-// staging rows
-template <int F>
+// staging rows. MAP: BODY rounds as A.bf16 says; DX normalises by inv and
+// never rounds (compute_dx's fp32 products)
+template <int F, int MAP>
 __device__ __forceinline__ void merge_runs(const HashArgs& A, int l, long long n0, long long n1,
                                            float* gl, float* stage) {
   constexpr int P = stage_points(F), SX = stage_x(F), SD = stage_d(F);
@@ -377,7 +363,7 @@ __device__ __forceinline__ void merge_runs(const HashArgs& A, int l, long long n
       bool any = false;
 #pragma unroll
       for (int k = 0; k < F; ++k) {
-        d[k] = rb(ds[lane * SD + i * F + k], A.bf16);
+        d[k] = MAP == DX ? ds[lane * SD + i * F + k] : rb(ds[lane * SD + i * F + k], A.bf16);
         any |= d[k] != 0.f;
       }
       if (!any) continue;  // adds nothing (padded rows, dead samples)
@@ -385,7 +371,7 @@ __device__ __forceinline__ void merge_runs(const HashArgs& A, int l, long long n
                           xs[lane * SX + 3 * i + 2]};
       unsigned b[3];
       float f[3];
-      cell_of(A, p, l, b, f);
+      cell_of<MAP>(A, p, l, b, f);
       if (open && (b[0] != cur[0] || b[1] != cur[1] || b[2] != cur[2])) {
         open = next_cell<F>(A, cur, b, acc, gl);
         cur[0] = b[0]; cur[1] = b[1]; cur[2] = b[2];
@@ -400,7 +386,7 @@ __device__ __forceinline__ void merge_runs(const HashArgs& A, int l, long long n
       }
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
-        const float w = rb(corner_weight(f, c), A.bf16);
+        const float w = MAP == DX ? corner_weight(f, c) : rb(corner_weight(f, c), A.bf16);
 #pragma unroll
         for (int k = 0; k < F; ++k) acc[c][k] = __fadd_rn(acc[c][k], __fmul_rn(w, d[k]));
       }
@@ -409,77 +395,41 @@ __device__ __forceinline__ void merge_runs(const HashArgs& A, int l, long long n
   if (open) flush_run<F>(A, cur, acc, gl);
 }
 
-template <int F>
-__global__ void __launch_bounds__(BWD_THREADS) hash_bwd_kernel(const __grid_constant__ BwdArgs P) {
-  extern __shared__ float stage[];  // the warps' staging rows
+// block b: level b % L over range b / L of the plan
+template <int F, int MAP>
+__device__ __forceinline__ void walk_block(const BwdArgs& P, float* stage) {
   const HashArgs& A = P.A;
   const int l = (int)(blockIdx.x % (unsigned)A.L);
   const long long n0 = (long long)(blockIdx.x / (unsigned)A.L) * P.block_points;
   if (n0 >= A.N) return;
   const long long n1 = n0 + P.block_points < A.N ? n0 + P.block_points : A.N;
-  merge_runs<F>(A, l, n0, n1, A.out + (size_t)l * A.T * F, stage);
+  merge_runs<F, MAP>(A, l, n0, n1, A.out + (size_t)l * A.T * F, stage);
 }
 
-// compute_dx backward: a thread per point over every level; dG by atomics
-// (fp32 products), dX [N, 3] from the re-gathered corners (see the header)
 template <int F>
-__global__ void __launch_bounds__(NTHREADS) hash_dx_bwd_kernel(const __grid_constant__ HashArgs A) {
-  const long long n = (long long)blockIdx.x * NTHREADS + threadIdx.x;
-  if (n >= A.N) return;
-  const float* p = A.x + n * 3;
-  float t[3], u[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    t[a] = unit_of<DX>(A, __ldg(p + a));
-    u[a] = fminf(fmaxf(t[a], 0.f), 1.f);
-  }
-  float gx = 0.f, gy = 0.f, gz = 0.f;
-  for (int l = 0; l < A.L; ++l) {
-    float d[F];
-    const float* dp = A.dout + (size_t)n * A.L * F + (size_t)l * F;
-    bool any = false;
-#pragma unroll
-    for (int k = 0; k < F; ++k) {
-      d[k] = __ldg(dp + k);
-      any |= d[k] != 0.f;
-    }
-    if (!any) continue;  // adds nothing to dG or dX
-    const Corners C = corners_of<DX>(A, n, l);
-    // the cell fractions again, for the weights' derivatives
-    const float r = (float)A.res[l];
-    float fr[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float s = __fmul_rn(u[a], r);
-      fr[a] = __fsub_rn(s, floorf(s));
-    }
-    const float* tl = A.tables + (size_t)l * A.T * F;
-    float* gl = A.out + (size_t)l * A.T * F;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int bx = c & 1, by = (c >> 1) & 1, bz = (c >> 2) & 1;
-      float* grow = gl + (size_t)C.h[c] * F;
-      float g[F];
-      load_row<F>(tl + (size_t)C.h[c] * F, g);
-      float s = 0.f;
-#pragma unroll
-      for (int k = 0; k < F; ++k) {
-        atomicAdd(grow + k, __fmul_rn(C.w[c], d[k]));
-        s = __fadd_rn(s, __fmul_rn(d[k], g[k]));
-      }
-      const float wx = bx ? fr[0] : __fsub_rn(1.f, fr[0]);
-      const float wy = by ? fr[1] : __fsub_rn(1.f, fr[1]);
-      const float wz = bz ? fr[2] : __fsub_rn(1.f, fr[2]);
-      gx = __fadd_rn(gx, __fmul_rn(__fmul_rn(s, bx ? r : -r), __fmul_rn(wy, wz)));
-      gy = __fadd_rn(gy, __fmul_rn(__fmul_rn(s, by ? r : -r), __fmul_rn(wx, wz)));
-      gz = __fadd_rn(gz, __fmul_rn(__fmul_rn(s, bz ? r : -r), __fmul_rn(wx, wy)));
-    }
-  }
-  // chain through u = clip(t, 0, 1): zero where t lies outside [0, 1]
-  const float g[3] = {gx, gy, gz};
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-    A.dx[n * 3 + a] = t[a] >= 0.f && t[a] <= 1.f ? __fmul_rn(g[a], A.inv) : 0.f;
+__global__ void __launch_bounds__(BWD_THREADS) hash_bwd_kernel(const __grid_constant__ BwdArgs P) {
+  extern __shared__ float stage[];  // the warps' staging rows
+  walk_block<F, BODY>(P, stage);
+}
+
+// ---- the compute_dx backward: hash_dx_dg_kernel and hash_dx_kernel --------
+//
+// Two launches a call. hash_dx_dg_kernel is hash_bwd_kernel's walk (a block a
+// level over a range of ray-ordered points, runs of one cell summed in
+// registers, slid to face neighbours, each row added once with a vector
+// atomic) under the compute_dx normalisation, with fp32 products and no
+// bf16 rounding, both fixed at compile time. hash_dx_kernel takes dX: a
+// point is its own, so it needs no atomic. A thread takes one point over
+// every level and writes its dX once (the same bits from run to run), a
+// warp 32 consecutive points, so that lanes along a ray share a coarse
+// cell's rows in L1; it normalises x once and reads its dout row a 32-byte
+// sector at a time (DX_CHUNK floats: 8 / F levels).
+
+template <int F>
+__global__ void __launch_bounds__(BWD_THREADS)
+    hash_dx_dg_kernel(const __grid_constant__ BwdArgs P) {
+  extern __shared__ float stage[];  // the warps' staging rows
+  walk_block<F, DX>(P, stage);
 }
 
 // ---- the forward: hash_fwd_kernel ----------------------------------------
@@ -532,8 +482,8 @@ __device__ __forceinline__ void table_row(const float* tl, unsigned h, float (&g
 }
 
 // the F features of level l of the point whose clipped unit coordinates
-// are u, from the level's table tl: corners_of's cell, rows and weights,
-// the 8 corners summed in order
+// are u, from the level's table tl: cell_of's cell and fractions, the rows
+// and weights, the 8 corners summed in order
 template <int F, int MAP>
 __device__ __forceinline__ void level_features(const HashArgs& A, const float (&u)[3], int l,
                                                const float* tl, float* acc) {
@@ -627,6 +577,90 @@ int launch_fwd(const HashArgs& a, bool dx, cudaStream_t st) {
 
 // ---- end of the forward -------------------------------------------------
 
+// ---- compute_dx's dX: hash_dx_kernel (see above) -------------------------
+
+constexpr int DX_THREADS = 256;
+constexpr int DX_CHUNK = 8;  // floats of a dout row read at a time: a 32-byte sector
+
+// level l's part of a point's x gradient g (before the clip's chain): its
+// cell from the clipped unit coordinates u, each corner's row v gathered,
+// s = sum_f d * v, then s * (+-res_l) times the other two axes' weights
+template <int F>
+__device__ __forceinline__ void level_dx(const HashArgs& A, const float (&u)[3], int l,
+                                         const float* d, float (&g)[3]) {
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < F; ++k) any |= d[k] != 0.f;
+  if (!any) return;  // adds nothing (padded rows, dead samples)
+  const float r = (float)A.res[l];
+  unsigned b[3];
+  float f[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float s = __fmul_rn(u[a], r);
+    const float fl = floorf(s);
+    b[a] = (unsigned)fl;
+    f[a] = __fsub_rn(s, fl);
+  }
+  const float* tl = A.tables + (size_t)l * A.T * F;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int bx = c & 1, by = (c >> 1) & 1, bz = (c >> 2) & 1;
+    float v[F];
+    table_row<F>(tl, corner_row(A, b, c), v);
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < F; ++k) s = __fadd_rn(s, __fmul_rn(d[k], v[k]));
+    const float wx = bx ? f[0] : __fsub_rn(1.f, f[0]);
+    const float wy = by ? f[1] : __fsub_rn(1.f, f[1]);
+    const float wz = bz ? f[2] : __fsub_rn(1.f, f[2]);
+    g[0] = __fadd_rn(g[0], __fmul_rn(__fmul_rn(s, bx ? r : -r), __fmul_rn(wy, wz)));
+    g[1] = __fadd_rn(g[1], __fmul_rn(__fmul_rn(s, by ? r : -r), __fmul_rn(wx, wz)));
+    g[2] = __fadd_rn(g[2], __fmul_rn(__fmul_rn(s, bz ? r : -r), __fmul_rn(wx, wy)));
+  }
+}
+
+// vec: dout's rows are read 16 bytes at a time (L*F a multiple of 4, dout on
+// a 16-byte boundary)
+template <int F>
+__global__ void __launch_bounds__(DX_THREADS) hash_dx_kernel(const __grid_constant__ HashArgs A,
+                                                             int vec) {
+  constexpr int K = DX_CHUNK / F;  // levels a chunk
+  const long long n = (long long)blockIdx.x * DX_THREADS + threadIdx.x;
+  if (n >= A.N) return;
+  const int L = A.L;
+  float t[3], u[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    t[a] = unit_of<DX>(A, __ldg(A.x + n * 3 + a));
+    u[a] = fminf(fmaxf(t[a], 0.f), 1.f);
+  }
+  float g[3] = {0.f, 0.f, 0.f};
+  const float* row = A.dout + (size_t)n * L * F;
+  for (int l0 = 0; l0 < L; l0 += K) {
+    float d[DX_CHUNK];
+    if (vec && l0 + K <= L) {
+      const float4* q = reinterpret_cast<const float4*>(row + l0 * F);
+#pragma unroll
+      for (int j = 0; j < DX_CHUNK / 4; ++j) {
+        const float4 v = __ldg(q + j);
+        d[4 * j] = v.x; d[4 * j + 1] = v.y; d[4 * j + 2] = v.z; d[4 * j + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < DX_CHUNK; ++k) d[k] = l0 * F + k < L * F ? __ldg(row + l0 * F + k) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (l0 + j < L) level_dx<F>(A, u, l0 + j, d + j * F, g);
+  }
+  // chain through u = clip(t, 0, 1): zero where t lies outside [0, 1]
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    A.dx[n * 3 + a] = t[a] >= 0.f && t[a] <= 1.f ? __fmul_rn(g[a], A.inv) : 0.f;
+}
+
+
 HashArgs make_args(const float* x, const float* tables, const float* dout, float* out, float* dx,
                    long long N, int L, int F, int log2_T, const int* res, float bmin,
                    float brange, float inv, int bf16) {
@@ -645,28 +679,46 @@ bool valid(long long N, int L, int F, int log2_T) {
          L * F <= MAX_CHANNELS && log2_T >= 1 && log2_T <= 31;
 }
 
-template <int F>
+// the walk of MAP: hash_bwd_kernel (BODY) or hash_dx_dg_kernel (DX)
+template <int F, int MAP>
 int launch_bwd_f(const BwdArgs& P, int ranges, cudaStream_t st) {
+  const auto kernel = MAP == DX ? hash_dx_dg_kernel<F> : hash_bwd_kernel<F>;
   const cudaError_t e = cudaFuncSetAttribute(
-      hash_bwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)stage_bytes(F));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)stage_bytes(F));
   if (e != cudaSuccess) return (int)e;
-  hash_bwd_kernel<F><<<(unsigned)(ranges * P.A.L), BWD_THREADS, stage_bytes(F), st>>>(P);
+  kernel<<<(unsigned)(ranges * P.A.L), BWD_THREADS, stage_bytes(F), st>>>(P);
   return (int)cudaGetLastError();
 }
 
 // the plan (ranges, block_points) comes from kernels/hash_encode.py's
 // bwd_plan; it must cover the points
+template <int MAP>
 int launch_bwd(const HashArgs& a, int ranges, long long block_points, cudaStream_t st) {
   if (ranges < 1 || block_points < 1 || (long long)ranges * block_points < a.N ||
       (long long)ranges * a.L > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const BwdArgs P{a, block_points};
   switch (a.F) {
-    case 1: return launch_bwd_f<1>(P, ranges, st);
-    case 2: return launch_bwd_f<2>(P, ranges, st);
-    case 4: return launch_bwd_f<4>(P, ranges, st);
-    default: return launch_bwd_f<8>(P, ranges, st);
+    case 1: return launch_bwd_f<1, MAP>(P, ranges, st);
+    case 2: return launch_bwd_f<2, MAP>(P, ranges, st);
+    case 4: return launch_bwd_f<4, MAP>(P, ranges, st);
+    default: return launch_bwd_f<8, MAP>(P, ranges, st);
   }
+}
+
+// ceil(N / DX_THREADS) blocks
+int launch_dx(const HashArgs& a, cudaStream_t st) {
+  const long long blocks = (a.N + DX_THREADS - 1) / DX_THREADS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int vec = (a.L * a.F) % 4 == 0 && reinterpret_cast<uintptr_t>(a.dout) % 16 == 0;
+  const unsigned g = (unsigned)blocks;
+  switch (a.F) {
+    case 1: hash_dx_kernel<1><<<g, DX_THREADS, 0, st>>>(a, vec); break;
+    case 2: hash_dx_kernel<2><<<g, DX_THREADS, 0, st>>>(a, vec); break;
+    case 4: hash_dx_kernel<4><<<g, DX_THREADS, 0, st>>>(a, vec); break;
+    default: hash_dx_kernel<8><<<g, DX_THREADS, 0, st>>>(a, vec); break;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -702,9 +754,9 @@ extern "C" int hash_bwd_launch(const float* x, const float* dout, float* dG, lon
                                int bf16, int ranges, long long block_points, void* stream) {
   if (!valid(N, L, F, log2_T)) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
-  return launch_bwd(make_args(x, nullptr, dout, dG, nullptr, N, L, F, log2_T, res, bmin, brange,
-                              0.f, bf16),
-                    ranges, block_points, static_cast<cudaStream_t>(stream));
+  return launch_bwd<BODY>(make_args(x, nullptr, dout, dG, nullptr, N, L, F, log2_T, res, bmin,
+                                    brange, 0.f, bf16),
+                          ranges, block_points, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int hash_bwd_grid_launch(const float* x, const float* dout, float* dG, long long N,
@@ -728,21 +780,18 @@ extern "C" int hash_dx_fwd_launch(const float* x, const float* tables, float* fe
 }
 
 // compute_dx backward: dG [L, 2^log2_T, F] += the fp32 scatter of dout
-// (zeroed by the caller) and dX [N, 3]. Returns the first cudaError_t.
+// (zeroed by the caller), by hash_dx_dg_kernel on the plan (ranges,
+// block_points) as hash_bwd_launch takes it, and dX [N, 3] by hash_dx_kernel:
+// two launches. Returns the first cudaError_t.
 extern "C" int hash_dx_bwd_launch(const float* x, const float* tables, const float* dout,
                                   float* dG, float* dX, long long N, int L, int F, int log2_T,
-                                  const int* res, float bmin, float inv, void* stream) {
+                                  const int* res, float bmin, float inv, int ranges,
+                                  long long block_points, void* stream) {
   if (!valid(N, L, F, log2_T)) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   const HashArgs a =
       make_args(x, tables, dout, dG, dX, N, L, F, log2_T, res, bmin, 0.f, inv, 0);
-  const unsigned blocks = (unsigned)((N + NTHREADS - 1) / NTHREADS);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (F) {
-    case 1: hash_dx_bwd_kernel<1><<<blocks, NTHREADS, 0, st>>>(a); break;
-    case 2: hash_dx_bwd_kernel<2><<<blocks, NTHREADS, 0, st>>>(a); break;
-    case 4: hash_dx_bwd_kernel<4><<<blocks, NTHREADS, 0, st>>>(a); break;
-    default: hash_dx_bwd_kernel<8><<<blocks, NTHREADS, 0, st>>>(a); break;
-  }
-  return (int)cudaGetLastError();
+  const int e = launch_bwd<DX>(a, ranges, block_points, st);
+  return e != 0 ? e : launch_dx(a, st);
 }

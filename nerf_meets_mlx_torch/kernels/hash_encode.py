@@ -11,7 +11,9 @@ row, a warp one level at a time over 32 consecutive points),
 block works one level over a range of points, summing the terms of a run
 of points in one cell, or in face-neighbouring cells, before it adds them,
 on ``bwd_plan``'s plan), and
-``hash_dx_bwd_kernel`` (``_bwd_kernel``: dG and dX). The TPU formulation
+``hash_dx_dg_kernel`` with ``hash_dx_kernel`` (``_bwd_kernel``: dG by the
+table gradient's walk under the compute_dx normalisation, dX a thread a
+point over every level, written once with no atomic). The TPU formulation
 (one-hot GEMM lookups into [L, T/128, F·128] packed tables) is not carried
 over: the tables stay [L, T, F] and the kernels gather their rows.
 
@@ -77,7 +79,7 @@ def _hash_lib():
             fn.restype = ci
         lib.hash_dx_fwd_launch.argtypes = [vp] * 3 + [cll] + [ci] * 3 + [vp, cf, cf, vp]
         lib.hash_dx_fwd_launch.restype = ci
-        lib.hash_dx_bwd_launch.argtypes = [vp] * 5 + [cll] + [ci] * 3 + [vp, cf, cf, vp]
+        lib.hash_dx_bwd_launch.argtypes = [vp] * 5 + [cll] + [ci] * 3 + [vp, cf, cf, ci, cll, vp]
         lib.hash_dx_bwd_launch.restype = ci
         lib._typed = True
     return lib
@@ -200,11 +202,14 @@ def _dx_fwd_launch(enc, x: torch.Tensor) -> torch.Tensor:
 
 
 def _dx_bwd_launch(enc, x: torch.Tensor, dout: torch.Tensor):
-    """One call of ``hash_dx_bwd_kernel``: (dX [N, 3], dG [L, T, F]) of
-    Σ dout · feats."""
+    """One call of the compute_dx backward: (dX [N, 3], dG [L, T, F]) of
+    Σ dout · feats, dG by ``hash_dx_dg_kernel`` on ``bwd_plan``'s plan and dX
+    by ``hash_dx_kernel`` (two device launches, one count)."""
     dev = x.device
     N = x.shape[0]
     L, F, log2_t, c_res, bmin, _, _ = _geometry(enc)
+    ranges, block_points = bwd_plan(
+        L, N, torch.cuda.get_device_properties(dev).multi_processor_count)
     dG = torch.zeros(enc.tables.shape, dtype=torch.float32, device=dev)
     dX = torch.empty((N, 3), dtype=torch.float32, device=dev)
     lib = _hash_lib()
@@ -212,7 +217,7 @@ def _dx_bwd_launch(enc, x: torch.Tensor, dout: torch.Tensor):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.hash_dx_bwd_launch(
             x.data_ptr(), enc.tables.data_ptr(), dout.data_ptr(), dG.data_ptr(), dX.data_ptr(),
-            N, L, F, log2_t, c_res, bmin, _inv(enc), stream,
+            N, L, F, log2_t, c_res, bmin, _inv(enc), ranges, block_points, stream,
         )
     if err != 0:
         raise RuntimeError(f"hash_encode compute_dx backward launch failed with cudaError {err}")
@@ -299,8 +304,8 @@ class _HashEncode(torch.autograd.Function):
 class _HashEncodeDx(torch.autograd.Function):
     """feats as a function of the points and the tables (``compute_dx``):
     the forward launches the fp32 compute_dx forward; the backward launches
-    ``hash_dx_bwd_kernel``, which gathers the corners again and returns dX
-    and dG."""
+    ``hash_dx_dg_kernel`` (dG) and ``hash_dx_kernel`` (dX, the corners
+    gathered again) and returns both."""
 
     @staticmethod
     def forward(ctx, enc, x, tables):

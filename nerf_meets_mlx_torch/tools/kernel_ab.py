@@ -3,8 +3,10 @@
     python nerf_meets_mlx_torch/tools/kernel_ab.py --base <checkout> [--head <checkout>]
 
 ``--head`` defaults to the checkout this file is in. With ``--hash R`` a
-turn times the hash forward's calls alone (``hash_worker``), in R rounds
-alternating as ``--frames`` does. With ``--frames R`` a
+turn times the hash forward's calls alone and the compute_dx backward's
+call alone (``hash_worker``), in R rounds alternating as ``--frames``
+does, then prints ``[ptxas]`` and ``[sass]`` of both checkouts'
+``csrc/hash_encode.cu``. With ``--frames R`` a
 turn times the host-bound end-to-end metrics alone: the lego_hierarchical
 400 x 400 frame (5 frames after one), lego_occ's warm steps on both routes
 and its frame with the grid, and the warm image step, as the full turn
@@ -53,7 +55,7 @@ then ptxas's registers and spills of every kernel of
 ``csrc/fused_ingp.cu``'s runtime-shape build and ``csrc/hash_encode.cu``
 in each checkout that has the source, and, where both checkouts have
 ``csrc/ingp_train_tc.cu`` (or ``csrc/mlp_bwd_tc.cu``, or
-``csrc/hash_encode.cu``: its dG and dX kernels), each kernel of it in
+``csrc/hash_encode.cu``: its forward, dG and dX kernels), each kernel of it in
 both: ptxas's report and its SASS instruction by instruction (the kernel
 parameters' constant-bank offsets masked), as lines starting with
 ``[ptxas]`` and ``[sass]``; and the count of ``HGMMA`` instructions in
@@ -348,12 +350,59 @@ def _hash_fwd_device(enc, level, ro, rd, g):
             for name, pts in sets}
 
 
+HASH_DX_RANDOM = 393_216  # uniform random points in and around the box, as the gpu test draws
+
+
+def hash_dx_batches(dev):
+    """(name, encoding, points [N, 3]) of the compute_dx backward's batches:
+    lego_ingp's tables (8 levels of 2^14 x 2) with a train step's coarse and
+    fine points (4096 random rays of orbit frame 0 at 400 x 400, 48 / 96
+    depths a ray sorted uniform in [2, 6], in ray order), the fine points
+    under the Instant-NGP paper's tables (16 levels of 2^19 x 2, 512
+    finest), and HASH_DX_RANDOM uniform random points in [-1.6, 1.6]^3 at
+    lego_ingp's tables; the tables their init plus N(0, 0.1)."""
+    import torch
+
+    from nerf_meets_mlx_torch.cameras.pose import orbit_poses
+    from nerf_meets_mlx_torch.cameras.rays import get_rays
+    from nerf_meets_mlx_torch.encoding.hash_grid import HashGridEncoding
+
+    K, res = _frame_setup()
+    ro, rd = get_rays(res, res, K, orbit_poses(160)[0][:3, :4], device=dev)
+    g = torch.Generator(device=dev).manual_seed(40)
+    pick = torch.randperm(res * res, generator=g, device=dev)[:4096]
+    ro, rd = ro.reshape(-1, 3)[pick], rd.reshape(-1, 3)[pick]
+
+    def encoding(levels, max_res, log2_t):
+        enc = HashGridEncoding(n_levels=levels, min_res=16, max_res=max_res,
+                               features_per_level=2, log2_table_size=log2_t, device=dev)
+        enc.init(torch.Generator(device=dev).manual_seed(0))
+        with torch.no_grad():
+            enc.tables.add_(torch.randn(enc.tables.shape, generator=g, device=dev) * 0.1)
+        return enc
+
+    lego = encoding(8, 256, 14)
+    out = []
+    for name, S in (("coarse", 48), ("fine", 96)):
+        z = torch.sort(torch.rand((4096, S), generator=g, device=dev) * 4.0 + 2.0, -1).values
+        out.append((name, lego, (ro[:, None] + z[..., None] * rd[:, None]).reshape(-1, 3)))
+    out.append(("paper", encoding(16, 512, 19), out[-1][2]))
+    out.append(("random", lego,
+                torch.rand((HASH_DX_RANDOM, 3), generator=g, device=dev) * 3.2 - 1.6))
+    return out
+
+
 def hash_worker():
     """``--hash``' turn: the hash forward at the seven batches
     (``_hash_fwd_device``), and the forward and the forward + dG through
     ``hash_encode_apply`` at lego_ingp's 4096 x 48 / 96 points: a call's
     event time and its device time (every kernel it launches), as
-    ``worker`` times them; only csrc/hash_encode.cu is built."""
+    ``worker`` times them; then the compute_dx backward's call alone
+    (``hash_dx_bwd_device_*``: every device event of ``_dx_bwd_launch``,
+    the zeroing of dG included) at ``hash_dx_batches``, and at the paper
+    tables the compute_dx forward's and the one-level-per-grid-step
+    forward's call (device time and event time); only csrc/hash_encode.cu
+    is built."""
     import torch
 
     from nerf_meets_mlx_torch.cameras.pose import orbit_poses
@@ -392,6 +441,17 @@ def hash_worker():
         out[f"hash_fwd_bwd_{name}"] = _ms(fwd_bwd)
         out[f"hash_fwd_bwd_device_{name}"] = _device_ms(fwd_bwd)
         out[f"hash_fwd_bwd_host_{name}"] = _host_ms(fwd_bwd)
+    gd = torch.Generator(device=dev).manual_seed(42)
+    for name, enc, pts in hash_dx_batches(dev):
+        dout = torch.randn((pts.shape[0], enc.out_dim), generator=gd, device=dev)
+        out[f"hash_dx_bwd_device_{name}"] = _device_ms(
+            lambda enc=enc, pts=pts, dout=dout: he._dx_bwd_launch(enc, pts, dout))
+        if name == "paper":
+            with torch.no_grad():
+                for key, fn in (("hash_dx_fwd", lambda: he._dx_fwd_launch(enc, pts)),
+                                ("hash_grid_fwd", lambda: he._fwd_launch(enc, pts, grid=True))):
+                    out[f"{key}_device_paper"] = _device_ms(fn)
+                    out[f"{key}_paper"] = _ms(fn)
     print(json.dumps(out), flush=True)
 
 
@@ -781,7 +841,7 @@ def _ptxas_reports(base: Path, head: Path) -> None:
 SASS_KERNELS = {
     "ingp_train_tc": r"(ingp_tc_kernel|feat_tc_kernel|ingp_tc_reduce_kernel)(ILi\d+)?",
     "mlp_bwd_tc": r"(?<=\d)mlp_bwd_(tile|dw|pack|reduce)_kernel(ILi\d+)?",
-    "hash_encode": r"hash_(bwd|dx_bwd)_kernelILi\d+E(Li\d+E)?",
+    "hash_encode": r"hash_(fwd|bwd|dx_bwd|dx_dg|dx)_kernelILi\d+E(Li\d+E)?",
 }
 
 
@@ -871,6 +931,11 @@ def main() -> int:
     for key in turns[0][1]:
         row = " ".join(f"{t}={d[key]:.4f}" for t, d in turns)
         print(f"{key:18s} {row}", flush=True)
+    if a.hash:  # csrc/hash_encode.cu alone: its ptxas report and SASS in both
+        sys.path.insert(0, str(HEAD))
+        for tag, root in (("base", a.base), ("head", a.head)):
+            _cubin(Path(root).resolve(), tag, "hash_encode")
+        _compare_tile_kernels(Path(a.base).resolve(), Path(a.head).resolve(), "hash_encode")
     if a.frames or a.hash or a.cp:
         return 0
     sys.path.insert(0, str(HEAD))

@@ -19,9 +19,14 @@
   ``_bwd_grid_kernel``) for 1, 2, 4 and 8 features a level, in fp32 and
   bf16, at points where the Pallas normalisation (·f32(1/3)) and the
   port's (/3) agree: features and dG to fp32 summation order.
+* The compute_dx backward's two kernels: the dG walk's grouping and the dX
+  kernel's arithmetic emulated on the CPU against the Pallas
+  ``_bwd_kernel`` on ray-ordered points, and their grids' cover of every
+  point and level.
 * ``gpu``-marked: the four CUDA kernels against their plain versions at the
-  lego_ingp size and at the Instant-NGP paper's tables, on the card
-  (skipped where no card is present).
+  lego_ingp size and at the Instant-NGP paper's tables, the compute_dx
+  backward also on ray-ordered points at 1, 2, 4 and 8 features a level,
+  on the card (skipped where no card is present).
 """
 
 import dataclasses
@@ -33,6 +38,8 @@ import torch
 from nerf_meets_mlx_torch.encoding.hash_grid import HashGridEncoding
 from nerf_meets_mlx_torch.kernels import hash_encode as the
 from nerf_meets_mlx_torch.kernels.fused_train import LAUNCHES
+from test_torch_hash_grid import _cells_and_terms, _dead_rows, _merged_runs_dG
+from test_torch_ingp_eval import _graph_launches
 from torch_threads import one_torch_thread_per_worker  # noqa: F401  (autouse fixture)
 
 # JAX is imported by the tests that compare with it, not at module level:
@@ -77,35 +84,49 @@ def _agreeing_points(n, seed):
     return np.ascontiguousarray(x[same][:n])
 
 
+def _compute_dx_against_pallas(tenc, jenc, params, x, co):
+    """Features, dX and dG of the port's compute_dx path on points ``x``
+    with cotangent ``co`` against JAX's Pallas compute_dx kernels in
+    interpret mode, at tests/test_hash_encode.py's bounds."""
+    import jax.numpy as jnp
+
+    from nerf_meets_mlx_tpu.kernels.hash_encode import hash_encode_apply as j_apply
+
+    xt = torch.from_numpy(x).requires_grad_(True)
+    feats = the.hash_encode_apply(tenc, xt, compute_dx=True)
+    g_x, g_t = torch.autograd.grad((feats * torch.from_numpy(co)).sum(), [xt, tenc.tables])
+    want = np.asarray(j_apply(jenc, params, jnp.asarray(x), block=128, compute_dx=True))
+    gx_j, gt_j = _jax_compute_dx_grads(jenc, params, x, co)
+    np.testing.assert_allclose(feats.detach().numpy(), want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(g_x.numpy(), gx_j, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(g_t.numpy(), gt_j, rtol=1e-3, atol=2e-5)
+    assert float(np.abs(gx_j).max()) > 1.0  # dX at full scale, not ~0
+
+
+def _jax_compute_dx_grads(jenc, params, x, co):
+    """(dX, dG) of Σ co · feats through JAX's compute_dx path (the Pallas
+    ``_fwd_kernel`` / ``_bwd_kernel`` in interpret mode)."""
+    import jax
+    import jax.numpy as jnp
+
+    from nerf_meets_mlx_tpu.kernels.hash_encode import hash_encode_apply as j_apply
+
+    def loss(p, xx):
+        return jnp.sum(j_apply(jenc, p, xx, block=128, compute_dx=True) * co)
+
+    gp, gx = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(x))
+    return np.asarray(gx), np.asarray(gp["tables"])
+
+
 @pytest.mark.parametrize("f", [2, 8])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_compute_dx_matches_jax_pallas(dtype, f):
     """Features, dX and dG of the port's compute_dx path against the Pallas
     compute_dx kernels in interpret mode, at tests/test_hash_encode.py's
     bounds; with a bf16 encoding both compute in fp32."""
-    import jax
-    import jax.numpy as jnp
-
-    from nerf_meets_mlx_tpu.kernels.hash_encode import hash_encode_apply as j_apply
-
-    kw = dict(SMALL, features_per_level=f, compute_dtype=dtype)
-    tenc, jenc, params = _pair(**kw)
-    x = _interior(160)
+    tenc, jenc, params = _pair(**dict(SMALL, features_per_level=f, compute_dtype=dtype))
     co = np.random.default_rng(5).normal(size=(160, tenc.out_dim)).astype(np.float32)
-
-    xt = torch.from_numpy(x).requires_grad_(True)
-    feats = the.hash_encode_apply(tenc, xt, compute_dx=True)
-    g_x, g_t = torch.autograd.grad((feats * torch.from_numpy(co)).sum(), [xt, tenc.tables])
-
-    def loss(p, xx):
-        return jnp.sum(j_apply(jenc, p, xx, block=128, compute_dx=True) * co)
-
-    want = np.asarray(j_apply(jenc, params, jnp.asarray(x), block=128, compute_dx=True))
-    gp_j, gx_j = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(x))
-    np.testing.assert_allclose(feats.detach().numpy(), want, rtol=0, atol=1e-6)
-    np.testing.assert_allclose(g_x.numpy(), np.asarray(gx_j), rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(g_t.numpy(), np.asarray(gp_j["tables"]), rtol=1e-3, atol=2e-5)
-    assert float(np.abs(np.asarray(gx_j)).max()) > 1.0  # dX at full scale, not ~0
+    _compute_dx_against_pallas(tenc, jenc, params, _interior(160), co)
 
 
 def _ray_points(n_rays, n_samples, seed):
@@ -142,6 +163,163 @@ def test_compute_dx_forward_on_ray_points_matches_jax_pallas(dtype, f):
     want = np.asarray(j_apply(jenc, params, jnp.asarray(x), block=128, compute_dx=True))
     assert got.shape == (len(x), tenc.out_dim)
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=0, atol=1e-6)
+
+
+def _interior_ray_points(n_rays, n_samples, seed):
+    """``_ray_points`` strictly inside the box (every coordinate within
+    1.45 of its centre), in their order: samples along rays, many to a
+    coarse cell."""
+    x = _ray_points(n_rays, n_samples, seed)
+    return np.ascontiguousarray(x[(np.abs(x) < 1.45).all(1)])
+
+
+def _runs(enc, x, level):
+    """Runs of consecutive points in one cell at ``level``."""
+    cell = _cells_and_terms(enc, x, np.ones((len(x), enc.out_dim), np.float32), dx=True)[0]
+    return 1 + int((np.diff(cell[:, level], axis=0) != 0).any(1).sum())
+
+
+@pytest.mark.parametrize("f", [2, 8])
+def test_compute_dx_on_ray_points_matches_jax_pallas(f):
+    """The compute_dx path (on the CPU ``hash_encode_dx_reference``) against
+    the Pallas ``_fwd_kernel`` / ``_bwd_kernel`` in interpret mode on
+    ray-ordered interior points (4 rays x 128 samples inside the box: runs
+    of samples in one coarse cell, as the backward kernel's walk merges
+    them) with dead rows in the cotangent: features, dX and dG at
+    ``test_compute_dx_matches_jax_pallas``' bounds."""
+    tenc, jenc, params = _pair(**dict(SMALL, features_per_level=f))
+    x = _interior_ray_points(4, 128, seed=25)
+    assert 200 < len(x) < 512
+    assert _runs(tenc, x, 0) < len(x) // 8  # many samples to a coarse cell
+    co = _dead_rows(np.random.default_rng(26).normal(size=(len(x), tenc.out_dim))
+                    .astype(np.float32), tenc.n_levels, f)
+    _compute_dx_against_pallas(tenc, jenc, params, x, co)
+
+
+@pytest.mark.parametrize("f", [1, 2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dx_merged_runs_grouping_matches_jax_pallas(dtype, f):
+    """The compute_dx backward's dG walk (``hash_dx_dg_kernel``: the table
+    gradient's run merging under the compute_dx normalisation, fp32 terms
+    whatever the compute dtype), emulated on the CPU
+    (``_merged_runs_dG(..., dx=True)``), against ``jax.grad`` through JAX's
+    compute_dx path (the Pallas ``_bwd_kernel`` in interpret mode) on
+    ray-ordered points (runs of samples in one coarse cell, some outside the
+    box) with dead rows in dout: on ``bwd_plan``'s plan for 132 SMs and on a
+    plan of 3 ranges of 16 threads (fewer than 4 rows added a live term); dG
+    to rtol 1e-4 / atol 1e-5, and every entry no live point touches exactly
+    0."""
+    tenc, jenc, params = _pair(**dict(SMALL, features_per_level=f, compute_dtype=dtype))
+    x = _ray_points(12, 192, seed=27)
+    assert bool((np.abs(x) > 1.5).any())
+    L = tenc.n_levels
+    co = _dead_rows(np.random.default_rng(28).normal(size=(len(x), L * f)).astype(np.float32),
+                    L, f)
+    _, g_j = _jax_compute_dx_grads(jenc, params, x, co)
+    _, rows, _, live = _cells_and_terms(tenc, x, co, dx=True)
+    touched = np.zeros(g_j.shape[:2], bool)
+    for l in range(L):
+        touched[l, rows[live[:, l], l].ravel()] = True
+    assert (~touched).sum() > 0
+    for ranges, block_points, threads in (
+        (*the.bwd_plan(L, len(x), 132), the.BWD_THREADS), (3, -(-len(x) // 3), 16),
+    ):
+        dG, adds, n_live = _merged_runs_dG(tenc, x, co, ranges, block_points, threads, dx=True)
+        if threads == 16:
+            assert adds < 4 * n_live
+        np.testing.assert_allclose(dG, g_j, rtol=1e-4, atol=1e-5)
+        assert not dG[~touched].any() and not g_j[~touched].any()
+
+
+def _dx_kernel_emulated(enc, x, dout):
+    """CPU emulation of ``hash_dx_kernel``'s arithmetic in fp32: a point's
+    levels in order, a level's corners c = 0..7 in order, s = Σ_f d·v (f in
+    order), g_x += (s·(±res_l))·(w_y·w_z) and likewise for y and z, a level
+    whose dout is all zero skipped; then g·inv where 0 ≤ t ≤ 1, else 0."""
+    L, F, T = enc.n_levels, enc.features_per_level, enc.table_size
+    inv = np.float32(1.0 / (enc.bbox_max - enc.bbox_min))
+    t = (x - np.float32(enc.bbox_min)) * inv
+    u = np.clip(t, np.float32(0), np.float32(1))
+    d = dout.reshape(len(x), L, F)
+    tables = enc.tables.detach().numpy()
+    g = np.zeros((len(x), 3), np.float32)
+    for l, r in enumerate(enc.resolutions.astype(np.float32)):
+        s = u * r
+        fl = np.floor(s)
+        cell, f = fl.astype(np.int64), s - fl
+        live = (d[:, l] != 0).any(-1)
+        for c in range(8):
+            bits = np.array([c & 1, (c >> 1) & 1, (c >> 2) & 1])
+            ijk = cell + bits
+            h = ((ijk[:, 0] * 1) ^ (ijk[:, 1] * 2654435761) ^ (ijk[:, 2] * 805459861)) \
+                & 0xFFFFFFFF & (T - 1)
+            v = tables[l, h]
+            sc = np.zeros(len(x), np.float32)
+            for k in range(F):
+                sc = sc + d[:, l, k] * v[:, k]
+            w = np.where(bits == 1, f, np.float32(1) - f)
+            for a, (b1, b2) in enumerate(((1, 2), (0, 2), (0, 1))):
+                term = (sc * (r if bits[a] else -r)) * (w[:, b1] * w[:, b2])
+                g[:, a] = np.where(live, g[:, a] + term, g[:, a])
+    return np.where((t >= 0) & (t <= 1), g * inv, np.float32(0))
+
+
+@pytest.mark.parametrize("f", [1, 2, 4, 8])
+def test_dx_kernel_arithmetic_matches_jax_pallas(f):
+    """``hash_dx_kernel``'s arithmetic, emulated on the CPU
+    (``_dx_kernel_emulated``), against JAX's compute_dx dX (the Pallas
+    ``_bwd_kernel`` in interpret mode) on ray-ordered interior points with
+    dead rows in dout, at test_compute_dx_matches_jax_pallas' bounds (rtol
+    1e-4 / atol 1e-5)."""
+    tenc, jenc, params = _pair(**dict(SMALL, features_per_level=f))
+    x = _interior_ray_points(4, 128, seed=29)
+    co = _dead_rows(np.random.default_rng(30).normal(size=(len(x), tenc.out_dim))
+                    .astype(np.float32), tenc.n_levels, f)
+    g_j, _ = _jax_compute_dx_grads(jenc, params, x, co)
+    got = _dx_kernel_emulated(tenc, x, co)
+    np.testing.assert_allclose(got, g_j, rtol=1e-4, atol=1e-5)
+    assert float(np.abs(g_j).max()) > 1.0
+
+
+def _dx_constants():
+    """csrc/hash_encode.cu's BWD_THREADS and DX_THREADS."""
+    import re
+    from pathlib import Path
+
+    import nerf_meets_mlx_torch
+
+    src = (Path(nerf_meets_mlx_torch.__file__).parent / "csrc" / "hash_encode.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+                 for k in ("BWD_THREADS", "DX_THREADS"))
+
+
+@pytest.mark.parametrize("levels,f,n_points", [(8, 2, 196_608), (16, 2, 393_216), (1, 8, 1),
+                                               (32, 4, 100_007), (5, 1, 257), (3, 2, 1000)])
+def test_dx_backward_plan_covers_every_point_and_level(levels, f, n_points):
+    """The compute_dx backward's grids (their indexing transcribed): the dG
+    walk on ``bwd_plan``'s plan for 132 SMs (block b: level b % L over
+    range b / L; a thread a stretch of it) takes every (point, level) once,
+    its warps' staging rows fit a block's 232,448 bytes of shared memory,
+    and the dX kernel (a thread a point over every level, ceil(N /
+    DX_THREADS) blocks) takes every point once."""
+    threads, dx_threads = _dx_constants()
+    assert threads == the.BWD_THREADS
+    ranges, block_points = the.bwd_plan(levels, n_points, 132)
+    assert ranges * levels <= 132
+    visits = np.zeros((levels, n_points), np.int32)
+    for b in range(ranges * levels):
+        l, n0 = b % levels, (b // levels) * block_points
+        n1 = min(n0 + block_points, n_points)
+        per = -(-(n1 - n0) // threads)
+        for t in range(threads):
+            s0 = n0 + t * per
+            visits[l, s0:max(s0, min(s0 + per, n1))] += 1
+    assert (visits == 1).all()
+    P = 8 if f <= 2 else 16 // f  # stage_points
+    assert threads * ((3 * P + 1) + (P * f + 1)) * 4 <= 232_448  # stage_bytes
+    dx_blocks = -(-n_points // dx_threads)
+    assert np.array_equal(np.bincount(np.arange(dx_blocks * dx_threads)[:n_points] // dx_threads,
+                                      minlength=dx_blocks)[:-1], np.full(dx_blocks - 1, dx_threads))
 
 
 def test_compute_dx_ignores_the_compute_dtype():
@@ -249,7 +427,9 @@ def test_cuda_compute_dx_kernels_match_plain(enc, dtype):
     ``hash_encode_dx_reference`` on 100,003 points: features to atol 1e-6
     (the same fp32 operations, corners in the same order), dX within 1e-4
     of its largest plain value (sums over levels and corners in another
-    order), dG within 1e-3 of its largest plain value (atomics)."""
+    order), dG within 1e-3 of its largest plain value (atomics); then on
+    ray-ordered points, the features equal and the backward as
+    ``_check_dx_backward_on_ray_points`` holds it."""
     tenc, dev = _cuda_encoding(LEGO_INGP if enc == "lego_ingp" else PAPER, dtype)
     x = _cuda_points(100_003, dev).requires_grad_(True)
     n0 = dict(LAUNCHES)
@@ -271,6 +451,59 @@ def test_cuda_compute_dx_kernels_match_plain(enc, dtype):
     with torch.no_grad():
         torch.testing.assert_close(the.hash_encode_apply(tenc, rays, compute_dx=True),
                                    the.hash_encode_dx_reference(tenc, rays), rtol=0, atol=0)
+    # and the backward on them
+    _check_dx_backward_on_ray_points(tenc, rays, seed=31)
+
+
+def _check_dx_backward_on_ray_points(tenc, rays, seed):
+    """The compute_dx backward on ray-ordered points ``rays`` (N = 100,007:
+    a multiple of no warp's, block's or range's points, runs of samples in
+    one cell crossing each, some outside the box) with dead rows in dout,
+    against autograd through ``hash_encode_dx_reference``: dX within 1e-4
+    and dG within 1e-3 of their largest plain values, every dG row no live
+    point touches exactly 0, two calls' dX equal (no atomic adds to it),
+    one count and two hash kernel launches (the dG walk, the dX kernel;
+    beside them only the zeroing of dG) a call, read from the call captured
+    in a CUDA graph (``_graph_launches``)."""
+    dev = rays.device
+    N, L, F = rays.shape[0], tenc.n_levels, tenc.features_per_level
+    dout = torch.from_numpy(_dead_rows(
+        np.random.default_rng(seed).normal(size=(N, L * F)).astype(np.float32), L, F)).to(dev)
+    x = rays.clone().requires_grad_(True)
+    n0 = LAUNCHES["hash_dx_bwd"]
+    g_x, g_t = torch.autograd.grad((the.hash_encode_apply(tenc, x, compute_dx=True) * dout).sum(),
+                                   [x, tenc.tables])
+    torch.cuda.synchronize()
+    assert LAUNCHES["hash_dx_bwd"] == n0 + 1
+    p_x, p_t = torch.autograd.grad((the.hash_encode_dx_reference(tenc, x) * dout).sum(),
+                                   [x, tenc.tables])
+    assert float((g_x - p_x).abs().max()) <= 1e-4 * float(p_x.abs().max())
+    assert float((g_t - p_t).abs().max()) <= 1e-3 * float(p_t.abs().max())
+    live = dout.reshape(N, L, F).ne(0).any(-1)
+    touched = torch.zeros(g_t.shape[:2], dtype=torch.bool, device=dev)
+    level = torch.arange(L, device=dev)[None, :].expand(N, L)
+    for h, _ in tenc.corners(rays, u=torch.clamp((rays - tenc.bbox_min) * the._inv(tenc), 0, 1)):
+        touched[level[live], h[live]] = True
+    assert bool((~touched).any())
+    assert not bool(g_t[~touched].any()) and not bool(p_t[~touched].any())
+    assert bool((g_x[(rays.abs() > 1.5).any(-1)] == 0).any())
+    dX2, _ = the._dx_bwd_launch(tenc, rays, dout)
+    assert torch.equal(dX2, g_x)
+    launches = _graph_launches(lambda: the._dx_bwd_launch(tenc, rays, dout))
+    mine = [name for kind, name in launches if kind == 0 and "hash_" in name]
+    assert len(mine) == 2, launches
+    assert sum("hash_dx_dg_kernel" in n for n in mine) == 1, launches
+    assert sum("hash_dx_kernel" in n for n in mine) == 1, launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [1, 2, 4, 8])
+def test_cuda_compute_dx_backward_on_ray_points_matches_plain(f):
+    """The compute_dx backward at the lego_ingp levels with F features a
+    level on 1031 rays x 97 ray-ordered samples (``_check_dx_backward_on_ray_points``)."""
+    tenc, dev = _cuda_encoding(dict(LEGO_INGP, features_per_level=f))
+    _check_dx_backward_on_ray_points(tenc, torch.from_numpy(_ray_points(1031, 97, seed=32)).to(dev),
+                                     seed=33)
 
 
 @pytest.mark.gpu

@@ -331,19 +331,24 @@ def _dead_rows(dout, L, F):
     return dout
 
 
-def _cells_and_terms(enc, x, dout):
+def _cells_and_terms(enc, x, dout, dx=False):
     """Each point's cell [N, L, 3], corner rows [N, L, 8], terms w_c·d [N,
     L, 8, F] and liveness [N, L] at every level, with the kernel's
     arithmetic: the division by the box size, products rounded one by one,
-    bf16(w)·bf16(d) in bf16 mode."""
+    bf16(w)·bf16(d) in bf16 mode; ``dx``: the compute_dx kernels'
+    normalisation, (x − bbox_min)·f32(1/(bbox_max − bbox_min)), and fp32
+    terms whatever the compute dtype."""
     L, F, T = enc.n_levels, enc.features_per_level, enc.table_size
-    brange = np.float32(enc.bbox_max - enc.bbox_min)
-    u = np.clip((x - np.float32(enc.bbox_min)) / brange, np.float32(0), np.float32(1))
+    if dx:
+        t = (x - np.float32(enc.bbox_min)) * np.float32(1.0 / (enc.bbox_max - enc.bbox_min))
+    else:
+        t = (x - np.float32(enc.bbox_min)) / np.float32(enc.bbox_max - enc.bbox_min)
+    u = np.clip(t, np.float32(0), np.float32(1))
     s = u[:, None, :] * enc.resolutions.astype(np.float32)[None, :, None]
     fl = np.floor(s)
     cell, f = fl.astype(np.int64), s - fl
     d = dout.reshape(len(x), L, F)
-    if enc.compute_dtype == "bfloat16":
+    if enc.compute_dtype == "bfloat16" and not dx:
         def rnd(a):
             return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
     else:
@@ -362,17 +367,18 @@ def _cells_and_terms(enc, x, dout):
     return cell, np.stack(rows, -1), np.stack(terms, 2), (d != 0).any(-1)
 
 
-def _merged_runs_dG(enc, x, dout, ranges, block_points, threads=the.BWD_THREADS):
+def _merged_runs_dG(enc, x, dout, ranges, block_points, threads=the.BWD_THREADS, dx=False):
     """CPU emulation of ``hash_bwd_kernel``'s grouping: block r of level l
     takes points [r·block_points, (r + 1)·block_points), each of its
     ``threads`` threads a stretch of them in order; a run of live points
     sums its terms at its cell's 8 corners in fp32, one after another. When
     the next live point's cell is a face neighbour, the run slides: the 4
     corners the cells share keep their sums, the other 4 are added to their
-    rows; else all 8 are added; the stretch's end adds all 8. Returns (dG,
-    corner rows added, live (point, level) pairs)."""
+    rows; else all 8 are added; the stretch's end adds all 8 (``dx``: the
+    compute_dx walk's terms, ``_cells_and_terms``). Returns (dG, corner rows
+    added, live (point, level) pairs)."""
     L, F, T = enc.n_levels, enc.features_per_level, enc.table_size
-    cell, rows, terms, live = _cells_and_terms(enc, x, dout)
+    cell, rows, terms, live = _cells_and_terms(enc, x, dout, dx)
     N = len(x)
     dG = np.zeros((L, T, F), np.float32)
     adds = 0
